@@ -1,0 +1,28 @@
+"""crt_tpu_torch — the PyTorch / CUDA port of crt_tpu.
+
+A second package beside ``crt_tpu`` (the JAX reference, which stays as it
+is).  It imports torch and numpy, never JAX and never ``crt_tpu``.  This
+slice renders the forward Whitted image: ``.crtscene`` loading, raygen in
+32x32 pixel tiles, the binned cluster trace through two hand-written CUDA
+kernels (closest hit with emitted rows, w-form shadow occlusion), and
+diffuse / reflective / constant shading with point-light shadows.  What is
+not ported yet raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from crt_tpu_torch.renderer import render_image, render_image_hwc
+from crt_tpu_torch.scene.json_loader import (
+    load_scene,
+    scene_from_dict,
+    scene_from_json,
+)
+from crt_tpu_torch.scene.types import RenderSettings, Scene
+
+__all__ = [
+    "RenderSettings",
+    "Scene",
+    "load_scene",
+    "scene_from_dict",
+    "scene_from_json",
+    "render_image",
+    "render_image_hwc",
+]

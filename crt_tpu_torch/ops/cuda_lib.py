@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels in ``crt_tpu_torch/csrc``.
+
+The kernels are compiled with nvcc for Hopper (``sm_90a``) into a shared
+library with a plain C interface and bound with ``ctypes``.  The build
+happens at the first CUDA use, into
+``build/crt_tpu_torch/<hash of sources and flags>/`` beside the package,
+and later processes reuse it.  ``-fmad=false`` (and no fast math) makes
+every ``a*b+c`` round the way PyTorch's eager ops round, so the kernels can
+be held to their plain versions bit for bit.
+
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import NamedTuple
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
+SOURCES = ("closest_hit.cu", "occlusion_w.cu")
+HEADERS = ("cluster_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers / spills into build.log
+)
+LIB_NAME = "libcrt_tpu_torch_kernels.so"
+
+
+class BuildInfo(NamedTuple):
+    path: str  # the loaded shared library
+    seconds: float  # time spent in nvcc (0 on a cache hit)
+    cache_hit: bool
+    log: str  # nvcc's output (ptxas register and spill report)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless an identical build exists; return where."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildInfo(str(lib), 0.0, True, log)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Build into a temporary name and rename: concurrent first users never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           *(str(CSRC / s) for s in SOURCES)]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return BuildInfo(str(lib), seconds, False, log)
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> tuple[ctypes.CDLL, BuildInfo]:
+    """Build (first use) and load the library; bind both entry points."""
+    info = build()
+    lib = ctypes.CDLL(info.path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.crt_closest_hit.argtypes = [p] * 11 + [i] * 4 + [p] * 4
+    lib.crt_closest_hit.restype = i
+    lib.crt_occlusion_w.argtypes = [p] * 10 + [i] * 4 + [p] * 2
+    lib.crt_occlusion_w.restype = i
+    return lib, info
