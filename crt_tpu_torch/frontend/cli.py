@@ -8,6 +8,8 @@ Usage:
 Counterpart of ``crt_tpu/frontend/cli.py``: wall-clock time of the render
 (excluding scene load) printed as "Execution time: N seconds.", then an
 ASCII P3 image.  On CUDA the timed region ends in a device synchronize.
+``--device`` defaults to ``cuda``: without a visible card the CLI prints an
+error and returns 2 unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from crt_tpu_torch.io.ppm import write_ppm
 from crt_tpu_torch.renderer import render_image_hwc
 from crt_tpu_torch.scene.json_loader import SceneFormatError, load_scene
-from crt_tpu_torch.scene.types import RenderSettings
+from crt_tpu_torch.scene.types import RenderSettings, resolve_device
 
 
 def main(argv=None) -> int:
@@ -37,15 +39,17 @@ def main(argv=None) -> int:
     p.add_argument("--height", type=int, default=None, help="override height")
     p.add_argument("--repeat", type=int, default=1,
                    help="re-render N times and report the best time")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: cuda; cpu must be asked for)")
     args = p.parse_args(argv)
-    device = torch.device(
-        args.device or ("cuda" if torch.cuda.is_available() else "cpu")
-    )
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
 
     try:
-        scene = load_scene(args.scene)
+        scene = load_scene(args.scene, device=device)
     except (OSError, SceneFormatError, ValueError) as e:
         print(f"Error: Could not parse scene file: {args.scene}: {e}",
               file=sys.stderr)
@@ -53,7 +57,6 @@ def main(argv=None) -> int:
     if args.width or args.height:
         scene = scene.replace(width=args.width or scene.width,
                               height=args.height or scene.height)
-    scene = scene.to(device)
     settings = RenderSettings(backend=args.backend)
 
     best = float("inf")

@@ -32,6 +32,7 @@ class ClusterTables(NamedTuple):
     tri_id: torch.Tensor  # [L, 16] i32 original triangle id (-1 pad)
     cl_min: torch.Tensor  # [L, 3] cluster AABB lower
     cl_max: torch.Tensor  # [L, 3] cluster AABB upper
+    rank: torch.Tensor  # [T] i32 triangle id -> slot index (Morton rank)
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +64,22 @@ def _centroids(vertices, tri_vidx) -> torch.Tensor:
     return (pts[:, 0] + pts[:, 1] + pts[:, 2]) / 3.0
 
 
+def rank_of_order(order: torch.Tensor) -> torch.Tensor:
+    """Inverse of the Morton permutation: [T] i32 triangle id -> its rank,
+    which is its slot index in the tables and the segment sum's id space."""
+    rank = torch.empty_like(order)
+    rank[order.long()] = torch.arange(order.shape[0], dtype=order.dtype,
+                                      device=order.device)
+    return rank
+
+
+def triangle_rank(scene) -> torch.Tensor:
+    """``build_cluster_tables(scene).rank`` without the tables, for a
+    backend that walks none."""
+    return rank_of_order(morton_order(
+        _centroids(scene.vertices.detach(), scene.tri_vidx)))
+
+
 def build_cluster_tables(scene) -> ClusterTables:
     """Morton-cluster the scene's triangles and precompute test constants."""
     vertices = scene.vertices.detach()
@@ -73,6 +90,7 @@ def build_cluster_tables(scene) -> ClusterTables:
     dev = vertices.device
 
     order = morton_order(_centroids(vertices, tvi))
+    rank = rank_of_order(order)
     pad = L * CLUSTER_SIZE - T
     if pad:
         order = torch.cat(
@@ -116,6 +134,7 @@ def build_cluster_tables(scene) -> ClusterTables:
         tri_id=cl.to(torch.int32).contiguous(),
         cl_min=cl_min,
         cl_max=cl_max,
+        rank=rank,
     )
 
 

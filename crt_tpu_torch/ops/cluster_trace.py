@@ -325,7 +325,8 @@ def make_cluster_trace_fn(scene):
     -> (Hit, rows [K+1, R])`` with the kernel-emitted packed rows and the
     slot-rank row; ``trace.shadow_apex_w(point, shadow_o, light_positions,
     active [Ll, R], origin_slack) -> occluded [Ll, R]`` (None when R is
-    not a tile multiple).  Rays are padded to a tile multiple with
+    not a tile multiple); ``trace.rank`` is the tables' triangle id ->
+    slot rank map.  Rays are padded to a tile multiple with
     direction (0, 0, -1) and inactive lanes, as the JAX factory does.
     """
     tables = build_cluster_tables(scene)
@@ -386,4 +387,5 @@ def make_cluster_trace_fn(scene):
 
     trace.with_rows = trace_with_rows
     trace.shadow_apex_w = shadow_apex_w
+    trace.rank = tables.rank
     return trace

@@ -26,12 +26,13 @@ from typing import NamedTuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
-SOURCES = ("closest_hit.cu", "occlusion_w.cu")
+SOURCES = ("closest_hit.cu", "occlusion_w.cu", "segsum.cu")
 HEADERS = ("cluster_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
+    "--threads", "0",  # one compile per source, side by side
     "-Xptxas", "-v",  # registers / spills into build.log
 )
 LIB_NAME = "libcrt_tpu_torch_kernels.so"
@@ -94,7 +95,7 @@ def build() -> BuildInfo:
 
 @functools.lru_cache(maxsize=None)
 def load() -> tuple[ctypes.CDLL, BuildInfo]:
-    """Build (first use) and load the library; bind both entry points."""
+    """Build (first use) and load the library; bind its entry points."""
     info = build()
     lib = ctypes.CDLL(info.path)
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -102,4 +103,6 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.crt_closest_hit.restype = i
     lib.crt_occlusion_w.argtypes = [p] * 10 + [i] * 4 + [p] * 2
     lib.crt_occlusion_w.restype = i
+    lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]
+    lib.crt_segment_accumulate.restype = i
     return lib, info

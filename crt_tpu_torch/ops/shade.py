@@ -1,6 +1,6 @@
-"""Wavefront Whitted shading, forward.
+"""Wavefront Whitted shading, differentiable.
 
-Counterpart of the forward half of ``crt_tpu/ops/shade.py``.  The
+Counterpart of ``crt_tpu/ops/shade.py``.  The
 recursion is unrolled over the whole ray wavefront: every level traces its
 [R] rays once, material behavior is applied with masks, and the mirror
 bounce recurses into the next level with an active mask.
@@ -15,8 +15,13 @@ bounce recurses into the next level with an active mask.
     ``diffuse_reflection_ray_count + 1``, the Hadamard y typo
 
 Refractive materials (ROADMAP A7) and GI (ROADMAP A8) raise
-``NotImplementedError``.  Forward only: the gradient path arrives with the
-segment-sum kernel (ROADMAP A5).
+``NotImplementedError``.
+
+Gradient contract: hit ids, material / texture codes and occlusion masks
+are constants (every trace sees detached geometry and rays); everything
+else differentiates through the scene tensors.  The read of the packed
+per-triangle table at the hit ids goes through the adapters of
+``ops/segsum.py``, whose backward is the segment-sum kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +33,11 @@ import torch
 
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.intersect import Hit
+from crt_tpu_torch.ops.segsum import (
+    packed_gather,
+    packed_gather_ranked,
+    packed_rows_from_kernel,
+)
 from crt_tpu_torch.ops.texture import sample_textures
 from crt_tpu_torch.scene.types import (
     MATERIAL_CONSTANT,
@@ -102,6 +112,8 @@ def build_packed(scene) -> torch.Tensor:
     Layout: v0|v1|v2 (+n0|n1|n2 if smooth needed) (+uv0|uv1|uv2 if uv
     needed) | mat_type|mat_albedo_tex|mat_smooth|mat_ior — the four
     material rows are always the last four.  Small ints are exact in f32.
+    The discrete material rows are detached; the ior row stays
+    differentiable.
     """
     idx = scene.tri_vidx.long()
     cols = [scene.vertices[idx[:, 0]], scene.vertices[idx[:, 1]],
@@ -113,9 +125,9 @@ def build_packed(scene) -> torch.Tensor:
     if scene.has_materials:
         mt = scene.tri_material.long()
         cols += [
-            scene.mat_type[mt].to(torch.float32)[:, None],
-            scene.mat_albedo_tex[mt].to(torch.float32)[:, None],
-            scene.mat_smooth[mt].to(torch.float32)[:, None],
+            scene.mat_type[mt].to(torch.float32).detach()[:, None],
+            scene.mat_albedo_tex[mt].to(torch.float32).detach()[:, None],
+            scene.mat_smooth[mt].to(torch.float32).detach()[:, None],
             scene.mat_ior[mt][:, None],
         ]
     else:
@@ -124,28 +136,51 @@ def build_packed(scene) -> torch.Tensor:
     return torch.cat(cols, dim=-1).T  # [K, T]
 
 
-def hit_attributes(scene, origins, dirs, hit: Hit,
-                   kernel_rows=None) -> HitAttributes:
+def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
+                   rank=None) -> HitAttributes:
     """Recompute intersection attributes from the hit triangle ids.
 
-    ``kernel_rows`` ([K+1, R], from ``trace.with_rows``) supplies the
-    packed rows the closest-hit kernel emitted (the last row is the slot
-    rank); without it the rows are gathered from ``build_packed``.
+    ``hit.tri`` is a constant (a discrete choice); everything else
+    differentiates through the scene tensors.  ``kernel_rows`` ([K+1, R],
+    from ``trace.with_rows``) supplies the packed rows the closest-hit
+    kernel emitted (the last row is the slot rank), and
+    ``packed_rows_from_kernel`` routes their cotangents into the scene;
+    without it the rows are gathered from ``build_packed`` through
+    ``packed_gather_ranked`` (``packed_gather`` when the trace has no
+    ``rank``, the [T] triangle id -> Morton rank map).  A table that needs
+    a gradient is always read through an adapter, whatever the shape of
+    the ray batch; one that needs none is read without.
     """
-    valid = hit.tri >= 0
-    tri = torch.clamp(hit.tri, min=0).long()
+    tri_raw = hit.tri.detach()
+    valid = tri_raw >= 0
+    tri_flat = tri_raw.reshape(-1)  # the adapters take one ray axis
 
     need_uv = _needs_uv(scene)
     need_bary = _needs_bary(scene)
     any_smooth = scene.any_smooth
 
     packed = build_packed(scene)
+    want_grad = packed.requires_grad and torch.is_grad_enabled()
     if kernel_rows is not None:
+        rows = kernel_rows[:-1].detach()
+        if want_grad:
+            if rank is None:
+                raise ValueError("kernel_rows need the trace's rank map")
+            ranked = torch.where(
+                tri_flat >= 0, kernel_rows[-1].detach().to(torch.int32), -1)
+            rows = packed_rows_from_kernel(packed, rows, ranked, rank)
         # Miss lanes: the gather path yields triangle 0's row (clamped
         # index); the kernel leaves them zero — patch for bit-parity.
-        rows = torch.where(valid[None], kernel_rows[:-1], packed[:, 0:1])
+        # Their cotangents are exactly zero either way.
+        rows = torch.where((tri_flat >= 0)[None], rows,
+                           packed[:, 0:1].detach())
+    elif want_grad and rank is not None:
+        rows = packed_gather_ranked(packed, tri_flat, rank)
+    elif want_grad:
+        rows = packed_gather(packed, tri_flat.clamp(min=0))
     else:
-        rows = packed[:, tri]  # [K, R]
+        rows = packed[:, tri_flat.clamp(min=0).long()]
+    rows = rows.reshape((rows.shape[0],) + tuple(tri_raw.shape))  # [K, *R]
 
     def col3(o):
         return rows[o:o + 3].movedim(0, -1)  # [R, 3]
@@ -203,8 +238,8 @@ def hit_attributes(scene, origins, dirs, hit: Hit,
         uv=uv,
         bary_u=bary_u,
         bary_v=bary_v,
-        mat_type=rows[-4].to(torch.int32),
-        albedo_tex=rows[-3].to(torch.int32),
+        mat_type=rows[-4].detach().to(torch.int32),
+        albedo_tex=rows[-3].detach().to(torch.int32),
         ior=rows[-1],
     )
 
@@ -242,18 +277,21 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     # Lanes facing away contribute zero whatever the occlusion: drop them
     # from the binning mask.
     facing = vecmath.dot(light_dir, normal[None].expand_as(light_vec)) > 0.0
-    act_lr = shadow_active[None] & facing  # [Ll, R]
+    act_lr = shadow_active[None] & facing.detach()  # [Ll, R]
 
     apex_w_fn = getattr(trace_fn, "shadow_apex_w", None)
     if apex_w_fn is not None and point.dim() == 2:
-        occluded = apex_w_fn(point, shadow_o_px, light_positions, act_lr,
+        occluded = apex_w_fn(point.detach(), shadow_o_px.detach(),
+                             light_positions.detach(), act_lr,
                              2.0 * shadow_bias)
         if occluded is not None:
             return ~occluded.reshape(r2.shape), light_dir, r2
 
-    shadow_o = shadow_o_px.expand(light_vec.shape).reshape(-1, 3)
-    sh = trace_fn(shadow_o, light_dir.reshape(-1, 3), act_lr.reshape(-1))
-    occluded = sh.valid & (sh.t * sh.t <= r2.reshape(-1))
+    # the occlusion mask is a constant: the shadow trace sees no graph
+    shadow_o = shadow_o_px.detach().expand(light_vec.shape).reshape(-1, 3)
+    sh = trace_fn(shadow_o, light_dir.detach().reshape(-1, 3),
+                  act_lr.reshape(-1))
+    occluded = sh.valid & (sh.t * sh.t <= r2.detach().reshape(-1))
     return ~occluded.reshape(r2.shape), light_dir, r2
 
 
@@ -284,7 +322,8 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active):
         hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
     else:
         hit = trace_fn(origins, dirs, active)
-    attrs = hit_attributes(scene, origins, dirs, hit, kernel_rows=kernel_rows)
+    attrs = hit_attributes(scene, origins, dirs, hit, kernel_rows=kernel_rows,
+                           rank=getattr(trace_fn, "rank", None))
 
     if not scene.has_materials:
         # 07-era material-less scenes: gray half-lambert on the face normal.

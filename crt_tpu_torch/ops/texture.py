@@ -8,12 +8,18 @@ textures:
   - checker: C-truncated u/size and v/size, color_B when (row+col) is odd
 
 Bitmap textures are ROADMAP A9.
+
+A colour table that requires grad is read through ``segsum.packed_gather``,
+so its backward is the segment-sum kernel: a few textures own all the rays,
+and the scatter-add of plain indexing serialises on them (seconds per
+1080p frame on an H100).
 """
 
 from __future__ import annotations
 
 import torch
 
+from crt_tpu_torch.ops.segsum import packed_gather
 from crt_tpu_torch.scene.types import (
     TEXTURE_ALBEDO,
     TEXTURE_BITMAP,
@@ -25,6 +31,15 @@ from crt_tpu_torch.scene.types import (
 def _c_trunc(x: torch.Tensor) -> torch.Tensor:
     """float -> int with C++ truncation toward zero (static_cast<int>)."""
     return torch.trunc(x).to(torch.int32)
+
+
+def _color_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a [X, 3] colour table -> idx.shape + [3].  A table
+    that requires grad is always read through the adapter."""
+    if table.requires_grad and torch.is_grad_enabled():
+        rows = packed_gather(table.T, idx.reshape(-1)).T
+        return rows.reshape(idx.shape + (3,))
+    return table[idx]
 
 
 def sample_textures(scene, tex_idx, uv, bary_u, bary_v) -> torch.Tensor:
@@ -39,12 +54,12 @@ def sample_textures(scene, tex_idx, uv, bary_u, bary_v) -> torch.Tensor:
             "bitmap textures are not ported yet (ROADMAP A9)"
         )
     safe_idx = torch.clamp(tex_idx, min=0).long()
-    color_a = scene.tex_color_a[safe_idx]  # [R, 3]
+    color_a = _color_rows(scene.tex_color_a, safe_idx)  # [R, 3]
     if present <= {TEXTURE_ALBEDO}:
         return color_a
 
     ttype = scene.tex_type[safe_idx]  # [R]
-    color_b = scene.tex_color_b[safe_idx]
+    color_b = _color_rows(scene.tex_color_b, safe_idx)
     scalar = scene.tex_scalar[safe_idx]
     u, v = uv[..., 0], uv[..., 1]
 

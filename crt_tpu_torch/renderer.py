@@ -5,7 +5,9 @@ renders a [height, width, 3] linear-color image on the device that holds
 the scene's tensors: the pixel wavefront in 32x32 tile order, the closest
 hit through the cluster backend (its CUDA kernels on a CUDA scene, their
 plain versions on a CPU scene) or the all-pairs backend, and the unrolled
-Whitted shading.
+Whitted shading.  The image is differentiable with respect to the scene's
+float tensors; the backward of the packed-row read is the segment-sum
+kernel (``ops/segsum.py``).
 """
 
 from __future__ import annotations
@@ -55,8 +57,13 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
 
         def trace(origins, dirs, active=None):
             del active  # dense all-pairs compute; masking cannot skip work
-            return intersect_ops.closest_hit_bruteforce(tri, origins, dirs)
+            return intersect_ops.closest_hit_bruteforce(
+                tri, origins.detach(), dirs.detach())
 
+        # the Morton rank keeps the segment sum's id bands narrow
+        from crt_tpu_torch.ops.cluster_tables import triangle_rank
+
+        trace.rank = triangle_rank(scene)
         return trace
     if backend == "tree":
         raise NotImplementedError(
@@ -129,13 +136,13 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
 def render_image_hwc(scene: Scene,
                      settings: RenderSettings | None = None) -> torch.Tensor:
     """Render to a [height, width, 3] float32 linear-color image on the
-    scene's device.  Forward only: the gradient path is ROADMAP A5."""
+    scene's device.  The image differentiates with respect to every scene
+    tensor that requires grad (hit ids and occlusion masks are constants);
+    a scene with none renders without an autograd graph."""
     settings = settings or RenderSettings()
     check_supported(scene, settings)
     if any(t.requires_grad for t in scene.tensors().values()):
-        raise NotImplementedError(
-            "render_image has no gradient path yet (ROADMAP A5); "
-            "pass scene tensors without requires_grad")
+        return _render_flat(scene, settings)
     with torch.no_grad():
         return _render_flat(scene, settings)
 

@@ -24,6 +24,7 @@ from crt_tpu_torch.scene.types import (
     TEXTURE_ALBEDO,
     TEXTURE_TYPE_NAMES,
     Scene,
+    resolve_device,
 )
 
 
@@ -54,16 +55,20 @@ def _mat3(v: Any, what: str) -> np.ndarray:
     return np.asarray(v, np.float32).reshape(3, 3)
 
 
-def load_scene(path: str, **kwargs) -> Scene:
-    """Load a .crtscene file; asset_root = the file's directory."""
+def load_scene(path: str, device=None, **kwargs) -> Scene:
+    """Load a .crtscene file onto ``device`` (None: the card);
+    asset_root = the file's directory."""
     with open(path, "rb") as f:
         data = json.load(f)
     asset_root = kwargs.pop("asset_root", os.path.dirname(os.path.abspath(path)))
-    return scene_from_dict(data, asset_root=asset_root, **kwargs)
+    return scene_from_dict(data, asset_root=asset_root, device=device,
+                           **kwargs)
 
 
-def scene_from_json(text: str, asset_root: str = "/", **kwargs) -> Scene:
-    return scene_from_dict(json.loads(text), asset_root=asset_root, **kwargs)
+def scene_from_json(text: str, asset_root: str = "/", device=None,
+                    **kwargs) -> Scene:
+    return scene_from_dict(json.loads(text), asset_root=asset_root,
+                           device=device, **kwargs)
 
 
 def accumulate_vertex_normals(pos: np.ndarray, idx: np.ndarray) -> np.ndarray:
@@ -237,11 +242,13 @@ def _parse_objects(obj_list: Any, num_materials: int, legacy: bool,
 
 
 def scene_from_dict(data: dict, asset_root: str = "/",
-                    strict: bool = False) -> Scene:
-    """Build a render-ready CPU Scene from a .crtscene dict (move it to a
-    card with ``scene.to("cuda")``).  ``asset_root`` is where bitmap
-    textures would be read from; it is accepted for parity."""
+                    strict: bool = False, device=None) -> Scene:
+    """Build a render-ready Scene from a .crtscene dict on ``device``
+    (None: the card; it raises where there is none, ``"cpu"`` asks for the
+    CPU).  ``asset_root`` is where bitmap textures would be read from; it
+    is accepted for parity."""
     del asset_root
+    device = resolve_device(device)
     _require(isinstance(data, dict), "scene root must be an object")
 
     settings = data.get("settings")
@@ -375,4 +382,4 @@ def scene_from_dict(data: dict, asset_root: str = "/",
         has_lights=len(light_intensity) > 0,
         any_smooth=bool(any(mats["smooth"])),
         texture_types_present=tuple(sorted(set(int(x) for x in tex_type))),
-    )
+    ).to(device)

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from crt_tpu_torch.scene.json_loader import scene_from_dict
-from crt_tpu_torch.scene.types import Scene
+from crt_tpu_torch.scene.types import Scene, resolve_device
 
 
 def make_test_scene_dict(
@@ -93,10 +93,12 @@ def make_test_scene_dict(
     return data
 
 
-def make_test_scene(*args, **kwargs) -> Scene:
+def make_test_scene(*args, device=None, **kwargs) -> Scene:
     """A small random quad-soup scene (see make_test_scene_dict), built
-    through the same loader as real .crtscene files."""
-    return scene_from_dict(make_test_scene_dict(*args, **kwargs))
+    through the same loader as real .crtscene files, on ``device`` (None:
+    the card)."""
+    return scene_from_dict(make_test_scene_dict(*args, **kwargs),
+                           device=device)
 
 
 def make_big_scene(
@@ -104,9 +106,12 @@ def make_big_scene(
     width: int = 1920,
     height: int = 1080,
     seed: int = 0,
+    device=None,
 ) -> Scene:
     """A large random triangle soup in a slab in front of the camera, built
-    directly as arrays (one diffuse material, one light)."""
+    directly as arrays (one diffuse material, one light), on ``device``
+    (None: the card)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     T = num_triangles
     centers = np.empty((T, 3), np.float32)
@@ -151,4 +156,4 @@ def make_big_scene(
         has_constant=False,
         any_smooth=False,
         texture_types_present=(0,),
-    )
+    ).to(device)

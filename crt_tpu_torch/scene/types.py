@@ -5,7 +5,8 @@ material / texture codes, the same ``RenderSettings`` fields and derived
 properties.  Where the JAX package registers pytrees with static meta
 fields, the port keeps plain frozen dataclasses whose tensors move together
 with ``.to(device)``; the device a render runs on is the device of the
-scene's tensors.
+scene's tensors.  Every function that builds a scene takes ``device=None``,
+which ``resolve_device`` reads as the card.
 
 The JAX ``Scene.accel`` KD tree is not carried: the tree backend is ROADMAP
 A12.
@@ -40,6 +41,21 @@ DEFAULT_SHADOW_BIAS = 1e-2
 DEFAULT_REFLECTION_BIAS = 1e-2
 DEFAULT_DIFFUSE_REFLECTION_BIAS = 1e-2
 DEFAULT_REFRACTION_BIAS = 1e-2
+
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a scene is built on.  ``None`` is the card (``cuda``);
+    asking for the card, by name or by default, on a machine that shows
+    none raises instead of carrying on on the CPU.  Pass ``"cpu"`` to run
+    the plain versions on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "crt_tpu_torch runs on a CUDA device and none is visible; "
+            'pass device="cpu" to run on the CPU')
+    return dev
+
 
 # Tensor fields of Scene, in declaration order.
 SCENE_TENSOR_FIELDS = (

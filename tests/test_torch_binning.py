@@ -46,7 +46,7 @@ def T(a):
 def wavefronts(request):
     """Both scenes plus primary / bounce / shadow wavefronts as NumPy."""
     kw = SCENES[request.param]
-    js, ts = jmake_test_scene(**kw), make_test_scene(**kw)
+    js, ts = jmake_test_scene(**kw), make_test_scene(**kw, device="cpu")
     rx, ry, _ = jrenderer.make_tiler(js.height, js.width)
     o, d = jcamera.generate_rays(js.cam_position, js.cam_rotation,
                                  js.cam_tan_half_fov, js.width, js.height,

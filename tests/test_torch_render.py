@@ -64,7 +64,7 @@ def test_slice_image_matches_crt_tpu(name, jax_backend):
     kw = SCENES[name]
     ref = jax_render(jmake_test_scene(**kw),
                      crt_tpu.RenderSettings(backend=jax_backend))
-    img = render_image(make_test_scene(**kw))
+    img = render_image(make_test_scene(**kw, device="cpu"))
     assert img.shape == (36, 64, 3) and img.dtype == torch.float32
     np.testing.assert_allclose(img.numpy(), ref, rtol=1e-5, atol=1e-6)
 
@@ -74,6 +74,6 @@ def test_head_compat_matches_crt_tpu(backend):
     ref = jax_render(jmake_test_scene(),
                      crt_tpu.RenderSettings(backend="bruteforce",
                                             head_compat=True))
-    img = render_image(make_test_scene(),
+    img = render_image(make_test_scene(device="cpu"),
                        RenderSettings(backend=backend, head_compat=True))
     np.testing.assert_allclose(img.numpy(), ref, rtol=1e-5, atol=1e-6)

@@ -89,12 +89,13 @@ def assert_scene_matches(jscene, tscene):
 def test_scene_from_dict_matches_crt_tpu(name):
     data = SCENES[name]()
     assert_scene_matches(jscene_from_dict(data, build_accel=False),
-                         scene_from_dict(data))
+                         scene_from_dict(data, device="cpu"))
 
 
 def test_make_test_scene_matches_crt_tpu():
     assert_scene_matches(jmake_test_scene(96, 64, num_quads=16, seed=3),
-                         make_test_scene(96, 64, num_quads=16, seed=3))
+                         make_test_scene(96, 64, num_quads=16, seed=3,
+                                         device="cpu"))
 
 
 def test_scene_from_numpy_round_trip():
@@ -108,11 +109,11 @@ def test_scene_from_numpy_round_trip():
         np.testing.assert_array_equal(arrays2[f], arrays[f])
     assert meta2 == meta
     with pytest.raises(KeyError):
-        scene_from_numpy({"vertices": arrays["vertices"]}, meta)
+        scene_from_numpy({"vertices": arrays["vertices"]}, meta, device="cpu")
 
 
 def test_scene_to_and_replace():
-    s = make_test_scene()
+    s = make_test_scene(device="cpu")
     moved = s.to("cpu").replace(width=7)
     assert moved.width == 7 and moved.device == torch.device("cpu")
     assert moved.num_triangles == s.num_triangles == 10
@@ -143,18 +144,18 @@ def test_malformed_scenes_raise_like_crt_tpu(bad):
     with pytest.raises(JSceneFormatError):
         jscene_from_dict(bad, build_accel=False)
     with pytest.raises(SceneFormatError):
-        scene_from_dict(bad)
+        scene_from_dict(bad, device="cpu")
 
 
 def test_scene_from_json_and_bitmap_not_implemented():
     text = json.dumps(make_test_scene_dict())
-    assert scene_from_json(text).num_triangles == 10
+    assert scene_from_json(text, device="cpu").num_triangles == 10
     data = make_test_scene_dict()
     data["textures"] = [{"name": "img", "type": "bitmap",
                          "file_path": "tex.png"}]
     data["materials"][0]["albedo"] = "img"
     with pytest.raises(NotImplementedError, match="A9"):
-        scene_from_dict(data)
+        scene_from_dict(data, device="cpu")
 
 
 @pytest.mark.parametrize("hw", [(36, 64), (64, 96), (40, 30)])
@@ -175,7 +176,7 @@ def test_make_tiler_bit_equal(hw):
 def test_generate_rays_bit_equal(name):
     data = SCENES[name]()
     js = jscene_from_dict(data, build_accel=False)
-    ts = scene_from_dict(data)
+    ts = scene_from_dict(data, device="cpu")
     jx, jy, _ = jrenderer.make_tiler(js.height, js.width)
     tx, ty, _ = trenderer.make_tiler(ts.height, ts.width)
     jo, jd = jcamera.generate_rays(js.cam_position, js.cam_rotation,

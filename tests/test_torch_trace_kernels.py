@@ -211,7 +211,7 @@ def T(a):
 
 
 def _tables(name):
-    scene = make_test_scene(**SCENES[name])
+    scene = make_test_scene(**SCENES[name], device="cpu")
     tables = tct.build_cluster_tables(scene)
     return scene, tables, tct.emit_rows_table(scene, tables)
 
@@ -286,7 +286,7 @@ def test_trace_factory_matches_pallas(ref, name):
 
 
 def test_exact_t_tie_first_walked_cluster_wins(ref):
-    scene = scene_from_dict(tie_scene_dict())
+    scene = scene_from_dict(tie_scene_dict(), device="cpu")
     tables = tct.build_cluster_tables(scene)
     np.testing.assert_array_equal(tables.tri_id.numpy(), ref["tie/tri_id"])
     assert tables.tri_id[0, 15] == 16 and tables.tri_id[1, 0] == 15
