@@ -33,14 +33,45 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      peak memory; then three Adam steps of fit_scene on the same frame
      from perturbed texture colours, light intensities and vertices (the
      loss must fall at every step);
-  7. a JSON line of the kernels, then the last line
-     {"ok": true, "device": {...}}.
+  7. glass kernels: on the depth-0 shadow wavefront of the refractive
+     benchmark scene (make_test_scene(1920, 1080, 64,
+     with_refractive=True)) the w-occlusion kernel in its glass-flag mode
+     (both outputs) and in its uncapped member-masked mode vs the plain
+     version, lane for lane; then, on the inputs recorded from a real
+     frame, the glass-flag mode again on the second bounce's pool shadow
+     wavefront (8 banks under 2 lights, 32,640 tiles: the shape the frame
+     launches it at, and the one its time and bound are taken at), on that
+     bounce's pool trace (active-masked) the live-tile compacted closest
+     hit vs its plain version and vs the closest-hit kernel on the same
+     lists, and the closest-hit kernel vs its own plain version there and
+     on the widest segment of the bend-walk (all bit-equal);
+  8. refract: the CLI renders the refractive scene from a .crtscene file
+     (launch counts reset just before, read just after, and held to what
+     the schedule implies: one pool trace and one glass-flag pass per
+     bounce, one closest hit per march segment, no capped pass, no
+     compacted launch); the image vs the all-pairs backend and, on a small
+     scene, vs the CPU; compact_bounces=True bit-equal with every trace a
+     compacted launch; the router's flag vs the separate uncapped gate
+     through the trace factory; frame times of the scan and grow schedules,
+     of scan with compact_bounces, of the recursive tree and of scan in 8
+     chunks, host syncs, device time and launches of a profiled frame,
+     peak memory; then value_and_grad of the
+     image sum with respect to vertices, light intensities, camera
+     position and mat_ior (vs the all-pairs backend's, time and peak
+     memory, with and without remat_shading), and the backward of the
+     mat_ior[tri_material] gather at 65,536 triangles on one material;
+  9. a JSON line of the kernels, then the last line
+     {"ok": true, "device": {...}}.  ``launches`` are those of the render
+     paths; the uncapped member-masked mode of the w-occlusion kernel is on
+     none of them (``on_a_render_path`` false, launches 0) and is listed
+     for its comparison and times.
 
 ``--profile`` runs, instead of phases 3 to 7, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
 
-Tolerances.  The trace kernels: bit-equal to their plain versions.  The
+Tolerances.  The trace kernels (closest hit, compacted closest hit, every
+mode of the w-occlusion): bit-equal to their plain versions.  The
 segment-sum kernel: |kernel - fp64| <= 4e-6 * sum|g| per segment, which is
 ten times the largest error this script has read (3.7e-7, on the bench
 frame's 640,651-ray segment) and a tenth of the worst case of the kernel's
@@ -101,19 +132,30 @@ def nbytes(*tensors) -> int:
 
 
 def walk_bound(tables, cl, cnt, rays, outputs, active, blocked=None,
-               rows_table=None) -> dict:
+               rows_table=None, small=()) -> dict:
     """Bound of a cluster-walk kernel from what this run gave it.
 
-    Bytes: the walked list entries, the tables once, the rays and the
-    outputs.  Operations: member tests the answer needs.  A lane of
-    ``active`` [tiles, TILE] (the lanes the lists were binned for) must
-    test every real member of every cluster on its tile's list; a lane
-    that ``blocked`` marks (an any-hit answer) needs one test, its
-    blocker's; a lane outside ``active`` needs none."""
+    Bytes: the counts, the walked list entries, the tables and the
+    ``small`` inputs (lights, member mask, tile permutation) once, every
+    output in full, and of the per-lane ``rays`` ([R, 3] each) only the
+    tiles the answer needs: those with a list to walk.  List tile i reads
+    ray tile i % (R / TILE), so the lights of a shadow pass share one copy.
+    Operations: member tests the answer needs.  A lane of ``active``
+    [tiles, TILE] (the lanes the lists were binned for) must test every
+    real member of every cluster on its tile's list; a lane that
+    ``blocked`` marks (an any-hit answer) needs one test, its blocker's; a
+    lane outside ``active`` needs none."""
     walked = int(cnt.sum())
     table_bytes = nbytes(tables.n, tables.nv0, tables.m, tables.c,
                          tables.nobf, tables.tri_id, rows_table)
-    num_bytes = (nbytes(*rays, cnt, *outputs) + 4 * walked + table_bytes)
+    live = torch.nonzero(cnt > 0)[:, 0]
+    ray_bytes = 0
+    for x in rays:
+        ray_tiles = x.shape[0] // TILE
+        needed = int(torch.unique(live % ray_tiles).numel())
+        ray_bytes += needed * TILE * x.shape[1] * x.element_size()
+    num_bytes = (ray_bytes + nbytes(cnt, *small, *outputs) + 4 * walked
+                 + table_bytes)
     members = (tables.tri_id >= 0).sum(dim=1)  # [L] real members
     on_list = torch.arange(cl.shape[1], device=cl.device) < cnt[:, None]
     tile_members = (members[cl.long()] * on_list).sum(dim=1)  # [tiles]
@@ -122,7 +164,7 @@ def walk_bound(tables, cl, cnt, rays, outputs, active, blocked=None,
     if blocked is not None:
         tests += int((active & blocked).sum())
     return {**bound_ms(num_bytes, tests * FLOPS_PER_MEMBER),
-            "member_tests": tests}
+            "member_tests": tests, "ray_bytes": ray_bytes}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -280,9 +322,11 @@ def phase_kernels(device):
           f"plain {ms_k2p:.3f} ms")
     b1 = walk_bound(tables, cl, cnt, (o, d), k, act.reshape(-1, TILE),
                     rows_table=rows_table)
-    b2 = walk_bound(tables, scl, scnt, (shadow_o, point, lights), (ko,),
-                    act_lr.reshape(-1, TILE), blocked=ko.reshape(-1, TILE))
+    b2 = walk_bound(tables, scl, scnt, (shadow_o, point), (ko,),
+                    act_lr.reshape(-1, TILE), blocked=ko.reshape(-1, TILE),
+                    small=(lights,))
     tests1, tests2 = b1.pop("member_tests"), b2.pop("member_tests")
+    b1.pop("ray_bytes"), b2.pop("ray_bytes")
     print(f"[kernels] bounds from this run's inputs: closest_hit "
           f"{b1['bound_ms']:.4f} ms ({b1['bound_by']}, {int(cnt.sum())} "
           f"walked entries, {tests1} member tests needed), occlusion_w "
@@ -476,19 +520,41 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
 
 
 def reset_launches():
-    from crt_tpu_torch.ops import cluster_trace, segsum
+    from crt_tpu_torch.ops import cluster_trace, segsum, shade
 
     cluster_trace.closest_hit_launches = 0
+    cluster_trace.closest_hit_compact_launches = 0
     cluster_trace.occlusion_w_launches = 0
+    for mode in cluster_trace.occlusion_w_mode_launches:
+        cluster_trace.occlusion_w_mode_launches[mode] = 0
     segsum.segsum_launches = 0
+    shade.march_host_syncs = 0
+    shade.march_traces = 0
 
 
 def read_launches() -> dict:
+    """Launch counts of the three kernels of the opaque frame."""
     from crt_tpu_torch.ops import cluster_trace, segsum
 
     return {"closest_hit": cluster_trace.closest_hit_launches,
             "occlusion_w": cluster_trace.occlusion_w_launches,
             "segsum": segsum.segsum_launches}
+
+
+def read_glass_launches() -> dict:
+    """Launch counts of the refractive frame's kernels, K2 by mode, and
+    the march's own counts (closest-hit segments, device-to-host reads)."""
+    from crt_tpu_torch.ops import cluster_trace, segsum, shade
+
+    modes = cluster_trace.occlusion_w_mode_launches
+    return {"closest_hit": cluster_trace.closest_hit_launches,
+            "closest_hit_compact": cluster_trace.closest_hit_compact_launches,
+            "occlusion_w": modes["capped"],
+            "occlusion_w_glass": modes["glass"],
+            "occlusion_w_uncapped": modes["uncapped"],
+            "segsum": segsum.segsum_launches,
+            "march_traces": shade.march_traces,
+            "march_host_syncs": shade.march_host_syncs}
 
 
 def phase_main_path(device):
@@ -640,6 +706,432 @@ def phase_train(device):
     return launches
 
 
+GLASS = dict(BENCH, with_refractive=True)
+GLASS_TRAINED = TRAINED + ("mat_ior",)
+
+
+def record_glass_frame(scene):
+    """The kernel inputs of one real frame of the iterative wavefront, in
+    call order: ``traces`` (o, d, act) of each bounce's pool trace,
+    ``shadows`` (point, shadow_o, lights, act [Ll, B*R], slack) of each
+    bounce's glass-flag pass at pool width, ``march`` (o, d, act) of every
+    segment of the bend-walk."""
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.ops.shade_iter import (
+        default_banks, shade_wavefront_iter,
+    )
+    from crt_tpu_torch.renderer import make_trace_fn
+
+    st = RenderSettings()
+    trace = make_trace_fn(scene, st)
+    o, d = primary_wavefront(scene)
+    width = default_banks(scene, st) * o.shape[0]
+    rec = {"traces": [], "shadows": [], "march": []}
+
+    def recording(ro, rd, active=None):
+        rec["traces" if ro.shape[0] == width else "march"].append(
+            (ro.detach().contiguous(), rd.detach().contiguous(),
+             active.detach().clone()))
+        return trace(ro, rd, active)
+
+    def recording_glass(point, shadow_o, lights, act, slack):
+        rec["shadows"].append((point.detach().contiguous(),
+                               shadow_o.detach().contiguous(),
+                               lights.detach().contiguous(),
+                               act.detach().clone(), slack))
+        return trace.shadow_apex_w_glass(point, shadow_o, lights, act, slack)
+
+    recording.shadow_apex_w = trace.shadow_apex_w
+    recording.shadow_apex_w_glass = recording_glass
+    recording.rank = trace.rank
+    with torch.no_grad():
+        shade_wavefront_iter(scene, st, recording, o, d)
+    bounces = st.max_ray_depth + 1
+    check(len(rec["traces"]) == bounces and len(rec["shadows"]) == bounces
+          and all(c[0].shape[0] == width for c in rec["shadows"]),
+          f"{len(rec['traces'])} pool traces and {len(rec['shadows'])} "
+          "pool-width glass-flag passes in a frame, expected one of each "
+          "per bounce")
+    check(len(rec["march"]) > 0, "the frame marched no shadow lane")
+    return rec
+
+
+def phase_glass_kernels(device):
+    from crt_tpu_torch.ops import vecmath
+    from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
+    from crt_tpu_torch.ops.cluster_tables import (
+        build_cluster_tables, glass_subset,
+    )
+    from crt_tpu_torch.ops.cluster_trace import (
+        closest_hit, closest_hit_compact, closest_hit_compact_plain,
+        closest_hit_plain, occlusion_w, occlusion_w_plain,
+    )
+    from crt_tpu_torch.ops.intersect import Hit
+    from crt_tpu_torch.ops.shade import hit_attributes
+    from crt_tpu_torch.scene.procedural import make_test_scene
+    from crt_tpu_torch.scene.types import MATERIAL_DIFFUSE, RenderSettings
+
+    scene = make_test_scene(**GLASS, device=device)
+    st = RenderSettings()
+    tables = build_cluster_tables(scene)
+    gm, gmin, gmax = glass_subset(scene, tables)
+    o, d = primary_wavefront(scene)
+    cl, cnt = bin_rays(tables, o, d, TILE)
+    t, tri, _ = closest_hit(tables, o, d, cl, cnt)
+    attrs = hit_attributes(scene, o, d, Hit(t=t, tri=tri))
+    print(f"[glass] refractive bench scene: {scene.num_triangles} triangles "
+          f"({int(gm.sum())} refractive) in {tables.n.shape[0]} clusters")
+
+    # depth-0 shadow wavefront, as _occlusion_masks builds it
+    point = attrs.point.contiguous()
+    normal = attrs.normal
+    lights = scene.light_position.contiguous()
+    light_vec = lights[:, None, :] - point[None]
+    facing = vecmath.dot(vecmath.safe_normalize(light_vec),
+                         normal[None].expand_as(light_vec)) > 0.0
+    act_lr = (attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE))[None] & facing
+    shadow_o = (point + normal * st.shadow_bias).contiguous()
+    slack = 2.0 * st.shadow_bias
+    rays = (shadow_o, point, lights)
+    stats = {}
+
+    def glass_mode(name, point, shadow_o, lights, act_lr, slack):
+        """K2's glass-flag mode vs its plain version on one shadow
+        wavefront, lane for lane, both outputs; times and bound."""
+        rays = (shadow_o, point)
+        gcl, gcnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE,
+                                    slack, glass_boxes=(gmin, gmax))
+        args = (tables, shadow_o, point, lights, gcl, gcnt)
+        kw = dict(member_mask=gm, glass_flag=True)
+        ko, kg = occlusion_w(*args, **kw)
+        po, pg = occlusion_w_plain(*args, **kw)
+        n_bad = int(((ko != po) | (kg != pg)).sum())
+        check(n_bad == 0, f"occlusion_w glass mode, {name}: {n_bad} lanes "
+              "differ from the plain version")
+        ms = cuda_ms(lambda: occlusion_w(*args, **kw))
+        ms_p = cuda_ms(lambda: occlusion_w_plain(*args, **kw), warmup=1,
+                       reps=3)
+        # a lane may leave the walk only once it is blocked and flagged
+        b = walk_bound(tables, gcl, gcnt, rays, (ko, kg),
+                       act_lr.reshape(-1, TILE),
+                       blocked=(ko & kg).reshape(-1, TILE), small=(lights, gm))
+        tests, ray_bytes = b.pop("member_tests"), b.pop("ray_bytes")
+        routed = act_lr.reshape(-1) & kg
+        print(f"[glass] occlusion_w glass mode, {name}: {ko.numel()} lanes in "
+              f"{gcnt.numel()} tiles ({int((gcnt > 0).sum())} live, "
+              f"{int(gcnt.sum())} walked entries), {int(ko.sum())} blocked, "
+              f"{int(kg.sum())} flagged ({int(routed.sum())} of "
+              f"{int(act_lr.sum())} active lanes routed to the march), both "
+              f"outputs equal; kernel {ms:.3f} ms, plain {ms_p:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {tests} member "
+              f"tests, {ray_bytes} ray bytes needed)")
+        return dict(max_abs_err=0.0, ms=ms, plain_ms=ms_p, library_ms=None,
+                    **b), kg
+
+    _, kg = glass_mode("depth-0 wavefront", point, shadow_o, lights, act_lr,
+                       slack)
+
+    ucl, ucnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE, slack,
+                                boxes=(gmin, gmax), capped=False)
+    kw = dict(capped=False, member_mask=gm)
+    ku = occlusion_w(tables, *rays, ucl, ucnt, **kw)
+    pu = occlusion_w_plain(tables, *rays, ucl, ucnt, **kw)
+    n_bad = int((ku != pu).sum())
+    check(n_bad == 0, f"occlusion_w uncapped masked mode: {n_bad} lanes "
+          "differ from the plain version")
+    act = act_lr.reshape(-1)
+    check(bool(((ku & act) == (kg & act)).all()),
+          "the uncapped gate and the router's glass flag disagree on an "
+          "active lane")
+    ms = cuda_ms(lambda: occlusion_w(tables, *rays, ucl, ucnt, **kw))
+    ms_p = cuda_ms(lambda: occlusion_w_plain(tables, *rays, ucl, ucnt, **kw),
+                   warmup=1, reps=3)
+    b = walk_bound(tables, ucl, ucnt, (shadow_o, point), (ku,),
+                   act_lr.reshape(-1, TILE), blocked=ku.reshape(-1, TILE),
+                   small=(lights, gm))
+    tests, ray_bytes = b.pop("member_tests"), b.pop("ray_bytes")
+    print(f"[glass] occlusion_w uncapped member-masked mode: "
+          f"{int((ucnt > 0).sum())} live tiles, {int(ucnt.sum())} walked "
+          f"entries, {int(ku.sum())} lanes hit, equal, and equal to the glass "
+          f"flag on the active lanes; kernel {ms:.3f} ms, plain {ms_p:.3f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {tests} "
+          f"member tests, {ray_bytes} ray bytes needed)")
+    stats["occlusion_w_uncapped"] = dict(max_abs_err=0.0, ms=ms,
+                                         plain_ms=ms_p, library_ms=None, **b)
+
+    # one real frame's kernel inputs, at the main path's own shapes
+    rec = record_glass_frame(scene)
+
+    # the second bounce's glass-flag pass: the 8-bank pool under 2 lights
+    stats["occlusion_w_glass"], _ = glass_mode("bounce-1 pool",
+                                               *rec["shadows"][1])
+
+    # the second bounce's pool trace: 8 banks, most lanes dead
+    po_, pd_, pact = rec["traces"][1]
+    pcl, pcnt = bin_rays(tables, po_, pd_, TILE, pact)
+    k4 = closest_hit_compact(tables, po_, pd_, pcl, pcnt)
+    k1 = closest_hit(tables, po_, pd_, pcl, pcnt)
+    p4 = closest_hit_compact_plain(tables, po_, pd_, pcl, pcnt)
+    p1 = closest_hit_plain(tables, po_, pd_, pcl, pcnt)
+    err = compare_hits("closest_hit_compact vs plain", k4, p4)
+    compare_hits("closest_hit_compact vs closest_hit", k4, k1)
+    compare_hits("closest_hit on the pool vs plain", k1, p1)
+    del p1
+    ms = cuda_ms(lambda: closest_hit_compact(tables, po_, pd_, pcl, pcnt))
+    ms_1 = cuda_ms(lambda: closest_hit(tables, po_, pd_, pcl, pcnt))
+    ms_p = cuda_ms(lambda: closest_hit_compact_plain(tables, po_, pd_, pcl,
+                                                     pcnt), warmup=1, reps=3)
+    # the permutation and the live count are inputs the launch reads
+    perm = torch.empty((pcnt.numel() + 1,), dtype=torch.int32, device=device)
+    b = walk_bound(tables, pcl, pcnt, (po_, pd_), k4[:2],
+                   pact.reshape(-1, TILE), small=(perm,))
+    tests, ray_bytes = b.pop("member_tests"), b.pop("ray_bytes")
+    print(f"[glass] closest_hit_compact on the bounce-1 pool: "
+          f"{po_.shape[0]} lanes in {pcnt.numel()} tiles "
+          f"({int((pcnt > 0).sum())} live, {int(pact.sum())} active lanes, "
+          f"{int(pcnt.sum())} walked entries), bit-equal to its plain version "
+          f"and to closest_hit, which equals its own plain version there; "
+          f"kernel {ms:.3f} ms, closest_hit on the same lists {ms_1:.3f} ms, "
+          f"plain {ms_p:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}, {tests} member tests, {ray_bytes} ray bytes "
+          "needed)")
+    stats["closest_hit_compact"] = dict(
+        max_abs_err=err, ms=ms, ms_closest_hit=ms_1, plain_ms=ms_p,
+        library_ms=None, **b)
+
+    # the widest segment of the bend-walk: the live 1024-lane blocks
+    mo, md, mact = max(rec["march"], key=lambda c: int(c[2].sum()))
+    check(mo.shape[0] % TILE == 0, "a march wavefront is not whole tiles")
+    mcl, mcnt = bin_rays(tables, mo, md, TILE, mact)
+    compare_hits("closest_hit on a march segment vs plain",
+                 closest_hit(tables, mo, md, mcl, mcnt),
+                 closest_hit_plain(tables, mo, md, mcl, mcnt))
+    print(f"[glass] closest_hit on the widest of {len(rec['march'])} march "
+          f"segments: {mo.shape[0]} lanes in {mcnt.numel()} tiles "
+          f"({int(mact.sum())} marching), bit-equal to its plain version")
+    return stats
+
+
+def profile_frame(fn, top=0):
+    """(device kernel ms, device launches) of one call of fn(); prints the
+    ``top`` largest device kernels and the hand-written kernels' share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0)) for ev in rows)
+    check(us > 0, "the profiler recorded no device time")
+
+    def dev_us(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+
+    if top:
+        for ev in sorted(rows, key=dev_us, reverse=True)[:top]:
+            print(f"[refract]   {dev_us(ev) / 1e3:9.3f} ms  {ev.count:6d} x  "
+                  f"{ev.key[:90]}")
+        for tag in ("closest_hit", "occlusion_w"):
+            mine = [ev for ev in rows if tag in ev.key]
+            print(f"[refract]   {tag}: "
+                  f"{sum(dev_us(ev) for ev in mine) / 1e3:.3f} ms over "
+                  f"{sum(ev.count for ev in mine)} launches "
+                  f"({100 * sum(dev_us(ev) for ev in mine) / us:.2f} % of "
+                  "device time)")
+    return us / 1e3, sum(ev.count for ev in rows)
+
+
+def host_ms(fn, warmup=1, reps=5):
+    """Median (wall ms, enqueue ms) of fn() on the host clock; the wall
+    ends in a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    walls, enqueues = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        enqueues.append((t1 - t0) * 1e3)
+    return statistics.median(walls), statistics.median(enqueues)
+
+
+def phase_refract(device):
+    from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch.frontend import cli
+    from crt_tpu_torch.ops.shade_iter import default_banks
+    from crt_tpu_torch.renderer import make_trace_fn
+    from crt_tpu_torch.scene.procedural import (
+        make_test_scene, make_test_scene_dict,
+    )
+
+    W, H = GLASS["width"], GLASS["height"]
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "glass.crtscene")
+        out_path = os.path.join(tmp, "glass.ppm")
+        with open(scene_path, "w") as f:
+            json.dump(make_test_scene_dict(**GLASS), f)
+        reset_launches()
+        rc = cli.main([scene_path, out_path, "--device", str(device)])
+        launches = read_glass_launches()
+        check(rc == 0, f"CLI exited {rc}")
+        with open(out_path) as f:
+            tokens = f.read().split()
+    check(tokens[:4] == ["P3", str(W), str(H), "255"]
+          and len(tokens) == 4 + W * H * 3, "bad PPM of the glass frame")
+    scene = make_test_scene(**GLASS, device=device)
+    st = RenderSettings()
+    bounces = st.max_ray_depth + 1
+    print(f"[refract] CLI wrote the {W}x{H} glass frame "
+          f"({default_banks(scene, st)} banks, {bounces} bounces); launches "
+          f"{launches}")
+    # per bounce one pool trace and one glass-flag pass; the march adds one
+    # closest hit per segment it walked, between none and depth + 1 a pass
+    check(launches["occlusion_w_glass"] == bounces
+          and launches["closest_hit"] == bounces + launches["march_traces"]
+          and 0 < launches["march_traces"] <= bounces * bounces
+          and launches["occlusion_w"] == 0
+          and launches["occlusion_w_uncapped"] == 0
+          and launches["closest_hit_compact"] == 0
+          and launches["segsum"] == 0,
+          f"the glass frame launched {launches}: not what the scan schedule "
+          "implies")
+
+    img = render_image(scene)
+    reset_launches()
+    compact = render_image(scene, RenderSettings(compact_bounces=True))
+    c_launches = read_glass_launches()
+    check(torch.equal(compact, img),
+          "compact_bounces=True changed the image")
+    check(c_launches["closest_hit"] == 0
+          and c_launches["closest_hit_compact"] == launches["closest_hit"]
+          and c_launches["occlusion_w_glass"] == bounces,
+          f"compact_bounces launched {c_launches}")
+    print(f"[refract] compact_bounces=True: image bit-equal, every trace a "
+          f"compacted launch: {c_launches}")
+
+    # the router's flag vs the separate uncapped gate, through the factory
+    trace = make_trace_fn(scene, st)
+    o, d = primary_wavefront(scene)
+    hit = trace(o, d)
+    point = o + d * torch.where(hit.valid, hit.t, 0.0)[:, None]
+    shadow_o = point + st.shadow_bias * torch.tensor([0.0, 1.0, 0.0],
+                                                     device=device)
+    act = hit.valid[None].expand(scene.num_lights, -1)
+    reset_launches()
+    _, flag = trace.shadow_apex_w_glass(point, shadow_o, scene.light_position,
+                                        act, 2.0 * st.shadow_bias)
+    gate = trace.refr_ray_hit_w(point, shadow_o, scene.light_position, act,
+                                2.0 * st.shadow_bias)
+    gate_launches = read_glass_launches()
+    check(torch.equal(flag & act, gate & act),
+          "router flag and uncapped gate disagree")
+    print(f"[refract] router cross-check through the trace factory: "
+          f"{int((flag & act).sum())} of {int(act.sum())} lanes flagged by "
+          f"both routes; launches glass {gate_launches['occlusion_w_glass']}, "
+          f"uncapped {gate_launches['occlusion_w_uncapped']}")
+
+    ref = render_image(scene, RenderSettings(backend="bruteforce"))
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
+          "glass image is not a finite [H, W, 3]")
+    close = ((img - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all(dim=-1)
+    frac = float(close.float().mean())
+    print(f"[refract] cluster vs bruteforce on the card: max |diff| "
+          f"{float((img - ref).abs().max()):.3e}, {int((~close).sum())} px "
+          f"outside rtol 1e-4 / atol 1e-5 ({frac * 100:.4f} % inside)")
+    check(frac >= 0.9999, "fewer than 99.99 % of glass pixels agree with "
+          "the bruteforce backend")
+    del ref, compact
+
+    small = make_test_scene(96, 64, num_quads=8, with_refractive=True,
+                            device="cpu")
+    for kw in (dict(), dict(wavefront_sched="grow"),
+               dict(wavefront="recursive")):
+        cpu_img = render_image(small, RenderSettings(**kw))
+        gpu_img = render_image(small.to(device), RenderSettings(**kw)).cpu()
+        diff = float((cpu_img - gpu_img).abs().max())
+        print(f"[refract] small glass scene {kw or 'default'}, card vs CPU: "
+              f"max |diff| {diff:.3e}")
+        check(torch.allclose(gpu_img, cpu_img, rtol=1e-5, atol=1e-6),
+              f"small glass scene {kw} on the card disagrees with the CPU")
+
+    variants = (("scan", RenderSettings()),
+                ("grow", RenderSettings(wavefront_sched="grow")),
+                ("scan + compact_bounces",
+                 RenderSettings(compact_bounces=True)),
+                ("recursive", RenderSettings(wavefront="recursive")),
+                ("scan in 8 chunks", RenderSettings(chunk_pixels=1 << 18)))
+    for name, vst in variants:
+        torch.cuda.reset_peak_memory_stats()
+        wall, enq = host_ms(lambda: render_image(scene, vst))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        reset_launches()
+        dev_ms, dev_launches = profile_frame(
+            lambda: render_image(scene, vst), top=8 if name == "scan" else 0)
+        n = read_glass_launches()
+        print(f"[refract] forward frame, {name}: {wall:.3f} ms = "
+              f"{W * H / wall / 1e3:.3f} Mrays/s (host enqueue {enq:.3f} "
+              f"ms); profiled frame: device kernels {dev_ms:.3f} ms in "
+              f"{dev_launches} launches; closest hits "
+              f"{n['closest_hit'] + n['closest_hit_compact']}, glass passes "
+              f"{n['occlusion_w_glass']}, host syncs "
+              f"{n['march_host_syncs']}; peak {peak:.3f} GiB")
+
+    # gradients through refraction
+    reset_launches()
+    value, grads = image_sum_grads(scene, keys=GLASS_TRAINED)
+    torch.cuda.synchronize()
+    g_launches = read_glass_launches()
+    print(f"[refract] value_and_grad of the glass image sum: value "
+          f"{float(value):.6e}; launches {g_launches}")
+    check(g_launches["segsum"] == bounces
+          and g_launches["occlusion_w_glass"] == bounces,
+          f"the glass backward launched {g_launches}")
+    for k, gk in grads.items():
+        check(bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
+              f"glass d/d{k} is not finite and non-zero")
+    _, ref_grads = image_sum_grads(scene, RenderSettings(backend="bruteforce"),
+                                   keys=GLASS_TRAINED)
+    assert_grads_close("glass, cluster vs bruteforce backend", grads,
+                       ref_grads, rtol=1e-3, atol_scale=1e-4)
+    del ref_grads
+    for name, vst in (("scan", RenderSettings()),
+                      ("scan + remat_shading",
+                       RenderSettings(remat_shading=True)),
+                      ("grow", RenderSettings(wavefront_sched="grow"))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        wall, enq = host_ms(
+            lambda: image_sum_grads(scene, vst, keys=GLASS_TRAINED), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[refract] forward+backward frame, {name}: {wall:.3f} ms = "
+              f"{W * H / wall / 1e3:.3f} Mrays/s (host enqueue {enq:.3f} "
+              f"ms); peak {peak:.3f} GiB")
+    _, remat = image_sum_grads(scene, RenderSettings(remat_shading=True),
+                               keys=GLASS_TRAINED)
+    assert_grads_close("glass, remat_shading vs not", remat, grads,
+                       rtol=1e-4, atol_scale=1e-5)
+
+    # the small-table gather that feeds refraction: 65,536 triangles on one
+    # material, plain indexing (its backward is an index_put_ accumulate)
+    ior = torch.ones((3,), device=device, requires_grad=True)
+    mat = torch.zeros((65536,), dtype=torch.long, device=device)
+
+    def ior_gather():
+        ior.grad = None
+        ior[mat].sum().backward()
+
+    print(f"[refract] mat_ior[tri_material] at 65,536 triangles on one "
+          f"material, forward+backward: {cuda_ms(ior_gather):.3f} ms")
+    return launches, c_launches
+
+
 def phase_profile(device, frames=3):
     """torch.profiler over forward+backward frames of the benchmark scene."""
     from torch.profiler import ProfilerActivity, profile
@@ -722,20 +1214,42 @@ def main(argv=None) -> int:
     phase_scale(device)
     launches = phase_main_path(device)
     launches["segsum"] = phase_train(device)["segsum"]
+    stats.update(phase_glass_kernels(device))
+    glass, compact = phase_refract(device)
+    # the glass frame's own paths: the CLI render (glass-flag passes) and
+    # the render with compact_bounces (compacted launches).  No render path
+    # takes the uncapped member-masked mode: its one caller is
+    # trace.refr_ray_hit_w, the router's cross-check, whose launches are
+    # printed by [refract] and not counted here.
+    launches["occlusion_w_glass"] = glass["occlusion_w_glass"]
+    launches["closest_hit_compact"] = compact["closest_hit_compact"]
+    launches["occlusion_w_uncapped"] = (glass["occlusion_w_uncapped"]
+                                        + compact["occlusion_w_uncapped"])
+    off_path = ("occlusion_w_uncapped",)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     described = (
         ("closest_hit", "crt_tpu_torch/csrc/closest_hit.cu",
          "crt_tpu/ops/pallas_trace.py:655"),
         ("occlusion_w", "crt_tpu_torch/csrc/occlusion_w.cu",
          "crt_tpu/ops/pallas_trace.py:831"),
+        ("occlusion_w_glass", "crt_tpu_torch/csrc/occlusion_w.cu",
+         "crt_tpu/ops/pallas_trace.py:831"),
+        ("occlusion_w_uncapped", "crt_tpu_torch/csrc/occlusion_w.cu",
+         "crt_tpu/ops/pallas_trace.py:831"),
+        ("closest_hit_compact", "crt_tpu_torch/csrc/closest_hit.cu",
+         "crt_tpu/ops/pallas_trace.py:696"),
         ("segsum", "crt_tpu_torch/csrc/segsum.cu",
          "crt_tpu/ops/pallas_segsum.py:75"),
     )
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[n], **stats[n]}
+                "launches": launches[n], "on_a_render_path": n not in off_path,
+                **stats[n]}
                for n, src, rep in described]
-    check(all(k["launches"] > 0 for k in kernels),
+    check(all(k["launches"] > 0 for k in kernels
+              if k["on_a_render_path"]),
           f"a kernel was never launched on the main path: {launches}")
+    check(all(launches[n] == 0 for n in off_path),
+          f"a render path launched a mode that none should take: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

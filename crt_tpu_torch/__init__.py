@@ -3,12 +3,14 @@
 A second package beside ``crt_tpu`` (the JAX reference, which stays as it
 is).  It imports torch and numpy, never JAX and never ``crt_tpu``.  It
 renders the Whitted image and differentiates it: ``.crtscene`` loading,
-raygen in 32x32 pixel tiles, the binned cluster trace through two
-hand-written CUDA kernels (closest hit with emitted rows, w-form shadow
-occlusion), diffuse / reflective / constant shading with point-light
-shadows, gradients with respect to the scene's float tensors (the backward
-of the packed-row read is a third CUDA kernel, the segment sum), and
-``fit_scene``, the inverse-rendering loop.  Scenes are built on the card
+raygen in 32x32 pixel tiles, the binned cluster trace through
+hand-written CUDA kernels (closest hit with emitted rows, the same over
+the live tiles only, w-form shadow occlusion with its glass-router modes),
+diffuse / reflective / refractive / constant shading with point-light
+shadows that bend through glass, the iterative bank wavefront for
+branching trees, gradients with respect to the scene's float tensors (the
+backward of the packed-row read is another CUDA kernel, the segment sum),
+and ``fit_scene``, the inverse-rendering loop.  Scenes are built on the card
 unless the caller passes ``device="cpu"``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """

@@ -1,7 +1,9 @@
-// K1: binned closest hit with emitted packed rows.
+// K1: binned closest hit with emitted packed rows, and K4: the same over
+// the live tiles only.
 //
-// Replaces crt_tpu/ops/pallas_trace.py `_trace_kernel` (body
-// `_trace_tile_body`), launched there by `_closest_hit_binned`.
+// K1 replaces crt_tpu/ops/pallas_trace.py `_trace_kernel` (body
+// `_trace_tile_body`), launched there by `_closest_hit_binned`; K4 replaces
+// `_trace_kernel_compact`, launched by `_closest_hit_binned_compact`.
 //
 // What it computes: for each ray of a 1024-ray tile, the closest hit over
 // the tile's binned list of 16-triangle clusters, walked in list order.
@@ -18,32 +20,43 @@
 // stay resident in the 50 MB L2, and ray I/O is 24 bytes in, 8 + 4 kp out.
 //
 // What the design does about it: one thread per ray, 256-thread blocks,
-// grid (tile_rays / 256, tiles) so the four blocks of a tile walk the same
-// cluster list.  Each walked cluster is staged once per block into shared
-// memory (one global load per thread) and read back as broadcasts, so the
-// inner loop is pure register arithmetic with no divergence except the
-// winner bookkeeping.  A tile with an empty list writes the miss result
-// without touching the tables.  The TPU kernel's 0/1 masked-sum row select
-// becomes a plain copy of the winning slot's row: the same bits.
+// tile_rays / 256 consecutive blocks per tile, so the four blocks of a tile
+// walk the same cluster list.  Each walked cluster is staged once per block
+// into shared memory (one global load per thread) and read back as
+// broadcasts, so the inner loop is pure register arithmetic with no
+// divergence except the winner bookkeeping.  A tile with an empty list
+// writes the miss result without touching the tables.  The TPU kernel's 0/1
+// masked-sum row select becomes a plain copy of the winning slot's row: the
+// same bits.
+//
+// K4 (live-tile compaction).  A sparse wavefront (a bounce pool whose banks
+// are mostly dead) leaves most tiles with an empty list.  `tile_ids` is a
+// permutation of the tiles with the `n_live` live ones first, built on the
+// device; block group p takes tile tile_ids[p], so the blocks that have a
+// walk to do are scheduled first and together.  Origins are read from tile
+// tile_ids[p] % tile_mod when tile_mod > 0 (per-light shadow tiles share
+// one copy of the pixel origins).  The grid covers every tile and reads
+// n_live on the device, so the launch needs no device-to-host read: group
+// p >= n_live writes its dead tile's miss result (t = +inf, tri = -1, rows
+// 0) and returns.  The walk is K1's, so the outputs are K1's bit for bit.
 
 #include "cluster_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(
+// The walk of one block over its tile's list: rays `r_o` (origin) and `r`
+// (direction, outputs), list and count of `tile`.
+__device__ __forceinline__ void walk_tile(
+    ClusterSmem& s, long long r_o, long long r, int tile,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ n, const float* __restrict__ nv0,
     const float* __restrict__ m, const float* __restrict__ c,
     const float* __restrict__ nobf, const int* __restrict__ tid,
     const int* __restrict__ cluster_list, const int* __restrict__ counts,
-    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
-    int kp, long long num_rays, float* __restrict__ best_t_out,
+    const float* __restrict__ rows_table, int num_clusters, int kp,
+    long long num_rays, float* __restrict__ best_t_out,
     int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
-  __shared__ ClusterSmem s;
-  const int tile = blockIdx.y;
-  const long long r = (long long)tile * tile_rays +
-                      (long long)blockIdx.x * CRT_BLOCK + threadIdx.x;
-  const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
+  const float ox = o[3 * r_o], oy = o[3 * r_o + 1], oz = o[3 * r_o + 2];
   const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
   const int count = counts[tile];
   const int* list = cluster_list + (long long)tile * num_clusters;
@@ -86,10 +99,58 @@ __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(
   }
 }
 
+__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ n, const float* __restrict__ nv0,
+    const float* __restrict__ m, const float* __restrict__ c,
+    const float* __restrict__ nobf, const int* __restrict__ tid,
+    const int* __restrict__ cluster_list, const int* __restrict__ counts,
+    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
+    int kp, long long num_rays, float* __restrict__ best_t_out,
+    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
+  __shared__ ClusterSmem s;
+  const int blocks_per_tile = tile_rays / CRT_BLOCK;
+  const int tile = blockIdx.x / blocks_per_tile;
+  const long long r = (long long)blockIdx.x * CRT_BLOCK + threadIdx.x;
+  walk_tile(s, r, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
+            counts, rows_table, num_clusters, kp, num_rays, best_t_out,
+            best_tri_out, rows_out);
+}
+
+__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_compact_kernel(
+    const int* __restrict__ n_live, const int* __restrict__ tile_ids,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ n, const float* __restrict__ nv0,
+    const float* __restrict__ m, const float* __restrict__ c,
+    const float* __restrict__ nobf, const int* __restrict__ tid,
+    const int* __restrict__ cluster_list, const int* __restrict__ counts,
+    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
+    int tile_mod, int kp, long long num_rays, float* __restrict__ best_t_out,
+    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
+  __shared__ ClusterSmem s;
+  const int blocks_per_tile = tile_rays / CRT_BLOCK;
+  const int group = blockIdx.x / blocks_per_tile;
+  const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
+  const int tile = tile_ids[group];
+  const long long r = (long long)tile * tile_rays + lane;
+  if (group >= n_live[0]) {  // a dead tile: the miss result, no walk
+    best_t_out[r] = CUDART_INF_F;
+    best_tri_out[r] = -1;
+    for (int k = 0; k < kp; ++k) rows_out[(long long)k * num_rays + r] = 0.0f;
+    return;
+  }
+  const int o_tile = tile_mod > 0 ? tile % tile_mod : tile;
+  const long long r_o = (long long)o_tile * tile_rays + lane;
+  walk_tile(s, r_o, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
+            counts, rows_table, num_clusters, kp, num_rays, best_t_out,
+            best_tri_out, rows_out);
+}
+
 }  // namespace
 
-// Host entry, bound with ctypes.  All pointers are device pointers on the
-// device that owns `stream`.  Returns cudaGetLastError() after the launch.
+// Host entries, bound with ctypes.  All pointers are device pointers on the
+// device that owns `stream`.  Each returns cudaGetLastError() after the
+// launch.
 extern "C" int crt_closest_hit(
     const float* o, const float* d, const float* n, const float* nv0,
     const float* m, const float* c, const float* nobf, const int* tid,
@@ -98,10 +159,32 @@ extern "C" int crt_closest_hit(
     int* best_tri, float* rows_out, void* stream) {
   if (num_tiles <= 0) return 0;
   if (tile_rays % CRT_BLOCK != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(tile_rays / CRT_BLOCK, num_tiles);
+  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const long long num_rays = (long long)num_tiles * tile_rays;
-  closest_hit_kernel<<<grid, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
+  closest_hit_kernel<<<(unsigned)blocks, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
       o, d, n, nv0, m, c, nobf, tid, cluster_list, counts, rows_table,
       num_clusters, tile_rays, kp, num_rays, best_t, best_tri, rows_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crt_closest_hit_compact(
+    const int* n_live, const int* tile_ids, const float* o, const float* d,
+    const float* n, const float* nv0, const float* m, const float* c,
+    const float* nobf, const int* tid, const int* cluster_list,
+    const int* counts, const float* rows_table, int num_clusters,
+    int num_tiles, int tile_rays, int tile_mod, int kp,
+    float* best_t, int* best_tri, float* rows_out, void* stream) {
+  if (num_tiles <= 0) return 0;
+  if (tile_rays % CRT_BLOCK != 0 || tile_mod < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long num_rays = (long long)num_tiles * tile_rays;
+  closest_hit_compact_kernel<<<(unsigned)blocks, CRT_BLOCK, 0,
+                               (cudaStream_t)stream>>>(
+      n_live, tile_ids, o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
+      rows_table, num_clusters, tile_rays, tile_mod, kp, num_rays, best_t,
+      best_tri, rows_out);
   return (int)cudaGetLastError();
 }

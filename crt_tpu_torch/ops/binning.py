@@ -193,7 +193,8 @@ def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
 
 
 def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
-                    tile_rays: int = TILE_RAYS, origin_slack: float = 0.0):
+                    tile_rays: int = TILE_RAYS, origin_slack: float = 0.0,
+                    boxes=None, capped: bool = True, glass_boxes=None):
     """Light-side shaft binning of a point-light shadow wavefront.
 
     Every shadow ray of a tile runs from its biased origin to one light
@@ -203,6 +204,15 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
     2-D wedges.  Origin boxes are reduced once over the R pixel lanes
     (union-of-lights active mask) and shared by every light.
 
+    ``boxes`` ((cl_min, cl_max)) overrides the cluster boxes, e.g. with the
+    refractive-member-only boxes of ``glass_subset`` (clusters without a
+    member carry +-3.4e38 boxes and are never admitted).  ``capped=False``
+    drops the beyond-the-light cap: the shaft becomes the unbounded cone
+    from the light through the origin box, tested by the slab alone with
+    the lower clamp dropped.  ``glass_boxes`` adds, to the capped lists, the
+    clusters whose glass members the full ray can reach (the one-pass march
+    router walks the union).
+
     shadow_o: [R, 3] biased per-pixel origins; active: [Ll, R] bool.
     Returns (cluster_list [Ll*tpl, L], counts [Ll*tpl]), light-major.
     """
@@ -210,6 +220,8 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
     R = shadow_o.shape[0]
     tpl = R // tile_rays
     big = torch.full((), _INF, dtype=shadow_o.dtype, device=shadow_o.device)
+    cl_min, cl_max = boxes if boxes is not None else (tables.cl_min,
+                                                      tables.cl_max)
 
     o = shadow_o.reshape(tpl, tile_rays, 3)
     a_any = active.any(dim=0).reshape(tpl, tile_rays, 1)
@@ -224,12 +236,19 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
     apex = lp.expand(Ll, tpl, 3).reshape(-1, 3)
     cap = float(torch.tensor(1.0 + 1e-4, dtype=torch.float32))
     mask = _frustum_box_mask(
-        apex, apex, w_lo, w_hi,
-        tables.cl_min - 2.0 * s, tables.cl_max + 2.0 * s, t_cap=cap,
+        apex, apex, w_lo, w_hi, cl_min - 2.0 * s, cl_max + 2.0 * s,
+        t_cap=cap, t_lo_clamp=capped,
     )
-    mask = mask & _apex_cone_mask(apex, w_lo, w_hi, tables.cl_min,
-                                  tables.cl_max, s)
-    mask = mask & _apex_wedge_mask(apex, w_lo, w_hi, tables.cl_min,
-                                   tables.cl_max, s)
+    if capped:  # cone and wedge assume the t >= 0 side of the light
+        mask = mask & _apex_cone_mask(apex, w_lo, w_hi, cl_min, cl_max, s)
+        mask = mask & _apex_wedge_mask(apex, w_lo, w_hi, cl_min, cl_max, s)
+    if glass_boxes is not None:
+        # the added clusters lie beyond the cap, so they can add glass
+        # flags but no s <= 1 blockers
+        glo, ghi = glass_boxes
+        mask = mask | _frustum_box_mask(
+            apex, apex, w_lo, w_hi, glo - 2.0 * s, ghi + 2.0 * s,
+            t_cap=cap, t_lo_clamp=False,
+        )
     mask = mask & tile_any[:, None]
     return _compact(mask)

@@ -2,10 +2,11 @@
 
 Counterpart of the table half of ``crt_tpu/ops/pallas_trace.py``
 (``ClusterTables``, ``morton_order``, ``build_cluster_tables``,
-``emit_rows_table``).  Triangles are sorted by the 30-bit Morton code of
-their centroid and grouped into consecutive clusters of 16; every triangle
-is in exactly one cluster.  Each slot holds the plane + three half-space
-test constants; pad slots can never be hit (zero normal, c = 1).
+``emit_rows_table``, ``_glass_subset``).  Triangles are sorted by the
+30-bit Morton code of their centroid and grouped into consecutive clusters
+of 16; every triangle is in exactly one cluster.  Each slot holds the plane
++ three half-space test constants; pad slots can never be hit (zero normal,
+c = 1).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.shade import build_packed
+from crt_tpu_torch.scene.types import MATERIAL_REFRACTIVE
 
 TILE_RAYS = 1024  # rays per binned tile (32x32 pixels)
 CLUSTER_SIZE = 16  # triangles per cluster
@@ -136,6 +138,24 @@ def build_cluster_tables(scene) -> ClusterTables:
         cl_max=cl_max,
         rank=rank,
     )
+
+
+def glass_subset(scene, tables: ClusterTables):
+    """The refractive members of the tables -> (member mask [L, S] f32,
+    gmin [L, 3], gmax [L, 3]): 1.0 on slots that hold a refractive
+    triangle, and each cluster's box over those members alone.  A cluster
+    with no glass carries the box (+3.4e38, -3.4e38), which no binning
+    test admits."""
+    inf = 3.4e38
+    ids = torch.clamp(tables.tri_id, min=0).long()
+    padm = tables.tri_id < 0
+    is_glass = (scene.mat_type[scene.tri_material.long()]
+                == MATERIAL_REFRACTIVE)[ids] & ~padm  # [L, S]
+    pts = scene.vertices.detach()[scene.tri_vidx.long()[ids]]  # [L, S, 3, 3]
+    g = is_glass[..., None, None]
+    gmin = torch.where(g, pts, pts.new_full((), inf)).amin(dim=(1, 2))
+    gmax = torch.where(g, pts, pts.new_full((), -inf)).amax(dim=(1, 2))
+    return is_glass.to(torch.float32).contiguous(), gmin, gmax
 
 
 def emit_rows_table(scene, tables: ClusterTables) -> torch.Tensor:

@@ -5,17 +5,23 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
   - ``closest_hit`` (K1, ``csrc/closest_hit.cu``) replaces
     ``_trace_kernel`` / ``_trace_tile_body`` as launched by
     ``_closest_hit_binned``, with emitted packed rows;
+  - ``closest_hit_compact`` (K4, ``csrc/closest_hit.cu``) replaces
+    ``_trace_kernel_compact`` as launched by
+    ``_closest_hit_binned_compact``: K1 over the live tiles;
   - ``occlusion_w`` (K2, ``csrc/occlusion_w.cu``) replaces
     ``_occl_kernel_compact_w`` as launched by
-    ``_occluded_binned_compact_w`` (capped mode);
+    ``_occluded_binned_compact_w``, in its capped, ``capped=False``,
+    member-masked and glass-flag modes;
   - ``make_cluster_trace_fn`` replaces ``make_pallas_trace_fn``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version, in this module, only for CPU tensors.
 The plain versions walk the same lists in the same order with the same
 arithmetic, so on the card the kernels must match them bit for bit.
-``closest_hit_launches`` / ``occlusion_w_launches`` count kernel launches
-(CUDA launches only; the plain versions do not count).
+``closest_hit_launches`` / ``closest_hit_compact_launches`` /
+``occlusion_w_launches`` count kernel launches (CUDA launches only; the
+plain versions do not count); ``occlusion_w_mode_launches`` splits the last
+by mode.
 """
 
 from __future__ import annotations
@@ -29,13 +35,16 @@ from crt_tpu_torch.ops.cluster_tables import (
     ClusterTables,
     build_cluster_tables,
     emit_rows_table,
+    glass_subset,
 )
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
 
 _BIGID = 2**30
-# Launch counts of the two kernels (plain module-level integers).
+# Launch counts of the kernels (plain module-level integers).
 closest_hit_launches = 0
-occlusion_w_launches = 0
+closest_hit_compact_launches = 0
+occlusion_w_launches = 0  # every mode
+occlusion_w_mode_launches = {"capped": 0, "uncapped": 0, "glass": 0}
 
 # Tiles per step of the plain versions: bounds their [tiles, 16, TR]
 # temporaries (~64 MB each at 1024-ray tiles) on the card.
@@ -46,10 +55,10 @@ _PLAIN_TILE_CHUNK = 1024
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _member_t(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
-    """[nt, 16, TR] hit distance of every member of clusters ``cl`` ([nt])
-    for the rays of each tile (components [nt, 1, TR]); +inf where not hit.
-    The op order of csrc/cluster_common.cuh member_t."""
+def _member_hit(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
+    """([nt, 16, TR] hit at t >= 0, its t) of every member of clusters
+    ``cl`` ([nt]) for the rays of each tile (components [nt, 1, TR]).  The
+    op order of csrc/cluster_common.cuh member_hit."""
     n = tables.n[cl]  # [nt, 16, 3]
     nx, ny, nz = n[..., 0:1], n[..., 1:2], n[..., 2:3]
     nd = nx * dx + ny * dy + nz * dz
@@ -67,6 +76,12 @@ def _member_t(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
         md = mx * dx + my * dy + mz * dz
         mo = mx * ox + my * oy + mz * oz
         valid = valid & ((mo - c[..., e:e + 1]) + t * md >= 0.0)
+    return valid, t
+
+
+def _member_t(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
+    """[nt, 16, TR] hit distance of every member; +inf where not hit."""
+    valid, t = _member_hit(tables, cl, ox, oy, oz, dx, dy, dz)
     return torch.where(valid, t, torch.full_like(t, float("inf")))
 
 
@@ -122,16 +137,52 @@ def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
     return best_t.reshape(-1), best_tri.reshape(-1), rows
 
 
+def closest_hit_compact_plain(tables: ClusterTables, origins, dirs,
+                              cluster_list, counts, rows_table=None,
+                              tile_mod: int = 0):
+    """Plain version of ``closest_hit_compact``: the live tiles (counts >
+    0) are gathered to the front, walked by ``closest_hit_plain``, and
+    scattered back over a miss-filled result.  ``origins`` holds
+    ``tile_mod`` tiles when ``tile_mod`` is given, and tile i reads origin
+    tile i % tile_mod."""
+    tiles = counts.shape[0]
+    dev = dirs.device
+    R = tiles * TILE_RAYS
+    live = counts > 0
+    order = torch.argsort((~live).to(torch.int32), stable=True)
+    n_live = int(live.sum())
+    ids = order[:n_live]
+    o_ids = ids % tile_mod if tile_mod else ids
+    lanes = torch.arange(TILE_RAYS, device=dev)
+    t = torch.full((R,), float("inf"), device=dev)
+    tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    rows = None
+    if rows_table is not None:
+        rows = torch.zeros((rows_table.shape[-1], R), device=dev)
+    if n_live:
+        r = (ids[:, None] * TILE_RAYS + lanes).reshape(-1)
+        r_o = (o_ids[:, None] * TILE_RAYS + lanes).reshape(-1)
+        lt, ltri, lrows = closest_hit_plain(
+            tables, origins[r_o], dirs[r], cluster_list[ids], counts[ids],
+            rows_table)
+        t[r], tri[r] = lt, ltri
+        if rows is not None:
+            rows[:, r] = lrows
+    return t, tri, rows
+
+
 def occlusion_w_plain(tables: ClusterTables, shadow_o, point, light_positions,
-                      cluster_list, counts):
-    """Plain version of ``occlusion_w``: loop over walk positions,
-    vectorized over tiles x 16 members x lanes."""
+                      cluster_list, counts, capped: bool = True,
+                      member_mask=None, glass_flag: bool = False):
+    """Plain version of ``occlusion_w`` with the same mode arguments: loop
+    over walk positions, vectorized over tiles x 16 members x lanes."""
     tpl = shadow_o.shape[0] // TILE_RAYS
     tiles = counts.shape[0]
     dev = shadow_o.device
     o_tiles = shadow_o.reshape(tpl, TILE_RAYS, 3)
     p_tiles = point.reshape(tpl, TILE_RAYS, 3)
     blocked = torch.zeros((tiles, TILE_RAYS), dtype=torch.bool, device=dev)
+    glass = torch.zeros_like(blocked) if glass_flag else None
     for s in range(0, tiles, _PLAIN_TILE_CHUNK):
         e = min(s + _PLAIN_TILE_CHUNK, tiles)
         nt = e - s
@@ -144,12 +195,25 @@ def occlusion_w_plain(tables: ClusterTables, shadow_o, point, light_positions,
         wz = apex[:, 2, None, None] - pz
         cnt = counts[s:e]
         blk = blocked[s:e]
+        gls = glass[s:e] if glass_flag else None
         for i in range(int(cnt.max()) if nt else 0):
             live = cnt > i
             cl = cluster_list[s:e, i].long()
-            tt = _member_t(tables, cl, ox, oy, oz, wx, wy, wz)
-            blk = blk | ((tt <= 1.0).any(dim=1) & live[:, None])
+            base, tt = _member_hit(tables, cl, ox, oy, oz, wx, wy, wz)
+            in_subset = None
+            if member_mask is not None:
+                in_subset = (member_mask[cl] > 0.5)[..., None]  # [nt, 16, 1]
+            if in_subset is not None and not glass_flag:
+                base = base & in_subset
+            hit = base & (tt <= 1.0) if capped else base
+            blk = blk | (hit.any(dim=1) & live[:, None])
+            if glass_flag:
+                gls = gls | ((base & in_subset).any(dim=1) & live[:, None])
         blocked[s:e] = blk
+        if glass_flag:
+            glass[s:e] = gls
+    if glass_flag:
+        return blocked.reshape(-1), glass.reshape(-1)
     return blocked.reshape(-1)
 
 
@@ -207,6 +271,18 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _check_rows_table(rows_table, L, device) -> int:
+    if rows_table is None:
+        return 0
+    kp = rows_table.shape[-1]
+    _require(rows_table.device == device
+             and rows_table.dtype == torch.float32
+             and rows_table.is_contiguous()
+             and tuple(rows_table.shape) == (L, CLUSTER_SIZE, kp),
+             f"rows_table must be a contiguous float32 [{L}, 16, Kp]")
+    return kp
+
+
 def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
                 rows_table=None):
     """K1: closest hit of each ray over its tile's binned cluster list.
@@ -224,14 +300,7 @@ def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
     _check_rays("dirs", dirs, dev, R)
     _check_tables(tables, dev)
     _check_lists(cluster_list, counts, tiles, L, dev)
-    kp = 0
-    if rows_table is not None:
-        kp = rows_table.shape[-1]
-        _require(rows_table.device == dev
-                 and rows_table.dtype == torch.float32
-                 and rows_table.is_contiguous()
-                 and tuple(rows_table.shape) == (L, CLUSTER_SIZE, kp),
-                 f"rows_table must be a contiguous float32 [{L}, 16, Kp]")
+    kp = _check_rows_table(rows_table, L, dev)
 
     if dev.type == "cpu":
         return closest_hit_plain(tables, origins, dirs, cluster_list, counts,
@@ -266,14 +335,94 @@ def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
     return best_t, best_tri, rows
 
 
+def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
+                        counts, rows_table=None, tile_mod: int = 0):
+    """K4: ``closest_hit`` launched over the live tiles (counts > 0).
+
+    A live-first tile permutation and the live count are built on the
+    device from ``counts``; tiles with an empty list get the miss result
+    (t = inf, tri = -1, rows 0).  With ``tile_mod`` > 0 ``origins`` is
+    [tile_mod * TILE_RAYS, 3] and tile i reads origin tile i % tile_mod.
+    The launch covers every tile and reads the live count on the device,
+    so it needs no device-to-host read.  Outputs equal ``closest_hit``'s
+    on the same lists bit for bit.
+    """
+    dev = dirs.device
+    R = dirs.shape[0]
+    _require(R % TILE_RAYS == 0, f"R must be a multiple of {TILE_RAYS}")
+    tiles = R // TILE_RAYS
+    L = tables.n.shape[0]
+    _require(tile_mod >= 0 and (tile_mod == 0 or tiles % tile_mod == 0),
+             "tile_mod must divide the tile count")
+    _check_rays("origins", origins, dev,
+                tile_mod * TILE_RAYS if tile_mod else R)
+    _check_rays("dirs", dirs, dev, R)
+    _check_tables(tables, dev)
+    _check_lists(cluster_list, counts, tiles, L, dev)
+    kp = _check_rows_table(rows_table, L, dev)
+
+    if dev.type == "cpu":
+        return closest_hit_compact_plain(tables, origins, dirs, cluster_list,
+                                         counts, rows_table, tile_mod)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"closest_hit_compact has no kernel for {dev}")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    live = counts > 0
+    n_live = live.sum(dtype=torch.int32).reshape(1)
+    tile_ids = torch.argsort((~live).to(torch.int32),
+                             stable=True).to(torch.int32)
+    best_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    best_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    rows = (torch.empty((kp, R), dtype=torch.float32, device=dev)
+            if kp else None)
+    if tiles:
+        with torch.cuda.device(dev):
+            err = lib.crt_closest_hit_compact(
+                n_live.data_ptr(), tile_ids.data_ptr(),
+                origins.data_ptr(), dirs.data_ptr(), tables.n.data_ptr(),
+                tables.nv0.data_ptr(), tables.m.data_ptr(),
+                tables.c.data_ptr(), tables.nobf.data_ptr(),
+                tables.tri_id.data_ptr(), cluster_list.data_ptr(),
+                counts.data_ptr(),
+                rows_table.data_ptr() if kp else None,
+                L, tiles, TILE_RAYS, tile_mod, kp,
+                best_t.data_ptr(), best_tri.data_ptr(),
+                rows.data_ptr() if kp else None,
+                _cuda_stream(dev),
+            )
+        _raise_on(err, "closest_hit_compact")
+        global closest_hit_compact_launches
+        closest_hit_compact_launches += 1
+    return best_t, best_tri, rows
+
+
+def occlusion_mode(capped: bool, glass_flag: bool) -> str:
+    """The name ``occlusion_w_mode_launches`` counts a launch under."""
+    if glass_flag:
+        return "glass"
+    return "capped" if capped else "uncapped"
+
+
 def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
-                cluster_list, counts):
+                cluster_list, counts, capped: bool = True, member_mask=None,
+                glass_flag: bool = False):
     """K2: w-form shadow occlusion of Ll lights over R pixel lanes.
 
     shadow_o (biased origins), point (unbiased hit points): [R, 3] f32;
     light_positions [Ll, 3]; cluster_list [Ll*tpl, L] i32 and counts
     [Ll*tpl] i32 from bin_apex_shared.  Returns blocked [Ll*R] bool,
     light-major, False on tiles with an empty list.
+
+    ``capped=False`` drops the s <= 1 condition (any hit on the unbounded
+    ray).  ``member_mask`` ([L, 16] f32, 1.0 = in the subset) restricts
+    hits to a triangle subset.  ``glass_flag`` (needs ``member_mask``)
+    instead keeps every member in ``blocked`` and returns a second mask,
+    (blocked, glass): some member of the subset is hit anywhere on the
+    ray, uncapped.
     """
     dev = shadow_o.device
     R = shadow_o.shape[0]
@@ -286,10 +435,19 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
     _check_rays("light_positions", light_positions, dev, Ll)
     _check_tables(tables, dev)
     _check_lists(cluster_list, counts, Ll * tpl, L, dev)
+    _require(member_mask is not None or not glass_flag,
+             "glass_flag needs the member mask of the glass subset")
+    if member_mask is not None:
+        _require(member_mask.device == dev
+                 and member_mask.dtype == torch.float32
+                 and member_mask.is_contiguous()
+                 and tuple(member_mask.shape) == (L, CLUSTER_SIZE),
+                 f"member_mask must be a contiguous float32 [{L}, 16]")
 
     if dev.type == "cpu":
         return occlusion_w_plain(tables, shadow_o, point, light_positions,
-                                 cluster_list, counts)
+                                 cluster_list, counts, capped, member_mask,
+                                 glass_flag)
     if dev.type != "cuda":
         raise NotImplementedError(f"occlusion_w has no kernel for {dev}")
 
@@ -297,6 +455,8 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
 
     lib, _ = cuda_lib.load()
     occ = torch.empty((Ll * R,), dtype=torch.bool, device=dev)
+    glass = (torch.empty((Ll * R,), dtype=torch.bool, device=dev)
+             if glass_flag else None)
     if Ll * tpl:
         with torch.cuda.device(dev):
             err = lib.crt_occlusion_w(
@@ -304,21 +464,27 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
                 light_positions.data_ptr(), tables.n.data_ptr(),
                 tables.nv0.data_ptr(), tables.m.data_ptr(),
                 tables.c.data_ptr(), tables.nobf.data_ptr(),
+                member_mask.data_ptr() if member_mask is not None else None,
                 cluster_list.data_ptr(), counts.data_ptr(),
                 L, Ll * tpl, tpl, TILE_RAYS,
-                occ.data_ptr(), _cuda_stream(dev),
+                int(capped), int(member_mask is not None and not glass_flag),
+                int(glass_flag),
+                occ.data_ptr(),
+                glass.data_ptr() if glass_flag else None,
+                _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_w")
         global occlusion_w_launches
         occlusion_w_launches += 1
-    return occ
+        occlusion_w_mode_launches[occlusion_mode(capped, glass_flag)] += 1
+    return (occ, glass) if glass_flag else occ
 
 
 # ---------------------------------------------------------------------------
 # The trace factory
 # ---------------------------------------------------------------------------
 
-def make_cluster_trace_fn(scene):
+def make_cluster_trace_fn(scene, compact_masked: bool = False):
     """trace_fn factory for the cluster backend (``make_pallas_trace_fn``).
 
     ``trace(o, d, active=None) -> Hit``; ``trace.with_rows(o, d, active)
@@ -328,9 +494,19 @@ def make_cluster_trace_fn(scene):
     not a tile multiple); ``trace.rank`` is the tables' triangle id ->
     slot rank map.  Rays are padded to a tile multiple with
     direction (0, 0, -1) and inactive lanes, as the JAX factory does.
+
+    ``compact_masked`` sends every trace that comes with an ``active``
+    mask through the live-tile compacted kernel (``closest_hit_compact``).
+    A scene with refractive materials also gets, with the arguments of
+    ``shadow_apex_w``, ``trace.shadow_apex_w_glass -> (occluded, glass)``
+    (the one-pass march router: the capped occlusion bits plus "some
+    refractive member lies anywhere on the unbounded ray") and
+    ``trace.refr_ray_hit_w -> glass`` (the same flag from a separate
+    uncapped pass over the refractive members alone).
     """
     tables = build_cluster_tables(scene)
     rows_table_cache = []
+    glass_cache = []
 
     def _trace_impl(origins, dirs, active, want_rows):
         batch_shape = origins.shape[:-1]
@@ -354,8 +530,10 @@ def make_cluster_trace_fn(scene):
                 rows_table_cache.append(emit_rows_table(scene, tables))
             rows_table = rows_table_cache[0]
         cluster_list, counts = bin_rays(tables, o, d, TILE_RAYS, a)
-        t, tri, rows = closest_hit(tables, o, d, cluster_list, counts,
-                                   rows_table)
+        launcher = (closest_hit_compact if compact_masked and a is not None
+                    else closest_hit)
+        t, tri, rows = launcher(tables, o, d, cluster_list, counts,
+                                rows_table)
         hit = Hit(t=t[:R].reshape(batch_shape),
                   tri=tri[:R].reshape(batch_shape))
         if want_rows:
@@ -369,23 +547,64 @@ def make_cluster_trace_fn(scene):
         """(Hit, rows [K+1, R]): kernel-emitted packed rows + slot rank."""
         return _trace_impl(origins, dirs, active, True)
 
-    def shadow_apex_w(point, shadow_o, light_positions, active, origin_slack):
-        """Occlusion masks with in-kernel shadow directions -> [Ll, R]."""
+    def _shadow_w(point, shadow_o, light_positions, active, origin_slack,
+                  capped=True, masked=False, glass_flag=False):
+        """Bin the shadow shafts and run K2 in one mode -> [Ll, R] masks."""
         Ll, R = active.shape
         if R % TILE_RAYS:
             return None  # caller falls back to the generic shadow trace
         shadow_o = shadow_o.detach().contiguous()
         point = point.detach().contiguous()
         light_positions = light_positions.detach().contiguous()
+        gm = None
+        bin_kw = {}
+        if masked or glass_flag:
+            if not glass_cache:
+                glass_cache.append(glass_subset(scene, tables))
+            gm, gmin, gmax = glass_cache[0]
+            if glass_flag:
+                bin_kw = dict(glass_boxes=(gmin, gmax))
+            else:
+                bin_kw = dict(boxes=(gmin, gmax), capped=capped)
         cluster_list, counts = bin_apex_shared(
             tables, shadow_o, light_positions, active, TILE_RAYS,
-            origin_slack,
+            origin_slack, **bin_kw,
         )
-        occ = occlusion_w(tables, shadow_o, point, light_positions,
-                          cluster_list, counts)
-        return occ.reshape(Ll, R)
+        out = occlusion_w(tables, shadow_o, point, light_positions,
+                          cluster_list, counts, capped, gm, glass_flag)
+        if glass_flag:
+            return out[0].reshape(Ll, R), out[1].reshape(Ll, R)
+        return out.reshape(Ll, R)
+
+    def shadow_apex_w(point, shadow_o, light_positions, active, origin_slack):
+        """Occlusion masks with in-kernel shadow directions -> [Ll, R]."""
+        return _shadow_w(point, shadow_o, light_positions, active,
+                         origin_slack)
+
+    def shadow_apex_w_glass(point, shadow_o, light_positions, active,
+                            origin_slack):
+        """One K2 pass -> (occluded [Ll, R], glass_on_ray [Ll, R]): the
+        bits of ``shadow_apex_w`` plus "some refractive member is hit
+        anywhere on the unbounded ray".  The bend-walk this routes around
+        bends at glass even beyond the light, so the lists are the union
+        of the capped shaft hull and the uncapped glass-member reach, and
+        the glass accumulator drops the s <= 1 cap."""
+        return _shadow_w(point, shadow_o, light_positions, active,
+                         origin_slack, glass_flag=True)
+
+    def refr_ray_hit_w(point, shadow_o, light_positions, active,
+                       origin_slack):
+        """[Ll, R] bool: can the uncapped shadow ray touch refractive
+        geometry?  A separate any-hit pass over the refractive members
+        alone, binned against their boxes with no cap: the independent
+        check of ``shadow_apex_w_glass``'s second output."""
+        return _shadow_w(point, shadow_o, light_positions, active,
+                         origin_slack, capped=False, masked=True)
 
     trace.with_rows = trace_with_rows
     trace.shadow_apex_w = shadow_apex_w
+    if scene.has_materials and scene.has_refractive:
+        trace.shadow_apex_w_glass = shadow_apex_w_glass
+        trace.refr_ray_hit_w = refr_ray_hit_w
     trace.rank = tables.rank
     return trace

@@ -101,7 +101,9 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crt_closest_hit.argtypes = [p] * 11 + [i] * 4 + [p] * 4
     lib.crt_closest_hit.restype = i
-    lib.crt_occlusion_w.argtypes = [p] * 10 + [i] * 4 + [p] * 2
+    lib.crt_closest_hit_compact.argtypes = [p] * 13 + [i] * 5 + [p] * 4
+    lib.crt_closest_hit_compact.restype = i
+    lib.crt_occlusion_w.argtypes = [p] * 11 + [i] * 7 + [p] * 3
     lib.crt_occlusion_w.restype = i
     lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]
     lib.crt_segment_accumulate.restype = i

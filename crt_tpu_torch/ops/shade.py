@@ -14,8 +14,16 @@ bounce recurses into the next level with an active mask.
   - ``head_compat``: no shadows, the unconditional divide by
     ``diffuse_reflection_ray_count + 1``, the Hadamard y typo
 
-Refractive materials (ROADMAP A7) and GI (ROADMAP A8) raise
-``NotImplementedError``.
+  - refractive: the Fresnel blend of the reflected and the refracted
+    ray about the (possibly flipped) normal, the full reflection on total
+    internal reflection, black when refractions are off; shadow rays bend
+    through glass (the transmissive march of ``_occlusion_masks``)
+
+This module holds the unrolled recursion (``wavefront="recursive"``); the
+iterative bank wavefront that refractive scenes take by default is
+``ops/shade_iter.py``, which shares ``hit_attributes`` and
+``_occlusion_masks``.  GI (ROADMAP A8), bitmap textures (A9) and AOVs (A10)
+raise ``NotImplementedError``.
 
 Gradient contract: hit ids, material / texture codes and occlusion masks
 are constants (every trace sees detached geometry and rays); everything
@@ -43,6 +51,7 @@ from crt_tpu_torch.scene.types import (
     MATERIAL_CONSTANT,
     MATERIAL_DIFFUSE,
     MATERIAL_REFLECTIVE,
+    MATERIAL_REFRACTIVE,
     TEXTURE_BITMAP,
     TEXTURE_CHECKER,
     TEXTURE_EDGES,
@@ -52,6 +61,23 @@ _PI = math.pi
 
 # 07-era light direction for material-less scenes (see crt_tpu/ops/shade.py).
 ERA07_LIGHT_DIR = (0.3809265, 0.7244545, 0.5750355)
+
+# The transmissive shadow march of a refractive scene.  With the split, one
+# pass of the w-occlusion kernel in its glass-flag mode routes the shadow
+# lanes: those whose ray meets no glass take its occlusion bits, and only
+# the glass-suspect ones pay the bend-walk.  With the narrowing, that walk
+# runs over the live 1024-lane blocks only.  Both are bit-exact and on;
+# the tests switch them off to hold them to the full-width march.
+_MARCH_SPLIT = True
+_MARCH_NARROW = True
+_MARCH_BLOCK = 1024  # the pixel-tile quantum (renderer.TILE_H * TILE_W)
+
+# Device-to-host reads made by the march (the live-block gather and the
+# "any lane still marching" test of each step) and the closest-hit traces it
+# ran (one per segment): plain counters, reset and read by whoever wants
+# them per frame.
+march_host_syncs = 0
+march_traces = 0
 
 
 class HitAttributes(NamedTuple):
@@ -72,9 +98,6 @@ class HitAttributes(NamedTuple):
 
 def check_supported(scene, settings=None) -> None:
     """Raise NotImplementedError for a scene or setting outside the slice."""
-    if scene.has_refractive:
-        raise NotImplementedError(
-            "refractive materials are not ported yet (ROADMAP A7)")
     if scene.gi_on:
         raise NotImplementedError("GI is not ported yet (ROADMAP A8)")
     if TEXTURE_BITMAP in scene.texture_types_present:
@@ -84,9 +107,6 @@ def check_supported(scene, settings=None) -> None:
         return
     if settings.aov:
         raise NotImplementedError("AOV passes are not ported yet (ROADMAP A10)")
-    if settings.wavefront == "iter":
-        raise NotImplementedError(
-            "the iterative bank wavefront is not ported yet (ROADMAP A7)")
 
 
 def _needs_uv(scene) -> bool:
@@ -256,15 +276,143 @@ def _hadamard(albedo, color, hadamard_y: bool):
     return out
 
 
+def light_sum(scene, illuminated, light_dir, r2, normal):
+    """Direct-light radiance weight per ray -> [R]: the sum over lights of
+    intensity / (4 pi r^2) * max(0, L.N) where lit, lights added in
+    order."""
+    cos_law = torch.clamp(vecmath.dot(light_dir, normal[None]), min=0.0)
+    sphere_area = 4.0 * _PI * r2
+    terms = torch.where(
+        illuminated,
+        scene.light_intensity[:, None] / sphere_area * cos_law,
+        torch.zeros_like(r2),
+    )  # [Ll, R]
+    lum = terms[0]
+    for k in range(1, terms.shape[0]):
+        lum = lum + terms[k]
+    return lum
+
+
+def march_table(scene) -> torch.Tensor:
+    """[5, T] constants of the transmissive march, one column gather per
+    step: the face normal (rows 0-2), "is refractive" (row 3), the ior
+    (row 4).  Constants: the march decides visibility only."""
+    verts = scene.vertices.detach()
+    tv = scene.tri_vidx.long()
+    v0, v1, v2 = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
+    face_n = vecmath.safe_normalize(vecmath.cross(v1 - v0, v2 - v0))
+    mat = scene.tri_material.long()
+    return torch.cat([
+        face_n.T,
+        (scene.mat_type[mat] == MATERIAL_REFRACTIVE).to(torch.float32)[None],
+        scene.mat_ior.detach()[mat][None],
+    ], dim=0)
+
+
+def _march_step(trace_fn, march_tab, refraction_bias, carry):
+    """One segment of the bend-walk: trace the marching lanes, record the
+    hit, and bend the lanes that hit glass (total internal reflection
+    stops a lane: the glass surface occludes)."""
+    global march_traces
+    o, d, alive, last_valid, last_t = carry
+    march_traces += 1
+    sh = trace_fn(o, d, alive)
+    tri = torch.clamp(sh.tri, min=0).long()
+    hit_valid = sh.valid & alive
+
+    last_valid = torch.where(alive, sh.valid, last_valid)
+    last_t = torch.where(
+        alive, torch.where(sh.valid, sh.t, torch.zeros_like(sh.t)), last_t)
+
+    mrows = march_tab[:, tri]  # [5, N]
+    face_n = mrows[0:3].movedim(0, -1)
+    is_refr = hit_valid & (mrows[3] > 0.5)
+    ior = mrows[4]
+
+    exiting = vecmath.dot(d, face_n) > 0.0
+    n_eff = torch.where(exiting[..., None], -face_n, face_n)
+    one = torch.ones_like(ior)
+    new_d, ok = vecmath.refract(d, n_eff, torch.where(exiting, ior, one),
+                                torch.where(exiting, one, ior))
+
+    hit_point = o + d * sh.t[..., None]
+    cont = is_refr & ok
+    o = torch.where(cont[..., None], hit_point - n_eff * refraction_bias, o)
+    d = torch.where(cont[..., None], new_d, d)
+    return o, d, cont, last_valid, last_t
+
+
+def _run_march(trace_fn, march_tab, refraction_bias, max_ray_depth, o, d,
+               alive):
+    """The bend-walk at any wavefront width -> (last_valid, last_t): the
+    last hit of each lane, its distance along the last bent segment.  A
+    step past the first runs only while some lane still marches (the
+    marching set only shrinks), which is one device-to-host read each."""
+    global march_host_syncs
+    carry = (o, d, alive, torch.zeros_like(alive),
+             torch.zeros(alive.shape, dtype=torch.float32, device=o.device))
+    carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
+    for _ in range(max_ray_depth):
+        march_host_syncs += 1
+        if not bool(carry[2].any()):
+            break
+        carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
+    return carry[3], carry[4]
+
+
+def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
+                        shadow_o, d, act, narrow):
+    """(last_valid, last_t) of the shadow lanes ``act`` ([N]).  ``narrow``
+    gathers the 1024-lane blocks that hold a marching lane, walks those
+    and scatters back: every survivor of a step is a lane of ``act``, and
+    a block is a binning tile, so the narrow walk equals the full-width
+    one bit for bit."""
+    global march_host_syncs
+    N = act.shape[0]
+    if not narrow or N % _MARCH_BLOCK:
+        return _run_march(trace_fn, march_tab, refraction_bias,
+                          max_ray_depth, shadow_o, d, act)
+    n_blk = N // _MARCH_BLOCK
+    blk_live = act.reshape(n_blk, _MARCH_BLOCK).any(dim=1)
+    march_host_syncs += 1
+    idx = torch.nonzero(blk_live)[:, 0]  # sized by the data: a host read
+    last_valid = torch.zeros((n_blk, _MARCH_BLOCK), dtype=torch.bool,
+                             device=act.device)
+    last_t = torch.zeros((n_blk, _MARCH_BLOCK), dtype=torch.float32,
+                         device=act.device)
+    if idx.numel():
+        lv, lt = _run_march(
+            trace_fn, march_tab, refraction_bias, max_ray_depth,
+            shadow_o.reshape(n_blk, _MARCH_BLOCK, 3)[idx].reshape(-1, 3),
+            d.reshape(n_blk, _MARCH_BLOCK, 3)[idx].reshape(-1, 3),
+            act.reshape(n_blk, _MARCH_BLOCK)[idx].reshape(-1))
+        last_valid[idx] = lv.reshape(-1, _MARCH_BLOCK)
+        last_t[idx] = lt.reshape(-1, _MARCH_BLOCK)
+    return last_valid.reshape(-1), last_t.reshape(-1)
+
+
 def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
-                     shadow_bias, no_shadows, shadow_active):
+                     shadow_bias, no_shadows, shadow_active,
+                     max_ray_depth=3, refraction_bias=1e-2, march_tab=None):
     """is_illuminated per (light, ray), all lights in one batched pass.
 
     Returns (illuminated [Ll, R] bool, light_dir [Ll, R, 3], r2 [Ll, R]).
-    A trace with ``shadow_apex_w`` (the cluster backend) tests occlusion in
-    the kernel along the unnormalized w = light - point (s <= 1 is the
-    reference's t^2 <= r^2); any other trace takes the closest hit of the
-    stacked [Ll*R] shadow wavefront.
+    The mask is a constant: every trace here sees detached inputs.
+
+    Without live refraction, a trace with ``shadow_apex_w`` (the cluster
+    backend) tests occlusion in the kernel along the unnormalized w =
+    light - point (s <= 1 is the reference's t^2 <= r^2); any other trace
+    takes the closest hit of the stacked [Ll*R] shadow wavefront.
+
+    With it, shadow rays refract through glass and go on: each lane is
+    re-traced after bending at a refractive hit, up to ``max_ray_depth``
+    bends; total internal reflection or a non-refractive hit ends the
+    walk, and the last hit's distance along the last segment is held
+    against the original light distance.  A trace with
+    ``shadow_apex_w_glass`` first splits the lanes in one kernel pass:
+    lanes whose whole ray meets no glass (and whose light is farther than
+    1) take the kernel's occlusion bits, the rest march, over the live
+    1024-lane blocks only.
     """
     light_vec = light_positions[:, None, :] - point[None]  # [Ll, R, 3]
     r2 = vecmath.length_squared(light_vec)
@@ -278,26 +426,56 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     # from the binning mask.
     facing = vecmath.dot(light_dir, normal[None].expand_as(light_vec)) > 0.0
     act_lr = shadow_active[None] & facing.detach()  # [Ll, R]
+    transmissive = scene.has_refractive and scene.refractions_on
 
     apex_w_fn = getattr(trace_fn, "shadow_apex_w", None)
-    if apex_w_fn is not None and point.dim() == 2:
+    if apex_w_fn is not None and point.dim() == 2 and not transmissive:
         occluded = apex_w_fn(point.detach(), shadow_o_px.detach(),
                              light_positions.detach(), act_lr,
                              2.0 * shadow_bias)
         if occluded is not None:
             return ~occluded.reshape(r2.shape), light_dir, r2
 
-    # the occlusion mask is a constant: the shadow trace sees no graph
     shadow_o = shadow_o_px.detach().expand(light_vec.shape).reshape(-1, 3)
-    sh = trace_fn(shadow_o, light_dir.detach().reshape(-1, 3),
-                  act_lr.reshape(-1))
-    occluded = sh.valid & (sh.t * sh.t <= r2.detach().reshape(-1))
-    return ~occluded.reshape(r2.shape), light_dir, r2
+    d = light_dir.detach().reshape(-1, 3)
+    r2_flat = r2.detach().reshape(-1)
+    if not transmissive:
+        sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
+        occluded = sh.valid & (sh.t * sh.t <= r2_flat)
+        return ~occluded.reshape(r2.shape), light_dir, r2
+
+    act = act_lr.reshape(-1)
+    occ_opaque = opaque_act = None
+    glass_fn = getattr(trace_fn, "shadow_apex_w_glass", None)
+    if _MARCH_SPLIT and point.dim() == 2 and glass_fn is not None:
+        res = glass_fn(point.detach(), shadow_o_px.detach(),
+                       light_positions.detach(), act_lr, 2.0 * shadow_bias)
+        if res is not None:
+            occ_opaque, glass = res
+            # |w| < 1 is where the kernel's |n.w| parallel test is weaker
+            # than the walk's |n.d|: those lanes march whatever the flag
+            march_lr = act_lr & (glass | (r2.detach() <= 1.0))
+            opaque_act = act_lr & ~march_lr
+            act = march_lr.reshape(-1)
+
+    if march_tab is None:
+        march_tab = march_table(scene)
+    with torch.no_grad():
+        last_valid, last_t = _transmissive_march(
+            trace_fn, march_tab, refraction_bias, max_ray_depth, shadow_o,
+            d, act, narrow=_MARCH_NARROW and occ_opaque is not None)
+    occluded = (last_valid & (last_t * last_t <= r2_flat)).reshape(r2.shape)
+    if occ_opaque is not None:
+        # march verdicts on the glass-suspect lanes, kernel verdicts on the
+        # rest, each masked to its own part
+        occluded = occluded | (occ_opaque.reshape(r2.shape) & opaque_act)
+    return ~occluded, light_dir, r2
 
 
 def shade_wavefront(scene, settings, trace_fn, origins, dirs,
                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Shade a camera-ray wavefront -> [R, 3] linear colors.
+    """Shade a camera-ray wavefront -> [R, 3] linear colors, by the
+    unrolled recursion.
 
     ``trace_fn(origins, dirs, active) -> Hit`` is the intersection backend.
     ``active=False`` lanes (chunk padding) produce arbitrary colors the
@@ -307,10 +485,34 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
     if active is None:
         active = torch.ones(origins.shape[:-1], dtype=torch.bool,
                             device=origins.device)
-    return _shade_level(scene, settings, trace_fn, origins, dirs, 0, active)
+    march_tab = None
+    if scene.has_materials and scene.has_refractive and scene.refractions_on:
+        march_tab = march_table(scene)
+    return _shade_level(scene, settings, trace_fn, origins, dirs, 0, active,
+                        march_tab)
 
 
-def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active):
+def refraction_geometry(dirs, normal, ior, refraction_bias, point):
+    """What a refractive hit needs, shared by both wavefronts: the normal
+    flipped to face the incoming ray, the refracted direction with its
+    total-internal-reflection flag, and the refracted ray's origin."""
+    exiting = vecmath.dot(dirs, normal) > 0.0
+    refr_normal = torch.where(exiting[..., None], -normal, normal)
+    one = torch.ones_like(ior)
+    refr_dir, refr_ok = vecmath.refract(
+        dirs, refr_normal, torch.where(exiting, ior, one),
+        torch.where(exiting, one, ior))
+    refr_origin = point - refr_normal * refraction_bias
+    return refr_normal, refr_dir, refr_ok, refr_origin
+
+
+def fresnel_weight(dirs, refr_normal):
+    """0.5 * (1 + d.n)^5 about the (possibly flipped) normal -> [R]."""
+    return 0.5 * torch.pow(1.0 + vecmath.dot(dirs, refr_normal), 5.0)
+
+
+def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
+                 march_tab=None):
     """One unrolled recursion level -> color [R, 3]."""
     R = origins.shape[:-1]
     black = torch.zeros(R + (3,), dtype=torch.float32, device=origins.device)
@@ -339,19 +541,40 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active):
 
     is_diffuse = attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE)
     is_reflective = attrs.valid & (attrs.mat_type == MATERIAL_REFLECTIVE)
+    is_refractive = attrs.valid & (attrs.mat_type == MATERIAL_REFRACTIVE)
     is_constant = attrs.valid & (attrs.mat_type == MATERIAL_CONSTANT)
     normal = attrs.normal
     point = attrs.point
 
-    # ---- reflection batch (mirror lanes only; refraction is ROADMAP A7)
+    # ---- refractive geometry first: it feeds the shared reflection batch
+    want_refract = scene.has_refractive and scene.refractions_on
+    if want_refract:
+        refr_normal, refr_dir, refr_ok, refr_origin = refraction_geometry(
+            dirs, normal, attrs.ior, settings.refraction_bias, point)
+
+    # ---- shared reflection batch: reflective lanes reflect about the
+    # shading normal, refractive lanes about the (possibly flipped) one
     want_reflect = scene.has_reflective and scene.reflections_on
-    if want_reflect and depth < settings.max_ray_depth + 1:
-        refl_dir = vecmath.reflect(dirs, normal)
-        refl_origin = point + normal * settings.reflection_bias
+    if (want_reflect or want_refract) and depth < settings.max_ray_depth + 1:
+        n_eff = normal
+        refl_active = torch.zeros_like(active)
+        if want_reflect:
+            refl_active = refl_active | is_reflective
+        if want_refract:
+            n_eff = torch.where(is_refractive[..., None], refr_normal, normal)
+            refl_active = refl_active | is_refractive
+        refl_dir = vecmath.reflect(dirs, n_eff)
+        refl_origin = point + n_eff * settings.reflection_bias
         refl_color = _shade_level(scene, settings, trace_fn, refl_origin,
-                                  refl_dir, depth + 1, active & is_reflective)
+                                  refl_dir, depth + 1, active & refl_active,
+                                  march_tab)
     else:
         refl_color = black
+
+    if want_refract:
+        refr_color = _shade_level(
+            scene, settings, trace_fn, refr_origin, refr_dir, depth + 1,
+            active & is_refractive & refr_ok, march_tab)
 
     # ---- diffuse
     diffuse_color = black
@@ -360,18 +583,11 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active):
             scene, trace_fn, point, normal, scene.light_position,
             settings.shadow_bias, settings.no_shadows,
             shadow_active=active & is_diffuse,
+            max_ray_depth=settings.max_ray_depth,
+            refraction_bias=settings.refraction_bias, march_tab=march_tab,
         )  # [Ll, R](, 3)
-        cos_law = torch.clamp(vecmath.dot(light_dir, normal[None]), min=0.0)
-        sphere_area = 4.0 * _PI * r2
-        terms = torch.where(
-            illuminated,
-            scene.light_intensity[:, None] / sphere_area * cos_law,
-            torch.zeros_like(r2),
-        )  # [Ll, R]
-        lum = terms[0]
-        for k in range(1, terms.shape[0]):
-            lum = lum + terms[k]
-        diffuse_color = diffuse_color + albedo * lum[..., None]
+        diffuse_color = diffuse_color + albedo * light_sum(
+            scene, illuminated, light_dir, r2, normal)[..., None]
 
     if settings.gi_divide:
         diffuse_color = diffuse_color / (settings.diffuse_reflection_ray_count + 1)
@@ -382,10 +598,22 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active):
     else:
         reflective_color = albedo  # reflections off
 
+    # ---- refractive
+    if want_refract:
+        fresnel = fresnel_weight(dirs, refr_normal)[..., None]
+        blended = refl_color * fresnel + refr_color * (1.0 - fresnel)
+        # total internal reflection: all weight on the reflection
+        refractive_color = torch.where(refr_ok[..., None], blended,
+                                       refl_color)
+    else:
+        refractive_color = black  # refractions off
+
     color = torch.where(is_diffuse[..., None], diffuse_color,
                         scene.background_color)
     if scene.has_reflective:
         color = torch.where(is_reflective[..., None], reflective_color, color)
+    if scene.has_refractive:
+        color = torch.where(is_refractive[..., None], refractive_color, color)
     if scene.has_constant:
         color = torch.where(is_constant[..., None], albedo, color)
     return color

@@ -1,0 +1,338 @@
+"""Iterative bank-structured Whitted wavefront.
+
+Counterpart of ``crt_tpu/ops/shade_iter.py``.  The recursive wavefront of
+``ops/shade.py`` unrolls the call tree: a refractive scene traces
+2^depth wavefronts.  Here the tree becomes a depth-bounded iteration over
+a pool of B banks of R lanes, where slot (b, p) always belongs to pixel p:
+
+  - path radiance accumulates elementwise into a [B, R, 3] buffer and the
+    image is one sum over the banks, with no scatter-add;
+  - spawned children (the refractive Fresnel pair's reflection ray) only
+    move along the small bank axis: a child takes the lowest free bank of
+    its own column, matched by a cumulative count over [B, B, R];
+  - every bank keeps the renderer's pixel-tile ray order, so the trace
+    binning sees the same coherent 32x32 blocks as the primary pass.
+
+A lane carries its throughput (the product of per-bounce factors: the
+albedo of a mirror, fresnel and 1 - fresnel of the refractive pair), so the
+tree's bottom-up blend becomes a sum over root-to-leaf paths: the same
+radiance up to the order of f32 additions.
+
+Two schedules (``RenderSettings.wavefront_sched``): "scan" carries all B
+banks through D + 1 identical bounces; "grow" lets the pool grow 1 -> 2 ->
+4 -> B banks, folds the depth-D leaf children in without placing them and
+ends on a spawn-free bounce, so dead banks are never traced.  "auto" is
+scan (crt_tpu's choice for scenes without GI).
+
+Children that find no free bank in their column are dropped and counted.
+The default of 2^min(D, 3) banks drops none at depth <= 3.
+
+GI children, their random streams and the sharded pool are not ported
+(ROADMAP A8, A13).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from crt_tpu_torch.ops import vecmath
+from crt_tpu_torch.ops.shade import (
+    _occlusion_masks,
+    check_supported,
+    fresnel_weight,
+    hit_attributes,
+    light_sum,
+    march_table,
+    refraction_geometry,
+)
+from crt_tpu_torch.ops.texture import sample_textures
+from crt_tpu_torch.scene.types import (
+    MATERIAL_CONSTANT,
+    MATERIAL_DIFFUSE,
+    MATERIAL_REFLECTIVE,
+    MATERIAL_REFRACTIVE,
+)
+
+
+def default_banks(scene, settings) -> int:
+    """Pool bank count: ``wavefront_banks`` when set, else 2^min(D, 3) for
+    a scene with live refraction (beyond depth 3 the Fresnel tree is
+    starved of weight and the few drops are below noise) and 2 without."""
+    if settings.wavefront_banks:
+        return int(settings.wavefront_banks)
+    banks = 2 ** min(settings.max_ray_depth, 3)
+    if not (scene.has_refractive and scene.refractions_on):
+        banks = min(banks, 2)
+    return max(banks, 2)
+
+
+class _Pool(NamedTuple):
+    """The ray pool carried from bounce to bounce; leading dims [B, R]."""
+
+    o: torch.Tensor  # [B, R, 3] origins
+    d: torch.Tensor  # [B, R, 3] directions
+    w: torch.Tensor  # [B, R, 3] path throughput
+    act: torch.Tensor  # [B, R] bool
+    acc: torch.Tensor  # [B, R, 3] accumulated radiance
+    dropped: torch.Tensor  # [] i32 children lost to pool overflow
+
+
+def _place_children(pool_fields, dead, cand_act, cand_fields, dropped):
+    """Place per-lane spawned children into free banks of their own column.
+
+    ``dead`` [Bj, R]: free slots.  ``cand_act`` [Bi, R]: parent lanes
+    (bank i, column p) that spawn one child each into column p.  Children
+    fill the free slots in bank order; children beyond the free slots are
+    dropped and counted.  Bi and Bj may differ (the pool may have grown
+    between shading and placement).
+
+    Returns (new_fields, new_dead, placed [Bj, R], dropped).
+    """
+    dead_rank = torch.cumsum(dead.to(torch.int32), dim=0) - 1  # [Bj, R]
+    spawn_rank = torch.cumsum(cand_act.to(torch.int32), dim=0) - 1  # [Bi, R]
+    # match[i, j, p]: the child of bank i lands in free bank j of column p
+    match = (cand_act[:, None, :] & dead[None, :, :]
+             & (spawn_rank[:, None, :] == dead_rank[None, :, :]))
+    has_src = match.any(dim=0)  # [Bj, R] the slot receives a child
+    placed = has_src.sum(dtype=torch.int32)
+    spawned = cand_act.sum(dtype=torch.int32)
+    dropped = dropped + (spawned - placed)
+
+    # at most one source bank matches a slot: gather it (an exact copy)
+    src = match.to(torch.uint8).argmax(dim=0)  # [Bj, R]
+    out = []
+    for old, cand in zip(pool_fields, cand_fields):
+        g = torch.gather(cand, 0, src[..., None].expand(src.shape + (3,)))
+        out.append(torch.where(has_src[..., None], g, old))
+    return out, dead & ~has_src, has_src, dropped
+
+
+def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
+                         active: Optional[torch.Tensor] = None,
+                         banks: Optional[int] = None) -> torch.Tensor:
+    """Shade a camera wavefront iteratively -> [R, 3] linear colors."""
+    color, _ = shade_wavefront_iter_with_stats(
+        scene, settings, trace_fn, origins, dirs, active, banks)
+    return color
+
+
+def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
+                                    active=None, banks=None):
+    """Like ``shade_wavefront_iter``, and the count of dropped children."""
+    check_supported(scene)
+    R = origins.shape[0]
+    dev = origins.device
+    B = int(banks) if banks else default_banks(scene, settings)
+    D = settings.max_ray_depth
+    if active is None:
+        active = torch.ones((R,), dtype=torch.bool, device=dev)
+
+    want_refract = scene.has_refractive and scene.refractions_on
+    want_reflect = scene.has_reflective and scene.reflections_on
+    gi_scale = (1.0 / (settings.diffuse_reflection_ray_count + 1)
+                if settings.gi_divide else 1.0)
+    # One bounce leaves at most grow_f slots per parent lane in its column
+    # (the Fresnel pair: the continuation and one child), and the packer
+    # fills the lowest free banks first, so after bounce b every occupied
+    # bank index is below min(B, grow_f^(b+1)).
+    grow_f = 2 if want_refract else 1
+    march_tab = march_table(scene) if want_refract else None
+    rank = getattr(trace_fn, "rank", None)
+
+    def shade_local(o, d, act):
+        """Trace and the local (terminal) radiance of a flat wavefront:
+        what a ray at the depth limit contributes.  Background on a miss,
+        the albedo of a constant material (and of a mirror when
+        reflections are off), direct light on diffuse; mirrors and glass
+        otherwise add nothing here (their children would).
+
+        Returns (contrib [C, 3], attrs, albedo, masks)."""
+        hit = trace_fn(o, d, act)
+        attrs = hit_attributes(scene, o, d, hit, rank=rank)
+        valid = attrs.valid & act
+        miss = act & ~attrs.valid
+
+        albedo = sample_textures(scene, attrs.albedo_tex, attrs.uv,
+                                 attrs.bary_u, attrs.bary_v)
+        is_diffuse = valid & (attrs.mat_type == MATERIAL_DIFFUSE)
+        is_reflective = valid & (attrs.mat_type == MATERIAL_REFLECTIVE)
+        is_refractive = valid & (attrs.mat_type == MATERIAL_REFRACTIVE)
+        is_constant = valid & (attrs.mat_type == MATERIAL_CONSTANT)
+
+        contrib = torch.where(miss[..., None], scene.background_color,
+                              torch.zeros((), device=dev))
+        if scene.has_constant:
+            contrib = torch.where(is_constant[..., None], albedo, contrib)
+        if scene.has_reflective and not scene.reflections_on:
+            contrib = torch.where(is_reflective[..., None], albedo, contrib)
+
+        if scene.num_lights > 0:
+            illuminated, light_dir, r2 = _occlusion_masks(
+                scene, trace_fn, attrs.point, attrs.normal,
+                scene.light_position, settings.shadow_bias,
+                settings.no_shadows, shadow_active=is_diffuse,
+                max_ray_depth=settings.max_ray_depth,
+                refraction_bias=settings.refraction_bias,
+                march_tab=march_tab,
+            )
+            lum = light_sum(scene, illuminated, light_dir, r2, attrs.normal)
+            direct = albedo * lum[..., None]
+            contrib = torch.where(is_diffuse[..., None], direct * gi_scale,
+                                  contrib)
+        return contrib, attrs, albedo, (is_diffuse, is_reflective,
+                                        is_refractive)
+
+    def bounce(pool, grow_to=None, last=False, leaf_children=False):
+        """One wavefront bounce.
+
+        ``grow_to``: pad the pool to this many banks between shading and
+        child placement.  ``last``: the terminal bounce; every child would
+        shade beyond the depth limit, so only local radiance accumulates.
+        ``leaf_children``: this bounce's children are leaves (depth ==
+        max_ray_depth): their radiance is folded in by one masked trace
+        and local shade each instead of placing them, so the pool never
+        holds the widest tree level and starvation cannot drop them.
+        """
+        Bc = pool.o.shape[0]
+
+        def flat(x):
+            return x.reshape((Bc * R,) + x.shape[2:])
+
+        def unflat(x):
+            return x.reshape((Bc, R) + x.shape[1:])
+
+        o, d, act, w = flat(pool.o), flat(pool.d), flat(pool.act), flat(pool.w)
+        contrib, attrs, albedo, masks = shade_local(o, d, act)
+        _, is_reflective, is_refractive = masks
+        normal, point = attrs.normal, attrs.point
+        acc = pool.acc + unflat(w * contrib)
+        if last:
+            return pool._replace(act=torch.zeros_like(pool.act), acc=acc)
+
+        # ---- refractive geometry (feeds both children)
+        if want_refract:
+            refr_normal, refr_dir, refr_ok, refr_origin = refraction_geometry(
+                d, normal, attrs.ior, settings.refraction_bias, point)
+            fresnel = fresnel_weight(d, refr_normal)[..., None]
+            refl_r_dir = vecmath.reflect(d, refr_normal)
+            refl_r_origin = point + refr_normal * settings.reflection_bias
+
+        # ---- continuation in place: a mirror lane goes on as its mirror
+        # ray with weight * albedo, a glass lane as its refracted ray with
+        # weight * (1 - fresnel), or on total internal reflection as the
+        # reflection with its full weight
+        new_o, new_d, new_w = o, d, w
+        cont = torch.zeros_like(act)
+        if want_reflect:
+            albedo_eff = albedo
+            if settings.hadamard_y:
+                # (a (*) c) with the y typo == a' * c with a'.y = a.y^2
+                albedo_eff = torch.cat(
+                    [albedo[..., 0:1], albedo[..., 1:2] * albedo[..., 1:2],
+                     albedo[..., 2:3]], dim=-1)
+            m = is_reflective[..., None]
+            new_o = torch.where(
+                m, point + normal * settings.reflection_bias, new_o)
+            new_d = torch.where(m, vecmath.reflect(d, normal), new_d)
+            new_w = torch.where(m, w * albedo_eff, new_w)
+            cont = cont | is_reflective
+        if want_refract:
+            m = (is_refractive & refr_ok)[..., None]
+            new_o = torch.where(m, refr_origin, new_o)
+            new_d = torch.where(m, refr_dir, new_d)
+            new_w = torch.where(m, w * (1.0 - fresnel), new_w)
+            m = (is_refractive & ~refr_ok)[..., None]
+            new_o = torch.where(m, refl_r_origin, new_o)
+            new_d = torch.where(m, refl_r_dir, new_d)
+            cont = cont | is_refractive
+
+        if leaf_children:
+            leaf = torch.zeros_like(w)
+            if want_refract:
+                c = shade_local(refl_r_origin, refl_r_dir,
+                                is_refractive & refr_ok)[0]
+                leaf = leaf + (w * fresnel) * c
+            return _Pool(o=unflat(new_o), d=unflat(new_d), w=unflat(new_w),
+                         act=unflat(cont), acc=acc + unflat(leaf),
+                         dropped=pool.dropped)
+
+        pool_fields = [unflat(new_o), unflat(new_d), unflat(new_w)]
+        dead = ~unflat(cont)
+        act2 = unflat(cont)
+        dropped = pool.dropped
+        acc_out = acc
+
+        if grow_to is not None and grow_to > Bc:
+            # fresh dead banks for this bounce's children; their values
+            # are never consumed, d gets a unit vector to stay finite
+            pad = grow_to - Bc
+
+            def padb(x, fill):
+                p = torch.full((pad,) + x.shape[1:], fill, dtype=x.dtype,
+                               device=dev)
+                return torch.cat([x, p], dim=0)
+
+            pool_fields[0] = padb(pool_fields[0], 0.0)
+            d_pad = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(
+                pad, R, 3)
+            pool_fields[1] = torch.cat([pool_fields[1], d_pad], dim=0)
+            pool_fields[2] = padb(pool_fields[2], 0.0)
+            dead = padb(dead, True)
+            act2 = padb(act2, False)
+            acc_out = padb(acc, 0.0)
+
+        if want_refract:
+            # the Fresnel pair's reflection ray, weight * fresnel
+            cand = [unflat(refl_r_origin), unflat(refl_r_dir),
+                    unflat(w * fresnel)]
+            pool_fields, dead, placed, dropped = _place_children(
+                pool_fields, dead, unflat(is_refractive & refr_ok), cand,
+                dropped)
+            act2 = act2 | placed
+
+        return _Pool(o=pool_fields[0], d=pool_fields[1], w=pool_fields[2],
+                     act=act2, acc=acc_out, dropped=dropped)
+
+    def step(pool, **kw):
+        """A bounce; under ``remat_shading`` its intermediates are not
+        kept for the backward but recomputed there (the traces too), so a
+        backward holds the pool of every bounce and one bounce's graph."""
+        if not (settings.remat_shading and torch.is_grad_enabled()):
+            return bounce(pool, **kw)
+        return _Pool(*checkpoint(
+            lambda *fields: tuple(bounce(_Pool(*fields), **kw)), *pool,
+            use_reentrant=False))
+
+    def init_pool(nbanks):
+        act = torch.zeros((nbanks, R), dtype=torch.bool, device=dev)
+        act[0] = active
+        return _Pool(
+            o=origins[None].expand(nbanks, R, 3),
+            d=dirs[None].expand(nbanks, R, 3),
+            w=torch.ones((nbanks, R, 3), dtype=torch.float32, device=dev),
+            act=act,
+            acc=torch.zeros((nbanks, R, 3), dtype=torch.float32, device=dev),
+            dropped=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    if settings.wavefront_sched == "grow":
+        pool = init_pool(1)
+        width = 1
+        for b in range(D + 1):
+            is_last = b == D
+            leaf = b == D - 1  # this bounce's children are depth-D leaves
+            g = width if (is_last or leaf) else min(B, width * grow_f)
+            pool = step(pool, grow_to=g, last=is_last, leaf_children=leaf)
+            width = max(width, g)
+    else:
+        pool = init_pool(B)
+        for _ in range(D + 1):
+            pool = step(pool)
+
+    acc = pool.acc[0]
+    for b in range(1, pool.acc.shape[0]):
+        acc = acc + pool.acc[b]
+    return acc, pool.dropped

@@ -72,6 +72,29 @@ def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return v - n * (2.0 * dot(v, n))[..., None]
 
 
+def refract(v: torch.Tensor, n: torch.Tensor, outside_ior: torch.Tensor,
+            inside_ior: torch.Tensor):
+    """Snell refraction of unit direction v at unit normal n, which faces
+    the incoming side (callers flip it when the ray leaves a volume).
+
+    Returns ``(direction, ok)``; ``ok`` is False on total internal
+    reflection (``sin_alpha > inside_ior / outside_ior``), and those lanes
+    hold a safe dummy direction.
+    """
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    cos_alpha = -dot(v, n)
+    sin_alpha = sqrt(torch.maximum(zero, 1.0 - cos_alpha * cos_alpha))
+    ok = sin_alpha <= inside_ior / outside_ior
+
+    sin_beta = sin_alpha * outside_ior / inside_ior
+    sin_beta = torch.minimum(sin_beta, zero + 1.0)  # guard masked lanes
+    cos_beta = sqrt(torch.maximum(zero, 1.0 - sin_beta * sin_beta))
+
+    tangent = safe_normalize(v + n * cos_alpha[..., None])
+    out = tangent * sin_beta[..., None] - n * cos_beta[..., None]
+    return out, ok
+
+
 def rotate_rows(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Row-vector times row-major matrix, ``v @ M``, written elementwise so
     it stays in full fp32 on every device (no TF32 matmul path).

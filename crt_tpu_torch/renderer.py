@@ -4,8 +4,10 @@ Counterpart of ``crt_tpu/renderer.py``.  ``render_image(scene, settings)``
 renders a [height, width, 3] linear-color image on the device that holds
 the scene's tensors: the pixel wavefront in 32x32 tile order, the closest
 hit through the cluster backend (its CUDA kernels on a CUDA scene, their
-plain versions on a CPU scene) or the all-pairs backend, and the unrolled
-Whitted shading.  The image is differentiable with respect to the scene's
+plain versions on a CPU scene) or the all-pairs backend, and the Whitted
+shading: the unrolled recursion for linear trees, the iterative bank
+wavefront (``ops/shade_iter.py``) for branching ones (live refraction at
+depth >= 2).  The image is differentiable with respect to the scene's
 float tensors; the backward of the packed-row read is the segment-sum
 kernel (``ops/segsum.py``).
 """
@@ -17,6 +19,7 @@ import torch
 from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops import intersect as intersect_ops
 from crt_tpu_torch.ops.shade import check_supported, shade_wavefront
+from crt_tpu_torch.ops.shade_iter import default_banks, shade_wavefront_iter
 from crt_tpu_torch.scene.types import RenderSettings, Scene
 
 # Wavefront pixel-tile shape: consecutive runs of TILE_H * TILE_W rays are
@@ -25,6 +28,29 @@ TILE_H = 32
 TILE_W = 32
 
 _CLUSTER_BACKENDS = ("auto", "cluster", "pallas")
+
+# Pool lanes (banks x pixels) the iterative wavefront shades per chunk when
+# ``chunk_pixels`` is not set and the frame casts shadow rays; four times as
+# many when it casts none.  Sized for an 80 GB card from the peaks that
+# chip_smoke.py reads on an NVIDIA H100 80GB HBM3 (700 W): a 1080p frame at
+# 8 banks (16.7 M lanes) peaks at 7.0 GiB forward and 45.8 GiB
+# forward+backward, and fewer, wider chunks are faster.  So 2^24 lanes keep
+# such a frame in one chunk and leave room for its backward; twice as many
+# would not.  (``remat_shading`` cuts the backward's peak to about a third.)
+ITER_POOL_LANES = 1 << 24
+
+
+def use_iterative_wavefront(scene: Scene, settings: RenderSettings) -> bool:
+    """Shading-strategy policy: the iterative bank wavefront for branching
+    Whitted trees (live refraction at depth >= 2), the unrolled recursion
+    for linear ones (diffuse and constant: one level; mirrors: a chain).
+    ``settings.wavefront`` "iter" / "recursive" overrides."""
+    if settings.wavefront == "iter":
+        return True
+    if settings.wavefront == "recursive":
+        return False
+    return (scene.has_refractive and scene.refractions_on
+            and settings.max_ray_depth >= 2)
 
 
 def make_trace_fn(scene: Scene, settings: RenderSettings):
@@ -48,7 +74,8 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
     if backend in _CLUSTER_BACKENDS:
         from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
 
-        return make_cluster_trace_fn(scene)
+        return make_cluster_trace_fn(
+            scene, compact_masked=settings.compact_bounces)
     if backend == "bruteforce":
         tri = intersect_ops.build_triangle_data(
             scene.vertices.detach(), scene.tri_vidx,
@@ -110,10 +137,17 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
     )
     origins = origins.contiguous()
     trace_fn = make_trace_fn(scene, settings)
+    use_iter = use_iterative_wavefront(scene, settings)
+    shade_fn = shade_wavefront_iter if use_iter else shade_wavefront
 
     R = origins.shape[0]
     tile_sz = TILE_H * TILE_W
     chunk = settings.chunk_pixels
+    if use_iter and not chunk:
+        # the pool multiplies every per-bounce buffer by its bank count
+        shadow_traces = scene.num_lights > 0 and not settings.no_shadows
+        budget = ITER_POOL_LANES if shadow_traces else 4 * ITER_POOL_LANES
+        chunk = max(tile_sz, budget // default_banks(scene, settings))
     if chunk and chunk < R:
         chunk = max(tile_sz, (chunk // tile_sz) * tile_sz)
         pad = (-R) % chunk
@@ -124,12 +158,12 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
             dirs = torch.cat([dirs, dirs[:pad]])
             act = torch.cat([act, act.new_zeros(pad)])
         color = torch.cat([
-            shade_wavefront(scene, settings, trace_fn, origins[s:s + chunk],
-                            dirs[s:s + chunk], act[s:s + chunk])
+            shade_fn(scene, settings, trace_fn, origins[s:s + chunk],
+                     dirs[s:s + chunk], act[s:s + chunk])
             for s in range(0, R + pad, chunk)
         ])[:R]
     else:
-        color = shade_wavefront(scene, settings, trace_fn, origins, dirs)
+        color = shade_fn(scene, settings, trace_fn, origins, dirs)
     return untile(color)
 
 

@@ -185,11 +185,18 @@ class RenderSettings:
     unconditional GI divide, the Hadamard y typo).  ``backend``: "auto" and
     "cluster" are the binned cluster trace (its CUDA kernels on a CUDA
     scene, their plain versions on a CPU scene); "pallas" is an alias of
-    "cluster"; "bruteforce" is the all-pairs backend.  Fields that only
-    tune the TPU package (``compact_bounces``, ``shadow_tile_rays``,
-    ``remat_shading``, ``fused_light_vjp``, ``stream_shadow_k``,
-    ``wavefront_banks``, ``wavefront_sched``) change no output of this
-    slice and are accepted as no-ops.
+    "cluster"; "bruteforce" is the all-pairs backend.  ``wavefront``: "auto" takes the
+    iterative bank wavefront for a scene with live refraction at depth >= 2
+    and the unrolled recursion otherwise; "iter" / "recursive" force one.
+    ``wavefront_banks`` overrides the pool's bank count (0: 2^min(depth, 3)
+    with glass), ``wavefront_sched`` picks its schedule ("scan", "grow";
+    "auto" is scan).  ``compact_bounces`` sends every masked trace through
+    the live-tile compacted closest-hit kernel (the same image, bit for
+    bit).  ``remat_shading`` keeps no graph of an iterative bounce and runs
+    it again in the backward (the same gradients, less memory).  Fields
+    that only tune the TPU package (``shadow_tile_rays``,
+    ``fused_light_vjp``, ``stream_shadow_k``) change no output and are
+    accepted as no-ops.
     """
 
     max_ray_depth: int = DEFAULT_MAX_RAY_DEPTH

@@ -7,6 +7,7 @@ contracts no multiply-add into an FMA.  Cluster lists must be identical
 entry for entry: the walk order decides exact-t ties.
 """
 
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,21 +21,13 @@ from crt_tpu.scene.procedural import make_test_scene as jmake_test_scene
 from crt_tpu_torch.ops import binning as tbin
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.scene.procedural import make_test_scene
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 SCENES = {
     "default": dict(width=64, height=36, num_quads=8),
     "edges": dict(width=96, height=64, num_quads=16, with_edges=True),
+    "glass": dict(width=64, height=32, num_quads=6, with_refractive=True),
 }
 
 
@@ -127,6 +120,53 @@ def test_bin_apex_shared_identical(wavefronts, slack):
     _assert_lists_equal(jout, tout)
     # some tiles are culled to an empty list, some are not
     assert (tout[1] == 0).any() and (tout[1] > 0).any()
+
+
+def _jax_glass_subset(js, jt):
+    """crt_tpu's ``_glass_subset`` (a closure of its trace factory), written
+    out: the refractive-member mask and the member-only cluster boxes."""
+    ids = jnp.maximum(jt.tri_id, 0)
+    is_glass = (js.mat_type[js.tri_material] == 2)[ids] & (jt.tri_id >= 0)
+    pts = js.vertices[js.tri_vidx[ids]]
+    g = is_glass[..., None, None]
+    return (is_glass.astype(jnp.float32),
+            jnp.where(g, pts, 3.4e38).min(axis=(1, 2)),
+            jnp.where(g, pts, -3.4e38).max(axis=(1, 2)))
+
+
+@pytest.mark.parametrize("option", ["glass_boxes", "boxes_uncapped",
+                                    "boxes_capped", "uncapped"])
+def test_bin_apex_shared_options_identical(wavefronts, option):
+    """The options of the glass router and its gate: lists and counts equal
+    crt_tpu's entry for entry, on every scene (a scene without glass has
+    +-3.4e38 member boxes, which the capped test never admits)."""
+    js, ts = wavefronts["js"], wavefronts["ts"]
+    jt, tt = jpt.build_cluster_tables(js), tct.build_cluster_tables(ts)
+    so, lights, act = wavefronts["shadow"]
+    jgm, jlo, jhi = _jax_glass_subset(js, jt)
+    tgm, tlo, thi = tct.glass_subset(ts, tt)
+    for a, b in ((jgm, tgm), (jlo, tlo), (jhi, thi)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    jkw, tkw = {
+        "glass_boxes": (dict(glass_boxes=(jlo, jhi)),
+                        dict(glass_boxes=(tlo, thi))),
+        "boxes_uncapped": (dict(boxes=(jlo, jhi), capped=False),
+                           dict(boxes=(tlo, thi), capped=False)),
+        "boxes_capped": (dict(boxes=(jlo, jhi)), dict(boxes=(tlo, thi))),
+        "uncapped": (dict(capped=False), dict(capped=False)),
+    }[option]
+    jout = jpt.bin_apex_shared(jt, jnp.asarray(so), jnp.asarray(lights),
+                               jnp.asarray(act), 1024, 2e-2, **jkw)
+    tout = tbin.bin_apex_shared(tt, T(so), T(lights), T(act), 1024, 2e-2,
+                                **tkw)
+    _assert_lists_equal(jout, tout)
+    capped = tbin.bin_apex_shared(tt, T(so), T(lights), T(act), 1024, 2e-2)
+    if option in ("glass_boxes", "uncapped"):
+        assert (tout[1] >= capped[1]).all()  # a union, a dropped cap
+    elif ts.has_refractive:
+        assert (tout[1] > 0).any()
+    elif option == "boxes_capped":
+        assert (tout[1] == 0).all()
 
 
 @pytest.mark.parametrize("t_lo_clamp", [True, False])

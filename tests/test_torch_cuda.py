@@ -97,6 +97,185 @@ def test_occlusion_w_kernel_matches_plain(device):
     assert k.any() and not k.all()
 
 
+def _shadow_wavefront(scene, tables):
+    """(shadow_o, point, lights, act [Ll, R]) behind the primary hits."""
+    o, d = _wavefront(scene)
+    t, tri, _ = cluster_trace.closest_hit(
+        tables, o, d, *binning.bin_rays(tables, o, d, 1024))
+    valid = tri >= 0
+    point = (o + d * torch.where(valid, t, 0.0)[:, None]).contiguous()
+    up = torch.tensor([0.0, 1.0, 0.0], device=o.device)
+    act = torch.stack([valid, valid & (point[:, 0] > 0)])
+    return ((point + 0.01 * up).contiguous(), point,
+            scene.light_position.contiguous(), act)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("mode", ["glass", "glass_uncapped",
+                                  "uncapped_masked", "uncapped",
+                                  "capped_masked"])
+def test_occlusion_w_modes_match_plain(device, mode, sparse):
+    """Every mode of the w-occlusion kernel vs its plain version, lane for
+    lane, on a full and on a tile-sparse shadow wavefront (three tiles in
+    four switched off, so most blocks take the empty-list exit)."""
+    scene = make_test_scene(192, 128, num_quads=24, with_refractive=True,
+                            device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
+    shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    if sparse:
+        tile = torch.arange(act.shape[1], device=device) // 1024
+        act = act & (tile % 4 == 0)
+    kw = dict(glass=dict(member_mask=gm, glass_flag=True),
+              glass_uncapped=dict(capped=False, member_mask=gm,
+                                  glass_flag=True),
+              uncapped_masked=dict(capped=False, member_mask=gm),
+              uncapped=dict(capped=False),
+              capped_masked=dict(member_mask=gm))[mode]
+    bin_kw = dict(glass=dict(glass_boxes=(gmin, gmax)),
+                  glass_uncapped=dict(glass_boxes=(gmin, gmax)),
+                  uncapped_masked=dict(boxes=(gmin, gmax), capped=False),
+                  uncapped=dict(capped=False),
+                  capped_masked=dict(boxes=(gmin, gmax)))[mode]
+    cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                      0.02, **bin_kw)
+    name = cluster_trace.occlusion_mode(kw.get("capped", True),
+                                        kw.get("glass_flag", False))
+    before = dict(cluster_trace.occlusion_w_mode_launches)
+    k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt,
+                                  **kw)
+    after = cluster_trace.occlusion_w_mode_launches
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
+                                        cnt, **kw)
+    torch.cuda.synchronize()
+    if mode.startswith("glass"):
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert k[1].any() and not k[1].all()
+        k = k[0]
+    else:
+        assert torch.equal(k, p)
+    assert k.any() and not k.all()
+    if sparse:
+        assert (cnt == 0).sum() >= cnt.numel() // 2
+        dead = (cnt == 0).repeat_interleave(1024)
+        assert not k[dead].any()
+
+
+def test_glass_flag_found_behind_an_opaque_blocker(device):
+    """A lane blocked by an opaque triangle of an early cluster still finds
+    the glass of a later one: the walk may leave only when the lane is
+    blocked and flagged."""
+    from crt_tpu_torch import scene_from_dict
+
+    def tri(x, y, z, mat):
+        return {"material_index": mat, "triangles": [0, 1, 2],
+                "vertices": [x - 3, y, z - 3, x + 3, y, z - 3, x, y, z + 3]}
+
+    # 16 opaque slabs at y = 1 fill cluster 0 (x sorts first), one glass
+    # slab at y = 2 lands in cluster 1; the light sits above both
+    objects = [tri(-0.5 + 0.001 * i, 1.0, 0.0, 0) for i in range(16)]
+    objects.append(tri(4.0, 2.0, 0.0, 1))
+    objects.append(tri(0.0, 2.0, 0.0, 1))
+    scene = scene_from_dict({
+        "settings": {"background_color": [0, 0, 0],
+                     "image_settings": {"width": 32, "height": 32}},
+        "camera": {"matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1],
+                   "position": [0, 0, 5]},
+        "lights": [{"intensity": 10, "position": [0, 5, 0]}],
+        "materials": [{"type": "diffuse", "albedo": [1, 1, 1],
+                       "smooth_shading": False},
+                      {"type": "refractive", "ior": 1.5,
+                       "smooth_shading": False}],
+        "objects": objects}, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
+    assert not gm[0].any() and gm[1].any()
+    g = torch.linspace(-0.4, 0.4, 32, device=device)
+    x, z = torch.meshgrid(g, g, indexing="ij")
+    point = torch.stack([x.reshape(-1), torch.zeros(1024, device=device),
+                         z.reshape(-1)], dim=-1).contiguous()
+    shadow_o = (point + torch.tensor([0.0, 0.01, 0.0], device=device)
+                ).contiguous()
+    lights = scene.light_position.contiguous()
+    act = torch.ones((1, 1024), dtype=torch.bool, device=device)
+    cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                      0.02, glass_boxes=(gmin, gmax))
+    assert cl[0, :2].tolist() == [0, 1] and int(cnt[0]) == 2
+    occ, glass = cluster_trace.occlusion_w(
+        tables, shadow_o, point, lights, cl, cnt, member_mask=gm,
+        glass_flag=True)
+    p_occ, p_glass = cluster_trace.occlusion_w_plain(
+        tables, shadow_o, point, lights, cl, cnt, member_mask=gm,
+        glass_flag=True)
+    assert occ.all() and glass.all()
+    assert torch.equal(occ, p_occ) and torch.equal(glass, p_glass)
+
+
+@pytest.mark.parametrize("case", ["rows", "tile_mod", "all_dead"])
+def test_closest_hit_compact_matches_plain_and_k1(device, case):
+    """K4 vs its plain version and vs K1 on the same lists, bit for bit:
+    with emitted rows on a tile-sparse masked wavefront, with wrapped
+    origin tiles, and with no live tile at all."""
+    scene = make_test_scene(192, 128, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    o, d = _wavefront(scene)
+    R = o.shape[0]
+    lane = torch.arange(R, device=device)
+    act = (lane % 3 != 0) & ((lane // 1024) % 3 == 0)
+    tile_mod = 0
+    o_full = o
+    if case == "tile_mod":
+        tile_mod = R // 1024
+        d = torch.cat([d, d.flip(0)]).contiguous()
+        act = torch.cat([act, ~act])
+        o_full = torch.cat([o, o]).contiguous()
+        rows_table = None
+    elif case == "all_dead":
+        act = torch.zeros_like(act)
+    cl, cnt = binning.bin_rays(tables, o_full, d, 1024, act)
+    before = (cluster_trace.closest_hit_compact_launches,
+              cluster_trace.closest_hit_launches)
+    k = cluster_trace.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
+                                          tile_mod=tile_mod)
+    assert (cluster_trace.closest_hit_compact_launches,
+            cluster_trace.closest_hit_launches) == (before[0] + 1, before[1])
+    p = cluster_trace.closest_hit_compact_plain(tables, o, d, cl, cnt,
+                                                rows_table, tile_mod)
+    k1 = cluster_trace.closest_hit(tables, o_full, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    for got, plain, one in zip(k, p, k1):
+        if got is not None:
+            assert torch.equal(got, plain) and torch.equal(got, one)
+    if case == "all_dead":
+        assert (k[1] == -1).all() and torch.isinf(k[0]).all()
+    else:
+        assert (k[1] >= 0).any() and (cnt == 0).any()
+
+
+@pytest.mark.parametrize("settings", [
+    dict(), dict(wavefront_sched="grow"), dict(wavefront="recursive"),
+    dict(compact_bounces=True)])
+def test_refractive_render_on_card_matches_cpu(device, settings):
+    """A small glass scene, card vs CPU, through each wavefront; the same
+    tolerance as the opaque render above."""
+    scene = make_test_scene(96, 64, num_quads=8, with_refractive=True,
+                            device="cpu")
+    st = RenderSettings(**settings)
+    cpu = render_image(scene, st)
+    before = (dict(cluster_trace.occlusion_w_mode_launches),
+              cluster_trace.closest_hit_compact_launches)
+    gpu = render_image(scene.to(device), st).cpu()
+    after = cluster_trace.occlusion_w_mode_launches
+    assert after["glass"] > before[0]["glass"]
+    assert after["capped"] == before[0]["capped"]
+    assert ((cluster_trace.closest_hit_compact_launches > before[1])
+            == bool(settings.get("compact_bounces")))
+    torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
+
+
 def test_render_on_card_matches_cpu(device):
     """The card render (kernels) vs the CPU render (plain versions): the
     trace is bit-equal, the shading ops may round differently on the two

@@ -26,16 +26,7 @@ from crt_tpu_torch import (
 from crt_tpu_torch.frontend import cli
 from crt_tpu_torch.io.ppm import read_ppm
 from crt_tpu_torch.scene.procedural import make_test_scene, make_test_scene_dict
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 @pytest.mark.parametrize("era", ["era07", "era08"])
@@ -116,7 +107,8 @@ def test_no_card_is_an_error_not_a_cpu_run(tmp_path, capsys, monkeypatch):
 def test_import_does_not_load_jax():
     code = ("import sys, crt_tpu_torch, crt_tpu_torch.frontend.cli, "
             "crt_tpu_torch.ops.cluster_trace, crt_tpu_torch.ops.cuda_lib, "
-            "crt_tpu_torch.ops.segsum, crt_tpu_torch.optim; "
+            "crt_tpu_torch.ops.segsum, crt_tpu_torch.ops.shade_iter, "
+            "crt_tpu_torch.optim; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'crt_tpu.')) or m == 'crt_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -125,33 +117,48 @@ def test_import_does_not_load_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("case", ["refractive", "gi", "aov", "tree",
+@pytest.mark.parametrize("case", ["refractive", "gi", "bitmap", "aov", "tree",
                                   "stream", "iter", "grad"])
 def test_outside_the_slice_raises(case):
     scene = make_test_scene(32, 32, num_quads=4, device="cpu")
     settings = RenderSettings()
     if case == "refractive":
-        scene = make_test_scene(32, 32, num_quads=4, with_refractive=True,
+        # glass is inside the slice; glass under GI is not
+        glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
                                 device="cpu")
+        assert torch.isfinite(render_image(glass)).all()
+        scene = glass.replace(gi_on=True)
+    elif case == "iter":
+        # the iterative wavefront is inside the slice; its AOVs are not
+        assert torch.isfinite(
+            render_image(scene, RenderSettings(wavefront="iter"))).all()
+        settings = RenderSettings(wavefront="iter", aov="depth")
     elif case == "gi":
         scene = scene_from_dict(
             make_test_scene_dict(32, 32, num_quads=4, gi_on=True),
             device="cpu")
+    elif case == "bitmap":
+        scene = scene.replace(texture_types_present=(0, 3))
     elif case == "aov":
         settings = RenderSettings(aov="normal")
     elif case == "tree":
         settings = RenderSettings(backend="tree")
     elif case == "stream":
         settings = RenderSettings(backend="pallas_stream")
-    elif case == "iter":
-        settings = RenderSettings(wavefront="iter")
     else:
-        # gradients are inside the slice; their sharded step is not
+        # gradients are inside the slice, through glass too; their sharded
+        # step and gradients through GI are not
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             fit_scene(scene, render_image(scene), mesh=object(), steps=1)
-        scene = make_test_scene(32, 32, num_quads=4, with_refractive=True,
+        glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
                                 device="cpu")
+        glass = glass.replace(vertices=glass.vertices.requires_grad_(True))
+        assert render_image(glass).requires_grad
+        scene = scene_from_dict(
+            make_test_scene_dict(32, 32, num_quads=4, gi_on=True,
+                                 with_refractive=True), device="cpu")
         scene = scene.replace(vertices=scene.vertices.requires_grad_(True))
+        settings = RenderSettings(wavefront="iter")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         render_image(scene, settings)
     with pytest.raises(ValueError):

@@ -25,7 +25,18 @@ go to the other of the two coplanar triangles; the port's own two backends
 agree with each other and with crt_tpu's bruteforce backend.  The
 finite-difference checks reuse test_grad_contract.py's scene, eps sweep
 and per-group tolerances.
+
+Refraction (vertices, light_intensity, cam_position, mat_ior on a glass
+scene): the recursive wavefront keeps the tolerance above; the iterative
+one gets rtol 1e-4 / atol 1e-4 of the largest entry, because crt_tpu's
+bounce is the body of a ``lax.scan`` under ``jax.checkpoint``, which XLA
+compiles (and contracts) even with ``jit=False`` (5e-5 of the largest
+vertex entry observed; crt_tpu's own iterative-vs-recursive gradient test
+allows rtol 1e-3).  Inside the port the two wavefronts, both schedules,
+``remat_shading``, ``compact_bounces`` and chunking give one gradient up
+to summation order.
 """
+
 
 import jax
 import jax.numpy as jnp
@@ -52,21 +63,12 @@ from crt_tpu_torch.scene.convert import (
     scene_from_numpy,
 )
 from crt_tpu_torch.scene.types import SCENE_META_FIELDS, SCENE_TENSOR_FIELDS
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 GROUPS = ("vertices", "light_intensity", "light_position", "tex_color_a",
           "cam_position", "cam_rotation")
 RTOL, ATOL_SCALE = 1e-5, 2e-6
 TIE_RTOL, TIE_ATOL_SCALE = 2e-3, 1e-4  # vertices vs interpret-mode Pallas
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def wall_scene_dict(width=24, height=16):
@@ -132,8 +134,9 @@ def torch_value_and_grads(tscene, arrays, settings=None, square=False):
     return float(loss.detach()), params_to_numpy(params, grads=True)
 
 
-def jax_value_and_grads(jscene, arrays, backend, square=False):
-    settings = crt_tpu.RenderSettings(backend=backend)
+def jax_value_and_grads(jscene, arrays, backend, square=False,
+                        **settings_kw):
+    settings = crt_tpu.RenderSettings(backend=backend, **settings_kw)
 
     def loss(p):
         img = crt_tpu.render_image(jscene.replace(**p), settings, jit=False)
@@ -279,6 +282,76 @@ def test_hits_on_edges_and_corners_stay_finite():
     _, g = torch_value_and_grads(tscene, arrays)
     _, jg = jax_value_and_grads(jscene, arrays, "bruteforce")
     assert_grads_close(g, jg)
+
+
+REFR_GROUPS = ("vertices", "light_intensity", "cam_position", "mat_ior")
+ITER_RTOL, ITER_ATOL_SCALE = 1e-4, 1e-4  # vs crt_tpu's compiled scan body
+
+
+@pytest.fixture(scope="module")
+def glass():
+    jscene = jmake_test_scene(32, 24, num_quads=6, with_refractive=True)
+    assert jscene.has_refractive
+    return jscene, carry(jscene), trainable(jscene, REFR_GROUPS)
+
+
+@pytest.mark.parametrize("wavefront", ["auto", "recursive"])
+def test_refractive_grads_match_jax(glass, wavefront):
+    """Gradients through refraction (Snell directions, Fresnel weights, the
+    ior itself) vs jax.grad of crt_tpu's render at depth 2."""
+    jscene, tscene, arrays = glass
+    kw = dict(max_ray_depth=2, wavefront=wavefront)
+    v, g = torch_value_and_grads(tscene, arrays, RenderSettings(**kw))
+    jv, jg = jax_value_and_grads(jscene, arrays, "bruteforce", **kw)
+    np.testing.assert_allclose(v, jv, rtol=1e-5)
+    for k in REFR_GROUPS:
+        assert np.isfinite(g[k]).all() and np.abs(jg[k]).max() > 0, k
+        rtol, scale = ((RTOL, ATOL_SCALE) if wavefront == "recursive"
+                       else (ITER_RTOL, ITER_ATOL_SCALE))
+        np.testing.assert_allclose(
+            g[k], jg[k], rtol=rtol,
+            atol=scale * float(np.abs(jg[k]).max()), err_msg=k)
+
+
+@pytest.mark.parametrize("variant", ["recursive", "grow", "remat", "compact",
+                                     "chunked", "bruteforce"])
+def test_refractive_grads_agree_inside_the_port(glass, variant):
+    """One gradient whichever way the glass frame is shaded: the unrolled
+    tree, the growing pool, bounces recomputed in the backward, the
+    compacted trace, chunks, the all-pairs backend."""
+    _, tscene, arrays = glass
+    kw = dict(recursive=dict(wavefront="recursive"),
+              grow=dict(wavefront_sched="grow"),
+              remat=dict(remat_shading=True),
+              compact=dict(compact_bounces=True),
+              chunked=dict(chunk_pixels=1024),
+              bruteforce=dict(backend="bruteforce"))[variant]
+    v, g = torch_value_and_grads(tscene, arrays, RenderSettings())
+    vo, go = torch_value_and_grads(tscene, arrays, RenderSettings(**kw))
+    np.testing.assert_allclose(vo, v, rtol=1e-6)
+    assert all(np.abs(g[k]).max() > 0 for k in REFR_GROUPS)
+    assert_grads_close(go, g)
+
+
+def test_remat_bounces_rerun_the_traces(glass, monkeypatch):
+    """Under ``remat_shading`` a bounce keeps no graph: the backward runs
+    it again, trace included."""
+    from crt_tpu_torch.ops import cluster_trace
+
+    _, tscene, arrays = glass
+    calls = []
+    real = cluster_trace.closest_hit
+
+    def counting(*a, **k):
+        calls.append(torch.is_grad_enabled())
+        return real(*a, **k)
+
+    monkeypatch.setattr(cluster_trace, "closest_hit", counting)
+    torch_value_and_grads(tscene, arrays, RenderSettings())
+    once = len(calls)
+    del calls[:]
+    torch_value_and_grads(tscene, arrays, RenderSettings(remat_shading=True))
+    assert len(calls) == 2 * once
 
 
 FD_CASES = {

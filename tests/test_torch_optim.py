@@ -27,16 +27,7 @@ from crt_tpu_torch import RenderSettings, fit_scene, render_image
 from crt_tpu_torch.optim import default_trainable_params, make_loss_fn
 from crt_tpu_torch.scene.convert import params_from_numpy, params_to_numpy
 from crt_tpu_torch.scene.procedural import make_test_scene
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 SCENE_KW = dict(width=24, height=16, num_quads=3, with_reflective=False)

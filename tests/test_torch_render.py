@@ -12,6 +12,7 @@ JIT contracts multiply-adds into FMAs, so shading values differ from the
 port's (FMA-free) ones in the last bits.
 """
 
+
 import numpy as np
 import pytest
 import torch
@@ -22,16 +23,7 @@ import crt_tpu.renderer as jrenderer
 from crt_tpu.scene.procedural import make_test_scene as jmake_test_scene
 from crt_tpu_torch import RenderSettings, render_image
 from crt_tpu_torch.scene.procedural import make_test_scene
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 SCENES = {

@@ -27,16 +27,7 @@ from crt_tpu_torch.scene.convert import scene_from_numpy, scene_to_numpy
 from crt_tpu_torch.scene.json_loader import SceneFormatError
 from crt_tpu_torch.scene.procedural import make_test_scene, make_test_scene_dict
 from crt_tpu_torch.scene.types import SCENE_META_FIELDS, SCENE_TENSOR_FIELDS
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 CHECKER_SCENE = {

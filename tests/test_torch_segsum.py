@@ -29,16 +29,7 @@ from jax.experimental import pallas as pl
 
 from crt_tpu.ops import pallas_segsum as jps
 from crt_tpu_torch.ops import segsum
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
 @pytest.fixture

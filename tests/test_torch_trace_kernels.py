@@ -1,7 +1,8 @@
 """The cluster kernels' plain versions vs crt_tpu's Pallas kernels.
 
-closest_hit (K1) and occlusion_w (K2) take their plain PyTorch versions on
-CPU tensors; here they are held to ``_closest_hit_binned`` and
+closest_hit (K1), closest_hit_compact (K4) and occlusion_w (K2, every
+mode) take their plain PyTorch versions on CPU tensors; here they are held
+to ``_closest_hit_binned``, ``_closest_hit_binned_compact`` and
 ``_occluded_binned_compact_w`` run in Pallas interpret mode, and the trace
 factory to ``make_pallas_trace_fn(scene, interpret=True)``.  (The CUDA
 kernels themselves are held to the plain versions on the card by
@@ -31,24 +32,16 @@ from crt_tpu_torch.ops import binning as tbin
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.ops import cluster_trace as ttr
 from crt_tpu_torch.scene.procedural import make_test_scene
+from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the suite runs one worker per core, and torch's
-    default (a thread per core in every worker) oversubscribes the host."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # One scene keeps the JAX reference subprocess short; the default
 # make_test_scene is held end to end by test_torch_render.py.
 SCENES = {
     "edges": dict(width=96, height=64, num_quads=16, with_edges=True),
+    "glass": dict(width=64, height=32, num_quads=6, with_refractive=True),
 }
 
 
@@ -164,6 +157,56 @@ def scene_ref_jit(s, tables, rows_table, trace, o, d):
     hit = trace(o[: R - 100], d[: R - 100])  # padded to a tile multiple
     res["e2e_pad_t"], res["e2e_pad_tri"] = hit.t, hit.tri
     res["e2e_occ"] = trace.shadow_apex_w(point, shadow_o, lights, act, 0.02)
+
+    # K4: the live-tile compacted launch, on the masked bounce wavefront
+    # (half of its tiles switched off) and, with tile_mod, on a wavefront of
+    # two direction sets over one copy of the origins
+    c_act = b_act & ((jnp.arange(R) // 1024) % 2 == 0)
+    cl, cnt = pt.bin_rays(tables, b_o, b_d, 1024, c_act)
+    bt, bi, br = pt._closest_hit_binned_compact(
+        tables, planes(b_o), planes(b_d), cl, cnt, 1024, True,
+        rows_table=rows_table)
+    res["compact_act"] = c_act
+    res["compact/t"], res["compact/tri"] = bt.reshape(-1), bi.reshape(-1)
+    res["compact/rows"] = jnp.moveaxis(br, 1, 0).reshape(br.shape[1], -1)
+    o2 = jnp.concatenate([b_o, b_o])
+    d2 = jnp.concatenate([b_d, d])
+    a2 = jnp.concatenate([c_act, b_act])
+    cl, cnt = pt.bin_rays(tables, o2, d2, 1024, a2)
+    d2_t = d2.reshape(2 * tiles, 1024, 3).swapaxes(1, 2)
+    bt, bi = pt._closest_hit_binned_compact(
+        tables, planes(b_o), d2_t, cl, cnt, 1024, True, tile_mod=tiles)
+    res["mod/t"], res["mod/tri"] = bt.reshape(-1), bi.reshape(-1)
+
+    if s.has_refractive:
+        # K2's other modes, with the factory's glass subset rebuilt here
+        ids = jnp.maximum(tables.tri_id, 0)
+        is_glass = (s.mat_type[s.tri_material] == 2)[ids] & (tables.tri_id >= 0)
+        pts = s.vertices[s.tri_vidx[ids]]
+        g = is_glass[..., None, None]
+        gmin = jnp.where(g, pts, 3.4e38).min(axis=(1, 2))
+        gmax = jnp.where(g, pts, -3.4e38).max(axis=(1, 2))
+        gm = is_glass.astype(jnp.float32)
+        res["gm"], res["gmin"], res["gmax"] = gm, gmin, gmax
+        cl, cnt = pt.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                     0.02, glass_boxes=(gmin, gmax))
+        occ, glass = pt._occluded_binned_compact_w(
+            tables, planes(shadow_o), planes(point), apex, cl, cnt, 1024,
+            True, member_mask=gm, glass_flag=True)
+        res["glass_cl"], res["glass_cnt"] = cl[:, 0], cnt
+        res["glass_occ"], res["glass_flag"] = occ.reshape(-1), glass.reshape(-1)
+        cl, cnt = pt.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                     0.02, boxes=(gmin, gmax), capped=False)
+        occ = pt._occluded_binned_compact_w(
+            tables, planes(shadow_o), planes(point), apex, cl, cnt, 1024,
+            True, capped=False, member_mask=gm)
+        res["unc_cl"], res["unc_cnt"] = cl[:, 0], cnt
+        res["unc_occ"] = occ.reshape(-1)
+        occ, glass = trace.shadow_apex_w_glass(point, shadow_o, lights, act,
+                                               0.02)
+        res["e2e_glass_occ"], res["e2e_glass_flag"] = occ, glass
+        res["e2e_gate"] = trace.refr_ray_hit_w(point, shadow_o, lights, act,
+                                               0.02)
     return res
 
 
@@ -255,6 +298,105 @@ def test_occlusion_w_plain_matches_pallas(ref, name):
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
+@pytest.mark.parametrize("wave", ["compact", "mod"])
+def test_closest_hit_compact_plain_matches_pallas(ref, name, wave):
+    """K4's plain version vs ``_closest_hit_binned_compact`` and vs the
+    port's K1 plain version on the same lists: t, tri and rows equal."""
+    _, tables, rows_table = _tables(name)
+    o, d = T(ref[name + "/bounce_o"]), T(ref[name + "/bounce_d"])
+    act = T(ref[name + "/compact_act"])
+    tile_mod = 0
+    if wave == "mod":
+        tile_mod = o.shape[0] // 1024
+        d = torch.cat([d, T(ref[name + "/d"])])
+        act = torch.cat([act, T(ref[name + "/bounce_act"])])
+        rows_table = None
+    o_full = torch.cat([o, o]) if tile_mod else o
+    cl, cnt = tbin.bin_rays(tables, o_full, d, 1024, act)
+    assert (cnt == 0).any() and (cnt > 0).any()
+    ttr.closest_hit_compact_launches = 0
+    t, tri, rows = ttr.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
+                                           tile_mod=tile_mod)
+    assert ttr.closest_hit_compact_launches == 0
+    p = f"{name}/{wave}"
+    np.testing.assert_array_equal(tri.numpy(), ref[p + "/tri"])
+    np.testing.assert_array_equal(t.numpy(), ref[p + "/t"])
+    t1, tri1, rows1 = ttr.closest_hit_plain(tables, o_full, d, cl, cnt,
+                                            rows_table)
+    assert torch.equal(tri, tri1) and torch.equal(t, t1)
+    if rows_table is not None:
+        np.testing.assert_array_equal(rows.numpy(), ref[p + "/rows"])
+        assert torch.equal(rows, rows1)
+    assert (tri >= 0).any() and (tri < 0).any()
+
+
+def test_glass_subset_matches_crt_tpu(ref):
+    scene, tables, _ = _tables("glass")
+    gm, gmin, gmax = tct.glass_subset(scene, tables)
+    np.testing.assert_array_equal(gm.numpy(), ref["glass/gm"])
+    np.testing.assert_array_equal(gmin.numpy(), ref["glass/gmin"])
+    np.testing.assert_array_equal(gmax.numpy(), ref["glass/gmax"])
+    assert 0 < gm.sum() < (tables.tri_id >= 0).sum()
+
+
+@pytest.mark.parametrize("mode", ["glass_flag", "uncapped_masked"])
+def test_occlusion_w_modes_plain_match_pallas(ref, mode):
+    """K2's plain version in the glass-flag mode (both outputs) and in the
+    uncapped member-masked mode, on lists that must equal crt_tpu's."""
+    scene, tables, _ = _tables("glass")
+    so, pt_ = T(ref["glass/shadow_o"]), T(ref["glass/point"])
+    act = T(ref["glass/shadow_act"])
+    lights = scene.light_position
+    gm, gmin, gmax = tct.glass_subset(scene, tables)
+    ttr.occlusion_w_launches = 0
+    if mode == "glass_flag":
+        cl, cnt = tbin.bin_apex_shared(tables, so, lights, act, 1024, 0.02,
+                                       glass_boxes=(gmin, gmax))
+        np.testing.assert_array_equal(cl.numpy(), ref["glass/glass_cl"])
+        np.testing.assert_array_equal(cnt.numpy(), ref["glass/glass_cnt"])
+        occ, glass = ttr.occlusion_w(tables, so, pt_, lights, cl, cnt,
+                                     member_mask=gm, glass_flag=True)
+        np.testing.assert_array_equal(occ.numpy(), ref["glass/glass_occ"])
+        np.testing.assert_array_equal(glass.numpy(), ref["glass/glass_flag"])
+        assert glass.any() and not glass.all()
+    else:
+        cl, cnt = tbin.bin_apex_shared(tables, so, lights, act, 1024, 0.02,
+                                       boxes=(gmin, gmax), capped=False)
+        np.testing.assert_array_equal(cl.numpy(), ref["glass/unc_cl"])
+        np.testing.assert_array_equal(cnt.numpy(), ref["glass/unc_cnt"])
+        occ = ttr.occlusion_w(tables, so, pt_, lights, cl, cnt, capped=False,
+                              member_mask=gm)
+        np.testing.assert_array_equal(occ.numpy(), ref["glass/unc_occ"])
+    assert ttr.occlusion_w_launches == 0
+    assert occ.any() and not occ.all()
+
+
+def test_glass_router_functions_match_pallas(ref):
+    """``shadow_apex_w_glass`` and ``refr_ray_hit_w`` of the trace factory,
+    offered only when the scene has refractive materials."""
+    scene, _, _ = _tables("glass")
+    trace = ttr.make_cluster_trace_fn(scene)
+    args = (T(ref["glass/point"]), T(ref["glass/shadow_o"]),
+            scene.light_position, T(ref["glass/shadow_act"]), 0.02)
+    occ, glass = trace.shadow_apex_w_glass(*args)
+    np.testing.assert_array_equal(occ.numpy(), ref["glass/e2e_glass_occ"])
+    np.testing.assert_array_equal(glass.numpy(), ref["glass/e2e_glass_flag"])
+    gate = trace.refr_ray_hit_w(*args)
+    np.testing.assert_array_equal(gate.numpy(), ref["glass/e2e_gate"])
+    # the two routes to the flag agree wherever a lane is active, and the
+    # merged pass keeps the capped mode's occlusion bits
+    act = args[3]
+    assert torch.equal(glass & act, gate & act)
+    assert torch.equal(occ & act, trace.shadow_apex_w(*args) & act)
+    short = (args[0][:100], args[1][:100], args[2], act[:, :100], 0.02)
+    assert trace.shadow_apex_w_glass(*short) is None
+    assert trace.refr_ray_hit_w(*short) is None
+    opaque = ttr.make_cluster_trace_fn(_tables("edges")[0])
+    assert not hasattr(opaque, "shadow_apex_w_glass")
+    assert not hasattr(opaque, "refr_ray_hit_w")
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
 def test_trace_factory_matches_pallas(ref, name):
     scene, _, _ = _tables(name)
     trace = ttr.make_cluster_trace_fn(scene)
@@ -269,6 +411,12 @@ def test_trace_factory_matches_pallas(ref, name):
                 T(ref[name + "/bounce_act"]))
     np.testing.assert_array_equal(hit.tri.numpy(), ref[name + "/e2e_bounce_tri"])
     np.testing.assert_array_equal(hit.t.numpy(), ref[name + "/e2e_bounce_t"])
+
+    # compact_masked sends the masked trace through K4: the same hits
+    compact = ttr.make_cluster_trace_fn(scene, compact_masked=True)
+    chit = compact(T(ref[name + "/bounce_o"]), T(ref[name + "/bounce_d"]),
+                   T(ref[name + "/bounce_act"]))
+    assert torch.equal(chit.tri, hit.tri) and torch.equal(chit.t, hit.t)
 
     hit = trace(o[:R - 100], d[:R - 100])  # padded to a tile multiple
     np.testing.assert_array_equal(hit.tri.numpy(), ref[name + "/e2e_pad_tri"])
@@ -319,5 +467,15 @@ def test_wrappers_check_inputs():
         ttr.closest_hit(tables, o, d, cl.long(), cnt)
     with pytest.raises(ValueError):
         ttr.occlusion_w(tables, o, d, torch.zeros((2, 3)), cl, cnt)
+    with pytest.raises(ValueError):  # the glass flag needs the member mask
+        ttr.occlusion_w(tables, o, d, torch.zeros((1, 3)), cl, cnt,
+                        glass_flag=True)
+    with pytest.raises(ValueError):
+        ttr.occlusion_w(tables, o, d, torch.zeros((1, 3)), cl, cnt,
+                        member_mask=torch.zeros((3, 16)))
+    with pytest.raises(ValueError):
+        ttr.closest_hit_compact(tables, o, d, cl.long(), cnt)
+    t, tri, rows = ttr.closest_hit_compact(tables, o, d, cl, cnt, rows_table)
+    assert torch.isinf(t).all() and (tri == -1).all() and (rows == 0).all()
     t, tri, rows = ttr.closest_hit(tables, o, d, cl, cnt, rows_table)
     assert torch.isinf(t).all() and (tri == -1).all() and (rows == 0).all()
