@@ -60,18 +60,60 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      position and mat_ior (vs the all-pairs backend's, time and peak
      memory, with and without remat_shading), and the backward of the
      mat_ior[tri_material] gather at 65,536 triangles on one material;
-  9. a JSON line of the kernels, then the last line
+  9. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
+     direction-form occlusion kernel in its two launches, K5 (shaft lists,
+     origin tiles stored once) and K6 (generic lists, seeded with the
+     inactive lanes), vs the plain version lane for lane, K5 == K6 on the
+     active lanes, the lanes on which K5 and the w-occlusion kernel differ
+     (|n.d| against |n.w| in the parallel test), times and bounds;
+ 10. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
+     clusters in 1,954 superclusters): the streaming closest hit (K8) on
+     the primary wavefront and the streaming any-hit (K9) on the depth-0
+     shadow wavefront, in one phase and in both phases of the two-phase
+     resolve (the inputs of its two launches recorded from
+     occluded_stream_twophase), each timed with its bound from that
+     launch's own pairs and members, and held bit-equal to its plain
+     version on 32 seeded tiles that own pairs (the plain version walks
+     one list position at a time to a chunk's longest list: tens of
+     seconds over every tile at this size; the kernel's launch on those 32
+     tiles must also repeat its full launch there); K8 vs the all-pairs
+     backend on 8192 sampled rays; two-phase == single phase on the
+     active lanes; at 65,536 triangles streaming hits == the closest-hit
+     kernel's on every lane and K9 == K5 on every active shadow lane;
+ 11. big, the large-scene main path: render_image of the 1,000,000-triangle
+     frame with default settings (launch counts reset just before, read
+     just after: one K8, two K9, no cluster-backend kernel, so "auto" took
+     the streaming backend); the frame vs the all-pairs backend on 8192
+     sampled pixels; forward frame time and Mrays/s (host clock around a
+     synchronize, median of 5), device time and launches of a profiled
+     frame, the streaming kernels' and Phase A's share, pairs, host reads,
+     peak memory; value_and_grad of the frame's sum (finite, time, peak,
+     segment-sum launches); both backends timed on make_big_scene at
+     16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
+     renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
+     every pixel and their gradients held together;
+ 12. direction-form: the opaque bench frame through the CLI in a child
+     process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
+     --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
+     one 8-bit level of the default frame and of the all-pairs backend's
+     on all but 0.01 % of pixels; one frame shaded through a trace built
+     with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
+ 13. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
-     for its comparison and times.
+     for its comparison and times; K6 is reached through a factory option
+     that no setting of render_image takes (``on_a_render_path`` false, the
+     launches of phase 12's frame).
 
-``--profile`` runs, instead of phases 3 to 7, a torch.profiler pass over
+``--profile`` runs, instead of phases 3 to 12, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
+``--large`` runs phases 9 to 12 only.
 
 Tolerances.  The trace kernels (closest hit, compacted closest hit, every
-mode of the w-occlusion): bit-equal to their plain versions.  The
+mode of the w-occlusion, both launches of the direction-form occlusion,
+the streaming closest hit and any-hit): bit-equal to their plain versions.  The
 segment-sum kernel: |kernel - fp64| <= 4e-6 * sum|g| per segment, which is
 ten times the largest error this script has read (3.7e-7, on the bench
 frame's 640,651-ray segment) and a tenth of the worst case of the kernel's
@@ -257,9 +299,7 @@ def phase_kernels(device):
     from crt_tpu_torch.ops.intersect import Hit
     from crt_tpu_torch.ops.shade import hit_attributes
     from crt_tpu_torch.scene.procedural import make_test_scene
-    from crt_tpu_torch.scene.types import (
-        MATERIAL_DIFFUSE, MATERIAL_REFLECTIVE, RenderSettings,
-    )
+    from crt_tpu_torch.scene.types import MATERIAL_REFLECTIVE, RenderSettings
 
     scene = make_test_scene(**BENCH, device=device)
     st = RenderSettings()
@@ -295,16 +335,10 @@ def phase_kernels(device):
     print(f"[kernels] closest_hit bounce: {int(refl_act.sum())} active lanes, "
           f"{int((bcnt > 0).sum())} live tiles, bit-equal")
 
-    # depth-0 shadow wavefront, built as _occlusion_masks builds it
-    point, normal = attrs.point, attrs.normal
-    lights = scene.light_position.contiguous()
-    light_vec = lights[:, None, :] - point[None]
-    light_dir = vecmath.safe_normalize(light_vec)
-    facing = vecmath.dot(light_dir, normal[None].expand_as(light_vec)) > 0.0
-    is_diffuse = attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE)
-    act_lr = is_diffuse[None] & facing
-    shadow_o = (point + normal * st.shadow_bias).contiguous()
-    point = point.contiguous()
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
+                                kernel_rows=k[2])
+    point, shadow_o, lights, act_lr = (w["point"], w["shadow_o"], w["lights"],
+                                       w["act"])
     scl, scnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE,
                                 2.0 * st.shadow_bias)
     ko = occlusion_w(tables, shadow_o, point, lights, scl, scnt)
@@ -465,7 +499,6 @@ def phase_segsum(device):
 
 
 def phase_scale(device, num_triangles=65536, width=1920, height=1080):
-    from crt_tpu_torch.ops import intersect
     from crt_tpu_torch.ops.binning import bin_rays
     from crt_tpu_torch.ops.cluster_tables import (
         build_cluster_tables, emit_rows_table,
@@ -484,9 +517,13 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
     t, tri, rows = closest_hit(tables, o, d, cl, cnt, rows_table)
     ms = cuda_ms(lambda: closest_hit(tables, o, d, cl, cnt, rows_table),
                  warmup=1, reps=3)
+    b = walk_bound(tables, cl, cnt, (o, d), (t, tri, rows),
+                   act.reshape(-1, TILE), rows_table=rows_table)
     print(f"[scale] big scene: {scene.num_triangles} triangles, "
           f"{tables.n.shape[0]} clusters; list length max {int(cnt.max())} "
-          f"mean {float(cnt.float().mean()):.1f}; closest_hit {ms:.3f} ms; "
+          f"mean {float(cnt.float().mean()):.1f}; closest_hit {ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+          f"{b['member_tests']} member tests needed); "
           f"hits {int((tri >= 0).sum())} of {R}")
 
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -501,32 +538,27 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
     print(f"[scale] closest_hit vs plain on tiles {pick.tolist()}: bit-equal "
           f"(list lengths {cnt[pick].tolist()})")
 
-    rays = torch.randperm(R, generator=gen)[:8192].to(device)
-    td = intersect.build_triangle_data(
-        scene.vertices, scene.tri_vidx,
-        scene.mat_backface[scene.tri_material.long()])
-    bf = intersect.closest_hit_bruteforce(td, o[rays], d[rays], ray_chunk=512)
-    same = tri[rays] == bf.tri
-    n_dis = int((~same).sum())
-    both = same & (bf.tri >= 0)
-    rel = ((t[rays][both] - bf.t[both]).abs()
-           / bf.t[both].abs().clamp(min=1e-30))
-    max_rel = float(rel.max()) if bool(both.any()) else 0.0
-    print(f"[scale] closest_hit vs bruteforce on 8192 rays: {n_dis} tri "
-          f"disagreements, max rel t diff {max_rel:.3e} where tri agree "
-          f"({int(both.sum())} hits)")
-    check(n_dis <= 8, f"{n_dis} of 8192 rays disagree with bruteforce")
-    check(max_rel <= 1e-5, f"t differs from bruteforce by {max_rel:.3e}")
+    bruteforce_agreement("[scale] closest_hit", scene, o, d, t, tri, gen,
+                         device)
 
 
 def reset_launches():
-    from crt_tpu_torch.ops import cluster_trace, segsum, shade
+    from crt_tpu_torch.ops import (
+        cluster_trace, segsum, shade, stream_binning, stream_trace,
+    )
 
     cluster_trace.closest_hit_launches = 0
     cluster_trace.closest_hit_compact_launches = 0
     cluster_trace.occlusion_w_launches = 0
     for mode in cluster_trace.occlusion_w_mode_launches:
         cluster_trace.occlusion_w_mode_launches[mode] = 0
+    cluster_trace.occlusion_d_launches = 0
+    for mode in cluster_trace.occlusion_d_mode_launches:
+        cluster_trace.occlusion_d_mode_launches[mode] = 0
+    stream_trace.closest_hit_stream_launches = 0
+    stream_trace.occlusion_stream_launches = 0
+    stream_binning.stream_host_syncs = 0
+    stream_binning.stream_pairs = 0
     segsum.segsum_launches = 0
     shade.march_host_syncs = 0
     shade.march_traces = 0
@@ -539,6 +571,25 @@ def read_launches() -> dict:
     return {"closest_hit": cluster_trace.closest_hit_launches,
             "occlusion_w": cluster_trace.occlusion_w_launches,
             "segsum": segsum.segsum_launches}
+
+
+def read_stream_launches() -> dict:
+    """Launch counts of every trace kernel and the segment sum, with the
+    streaming Phase A's own counts (pairs listed, device-to-host reads)."""
+    from crt_tpu_torch.ops import (
+        cluster_trace, segsum, stream_binning, stream_trace,
+    )
+
+    return {"closest_hit": cluster_trace.closest_hit_launches,
+            "closest_hit_compact": cluster_trace.closest_hit_compact_launches,
+            "occlusion_w": cluster_trace.occlusion_w_launches,
+            "occlusion_d": cluster_trace.occlusion_d_mode_launches["compact"],
+            "occlusion_d_exit": cluster_trace.occlusion_d_mode_launches["exit"],
+            "closest_hit_stream": stream_trace.closest_hit_stream_launches,
+            "occlusion_stream": stream_trace.occlusion_stream_launches,
+            "segsum": segsum.segsum_launches,
+            "stream_pairs": stream_binning.stream_pairs,
+            "stream_host_syncs": stream_binning.stream_host_syncs}
 
 
 def read_glass_launches() -> dict:
@@ -757,7 +808,6 @@ def record_glass_frame(scene):
 
 
 def phase_glass_kernels(device):
-    from crt_tpu_torch.ops import vecmath
     from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
     from crt_tpu_torch.ops.cluster_tables import (
         build_cluster_tables, glass_subset,
@@ -767,9 +817,8 @@ def phase_glass_kernels(device):
         closest_hit_plain, occlusion_w, occlusion_w_plain,
     )
     from crt_tpu_torch.ops.intersect import Hit
-    from crt_tpu_torch.ops.shade import hit_attributes
     from crt_tpu_torch.scene.procedural import make_test_scene
-    from crt_tpu_torch.scene.types import MATERIAL_DIFFUSE, RenderSettings
+    from crt_tpu_torch.scene.types import RenderSettings
 
     scene = make_test_scene(**GLASS, device=device)
     st = RenderSettings()
@@ -778,19 +827,12 @@ def phase_glass_kernels(device):
     o, d = primary_wavefront(scene)
     cl, cnt = bin_rays(tables, o, d, TILE)
     t, tri, _ = closest_hit(tables, o, d, cl, cnt)
-    attrs = hit_attributes(scene, o, d, Hit(t=t, tri=tri))
     print(f"[glass] refractive bench scene: {scene.num_triangles} triangles "
           f"({int(gm.sum())} refractive) in {tables.n.shape[0]} clusters")
 
-    # depth-0 shadow wavefront, as _occlusion_masks builds it
-    point = attrs.point.contiguous()
-    normal = attrs.normal
-    lights = scene.light_position.contiguous()
-    light_vec = lights[:, None, :] - point[None]
-    facing = vecmath.dot(vecmath.safe_normalize(light_vec),
-                         normal[None].expand_as(light_vec)) > 0.0
-    act_lr = (attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE))[None] & facing
-    shadow_o = (point + normal * st.shadow_bias).contiguous()
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=t, tri=tri))
+    point, shadow_o, lights, act_lr = (w["point"], w["shadow_o"], w["lights"],
+                                       w["act"])
     slack = 2.0 * st.shadow_bias
     rays = (shadow_o, point, lights)
     stats = {}
@@ -912,37 +954,39 @@ def phase_glass_kernels(device):
     return stats
 
 
-def profile_frame(fn, top=0):
-    """(device kernel ms, device launches) of one call of fn(); prints the
-    ``top`` largest device kernels and the hand-written kernels' share."""
+def profile_frame(fn, top=0, tag="[refract]",
+                  tags=("closest_hit", "occlusion_w")):
+    """(device kernel ms, device launches, ms by tag) of one call of fn();
+    prints the ``top`` largest device kernels and the share of the
+    hand-written kernels whose names contain one of ``tags``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0)) for ev in rows)
-    check(us > 0, "the profiler recorded no device time")
 
     def dev_us(ev):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(dev_us(ev) for ev in rows)
+    check(us > 0, "the profiler recorded no device time")
+    by_tag = {}
+    for name in tags:
+        mine = [ev for ev in rows if name in ev.key]
+        by_tag[name] = sum(dev_us(ev) for ev in mine) / 1e3
+        if top:
+            print(f"{tag}   {name}: {by_tag[name]:.3f} ms over "
+                  f"{sum(ev.count for ev in mine)} launches "
+                  f"({100 * by_tag[name] * 1e3 / us:.2f} % of device time)")
     if top:
         for ev in sorted(rows, key=dev_us, reverse=True)[:top]:
-            print(f"[refract]   {dev_us(ev) / 1e3:9.3f} ms  {ev.count:6d} x  "
+            print(f"{tag}   {dev_us(ev) / 1e3:9.3f} ms  {ev.count:6d} x  "
                   f"{ev.key[:90]}")
-        for tag in ("closest_hit", "occlusion_w"):
-            mine = [ev for ev in rows if tag in ev.key]
-            print(f"[refract]   {tag}: "
-                  f"{sum(dev_us(ev) for ev in mine) / 1e3:.3f} ms over "
-                  f"{sum(ev.count for ev in mine)} launches "
-                  f"({100 * sum(dev_us(ev) for ev in mine) / us:.2f} % of "
-                  "device time)")
-    return us / 1e3, sum(ev.count for ev in rows)
+    return us / 1e3, sum(ev.count for ev in rows), by_tag
 
 
 def host_ms(fn, warmup=1, reps=5):
@@ -1072,7 +1116,7 @@ def phase_refract(device):
         wall, enq = host_ms(lambda: render_image(scene, vst))
         peak = torch.cuda.max_memory_allocated() / 2**30
         reset_launches()
-        dev_ms, dev_launches = profile_frame(
+        dev_ms, dev_launches, _ = profile_frame(
             lambda: render_image(scene, vst), top=8 if name == "scan" else 0)
         n = read_glass_launches()
         print(f"[refract] forward frame, {name}: {wall:.3f} ms = "
@@ -1130,6 +1174,705 @@ def phase_refract(device):
     print(f"[refract] mat_ior[tri_material] at 65,536 triangles on one "
           f"material, forward+backward: {cuda_ms(ior_gather):.3f} ms")
     return launches, c_launches
+
+
+BIG = dict(num_triangles=1_000_000, width=1920, height=1080)
+MID = dict(BIG, num_triangles=65536)
+
+
+def depth0_shadow_wavefront(scene, settings, o, d, hit, kernel_rows=None):
+    """The depth-0 shadow wavefront of a frame, as ``_occlusion_masks``
+    builds it: point, shadow_o [R, 3]; lights [Ll, 3]; ldir [Ll, R, 3]; r2,
+    act [Ll, R] (diffuse hits facing the light)."""
+    from crt_tpu_torch.ops import vecmath
+    from crt_tpu_torch.ops.shade import hit_attributes
+    from crt_tpu_torch.scene.types import MATERIAL_DIFFUSE
+
+    attrs = hit_attributes(scene, o, d, hit, kernel_rows=kernel_rows)
+    point, normal = attrs.point.contiguous(), attrs.normal
+    lights = scene.light_position.contiguous()
+    light_vec = lights[:, None, :] - point[None]
+    ldir = vecmath.safe_normalize(light_vec)
+    facing = vecmath.dot(ldir, normal[None].expand_as(light_vec)) > 0.0
+    is_diffuse = attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE)
+    return dict(point=point,
+                shadow_o=(point + normal * settings.shadow_bias).contiguous(),
+                lights=lights, ldir=ldir,
+                r2=vecmath.length_squared(light_vec),
+                act=is_diffuse[None] & facing)
+
+
+def flat_shadow(w):
+    """The stacked [Ll * R] form of a shadow wavefront: o, d, r2, active."""
+    Ll, R = w["r2"].shape
+    return (w["shadow_o"].expand(Ll, R, 3).reshape(-1, 3).contiguous(),
+            w["ldir"].reshape(-1, 3).contiguous(),
+            w["r2"].reshape(-1).contiguous(), w["act"].reshape(-1))
+
+
+def masks_equal(name, got, want):
+    n_bad = int((got != want).sum())
+    check(n_bad == 0, f"{name}: {n_bad} lanes differ from the plain version")
+
+
+def phase_occlusion_d(device):
+    """K5 and K6 on the opaque bench frame's depth-0 shadow wavefront."""
+    from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
+    from crt_tpu_torch.ops.cluster_tables import build_cluster_tables
+    from crt_tpu_torch.ops.cluster_trace import (
+        closest_hit, occlusion_d, occlusion_d_plain, occlusion_w,
+    )
+    from crt_tpu_torch.ops.intersect import Hit
+    from crt_tpu_torch.scene.procedural import make_test_scene
+    from crt_tpu_torch.scene.types import RenderSettings
+
+    scene = make_test_scene(**BENCH, device=device)
+    st = RenderSettings()
+    tables = build_cluster_tables(scene)
+    o, d = primary_wavefront(scene)
+    t, tri, _ = closest_hit(tables, o, d, *bin_rays(tables, o, d, TILE))
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=t, tri=tri))
+    o_f, d_f, r2_f, a_f = flat_shadow(w)
+    slack = 2.0 * st.shadow_bias
+    tpl = o.shape[0] // TILE
+    apex = w["lights"].repeat_interleave(tpl, dim=0)
+    act_t = a_f.reshape(-1, TILE)
+
+    cl, cnt = bin_rays(tables, o_f, d_f, TILE, a_f, apex=apex,
+                       apex_slack=slack)
+    k5_args = (tables, w["shadow_o"], d_f, r2_f, cl, cnt, TILE)
+    k5 = occlusion_d(*k5_args, tile_mod=tpl)
+    masks_equal("occlusion_d (K5)", k5,
+                occlusion_d_plain(*k5_args, tile_mod=tpl))
+    gl, gcnt = bin_rays(tables, o_f, d_f, TILE, a_f)
+    k6_args = (tables, o_f, d_f, r2_f, gl, gcnt, TILE)
+    k6 = occlusion_d(*k6_args, exit=True, active=a_f)
+    masks_equal("occlusion_d exit mode (K6)", k6,
+                occlusion_d_plain(*k6_args, seed=~a_f))
+    check(bool((k5[a_f] == k6[a_f]).all()),
+          "K5 and K6 disagree on an active lane")
+    check(bool(k6[~a_f].all()), "K6 left an inactive lane unblocked")
+    scl, scnt = bin_apex_shared(tables, w["shadow_o"], w["lights"], w["act"],
+                                TILE, slack)
+    k2 = occlusion_w(tables, w["shadow_o"], w["point"], w["lights"], scl,
+                     scnt)
+    n_k2 = int((k2[a_f] != k5[a_f]).sum())
+
+    ms5 = cuda_ms(lambda: occlusion_d(*k5_args, tile_mod=tpl))
+    ms5p = cuda_ms(lambda: occlusion_d_plain(*k5_args, tile_mod=tpl))
+    ms6 = cuda_ms(lambda: occlusion_d(*k6_args, exit=True, active=a_f))
+    ms6p = cuda_ms(lambda: occlusion_d_plain(*k6_args, seed=~a_f))
+    b5 = walk_bound(tables, cl, cnt, (w["shadow_o"], d_f, r2_f[:, None]),
+                    (k5,), act_t, blocked=k5.reshape(-1, TILE))
+    b6 = walk_bound(tables, gl, gcnt,
+                    (o_f, d_f, r2_f[:, None], a_f[:, None]), (k6,), act_t,
+                    blocked=k6.reshape(-1, TILE))
+    tests5, tests6 = b5.pop("member_tests"), b6.pop("member_tests")
+    b5.pop("ray_bytes"), b6.pop("ray_bytes")
+    print(f"[occlusion-d] bench scene depth-0 shadow wavefront: {a_f.numel()} "
+          f"lanes in {cnt.numel()} tiles, {int(a_f.sum())} active, "
+          f"{int((k5 & a_f).sum())} of them blocked; K5 == plain and K6 == "
+          f"plain on every lane, K5 == K6 on the active lanes; K5 and K2's "
+          f"capped mode differ on {n_k2} active lanes")
+    print(f"[occlusion-d] K5 (shaft lists, {int((cnt > 0).sum())} live tiles,"
+          f" {int(cnt.sum())} walked entries): kernel {ms5:.3f} ms, plain "
+          f"{ms5p:.3f} ms, bound {b5['bound_ms']:.4f} ms ({b5['bound_by']}, "
+          f"{tests5} member tests needed), library call none")
+    print(f"[occlusion-d] K6 (generic lists, {int((gcnt > 0).sum())} live "
+          f"tiles, {int(gcnt.sum())} walked entries): kernel {ms6:.3f} ms, "
+          f"plain {ms6p:.3f} ms, bound {b6['bound_ms']:.4f} ms "
+          f"({b6['bound_by']}, {tests6} member tests needed), library call "
+          "none")
+    return {"occlusion_d": dict(max_abs_err=0.0, ms=ms5, plain_ms=ms5p,
+                                library_ms=None, lanes_differing_from_k2=n_k2,
+                                **b5),
+            "occlusion_d_exit": dict(max_abs_err=0.0, ms=ms6, plain_ms=ms6p,
+                                     library_ms=None, **b6)}
+
+
+def stream_bound(st, pair_sc, bits, start, ray_bytes_per_lane, outputs,
+                 active, tile_rays, blocked=None, with_ids=False) -> dict:
+    """Bound of a streaming kernel from what this run gave it.
+
+    Bytes: the pair list (supercluster index and member mask per pair) and
+    the tile ranges once, every live member cluster's slice of the fused
+    table once (16 x 18 floats, and its 16 ids for the closest hit) however
+    many tiles walk it, the per-lane inputs of the tiles that have a pair,
+    every output in full.  Operations: the member tests the answer needs,
+    counted as ``walk_bound`` counts them."""
+    from crt_tpu_torch.ops.stream_trace import pair_lists
+
+    cl, cnt = pair_lists(pair_sc, bits, start, st.sc)
+    on_list = torch.arange(cl.shape[1], device=cl.device) < cnt[:, None]
+    touched = int(torch.unique(cl[on_list]).numel())
+    table_bytes = touched * 16 * (18 * 4 + (4 if with_ids else 0))
+    live_tiles = int((cnt > 0).sum())
+    num_bytes = (nbytes(pair_sc, bits, start, *outputs) + table_bytes
+                 + live_tiles * tile_rays * ray_bytes_per_lane)
+    members = (st.tables.tri_id >= 0).sum(dim=1)
+    tile_members = (members[cl.long()] * on_list).sum(dim=1)
+    full = active if blocked is None else active & ~blocked
+    tests = int((full.sum(dim=1) * tile_members).sum())
+    if blocked is not None:
+        tests += int((active & blocked).sum())
+    return {**bound_ms(num_bytes, tests * FLOPS_PER_MEMBER),
+            "member_tests": tests, "pairs": int(pair_sc.shape[0]),
+            "live_members": int(cnt.sum()), "clusters_touched": touched,
+            "longest_list": int(cnt.max())}
+
+
+def bruteforce_agreement(name, scene, o, d, t, tri, gen, device, n=8192):
+    """(t, tri) vs the all-pairs backend on ``n`` sampled rays."""
+    from crt_tpu_torch.ops import intersect
+
+    rays = torch.randperm(o.shape[0], generator=gen)[:n].to(device)
+    td = intersect.build_triangle_data(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    bf = intersect.closest_hit_bruteforce(td, o[rays], d[rays], ray_chunk=256)
+    same = tri[rays] == bf.tri
+    n_dis = int((~same).sum())
+    both = same & (bf.tri >= 0)
+    rel = ((t[rays][both] - bf.t[both]).abs()
+           / bf.t[both].abs().clamp(min=1e-30))
+    max_rel = float(rel.max()) if bool(both.any()) else 0.0
+    print(f"{name} vs bruteforce on {n} rays: {n_dis} tri disagreements, max "
+          f"rel t diff {max_rel:.3e} where tri agree ({int(both.sum())} hits)")
+    check(n_dis <= n // 1024, f"{n_dis} of {n} rays disagree with bruteforce")
+    check(max_rel <= 1e-5, f"t differs from bruteforce by {max_rel:.3e}")
+
+
+PLAIN_TILES = 32
+
+
+def tile_subset(pick, pair_sc, bits, start, *per_lane):
+    """The sub-problem of the tiles ``pick`` (sorted ids): their pairs with
+    the tile ranges renumbered, and their lanes of each per-lane array."""
+    dev = pick.device
+    lo = start[pick].long()
+    n = start[pick + 1].long() - lo
+    new_start = torch.cat([n.new_zeros((1,)), n.cumsum(dim=0)])
+    idx = (torch.repeat_interleave(lo - new_start[:-1], n)
+           + torch.arange(int(new_start[-1]), device=dev))
+    lanes = (pick[:, None] * TILE + torch.arange(TILE, device=dev)).reshape(-1)
+    return ((pair_sc[idx].contiguous(), bits[idx].contiguous(),
+             new_start.to(torch.int32)),
+            [x[lanes].contiguous() for x in per_lane], lanes)
+
+
+def pick_live_tiles(start, gen):
+    """``PLAIN_TILES`` seeded tiles among those that own a pair."""
+    live = torch.nonzero(start[1:] > start[:-1])[:, 0]
+    keep = torch.randperm(live.shape[0], generator=gen)[:PLAIN_TILES]
+    return live[keep.to(live.device)].sort().values
+
+
+def timed_once(fn):
+    """(result, ms) of one call on the host clock, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_stream_kernels(device):
+    """K8 and K9 at the 1,000,000-triangle frame's shapes, and against K1
+    and K5 at 65,536 triangles."""
+    from crt_tpu_torch.ops import stream_binning as sb
+    from crt_tpu_torch.ops import stream_trace as stt
+    from crt_tpu_torch.ops.binning import bin_rays, tile_bounds
+    from crt_tpu_torch.ops.cluster_tables import build_cluster_tables
+    from crt_tpu_torch.ops.cluster_trace import closest_hit, occlusion_d
+    from crt_tpu_torch.ops.intersect import Hit
+    from crt_tpu_torch.scene.procedural import make_big_scene
+    from crt_tpu_torch.scene.types import RenderSettings
+
+    settings = RenderSettings()
+    slack = 2.0 * settings.shadow_bias
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    stats = {}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = make_big_scene(**BIG, seed=0, device=device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables = build_cluster_tables(scene)
+    st = stt.build_stream_tables(tables)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ms_tables = cuda_ms(lambda: stt.build_stream_tables(
+        build_cluster_tables(scene)), warmup=1, reps=3)
+    o, d = primary_wavefront(scene)
+    R = o.shape[0]
+    tiles = R // TILE
+    print(f"[stream-kernels] big scene: {scene.num_triangles} triangles in "
+          f"{tables.n.shape[0]} clusters, {st.sc_min.shape[0]} superclusters "
+          f"of {st.sc}; made in {t1 - t0:.2f} s (host), tables first built in "
+          f"{t2 - t1:.2f} s, then {ms_tables:.3f} ms a build")
+
+    # ---- K8 on the primary wavefront
+    bounds = tile_bounds(o, d, TILE, None)
+    pair_sc, bits, start = stt.bin_stream_pairs(st, bounds)
+    ms_pa = cuda_ms(lambda: stt.bin_stream_pairs(st, bounds))
+    k8_args = (st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, st.sc,
+               TILE)
+    t, tri = stt.closest_hit_stream(*k8_args)
+    ms_k8 = cuda_ms(lambda: stt.closest_hit_stream(*k8_args))
+    # The plain version walks every tile of a chunk to the chunk's longest
+    # list, one walk position at a time: tens of seconds over all tiles at
+    # this size.  It is held on PLAIN_TILES seeded tiles, where the kernel
+    # must also repeat what its full launch gave those tiles.
+    pick = pick_live_tiles(start, gen)
+    sub, (so, sd), lanes = tile_subset(pick, pair_sc, bits, start, o, d)
+    sub_args = (st.fused, st.tables.tri_id, so, sd, *sub, st.sc, TILE)
+    kt, ktri = stt.closest_hit_stream(*sub_args)
+    (pt, ptri), ms_k8p = timed_once(
+        lambda: stt.closest_hit_stream_plain(*sub_args))
+    err = compare_hits("closest_hit_stream", (kt, ktri, None),
+                       (pt, ptri, None))
+    compare_hits("closest_hit_stream, full launch vs sampled tiles",
+                 (t[lanes], tri[lanes], None), (kt, ktri, None))
+    ms_k8s = cuda_ms(lambda: stt.closest_hit_stream(*sub_args))
+    act = torch.ones((tiles, TILE), dtype=torch.bool, device=device)
+    b = stream_bound(st, pair_sc, bits, start, 24, (t, tri), act, TILE,
+                     with_ids=True)
+    print(f"[stream-kernels] K8 primary: {b['pairs']} pairs over {tiles} "
+          f"tiles, {b['live_members']} live members (longest tile list "
+          f"{b['longest_list']} clusters, {b['clusters_touched']} distinct "
+          f"clusters touched), hits {int((tri >= 0).sum())} of {R}; Phase A "
+          f"{ms_pa:.3f} ms, kernel {ms_k8:.3f} ms, bound {b['bound_ms']:.4f} "
+          f"ms ({b['bound_by']}, {b['member_tests']} member tests needed), "
+          f"library call none; on {PLAIN_TILES} sampled tiles (list lengths "
+          f"up to {int((sub[2][1:] - sub[2][:-1]).max())} pairs) bit-equal to "
+          f"the plain version: kernel {ms_k8s:.3f} ms, plain {ms_k8p:.1f} ms "
+          "(one run)")
+    bruteforce_agreement("[stream-kernels] K8", scene, o, d, t, tri, gen,
+                         device)
+    stats["closest_hit_stream"] = dict(
+        max_abs_err=err, ms=ms_k8, plain_ms=ms_k8p, plain_tiles=PLAIN_TILES,
+        ms_on_plain_tiles=ms_k8s, library_ms=None, phase_a_ms=ms_pa,
+        **{k: b[k] for k in ("bound_ms", "bound_by")})
+
+    # ---- K9 on the depth-0 shadow wavefront: one phase, then two
+    w = depth0_shadow_wavefront(scene, settings, o, d, Hit(t=t, tri=tri))
+    o_f, d_f, r2_f, a_f = flat_shadow(w)
+    apex = w["lights"].repeat_interleave(tiles, dim=0)
+    sbounds = tile_bounds(o_f, d_f, TILE, a_f)
+    hull = sb.pair_mask(st.sc_min, st.sc_max, sbounds, apex, slack)
+
+    def lane_exact():
+        return sb.lane_exact_sc_mask(o_f, d_f, r2_f, a_f, slack, st.sc_min,
+                                     st.sc_max, TILE, where=hull)
+
+    extra = lane_exact()
+    ms_le = cuda_ms(lane_exact, warmup=1, reps=3)
+    print(f"[stream-kernels] shadow wavefront: {int(a_f.sum())} of "
+          f"{a_f.numel()} lanes active; the shaft hull admits "
+          f"{int(hull.sum())} pairs, the per-lane test keeps "
+          f"{int((hull & extra).sum())} of them in {ms_le:.3f} ms")
+
+    calls = []
+    real = stt.occlusion_stream
+
+    def recording(*args):
+        calls.append(args)
+        return real(*args)
+
+    stt.occlusion_stream = recording
+    try:
+        single = stt.occluded_stream_flat(st, o_f, d_f, r2_f, a_f, apex,
+                                          slack, TILE)
+        two = stt.occluded_stream_twophase(
+            st, w["shadow_o"], w["ldir"], w["r2"], w["lights"], w["act"],
+            slack, TILE, phase1_k=settings.stream_shadow_k)
+    finally:
+        stt.occlusion_stream = real
+    check(len(calls) == 3, f"{len(calls)} K9 launches recorded, expected 3")
+    check(bool((two.reshape(-1)[a_f] == single[a_f]).all()),
+          "the two-phase resolve differs from the single phase on an active "
+          "lane")
+    check(bool(single[~a_f].all()), "K9 left an inactive lane unblocked")
+    for name, args in zip(("single phase", "phase 1", "phase 2"), calls):
+        fused, ko, kd, kr2, seed, kpsc, kbits, kstart, ksc, _ = args
+        k9 = real(*args)
+        ms = cuda_ms(lambda: real(*args))
+        pick = pick_live_tiles(kstart, gen)
+        sub, per_lane, lanes = tile_subset(pick, kpsc, kbits, kstart, ko, kd,
+                                           kr2, seed)
+        sub_args = (fused, *per_lane, *sub, ksc, TILE)
+        k9s = real(*sub_args)
+        p9, ms_p = timed_once(lambda: stt.occlusion_stream_plain(*sub_args))
+        masks_equal(f"occlusion_stream, {name}", k9s, p9)
+        masks_equal(f"occlusion_stream, {name}, full launch vs sampled "
+                    "tiles", k9[lanes], k9s)
+        ms_s = cuda_ms(lambda: real(*sub_args))
+        b = stream_bound(st, kpsc, kbits, kstart, 29, (k9,),
+                         ~seed.reshape(-1, TILE), TILE,
+                         blocked=k9.reshape(-1, TILE))
+        print(f"[stream-kernels] K9 {name}: {b['pairs']} pairs, "
+              f"{b['live_members']} live members (longest tile list "
+              f"{b['longest_list']}), {int((~seed).sum())} active lanes, "
+              f"{int((k9 & ~seed).sum())} of them blocked; kernel {ms:.3f} "
+              f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{b['member_tests']} member tests needed), library call none; "
+              f"on {PLAIN_TILES} sampled tiles equal to the plain version "
+              f"lane for lane: kernel {ms_s:.3f} ms, plain {ms_p:.1f} ms (one "
+              "run)")
+        key = {"single phase": "occlusion_stream_single",
+               "phase 1": "occlusion_stream_phase1",
+               "phase 2": "occlusion_stream"}[name]
+        stats[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=ms_p,
+                          plain_tiles=PLAIN_TILES, ms_on_plain_tiles=ms_s,
+                          library_ms=None,
+                          **{k: b[k] for k in ("bound_ms", "bound_by")})
+    print("[stream-kernels] two-phase == single phase on every active lane")
+    # the frame launches phase 1 and phase 2; the entry carries phase 2's
+    # time and bound, the other two beside it
+    stats["occlusion_stream"]["ms_phase1"] = stats.pop(
+        "occlusion_stream_phase1")["ms"]
+    stats["occlusion_stream"]["ms_single_phase"] = stats.pop(
+        "occlusion_stream_single")["ms"]
+    del calls, w, o_f, d_f, r2_f, a_f, hull, extra, single, two
+
+    # ---- a scene both backends hold: K8 == K1, K9 == K5
+    mid = make_big_scene(**MID, seed=0, device=device)
+    mtab = build_cluster_tables(mid)
+    mst = stt.build_stream_tables(mtab)
+    mo, md = primary_wavefront(mid)
+    hit, _ = stt.closest_hit_stream_flat(mst, mo, md)
+    k1 = closest_hit(mtab, mo, md, *bin_rays(mtab, mo, md, TILE))
+    compare_hits("streaming hits vs closest_hit at 65,536 triangles",
+                 (hit.t, hit.tri, None), (k1[0], k1[1], None))
+    w = depth0_shadow_wavefront(mid, settings, mo, md, hit)
+    o_f, d_f, r2_f, a_f = flat_shadow(w)
+    apex = w["lights"].repeat_interleave(tiles, dim=0)
+    k9 = stt.occluded_stream_flat(mst, o_f, d_f, r2_f, a_f, apex, slack, TILE)
+    cl, cnt = bin_rays(mtab, o_f, d_f, TILE, a_f, apex=apex, apex_slack=slack)
+    k5 = occlusion_d(mtab, w["shadow_o"], d_f, r2_f, cl, cnt, TILE,
+                     tile_mod=tiles)
+    check(bool((k9[a_f] == k5[a_f]).all()),
+          "K9 and K5 disagree on an active lane at 65,536 triangles")
+    print(f"[stream-kernels] 65,536 triangles: streaming hits == "
+          f"closest_hit's on all {mo.shape[0]} lanes (t and tri bit-equal); "
+          f"K9 == K5 on all {int(a_f.sum())} active shadow lanes "
+          f"({int((k9 & a_f).sum())} blocked)")
+    return stats
+
+
+def ray_colors(img, scene):
+    """An [H, W, 3] image back in ray order: (colors [R, 3], inside [R])."""
+    from crt_tpu_torch.renderer import make_tiler
+
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=img.device)
+    inside = (rx < scene.width) & (ry < scene.height)
+    x = rx.long().clamp(max=scene.width - 1)
+    y = ry.long().clamp(max=scene.height - 1)
+    return img[y, x], inside
+
+
+def image_agreement(name, img, ref, min_frac=0.9999):
+    close = ((img - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all(dim=-1)
+    frac = float(close.float().mean())
+    print(f"{name}: max |diff| {float((img - ref).abs().max()):.3e}, "
+          f"{int((~close).sum())} of {close.numel()} px outside rtol 1e-4 / "
+          f"atol 1e-5 ({frac * 100:.4f} % inside)")
+    check(frac >= min_frac,
+          f"{name}: fewer than {min_frac * 100:.2f} % of pixels agree")
+
+
+def phase_a_ms(fn) -> float:
+    """Device time of the streaming Phase A inside one call of fn(): CUDA
+    events around every call of its functions, host gaps included."""
+    from crt_tpu_torch.ops import stream_binning as sb
+    from crt_tpu_torch.ops import stream_trace as stt
+
+    spans = []
+    depth = [0]  # one of these functions calls another: time the outer one
+
+    def bracket(real):
+        def timed(*args, **kw):
+            if depth[0]:
+                return real(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            depth[0] += 1
+            start.record()
+            try:
+                out = real(*args, **kw)
+            finally:
+                depth[0] -= 1
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed
+
+    patched = ((stt, "tile_bounds"), (stt, "bin_stream_pairs"),
+               (sb, "pair_mask"), (sb, "lane_exact_sc_mask"))
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    for mod, name, real in saved:
+        setattr(mod, name, bracket(real))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def phase_big(device):
+    """The large-scene main path: render_image of the 1,000,000-triangle
+    1080p frame with default settings."""
+    from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch import renderer
+    from crt_tpu_torch.ops import intersect
+    from crt_tpu_torch.ops.shade import shade_wavefront
+    from crt_tpu_torch.scene.procedural import make_big_scene
+
+    W, H = BIG["width"], BIG["height"]
+    scene = make_big_scene(**BIG, seed=0, device=device)
+    reset_launches()
+    img = render_image(scene)
+    torch.cuda.synchronize()
+    launches = read_stream_launches()
+    print(f"[big] render_image of {scene.num_triangles} triangles at {W}x{H},"
+          f" default settings: launches {launches}")
+    check(launches["closest_hit_stream"] == 1
+          and launches["occlusion_stream"] == 2
+          and launches["closest_hit"] == 0 and launches["occlusion_w"] == 0
+          and launches["occlusion_d"] == 0 and launches["segsum"] == 0,
+          f"the large frame launched {launches}: expected one streaming "
+          "closest hit, the two launches of the two-phase shadow resolve and "
+          "no cluster-backend kernel (auto must choose the streaming backend)")
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
+          "the large frame is not a finite [H, W, 3]")
+
+    # the all-pairs backend on sampled rays, shaded as the frame shades them
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    o, d = primary_wavefront(scene)
+    colors, inside = ray_colors(img, scene)
+    rays = torch.nonzero(inside)[:, 0]
+    rays = rays[torch.randperm(rays.shape[0], generator=gen)[:8192].to(device)]
+    td = intersect.build_triangle_data(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+
+    def bf(origins, dirs, active=None):  # a [256, 4 T] product per chunk
+        return intersect.closest_hit_bruteforce(td, origins, dirs,
+                                                ray_chunk=256)
+
+    with torch.no_grad():
+        ref = shade_wavefront(scene, RenderSettings(), bf, o[rays], d[rays])
+    # 8 of 8192, the allowance of the hit comparison above: the all-pairs
+    # backend takes its dot products by matmul, and a ray grazing an edge
+    # may find the other triangle
+    image_agreement("[big] streaming frame vs the all-pairs backend on 8192 "
+                    "sampled pixels", colors[rays], ref, min_frac=0.999)
+    lit = (colors[rays] != scene.background_color).any(dim=-1)
+    print(f"[big] {int(lit.sum())} of the 8192 sampled pixels hit geometry")
+
+    # time: the frame, and what a profiled frame spends where
+    phase_a = phase_a_ms(lambda: render_image(scene))
+    torch.cuda.reset_peak_memory_stats()
+    wall, enq = host_ms(lambda: render_image(scene), warmup=2, reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dev_ms, dev_launches, by_tag = profile_frame(
+        lambda: render_image(scene), top=8, tag="[big]",
+        tags=("closest_hit_stream", "occlusion_stream"))
+    print(f"[big] forward frame {wall:.3f} ms = {W * H / wall / 1e3:.3f} "
+          f"Mrays/s (host enqueue {enq:.3f} ms); profiled frame: device "
+          f"kernels {dev_ms:.3f} ms in {dev_launches} launches, of which the "
+          f"streaming kernels {sum(by_tag.values()):.3f} ms; Phase A (tile "
+          f"bounds, pair and member lists, the per-lane test; CUDA events "
+          f"around its calls in one frame) {phase_a:.3f} ms; "
+          f"{launches['stream_pairs']} pairs listed, "
+          f"{launches['stream_host_syncs']} host reads; peak {peak:.3f} GiB")
+
+    # one value_and_grad of the frame
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    value, grads = image_sum_grads(scene)
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - t0) * 1e3
+    g_launches = read_stream_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, gk in grads.items():
+        check(tuple(gk.shape) == tuple(getattr(scene, k).shape)
+              and bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
+              f"large frame: d/d{k} is not finite and non-zero")
+    g2_ms, _ = host_ms(lambda: image_sum_grads(scene), warmup=0, reps=3)
+    print(f"[big] value_and_grad of the frame's sum w.r.t. {TRAINED}: value "
+          f"{float(value):.6e}, all finite; first run {g_ms:.1f} ms, then "
+          f"{g2_ms:.3f} ms = {W * H / g2_ms / 1e3:.3f} Mrays/s; peak "
+          f"{peak:.3f} GiB; segment-sum launches {g_launches['segsum']} "
+          f"(T = {scene.num_triangles}), streaming kernels "
+          f"{g_launches['closest_hit_stream']} + "
+          f"{g_launches['occlusion_stream']}")
+    check(g_launches["segsum"] == 1 and g_launches["closest_hit_stream"] == 1,
+          f"the large frame's backward launched {g_launches}")
+    del grads, img, colors, ref
+
+    # both backends on scenes of growing size: what sets the auto threshold
+    stream_st = RenderSettings(backend="stream")
+    cluster_st = RenderSettings(backend="cluster")
+    for n in (16384, 65536, 262144, BIG["num_triangles"]):
+        sized = make_big_scene(**dict(BIG, num_triangles=n), seed=0,
+                               device=device)
+        clusters = -(-n // 16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        s_ms, _ = host_ms(lambda: render_image(sized, stream_st), reps=3)
+        s_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            c_ms, _ = host_ms(lambda: render_image(sized, cluster_st), reps=3)
+            c_txt = (f"{c_ms:.3f} ms (peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB)")
+        except torch.cuda.OutOfMemoryError:
+            c_ms = None
+            c_txt = "out of memory"
+        auto = renderer.make_trace_fn(sized, RenderSettings())
+        picked = "cluster" if hasattr(auto, "with_rows") else "stream"
+        print(f"[big] {n} triangles ({clusters} clusters): streaming backend "
+              f"{s_ms:.3f} ms (peak {s_peak:.3f} GiB), cluster backend "
+              f"{c_txt}; auto picks {picked}")
+        if picked == "cluster" and (c_ms is None or c_ms > 1.25 * s_ms):
+            print(f"[big]   note: auto keeps the cluster backend here "
+                  f"(threshold {renderer.AUTO_STREAM_MIN_CLUSTERS} clusters) "
+                  "though the streaming backend is over a quarter faster")
+        if n == 65536:
+            s_img = render_image(sized, stream_st)
+            c_img = render_image(sized, cluster_st)
+            image_agreement("[big] 65,536 triangles, streaming vs cluster "
+                            "image on every pixel", s_img, c_img)
+            n_diff = int((s_img != c_img).any(dim=-1).sum())
+            print(f"[big]   {n_diff} px differ at all (hits are bit-equal; "
+                  "the cluster backend's shadows test |n.w|, the streaming "
+                  "backend's |n.d|)")
+            _, sg = image_sum_grads(sized, stream_st)
+            _, cg = image_sum_grads(sized, cluster_st)
+            assert_grads_close("65,536 triangles, streaming vs cluster "
+                               "backend", sg, cg, rtol=1e-3, atol_scale=1e-4)
+            del s_img, c_img, sg, cg
+        del sized, auto
+    return launches
+
+
+_CHILD = r"""
+import json, sys
+from crt_tpu_torch.frontend import cli
+from crt_tpu_torch.ops import cluster_trace, stream_trace
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc,
+    "closest_hit": cluster_trace.closest_hit_launches,
+    "occlusion_w": cluster_trace.occlusion_w_launches,
+    "occlusion_d": cluster_trace.occlusion_d_mode_launches["compact"],
+    "closest_hit_stream": stream_trace.closest_hit_stream_launches,
+    "occlusion_stream": stream_trace.occlusion_stream_launches}))
+"""
+
+
+def cli_child(argv, env_extra):
+    """The CLI in a child process (its environment decides the module
+    flags) -> the kernel launch counts it printed on its last line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run([sys.executable, "-c", _CHILD, *argv], env=env,
+                          cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"the CLI child failed:\n{proc.stderr[-2000:]}")
+    counts = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(counts.pop("rc") == 0, "the CLI child's main returned non-zero")
+    return counts
+
+
+def phase_direction_form(device):
+    """K5's and K6's render paths, and the streaming backend through the
+    CLI, on the opaque bench frame."""
+    from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch.io.ppm import quantize, read_ppm
+    from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
+    from crt_tpu_torch.ops.shade import shade_wavefront
+    from crt_tpu_torch.renderer import make_tiler
+    from crt_tpu_torch.scene.procedural import (
+        make_test_scene, make_test_scene_dict,
+    )
+
+    W, H = BENCH["width"], BENCH["height"]
+    scene = make_test_scene(**BENCH, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "bench.crtscene")
+        with open(scene_path, "w") as f:
+            json.dump(make_test_scene_dict(**BENCH), f)
+        k5_ppm = os.path.join(tmp, "k5.ppm")
+        st_ppm = os.path.join(tmp, "stream.ppm")
+        k5_counts = cli_child([scene_path, k5_ppm, "--device", str(device)],
+                              {"CRT_APEX_W": "0"})
+        st_counts = cli_child([scene_path, st_ppm, "--device", str(device),
+                               "--backend", "pallas_stream"], {})
+        k5_img = (read_ppm(k5_ppm) * 255).round().astype("int32")
+        st_img = (read_ppm(st_ppm) * 255).round().astype("int32")
+    print(f"[direction-form] CLI with CRT_APEX_W=0: launches {k5_counts}; "
+          f"CLI with --backend pallas_stream: launches {st_counts}")
+    check(k5_counts["occlusion_d"] == 4 and k5_counts["occlusion_w"] == 0
+          and k5_counts["closest_hit"] == 4,
+          f"the CRT_APEX_W=0 frame launched {k5_counts}: expected 4 closest "
+          "hits, 4 direction-form shadow passes and no w-form pass")
+    check(st_counts["closest_hit_stream"] == 4
+          and st_counts["occlusion_stream"] == 8
+          and st_counts["closest_hit"] == 0 and st_counts["occlusion_w"] == 0,
+          f"the pallas_stream frame launched {st_counts}")
+    check(k5_img.shape == (H, W, 3) and bool((k5_img == st_img).all()),
+          "the streaming backend's frame differs from the cluster backend's "
+          "direction-form frame")
+
+    def levels(image):
+        return quantize(image.cpu().numpy())
+
+    default = levels(render_image(scene))
+    brute = levels(render_image(scene, RenderSettings(backend="bruteforce")))
+    for name, other in (("the default (w-form) cluster frame", default),
+                        ("the all-pairs backend's frame", brute)):
+        off = (abs(k5_img - other) > 1).any(axis=-1)
+        print(f"[direction-form] CRT_APEX_W=0 frame == pallas_stream frame "
+              f"bit for bit; vs {name}: {int(off.sum())} of {off.size} px "
+              f"more than one 8-bit level apart, "
+              f"{int((k5_img != other).any(axis=-1).sum())} px differ at all")
+        check(off.mean() <= 1e-4, f"the direction-form frame is more than "
+              f"one level off {name} on over 0.01 % of pixels")
+
+    # K6: one frame shaded with the any-hit query as the shadow path
+    rx, ry, untile = make_tiler(H, W, device=device)
+    o, d = primary_wavefront(scene)
+    with torch.no_grad():
+        reset_launches()
+        k6_img = untile(shade_wavefront(
+            scene, RenderSettings(),
+            make_cluster_trace_fn(scene, use_occlusion_kernel=True,
+                                  apex_w=False), o, d))
+        k6_counts = read_stream_launches()
+        k5_float = untile(shade_wavefront(
+            scene, RenderSettings(),
+            make_cluster_trace_fn(scene, apex_w=False), o, d))
+    print(f"[direction-form] shade_wavefront with use_occlusion_kernel=True: "
+          f"launches {k6_counts}")
+    check(k6_counts["occlusion_d_exit"] == 4 and k6_counts["occlusion_d"] == 0
+          and k6_counts["occlusion_w"] == 0,
+          f"the any-hit frame launched {k6_counts}: expected 4 K6 passes")
+    check(torch.equal(k6_img, k5_float),
+          "the any-hit (K6) frame differs from the direction-form (K5) frame")
+    check(bool((levels(k5_float) == k5_img).all()),
+          "the in-process direction-form frame differs from the CLI's")
+    print("[direction-form] the K6 frame equals the K5 frame bit for bit")
+    return {"occlusion_d": k5_counts["occlusion_d"],
+            "occlusion_d_exit": k6_counts["occlusion_d_exit"]}
 
 
 def phase_profile(device, frames=3):
@@ -1197,6 +1940,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile forward+backward frames instead of "
                     "running the checks")
+    ap.add_argument("--large", action="store_true",
+                    help="run only the large-scene and direction-form "
+                    "phases (no JSON lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
@@ -1209,6 +1955,13 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(device)
         return 0
+    if args.large:
+        phase_occlusion_d(device)
+        phase_stream_kernels(device)
+        phase_big(device)
+        phase_direction_form(device)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     stats = phase_kernels(device)
     stats["segsum"] = phase_segsum(device)
     phase_scale(device)
@@ -1216,6 +1969,13 @@ def main(argv=None) -> int:
     launches["segsum"] = phase_train(device)["segsum"]
     stats.update(phase_glass_kernels(device))
     glass, compact = phase_refract(device)
+    torch.cuda.empty_cache()
+    stats.update(phase_occlusion_d(device))
+    stats.update(phase_stream_kernels(device))
+    torch.cuda.empty_cache()
+    big = phase_big(device)
+    torch.cuda.empty_cache()
+    direction = phase_direction_form(device)
     # the glass frame's own paths: the CLI render (glass-flag passes) and
     # the render with compact_bounces (compacted launches).  No render path
     # takes the uncapped member-masked mode: its one caller is
@@ -1225,7 +1985,14 @@ def main(argv=None) -> int:
     launches["closest_hit_compact"] = compact["closest_hit_compact"]
     launches["occlusion_w_uncapped"] = (glass["occlusion_w_uncapped"]
                                         + compact["occlusion_w_uncapped"])
-    off_path = ("occlusion_w_uncapped",)
+    # the large frame's own path (render_image, default settings), the
+    # CRT_APEX_W=0 frame through the CLI (K5), and a frame shaded through a
+    # trace built with use_occlusion_kernel=True (K6: a factory option that
+    # no setting of render_image reaches, here or in crt_tpu)
+    launches["closest_hit_stream"] = big["closest_hit_stream"]
+    launches["occlusion_stream"] = big["occlusion_stream"]
+    launches.update(direction)
+    off_path = ("occlusion_w_uncapped", "occlusion_d_exit")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     described = (
         ("closest_hit", "crt_tpu_torch/csrc/closest_hit.cu",
@@ -1240,15 +2007,23 @@ def main(argv=None) -> int:
          "crt_tpu/ops/pallas_trace.py:696"),
         ("segsum", "crt_tpu_torch/csrc/segsum.cu",
          "crt_tpu/ops/pallas_segsum.py:75"),
+        ("occlusion_d", "crt_tpu_torch/csrc/occlusion_d.cu",
+         "crt_tpu/ops/pallas_trace.py:737"),
+        ("occlusion_d_exit", "crt_tpu_torch/csrc/occlusion_d.cu",
+         "crt_tpu/ops/pallas_trace.py:1351"),
+        ("closest_hit_stream", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:576"),
+        ("occlusion_stream", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:576"),
     )
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "on_a_render_path": n not in off_path,
                 **stats[n]}
                for n, src, rep in described]
     check(all(k["launches"] > 0 for k in kernels
-              if k["on_a_render_path"]),
-          f"a kernel was never launched on the main path: {launches}")
-    check(all(launches[n] == 0 for n in off_path),
+              if k["on_a_render_path"] or k["name"] == "occlusion_d_exit"),
+          f"a kernel was never launched on its path: {launches}")
+    check(launches["occlusion_w_uncapped"] == 0,
           f"a render path launched a mode that none should take: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

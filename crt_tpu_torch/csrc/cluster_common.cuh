@@ -1,4 +1,5 @@
-// Shared pieces of the cluster-walk kernels (closest_hit.cu, occlusion_w.cu).
+// Shared pieces of the cluster-walk kernels (closest_hit.cu, occlusion_w.cu,
+// occlusion_d.cu, stream_trace.cu).
 //
 // A cluster is 16 Morton-consecutive triangles.  Its test constants live in
 // the cluster-major tables built by crt_tpu_torch/ops/cluster_tables.py:
@@ -57,6 +58,31 @@ __device__ __forceinline__ void stage_cluster(
   } else if (t < 2 * CRT_CLUSTER_SIZE && gm != nullptr) {
     s.gm[t - CRT_CLUSTER_SIZE] = gm[base + (t - CRT_CLUSTER_SIZE)];
   }
+}
+
+// The same staging from the streaming backend's fused table [L,16,18] (per
+// slot: n xyz | nv0 | m (9) | c (3) | nobf | id as f32, see
+// crt_tpu_torch/ops/stream_trace.py build_fused_table): one contiguous run
+// of 288 floats per cluster, 256 threads taking two strides of it.  Ids come
+// from the int32 `tid` table beside it (null where none are needed); the
+// f32 id column is not read.
+#define CRT_FUSED_COLS 18
+__device__ __forceinline__ void stage_fused(ClusterSmem& s, long long cl,
+                                            const float* __restrict__ fused,
+                                            const int* __restrict__ tid) {
+  const float* src = fused + cl * (CRT_CLUSTER_SIZE * CRT_FUSED_COLS);
+  for (int i = threadIdx.x; i < CRT_CLUSTER_SIZE * CRT_FUSED_COLS;
+       i += CRT_BLOCK) {
+    const int j = i / CRT_FUSED_COLS, col = i % CRT_FUSED_COLS;
+    const float v = src[i];
+    if (col < 3) s.n[3 * j + col] = v;
+    else if (col == 3) s.nv0[j] = v;
+    else if (col < 13) s.m[9 * j + (col - 4)] = v;
+    else if (col < 16) s.c[3 * j + (col - 13)] = v;
+    else if (col == 16) s.nobf[j] = v;
+  }
+  if (tid != nullptr && threadIdx.x < CRT_CLUSTER_SIZE)
+    s.tid[threadIdx.x] = tid[cl * CRT_CLUSTER_SIZE + threadIdx.x];
 }
 
 // Whether the line (ox,oy,oz) + t*(dx,dy,dz) hits member j of the staged

@@ -2,8 +2,8 @@
 
 Usage:
     python -m crt_tpu_torch.frontend.cli scene.crtscene [out.ppm]
-        [--backend auto|cluster|pallas|bruteforce] [--width W] [--height H]
-        [--repeat N] [--device cpu|cuda]
+        [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce]
+        [--width W] [--height H] [--repeat N] [--device cpu|cuda]
 
 Counterpart of ``crt_tpu/frontend/cli.py``: wall-clock time of the render
 (excluding scene load) printed as "Execution time: N seconds.", then an
@@ -34,7 +34,8 @@ def main(argv=None) -> int:
     p.add_argument("scene", help="input .crtscene")
     p.add_argument("output", nargs="?", default="output.ppm")
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "cluster", "pallas", "bruteforce"])
+                   choices=["auto", "cluster", "pallas", "stream",
+                            "pallas_stream", "bruteforce"])
     p.add_argument("--width", type=int, default=None, help="override width")
     p.add_argument("--height", type=int, default=None, help="override height")
     p.add_argument("--repeat", type=int, default=1,

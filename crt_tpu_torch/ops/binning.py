@@ -2,7 +2,7 @@
 
 Counterpart of the binning half of ``crt_tpu/ops/pallas_trace.py``
 (``_frustum_box_mask``, ``_apex_cone_mask``, ``_apex_wedge_mask``,
-``bin_rays``, ``bin_apex_shared``).  Rays come in tiles of 1024
+``bin_rays`` with its ``apex`` mode, ``bin_apex_shared``).  Rays come in tiles of 1024
 consecutive lanes (32x32 pixel blocks, so tiles are spatially coherent).
 Each tile gets a conservative frustum; every frustum is tested against
 every cluster box; the clusters a tile may hit are compacted to the front
@@ -29,6 +29,12 @@ def _sum3(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0] + x[..., 1] + x[..., 2]
 
 
+def _per_row(boxes: torch.Tensor) -> torch.Tensor:
+    """Boxes as [rows, L, 3]: shared [L, 3] boxes get a broadcast row axis,
+    per-row boxes ([rows, L, 3], the streaming member test) pass as is."""
+    return boxes if boxes.dim() == 3 else boxes[None]
+
+
 def _compact(mask: torch.Tensor):
     """[tiles, L] bool -> (cluster_list [tiles, L] i32, counts [tiles] i32):
     admitted clusters first, each group in cluster-index order."""
@@ -40,7 +46,8 @@ def _compact(mask: torch.Tensor):
 
 def _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_cap=None,
                       t_lo_clamp: bool = True):
-    """Conservative interval slab test: [tiles] frustums vs [L] boxes.
+    """Conservative interval slab test: [tiles] frustums vs [L] boxes
+    (or each against its own [tiles, L] boxes).
 
     True where ANY ray with origin in [o_lo, o_hi] and direction in
     [d_lo, d_hi] (componentwise) could hit box [bmin, bmax] at t >= 0 (or,
@@ -53,8 +60,8 @@ def _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_cap=None,
     o_hi = o_hi[:, None, :]
     d_lo = d_lo[:, None, :]
     d_hi = d_hi[:, None, :]
-    bmin = bmin[None]  # [1, L, 3], shared by every tile
-    bmax = bmax[None]
+    bmin = _per_row(bmin)
+    bmax = _per_row(bmax)
     one = torch.ones((), dtype=d_lo.dtype, device=d_lo.device)
     inf = torch.full((), _INF, dtype=d_lo.dtype, device=d_lo.device)
 
@@ -105,11 +112,9 @@ def _apex_cone_mask(apex, w_lo, w_hi, cl_min, cl_max, slack):
     cos_a = sqrt(torch.clamp(1.0 - sin_a * sin_a, min=0.0))
     axis = c_w / len_w[..., None]
 
-    bc = 0.5 * (cl_min + cl_max)[None, :, :] - apex[:, None, :]  # [t, L, 3]
-    r_b = (
-        0.5 * sqrt(_sum3((cl_max - cl_min) ** 2))[None, :]
-        + 2.0 * slack
-    )
+    cl_min, cl_max = _per_row(cl_min), _per_row(cl_max)
+    bc = 0.5 * (cl_min + cl_max) - apex[:, None, :]  # [tiles, L, 3]
+    r_b = 0.5 * sqrt(_sum3((cl_max - cl_min) ** 2)) + 2.0 * slack
     vproj = _sum3(bc * axis[:, None, :])  # [tiles, L]
     d_ax = sqrt(torch.clamp(_sum3(bc * bc) - vproj * vproj, min=0.0))
     e = cos_a[:, None] * d_ax - sin_a[:, None] * vproj
@@ -126,10 +131,9 @@ def _apex_wedge_mask(apex, w_lo, w_hi, cl_min, cl_max, slack):
     box's ratio interval; a cluster whose (apex-relative, inflated) ratio
     interval is disjoint cannot be reached.
     """
-    ok = torch.ones((apex.shape[0], cl_min.shape[0]), dtype=torch.bool,
-                    device=apex.device)
-    b_lo = cl_min[None, :, :] - 2.0 * slack - apex[:, None, :]
-    b_hi = cl_max[None, :, :] + 2.0 * slack - apex[:, None, :]
+    b_lo = _per_row(cl_min) - 2.0 * slack - apex[:, None, :]
+    b_hi = _per_row(cl_max) + 2.0 * slack - apex[:, None, :]
+    ok = torch.ones(b_lo.shape[:2], dtype=torch.bool, device=apex.device)
     one = torch.ones((), dtype=w_lo.dtype, device=w_lo.device)
     for i, j in ((0, 1), (0, 2), (1, 2)):
         for num, den in ((i, j), (j, i)):
@@ -158,8 +162,44 @@ def _apex_wedge_mask(apex, w_lo, w_hi, cl_min, cl_max, slack):
     return ok
 
 
+def apex_shaft_mask(apex, o_lo, o_hi, slack, bmin, bmax):
+    """Light-side shaft test of [tiles] origin boxes against [L] boxes ->
+    [tiles, L] bool.  Every shadow ray of a tile ends at its light point
+    ``apex`` ([tiles, 3]), so its reachable set is the shaft hull(origin
+    box, apex): tested from the light (origin = apex, direction box =
+    slack-inflated origin box - apex, t in [0, 1 + 1e-4]) against boxes
+    inflated by 2 * slack, then refined by the bounding cone and the 2-D
+    wedges."""
+    s = float(torch.tensor(slack, dtype=torch.float32))
+    w_lo = (o_lo - s) - apex
+    w_hi = (o_hi + s) - apex
+    cap = float(torch.tensor(1.0 + 1e-4, dtype=torch.float32))
+    mask = _frustum_box_mask(apex, apex, w_lo, w_hi, bmin - 2.0 * s,
+                             bmax + 2.0 * s, t_cap=cap)
+    mask = mask & _apex_cone_mask(apex, w_lo, w_hi, bmin, bmax, s)
+    return mask & _apex_wedge_mask(apex, w_lo, w_hi, bmin, bmax, s)
+
+
+def tile_bounds(origins, dirs, tile_rays: int, active=None):
+    """Per-tile (active-masked) interval bounds of a wavefront ->
+    (o_lo, o_hi, d_lo, d_hi [tiles, 3], tile_any [tiles] bool or None)."""
+    tiles = origins.shape[0] // tile_rays
+    o = origins.reshape(tiles, tile_rays, 3)
+    d = dirs.reshape(tiles, tile_rays, 3)
+    if active is None:
+        return (o.amin(dim=1), o.amax(dim=1), d.amin(dim=1), d.amax(dim=1),
+                None)
+    a = active.reshape(tiles, tile_rays, 1)
+    big = torch.full((), _INF, dtype=o.dtype, device=o.device)
+    return (torch.where(a, o, big).amin(dim=1),
+            torch.where(a, o, -big).amax(dim=1),
+            torch.where(a, d, big).amin(dim=1),
+            torch.where(a, d, -big).amax(dim=1),
+            a[..., 0].any(dim=1))
+
+
 def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
-             active=None):
+             active=None, apex=None, apex_slack: float = 0.0):
     """Generic frustum binning.  origins/dirs: [R, 3], R % tile_rays == 0.
 
     ``active`` ([R] bool or None) restricts the frustum to lanes whose
@@ -167,26 +207,20 @@ def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
     Inactive lanes still get results from whatever clusters the active
     lanes pull in.
 
+    ``apex`` ([tiles, 3] or None) is the point-light shadow mode: each
+    tile's list is its light-side shaft's (``apex_shaft_mask`` with
+    ``apex_slack``); the directions are not read.
+
     Returns (cluster_list [tiles, L] i32, counts [tiles] i32).
     """
-    tiles = origins.shape[0] // tile_rays
-    o = origins.reshape(tiles, tile_rays, 3)
-    d = dirs.reshape(tiles, tile_rays, 3)
-    if active is None:
-        o_lo, o_hi = o.amin(dim=1), o.amax(dim=1)
-        d_lo, d_hi = d.amin(dim=1), d.amax(dim=1)
-        tile_any = None
+    o_lo, o_hi, d_lo, d_hi, tile_any = tile_bounds(origins, dirs, tile_rays,
+                                                   active)
+    if apex is not None:
+        mask = apex_shaft_mask(apex, o_lo, o_hi, apex_slack, tables.cl_min,
+                               tables.cl_max)
     else:
-        a = active.reshape(tiles, tile_rays, 1)
-        big = torch.full((), _INF, dtype=o.dtype, device=o.device)
-        o_lo = torch.where(a, o, big).amin(dim=1)
-        o_hi = torch.where(a, o, -big).amax(dim=1)
-        d_lo = torch.where(a, d, big).amin(dim=1)
-        d_hi = torch.where(a, d, -big).amax(dim=1)
-        tile_any = a[..., 0].any(dim=1)
-
-    mask = _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, tables.cl_min,
-                             tables.cl_max)
+        mask = _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, tables.cl_min,
+                                 tables.cl_max)
     if tile_any is not None:
         mask = mask & tile_any[:, None]
     return _compact(mask)

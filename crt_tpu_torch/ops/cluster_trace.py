@@ -12,6 +12,12 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
     ``_occl_kernel_compact_w`` as launched by
     ``_occluded_binned_compact_w``, in its capped, ``capped=False``,
     member-masked and glass-flag modes;
+  - ``occlusion_d`` (K5 and K6, ``csrc/occlusion_d.cu``) replaces
+    ``_occl_kernel_compact`` as launched by ``_occluded_binned_compact``
+    (direction-form any-hit over the live tiles, ``tile_mod`` origins) and,
+    with ``exit=True``, ``_occlusion_kernel`` as launched by
+    ``occluded_pallas_flat`` (the same test seeded with the inactive
+    lanes, leaving a tile once all its lanes are blocked);
   - ``make_cluster_trace_fn`` replaces ``make_pallas_trace_fn``.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
@@ -19,12 +25,19 @@ takes its plain PyTorch version, in this module, only for CPU tensors.
 The plain versions walk the same lists in the same order with the same
 arithmetic, so on the card the kernels must match them bit for bit.
 ``closest_hit_launches`` / ``closest_hit_compact_launches`` /
-``occlusion_w_launches`` count kernel launches (CUDA launches only; the
-plain versions do not count); ``occlusion_w_mode_launches`` splits the last
-by mode.
+``occlusion_w_launches`` / ``occlusion_d_launches`` count kernel launches
+(CUDA launches only; the plain versions do not count);
+``occlusion_w_mode_launches`` and ``occlusion_d_mode_launches`` split the
+last two by mode.
+
+``CRT_APEX_W=0`` in the environment (read at import, as crt_tpu reads it)
+takes ``shadow_apex_w`` off the traces built here, so shadows go through
+the direction form (``trace.shadow_apex``, K5).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -45,6 +58,12 @@ closest_hit_launches = 0
 closest_hit_compact_launches = 0
 occlusion_w_launches = 0  # every mode
 occlusion_w_mode_launches = {"capped": 0, "uncapped": 0, "glass": 0}
+occlusion_d_launches = 0  # both modes
+occlusion_d_mode_launches = {"compact": 0, "exit": 0}
+
+# In-kernel shadow directions (the w form) on by default; "0" leaves the
+# direction form as the shadow path of the traces built here.
+_APEX_W = os.environ.get("CRT_APEX_W", "1") != "0"
 
 # Tiles per step of the plain versions: bounds their [tiles, 16, TR]
 # temporaries (~64 MB each at 1024-ray tiles) on the card.
@@ -85,29 +104,31 @@ def _member_t(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
     return torch.where(valid, t, torch.full_like(t, float("inf")))
 
 
-def _planes(x, nt):
+def _planes(x, nt, tile_rays=TILE_RAYS):
     """[nt*TR, 3] -> three [nt, 1, TR] component planes."""
-    x = x.reshape(nt, 1, TILE_RAYS, 3)
+    x = x.reshape(nt, 1, tile_rays, 3)
     return x[..., 0], x[..., 1], x[..., 2]
 
 
 def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
-                      counts, rows_table=None):
+                      counts, rows_table=None, tile_rays: int = TILE_RAYS):
     """Plain version of ``closest_hit``: loop over walk positions,
     vectorized over tiles x 16 members x rays."""
     R = origins.shape[0]
-    tiles = R // TILE_RAYS
+    tiles = R // tile_rays
     dev = origins.device
-    best_t = torch.full((tiles, TILE_RAYS), float("inf"), device=dev)
-    best_tri = torch.full((tiles, TILE_RAYS), -1, dtype=torch.int32,
+    best_t = torch.full((tiles, tile_rays), float("inf"), device=dev)
+    best_tri = torch.full((tiles, tile_rays), -1, dtype=torch.int32,
                           device=dev)
-    best_slot = torch.full((tiles, TILE_RAYS), -1, dtype=torch.int64,
+    best_slot = torch.full((tiles, tile_rays), -1, dtype=torch.int64,
                            device=dev)
     for s in range(0, tiles, _PLAIN_TILE_CHUNK):
         e = min(s + _PLAIN_TILE_CHUNK, tiles)
         nt = e - s
-        ox, oy, oz = _planes(origins[s * TILE_RAYS:e * TILE_RAYS], nt)
-        dx, dy, dz = _planes(dirs[s * TILE_RAYS:e * TILE_RAYS], nt)
+        ox, oy, oz = _planes(origins[s * tile_rays:e * tile_rays], nt,
+                             tile_rays)
+        dx, dy, dz = _planes(dirs[s * tile_rays:e * tile_rays], nt,
+                             tile_rays)
         cnt = counts[s:e]
         bt, btri, bslot = best_t[s:e], best_tri[s:e], best_slot[s:e]
         for i in range(int(cnt.max()) if nt else 0):
@@ -214,6 +235,39 @@ def occlusion_w_plain(tables: ClusterTables, shadow_o, point, light_positions,
             glass[s:e] = gls
     if glass_flag:
         return blocked.reshape(-1), glass.reshape(-1)
+    return blocked.reshape(-1)
+
+
+def occlusion_d_plain(tables: ClusterTables, origins, dirs, r2, cluster_list,
+                      counts, tile_rays: int = TILE_RAYS, tile_mod: int = 0,
+                      seed=None):
+    """Plain version of ``occlusion_d`` (and, on the lists of
+    ``stream_trace.pair_lists``, of the streaming any-hit): per lane the OR,
+    over the members of its tile's list, of "hit at t >= 0 with t * t <=
+    r2", started from ``seed`` ([R] bool) where one is given.  The kernels'
+    early exits change no lane, so there is nothing of them here."""
+    tiles = counts.shape[0]
+    dev = dirs.device
+    o_tiles = origins.reshape(-1, tile_rays, 3)
+    d_tiles = dirs.reshape(tiles, tile_rays, 3)
+    r2_tiles = r2.reshape(tiles, 1, tile_rays)
+    blocked = (torch.zeros((tiles, tile_rays), dtype=torch.bool, device=dev)
+               if seed is None else seed.reshape(tiles, tile_rays).clone())
+    for s in range(0, tiles, _PLAIN_TILE_CHUNK):
+        e = min(s + _PLAIN_TILE_CHUNK, tiles)
+        nt = e - s
+        idx = torch.arange(s, e, device=dev)
+        ox, oy, oz = _planes(o_tiles[idx % tile_mod if tile_mod else idx], nt,
+                             tile_rays)
+        dx, dy, dz = _planes(d_tiles[s:e], nt, tile_rays)
+        cnt = counts[s:e]
+        blk = blocked[s:e]
+        for i in range(int(cnt.max()) if nt else 0):
+            cl = cluster_list[s:e, i].long()
+            valid, tt = _member_hit(tables, cl, ox, oy, oz, dx, dy, dz)
+            hit = valid & (tt * tt <= r2_tiles[s:e])
+            blk = blk | (hit.any(dim=1) & (cnt > i)[:, None])
+        blocked[s:e] = blk
     return blocked.reshape(-1)
 
 
@@ -480,11 +534,118 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
     return (occ, glass) if glass_flag else occ
 
 
+def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
+                counts, tile_rays: int = TILE_RAYS, tile_mod: int = 0,
+                exit: bool = False, active=None):
+    """K5 / K6: direction-form any-hit occlusion over binned lists.
+
+    dirs [R, 3] f32 unit directions, r2 [R] f32 squared reach, cluster_list
+    [tiles, L] i32, counts [tiles] i32 with tiles = R / tile_rays.  Returns
+    blocked [R] bool: some member of the lane's tile list is hit at t >= 0
+    with t * t <= r2.
+
+    K5 (``exit=False``): the shadow launch.  origins is [tile_mod *
+    tile_rays, 3] when ``tile_mod`` > 0 and tile i reads origin tile i %
+    tile_mod (the lights of a shadow pass share the pixel origins), else
+    [R, 3].  A tile with an empty list is all False; no lane is seeded.
+
+    K6 (``exit=True``): the any-hit query over every tile.  Lanes outside
+    ``active`` ([R] bool, None = all active) start, and so return, blocked;
+    a tile with an empty list returns that seed.
+
+    Both leave a tile once every lane of a block is blocked, which changes
+    no lane's answer.
+    """
+    dev = dirs.device
+    R = dirs.shape[0]
+    _require(tile_rays > 0 and R % tile_rays == 0,
+             f"R must be a multiple of {tile_rays}")
+    tiles = R // tile_rays
+    L = tables.n.shape[0]
+    _require(tile_mod >= 0 and (tile_mod == 0 or tiles % tile_mod == 0),
+             "tile_mod must divide the tile count")
+    _require(exit or active is None, "active seeds the exit mode only")
+    _require(not (exit and tile_mod), "the exit mode takes no tile_mod")
+    _check_rays("origins", origins, dev,
+                tile_mod * tile_rays if tile_mod else R)
+    _check_rays("dirs", dirs, dev, R)
+    _require(r2.device == dev and r2.dtype == torch.float32
+             and r2.is_contiguous() and tuple(r2.shape) == (R,),
+             f"r2 must be a contiguous float32 [{R}] on {dev}")
+    _check_tables(tables, dev)
+    _check_lists(cluster_list, counts, tiles, L, dev)
+    seed = None
+    if active is not None:
+        _require(active.device == dev and active.dtype == torch.bool
+                 and tuple(active.shape) == (R,),
+                 f"active must be a bool [{R}] on {dev}")
+        seed = ~active
+
+    if dev.type == "cpu":
+        return occlusion_d_plain(tables, origins, dirs, r2, cluster_list,
+                                 counts, tile_rays, tile_mod, seed)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"occlusion_d has no kernel for {dev}")
+    _require(tile_rays % 256 == 0, "the kernel takes 256-lane blocks")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    if tiles:
+        with torch.cuda.device(dev):
+            err = lib.crt_occlusion_d(
+                origins.data_ptr(), dirs.data_ptr(), r2.data_ptr(),
+                seed.data_ptr() if seed is not None else None,
+                tables.n.data_ptr(), tables.nv0.data_ptr(),
+                tables.m.data_ptr(), tables.c.data_ptr(),
+                tables.nobf.data_ptr(), cluster_list.data_ptr(),
+                counts.data_ptr(), L, tiles, tile_rays, tile_mod,
+                occ.data_ptr(), _cuda_stream(dev),
+            )
+        _raise_on(err, "occlusion_d")
+        global occlusion_d_launches
+        occlusion_d_launches += 1
+        occlusion_d_mode_launches["exit" if exit else "compact"] += 1
+    return occ
+
+
 # ---------------------------------------------------------------------------
 # The trace factory
 # ---------------------------------------------------------------------------
 
-def make_cluster_trace_fn(scene, compact_masked: bool = False):
+def pad_rays(o, d, active, tile_rays, pad_all_active: bool = False):
+    """Flat rays padded to a tile multiple, as the JAX factories pad them:
+    origin 0, direction (0, 0, -1), inactive.  ``pad_all_active`` turns a
+    missing mask into "the real lanes" once there is padding (the any-hit
+    and streaming factories do; the closest-hit one leaves it None).
+    Returns (o, d, active or None), contiguous."""
+    R = o.shape[0]
+    pad = (-R) % tile_rays
+    a = None if active is None else active.reshape(-1)
+    if pad:
+        o = torch.cat([o, o.new_zeros((pad, 3))])
+        d = torch.cat([d, d.new_tensor([[0.0, 0.0, -1.0]]).expand(pad, 3)])
+        if a is None and pad_all_active:
+            a = torch.ones((R,), dtype=torch.bool, device=o.device)
+        if a is not None:
+            a = torch.cat([a, a.new_zeros((pad,))])
+    return o.contiguous(), d.contiguous(), a
+
+
+def occluded_by_closest_hit(trace, shadow_o, light_dirs, r2, active):
+    """[Ll, R] occlusion masks from the generic closest hit of the stacked
+    [Ll * R] shadow wavefront: the fallback of the direction-form shadow
+    paths when R is not a tile multiple."""
+    Ll, R = r2.shape
+    sh = trace(shadow_o.expand(Ll, R, 3).reshape(-1, 3),
+               light_dirs.reshape(-1, 3), active.reshape(-1))
+    return (sh.valid & (sh.t * sh.t <= r2.reshape(-1))).reshape(Ll, R)
+
+
+def make_cluster_trace_fn(scene, compact_masked: bool = False,
+                          use_occlusion_kernel: bool = False,
+                          apex_w: bool | None = None):
     """trace_fn factory for the cluster backend (``make_pallas_trace_fn``).
 
     ``trace(o, d, active=None) -> Hit``; ``trace.with_rows(o, d, active)
@@ -494,6 +655,19 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False):
     not a tile multiple); ``trace.rank`` is the tables' triangle id ->
     slot rank map.  Rays are padded to a tile multiple with
     direction (0, 0, -1) and inactive lanes, as the JAX factory does.
+
+    ``trace.shadow_apex(shadow_o, light_dirs [Ll, R, 3], r2 [Ll, R],
+    light_positions, active [Ll, R], origin_slack) -> occluded [Ll, R]`` is
+    the direction form of the shadow pass: the light-side shaft binning of
+    ``bin_rays``'s apex mode and K5 over the live tiles, the origin tiles
+    stored once for all lights (``tile_mod``); when R is not a tile
+    multiple, the generic trace and a compare.  ``apex_w`` (None: the
+    module's ``CRT_APEX_W`` flag) off leaves ``shadow_apex_w`` and the
+    glass router off the trace, so shading takes ``shadow_apex``.  The
+    any-hit query ``occluded(o, d, r2, active=None) -> blocked`` (K6;
+    inactive lanes return True) is ``trace.occluded`` with
+    ``use_occlusion_kernel`` (shading then prefers it) and
+    ``trace.occluded_kernel`` otherwise.
 
     ``compact_masked`` sends every trace that comes with an ``active``
     mask through the live-tile compacted kernel (``closest_hit_compact``).
@@ -507,23 +681,14 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False):
     tables = build_cluster_tables(scene)
     rows_table_cache = []
     glass_cache = []
+    if apex_w is None:
+        apex_w = _APEX_W
 
     def _trace_impl(origins, dirs, active, want_rows):
         batch_shape = origins.shape[:-1]
-        o = origins.detach().reshape(-1, 3)
-        d = dirs.detach().reshape(-1, 3)
-        R = o.shape[0]
-        pad = (-R) % TILE_RAYS
-        if pad:
-            o = torch.cat([o, o.new_zeros((pad, 3))])
-            d = torch.cat([d, d.new_tensor([[0.0, 0.0, -1.0]]).expand(pad, 3)])
-        a = None
-        if active is not None:
-            a = active.reshape(-1)
-            if pad:
-                a = torch.cat([a, a.new_zeros((pad,))])
-        o = o.contiguous()
-        d = d.contiguous()
+        R = origins[..., 0].numel()
+        o, d, a = pad_rays(origins.detach().reshape(-1, 3),
+                           dirs.detach().reshape(-1, 3), active, TILE_RAYS)
         rows_table = None
         if want_rows:
             if not rows_table_cache:
@@ -601,10 +766,53 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False):
         return _shadow_w(point, shadow_o, light_positions, active,
                          origin_slack, capped=False, masked=True)
 
+    def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
+                    origin_slack):
+        """Direction-form occlusion masks of a point-light shadow wavefront
+        -> [Ll, R]."""
+        Ll, R = r2.shape
+        shadow_o = shadow_o.detach()
+        light_dirs = light_dirs.detach()
+        r2 = r2.detach()
+        if R % TILE_RAYS:
+            return occluded_by_closest_hit(trace, shadow_o, light_dirs, r2,
+                                           active)
+        tpl = R // TILE_RAYS
+        o_flat = shadow_o.expand(Ll, R, 3).reshape(-1, 3)
+        d_flat = light_dirs.reshape(-1, 3).contiguous()
+        apex = light_positions.detach().repeat_interleave(tpl, dim=0)
+        cluster_list, counts = bin_rays(
+            tables, o_flat, d_flat, TILE_RAYS, active.reshape(-1), apex=apex,
+            apex_slack=origin_slack)
+        occ = occlusion_d(tables, shadow_o.contiguous(), d_flat,
+                          r2.reshape(-1).contiguous(), cluster_list, counts,
+                          TILE_RAYS, tile_mod=tpl)
+        return occ.reshape(Ll, R)
+
+    def occluded(origins, dirs, r2, active=None):
+        """Any-hit occlusion query -> blocked, shaped like ``r2``."""
+        batch_shape = origins.shape[:-1]
+        R = r2.numel()
+        o, d, a = pad_rays(origins.detach().reshape(-1, 3),
+                           dirs.detach().reshape(-1, 3), active, TILE_RAYS,
+                           pad_all_active=True)
+        rr = r2.detach().reshape(-1)
+        rr = torch.cat([rr, rr.new_zeros((o.shape[0] - R,))]).contiguous()
+        cluster_list, counts = bin_rays(tables, o, d, TILE_RAYS, a)
+        occ = occlusion_d(tables, o, d, rr, cluster_list, counts, TILE_RAYS,
+                          exit=True, active=a)
+        return occ[:R].reshape(batch_shape)
+
     trace.with_rows = trace_with_rows
-    trace.shadow_apex_w = shadow_apex_w
-    if scene.has_materials and scene.has_refractive:
-        trace.shadow_apex_w_glass = shadow_apex_w_glass
-        trace.refr_ray_hit_w = refr_ray_hit_w
+    trace.shadow_apex = shadow_apex
+    if apex_w:
+        trace.shadow_apex_w = shadow_apex_w
+        if scene.has_materials and scene.has_refractive:
+            trace.shadow_apex_w_glass = shadow_apex_w_glass
+            trace.refr_ray_hit_w = refr_ray_hit_w
+    if use_occlusion_kernel:
+        trace.occluded = occluded
+    else:
+        trace.occluded_kernel = occluded  # offered, not taken by shading
     trace.rank = tables.rank
     return trace

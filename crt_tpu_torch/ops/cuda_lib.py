@@ -26,7 +26,8 @@ from typing import NamedTuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
-SOURCES = ("closest_hit.cu", "occlusion_w.cu", "segsum.cu")
+SOURCES = ("closest_hit.cu", "occlusion_w.cu", "occlusion_d.cu",
+           "stream_trace.cu", "segsum.cu")
 HEADERS = ("cluster_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -105,6 +106,12 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.crt_closest_hit_compact.restype = i
     lib.crt_occlusion_w.argtypes = [p] * 11 + [i] * 7 + [p] * 3
     lib.crt_occlusion_w.restype = i
+    lib.crt_occlusion_d.argtypes = [p] * 11 + [i] * 4 + [p] * 2
+    lib.crt_occlusion_d.restype = i
+    lib.crt_closest_hit_stream.argtypes = [p] * 7 + [i] * 3 + [p] * 3
+    lib.crt_closest_hit_stream.restype = i
+    lib.crt_occlusion_stream.argtypes = [p] * 8 + [i] * 3 + [p] * 2
+    lib.crt_occlusion_stream.restype = i
     lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]
     lib.crt_segment_accumulate.restype = i
     return lib, info

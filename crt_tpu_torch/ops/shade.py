@@ -401,8 +401,12 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
 
     Without live refraction, a trace with ``shadow_apex_w`` (the cluster
     backend) tests occlusion in the kernel along the unnormalized w =
-    light - point (s <= 1 is the reference's t^2 <= r^2); any other trace
-    takes the closest hit of the stacked [Ll*R] shadow wavefront.
+    light - point (s <= 1 is the reference's t^2 <= r^2).  Failing that,
+    in this order: ``trace.occluded`` (the any-hit query over the stacked
+    [Ll*R] wavefront), ``trace.shadow_apex`` (the direction-form shadow
+    pass of the cluster and streaming backends, for a flat [R] wavefront),
+    and the closest hit of the stacked wavefront with a t^2 <= r^2
+    compare.
 
     With it, shadow rays refract through glass and go on: each lane is
     re-traced after bending at a refractive hit, up to ``max_ray_depth``
@@ -440,8 +444,17 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     d = light_dir.detach().reshape(-1, 3)
     r2_flat = r2.detach().reshape(-1)
     if not transmissive:
-        sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
-        occluded = sh.valid & (sh.t * sh.t <= r2_flat)
+        occluded_fn = getattr(trace_fn, "occluded", None)
+        apex_fn = getattr(trace_fn, "shadow_apex", None)
+        if occluded_fn is not None:
+            occluded = occluded_fn(shadow_o, d, r2_flat, act_lr.reshape(-1))
+        elif apex_fn is not None and point.dim() == 2:
+            occluded = apex_fn(shadow_o_px.detach(), light_dir.detach(),
+                               r2.detach(), light_positions.detach(), act_lr,
+                               2.0 * shadow_bias)
+        else:
+            sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
+            occluded = sh.valid & (sh.t * sh.t <= r2_flat)
         return ~occluded.reshape(r2.shape), light_dir, r2
 
     act = act_lr.reshape(-1)

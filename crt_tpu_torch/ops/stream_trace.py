@@ -1,0 +1,397 @@
+"""The streaming backend for large scenes: kernel wrappers and the factory.
+
+Counterpart of the launch half of ``crt_tpu/ops/pallas_stream.py``:
+
+  - ``closest_hit_stream`` (K8, ``csrc/stream_trace.cu``) replaces
+    ``_make_f_kernel(occl=False)`` as launched by ``_launch_stream_kernel``;
+  - ``occlusion_stream`` (K9, ``csrc/stream_trace.cu``) replaces
+    ``_make_f_kernel(occl=True)`` as launched by ``_launch_stream_occl``;
+  - ``closest_hit_stream_flat``, ``occluded_stream_flat``,
+    ``occluded_stream_twophase`` and ``make_stream_trace_fn`` replace the
+    functions of those names.
+
+The cluster backend tests every tile against every cluster; at a million
+triangles that mask and its intermediates are GBs per trace.  Here Phase A
+(``ops/stream_binning.py``) lists the (tile, supercluster) pairs that can
+interact and the live member clusters of each, and the kernels walk, per
+tile, that tile's range of the pair list over the fused [L, 16, 18] table.
+One launch serves any pair count: a block owns a tile and loops over its
+pairs (crt_tpu cuts its launches at 16,384 pairs and carries the result
+across them).
+
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
+takes its plain PyTorch version only for CPU tensors.  The plain versions
+expand the pair list to per-tile cluster lists (``pair_lists``) and walk
+them with ``cluster_trace``'s plain walkers, so on a scene both backends
+hold, streaming hits equal the cluster backend's bit for bit.
+``closest_hit_stream_launches`` and ``occlusion_stream_launches`` count
+kernel launches (CUDA launches only).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from crt_tpu_torch.ops import stream_binning as sb
+from crt_tpu_torch.ops.binning import tile_bounds
+from crt_tpu_torch.ops.cluster_tables import (
+    CLUSTER_SIZE,
+    TILE_RAYS,
+    ClusterTables,
+    build_cluster_tables,
+)
+from crt_tpu_torch.ops.cluster_trace import (
+    _cuda_stream,
+    _check_rays,
+    _raise_on,
+    _require,
+    closest_hit_plain,
+    occluded_by_closest_hit,
+    occlusion_d_plain,
+    pad_rays,
+)
+from crt_tpu_torch.ops.intersect import Hit
+
+closest_hit_stream_launches = 0
+occlusion_stream_launches = 0
+
+
+class StreamTables(NamedTuple):
+    """What the streaming trace keeps per scene."""
+
+    tables: ClusterTables  # cluster axis padded to a multiple of ``sc``
+    sc_min: torch.Tensor  # [L2, 3] supercluster boxes
+    sc_max: torch.Tensor
+    fused: torch.Tensor  # [L, 16, 18] f32 (build_fused_table)
+    sc: int  # clusters per supercluster
+
+
+def build_stream_tables(tables: ClusterTables,
+                        sc_clusters: int = sb.SC_CLUSTERS) -> StreamTables:
+    tables, sc_min, sc_max = sb.build_supercluster_boxes(tables, sc_clusters)
+    return StreamTables(tables, sc_min, sc_max, sb.build_fused_table(tables),
+                        sc_clusters)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def pair_lists(pair_sc, pair_bits, tile_start, sc: int):
+    """The pair list as per-tile cluster lists -> (cluster_list [tiles, W]
+    i32, counts [tiles] i32): each tile's pairs in list order, the set bits
+    of a pair's member mask lowest first."""
+    dev = pair_sc.device
+    tiles = tile_start.shape[0] - 1
+    per_tile = (tile_start[1:] - tile_start[:-1]).long()
+    pair_tile = torch.repeat_interleave(
+        torch.arange(tiles, device=dev), per_tile)
+    member = ((pair_bits.long()[:, None] >> torch.arange(sc, device=dev)) & 1
+              ).bool()  # [P, sc]
+    p_idx, m_idx = torch.nonzero(member).unbind(dim=1)  # pair-major
+    tile = pair_tile[p_idx]
+    cluster = pair_sc.long()[p_idx] * sc + m_idx
+    counts = torch.bincount(tile, minlength=tiles)
+    width = max(int(counts.max()) if tiles else 0, 1)
+    pos = torch.arange(tile.shape[0], device=dev) - (
+        counts.cumsum(dim=0) - counts)[tile]
+    cluster_list = torch.zeros((tiles, width), dtype=torch.int32, device=dev)
+    cluster_list[tile, pos] = cluster.to(torch.int32)
+    return cluster_list, counts.to(torch.int32)
+
+
+def _fused_tables(fused, tri_id) -> ClusterTables:
+    """The fused table's columns under the names the plain walkers read."""
+    return ClusterTables(n=fused[..., 0:3], nv0=fused[..., 3],
+                         m=fused[..., 4:13], c=fused[..., 13:16],
+                         nobf=fused[..., 16], tri_id=tri_id, cl_min=None,
+                         cl_max=None, rank=None)
+
+
+def closest_hit_stream_plain(fused, tri_id, origins, dirs, pair_sc, pair_bits,
+                             tile_start, sc: int, tile_rays: int = TILE_RAYS):
+    """Plain version of ``closest_hit_stream`` -> (t [R], tri [R])."""
+    cluster_list, counts = pair_lists(pair_sc, pair_bits, tile_start, sc)
+    t, tri, _ = closest_hit_plain(_fused_tables(fused, tri_id), origins, dirs,
+                                  cluster_list, counts, tile_rays=tile_rays)
+    return t, tri
+
+
+def occlusion_stream_plain(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
+                           tile_start, sc: int, tile_rays: int = TILE_RAYS):
+    """Plain version of ``occlusion_stream`` -> blocked [R] bool."""
+    cluster_list, counts = pair_lists(pair_sc, pair_bits, tile_start, sc)
+    return occlusion_d_plain(_fused_tables(fused, None), origins, dirs, r2,
+                             cluster_list, counts, tile_rays, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev):
+    _require(fused.device == dev and fused.dtype == torch.float32
+             and fused.is_contiguous() and fused.dim() == 3
+             and tuple(fused.shape[1:]) == (CLUSTER_SIZE, 18)
+             and 1 <= sc <= 32 and fused.shape[0] % sc == 0,
+             f"fused must be a contiguous float32 [L, 16, 18] on {dev} with "
+             "L a multiple of sc")
+    P = pair_sc.shape[0]
+    for name, x in (("pair_sc", pair_sc), ("pair_bits", pair_bits)):
+        _require(x.device == dev and x.dtype == torch.int32
+                 and x.is_contiguous() and tuple(x.shape) == (P,),
+                 f"{name} must be a contiguous int32 [{P}] on {dev}")
+    _require(tile_start.device == dev and tile_start.dtype == torch.int32
+             and tile_start.is_contiguous()
+             and tuple(tile_start.shape) == (tiles + 1,),
+             f"tile_start must be a contiguous int32 [{tiles + 1}] on {dev}")
+
+
+def closest_hit_stream(fused, tri_id, origins, dirs, pair_sc, pair_bits,
+                       tile_start, sc: int, tile_rays: int = TILE_RAYS):
+    """K8: closest hit of each ray over its tile's pairs.
+
+    fused [L, 16, 18] f32 and tri_id [L, 16] i32 (L a multiple of ``sc``);
+    origins, dirs [R, 3] f32 with R % tile_rays == 0; pair_sc, pair_bits
+    [P] i32 (supercluster index and member mask of each pair, tile-major);
+    tile_start [tiles + 1] i32 with tile_start[-1] == P.
+    Returns (t [R] f32, tri [R] i32); +inf and -1 where nothing is hit.
+    """
+    dev = origins.device
+    R = origins.shape[0]
+    _require(tile_rays > 0 and R % tile_rays == 0,
+             f"R must be a multiple of {tile_rays}")
+    tiles = R // tile_rays
+    _check_rays("origins", origins, dev, R)
+    _check_rays("dirs", dirs, dev, R)
+    _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev)
+    _require(tri_id.device == dev and tri_id.dtype == torch.int32
+             and tri_id.is_contiguous()
+             and tuple(tri_id.shape) == tuple(fused.shape[:2]),
+             "tri_id must be a contiguous int32 [L, 16] beside fused")
+
+    if dev.type == "cpu":
+        return closest_hit_stream_plain(fused, tri_id, origins, dirs, pair_sc,
+                                        pair_bits, tile_start, sc, tile_rays)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"closest_hit_stream has no kernel for {dev}")
+    _require(tile_rays % 256 == 0, "the kernel takes 256-lane blocks")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    best_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    best_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    if tiles:
+        with torch.cuda.device(dev):
+            err = lib.crt_closest_hit_stream(
+                origins.data_ptr(), dirs.data_ptr(), fused.data_ptr(),
+                tri_id.data_ptr(), pair_sc.data_ptr(), pair_bits.data_ptr(),
+                tile_start.data_ptr(), sc, tiles, tile_rays,
+                best_t.data_ptr(), best_tri.data_ptr(), _cuda_stream(dev),
+            )
+        _raise_on(err, "closest_hit_stream")
+        global closest_hit_stream_launches
+        closest_hit_stream_launches += 1
+    return best_t, best_tri
+
+
+def occlusion_stream(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
+                     tile_start, sc: int, tile_rays: int = TILE_RAYS):
+    """K9: any-hit occlusion of each ray over its tile's pairs.
+
+    Arguments as ``closest_hit_stream``, with r2 [R] f32 (squared reach)
+    and seed [R] bool: a lane starts, and a lane of a tile without pairs
+    stays, at its seed (True on lanes whose answer nothing consumes, so
+    they never hold a tile's walk open).  Returns blocked [R] bool.
+    """
+    dev = origins.device
+    R = origins.shape[0]
+    _require(tile_rays > 0 and R % tile_rays == 0,
+             f"R must be a multiple of {tile_rays}")
+    tiles = R // tile_rays
+    _check_rays("origins", origins, dev, R)
+    _check_rays("dirs", dirs, dev, R)
+    _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev)
+    _require(r2.device == dev and r2.dtype == torch.float32
+             and r2.is_contiguous() and tuple(r2.shape) == (R,),
+             f"r2 must be a contiguous float32 [{R}] on {dev}")
+    _require(seed.device == dev and seed.dtype == torch.bool
+             and seed.is_contiguous() and tuple(seed.shape) == (R,),
+             f"seed must be a contiguous bool [{R}] on {dev}")
+
+    if dev.type == "cpu":
+        return occlusion_stream_plain(fused, origins, dirs, r2, seed, pair_sc,
+                                      pair_bits, tile_start, sc, tile_rays)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"occlusion_stream has no kernel for {dev}")
+    _require(tile_rays % 256 == 0, "the kernel takes 256-lane blocks")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    if tiles:
+        with torch.cuda.device(dev):
+            err = lib.crt_occlusion_stream(
+                origins.data_ptr(), dirs.data_ptr(), r2.data_ptr(),
+                seed.data_ptr(), fused.data_ptr(), pair_sc.data_ptr(),
+                pair_bits.data_ptr(), tile_start.data_ptr(), sc, tiles,
+                tile_rays, occ.data_ptr(), _cuda_stream(dev),
+            )
+        _raise_on(err, "occlusion_stream")
+        global occlusion_stream_launches
+        occlusion_stream_launches += 1
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Phase A + kernel
+# ---------------------------------------------------------------------------
+
+def bin_stream_pairs(st: StreamTables, bounds, apex=None, apex_slack=0.0,
+                 **bin_kw):
+    """Phase A of one launch -> (pair_sc [P] i32, pair_bits [P] i32,
+    tile_start [tiles + 1] i32), the kernels' list arguments."""
+    pair_tile, pair_sc, tile_start = sb.bin_pairs(
+        st.sc_min, st.sc_max, bounds, apex, apex_slack, **bin_kw)
+    _, bits = sb._member_runs(bounds, pair_tile, pair_sc, st.tables.cl_min,
+                              st.tables.cl_max, st.sc, apex, apex_slack)
+    return pair_sc.to(torch.int32), bits, tile_start
+
+
+def closest_hit_stream_flat(st: StreamTables, origins, dirs, active=None,
+                            tile_rays: int = TILE_RAYS, apex=None,
+                            apex_slack: float = 0.0):
+    """Streaming closest hit of a flat wavefront (R % tile_rays == 0).
+    Returns (Hit, number of pairs)."""
+    bounds = tile_bounds(origins, dirs, tile_rays, active)
+    pair_sc, bits, tile_start = bin_stream_pairs(st, bounds, apex, apex_slack)
+    t, tri = closest_hit_stream(st.fused, st.tables.tri_id, origins, dirs,
+                                pair_sc, bits, tile_start, st.sc, tile_rays)
+    return Hit(t=t, tri=tri), pair_sc.shape[0]
+
+
+def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
+                         apex_slack, tile_rays: int = TILE_RAYS,
+                         per_tile_cap: int | None = None,
+                         lane_exact: bool = True):
+    """Streaming any-hit occlusion of a point-light shadow wavefront ->
+    blocked [R] bool.  ``apex`` [tiles, 3] is each tile's light.  Pairs
+    come nearest first.  A complete walk (``per_tile_cap`` None) admits a
+    pair only if some lane's own segment reaches the supercluster
+    (``lane_exact_sc_mask`` over the shaft hull's survivors); a truncated
+    one skips that test, its list being short anyway.  Lanes outside
+    ``active`` return True."""
+    bounds = tile_bounds(origins, dirs, tile_rays, active)
+    extra = None
+    if per_tile_cap is None and lane_exact:
+        hull = sb.pair_mask(st.sc_min, st.sc_max, bounds, apex, apex_slack)
+        extra = sb.lane_exact_sc_mask(origins, dirs, r2, active, apex_slack,
+                                      st.sc_min, st.sc_max, tile_rays,
+                                      where=hull)
+    pair_sc, bits, tile_start = bin_stream_pairs(
+        st, bounds, apex, apex_slack, near_first=True,
+        per_tile_cap=per_tile_cap, extra_mask=extra)
+    seed = (torch.zeros(r2.shape, dtype=torch.bool, device=r2.device)
+            if active is None else ~active)
+    return occlusion_stream(st.fused, origins, dirs, r2, seed, pair_sc, bits,
+                            tile_start, st.sc, tile_rays)
+
+
+def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
+                             light_positions, active, origin_slack,
+                             tile_rays: int = TILE_RAYS, phase1_k: int = 8,
+                             lane_exact: bool = True):
+    """Two-phase streaming shadow occlusion -> [Ll, R] bool.
+
+    Phase 1 walks only each tile's ``phase1_k`` nearest superclusters.
+    Phase 2 moves the lanes that are active and still unblocked to the
+    front of each light's row (a stable sort, so they stay in pixel-tile
+    order and each row keeps its light) and walks their complete lists:
+    tiles, and so pairs, shrink to what is left.  Exact: every lane phase
+    1 left open gets a complete walk.
+
+    shadow_o [R, 3] per-pixel origins shared by the lights; light_dirs
+    [Ll, R, 3]; r2, active [Ll, R]; light_positions [Ll, 3].
+    """
+    Ll, R = r2.shape
+    tpl = R // tile_rays
+    apex = light_positions.repeat_interleave(tpl, dim=0)
+    occ1 = occluded_stream_flat(
+        st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
+        light_dirs.reshape(-1, 3).contiguous(), r2.reshape(-1).contiguous(),
+        active.reshape(-1), apex, origin_slack, tile_rays,
+        per_tile_cap=phase1_k).reshape(Ll, R)
+
+    surv = active & ~occ1
+    perm = torch.argsort((~surv).to(torch.uint8), dim=1, stable=True)
+    occ2 = occluded_stream_flat(
+        st, shadow_o[perm].reshape(-1, 3),
+        torch.gather(light_dirs, 1, perm[..., None].expand(Ll, R, 3)
+                     ).reshape(-1, 3),
+        torch.gather(r2, 1, perm).reshape(-1),
+        torch.gather(surv, 1, perm).reshape(-1), apex, origin_slack,
+        tile_rays, lane_exact=lane_exact).reshape(Ll, R)
+    occ2_back = torch.empty_like(occ2).scatter_(1, perm, occ2)
+    return occ1 | (occ2_back & surv)
+
+
+def make_stream_trace_fn(scene, tile_rays: int | None = None,
+                         sc_clusters: int = sb.SC_CLUSTERS,
+                         shadow_k: int = 2):
+    """trace_fn factory for the streaming backend ("pallas_stream").
+
+    ``trace(o, d, active=None) -> Hit``, rays padded to a tile multiple
+    with direction (0, 0, -1) and inactive lanes.
+    ``trace.shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
+    origin_slack) -> occluded [Ll, R]``: the point-light shadow pass, binned
+    by the light-side shaft against supercluster and member boxes;
+    ``shadow_k`` is the phase-1 depth of the two-phase resolve
+    (``RenderSettings.stream_shadow_k``; 0 walks every list in one phase).
+    ``trace.rank`` is the triangle id -> Morton rank map, which keeps the
+    segment sum's id bands narrow in a backward.  The trace emits no packed
+    rows: shading gathers them.
+    """
+    tile_rays = tile_rays or TILE_RAYS
+    tables = build_cluster_tables(scene)
+    st = build_stream_tables(tables, sc_clusters)
+
+    def trace(origins, dirs, active=None):
+        batch_shape = origins.shape[:-1]
+        R = origins[..., 0].numel()
+        o, d, a = pad_rays(origins.detach().reshape(-1, 3),
+                           dirs.detach().reshape(-1, 3), active, tile_rays,
+                           pad_all_active=True)
+        hit, _ = closest_hit_stream_flat(st, o, d, a, tile_rays)
+        return Hit(t=hit.t[:R].reshape(batch_shape),
+                   tri=hit.tri[:R].reshape(batch_shape))
+
+    def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
+                    origin_slack):
+        Ll, R = r2.shape
+        shadow_o = shadow_o.detach()
+        light_dirs = light_dirs.detach()
+        r2 = r2.detach()
+        if R % tile_rays:
+            return occluded_by_closest_hit(trace, shadow_o, light_dirs, r2,
+                                           active)
+        light_positions = light_positions.detach()
+        if shadow_k > 0:
+            return occluded_stream_twophase(
+                st, shadow_o, light_dirs, r2, light_positions, active,
+                origin_slack, tile_rays, phase1_k=shadow_k)
+        apex = light_positions.repeat_interleave(R // tile_rays, dim=0)
+        occ = occluded_stream_flat(
+            st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
+            light_dirs.reshape(-1, 3).contiguous(),
+            r2.reshape(-1).contiguous(), active.reshape(-1), apex,
+            origin_slack, tile_rays)
+        return occ.reshape(Ll, R)
+
+    trace.shadow_apex = shadow_apex
+    trace.rank = tables.rank
+    return trace

@@ -3,9 +3,9 @@
 Counterpart of ``crt_tpu/renderer.py``.  ``render_image(scene, settings)``
 renders a [height, width, 3] linear-color image on the device that holds
 the scene's tensors: the pixel wavefront in 32x32 tile order, the closest
-hit through the cluster backend (its CUDA kernels on a CUDA scene, their
-plain versions on a CPU scene) or the all-pairs backend, and the Whitted
-shading: the unrolled recursion for linear trees, the iterative bank
+hit through the cluster backend or, for large scenes, the streaming
+backend (their CUDA kernels on a CUDA scene, their plain versions on a CPU
+scene) or the all-pairs backend, and the Whitted shading: the unrolled recursion for linear trees, the iterative bank
 wavefront (``ops/shade_iter.py``) for branching ones (live refraction at
 depth >= 2).  The image is differentiable with respect to the scene's
 float tensors; the backward of the packed-row read is the segment-sum
@@ -18,6 +18,7 @@ import torch
 
 from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops import intersect as intersect_ops
+from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE
 from crt_tpu_torch.ops.shade import check_supported, shade_wavefront
 from crt_tpu_torch.ops.shade_iter import default_banks, shade_wavefront_iter
 from crt_tpu_torch.scene.types import RenderSettings, Scene
@@ -27,7 +28,23 @@ from crt_tpu_torch.scene.types import RenderSettings, Scene
 TILE_H = 32
 TILE_W = 32
 
-_CLUSTER_BACKENDS = ("auto", "cluster", "pallas")
+_CLUSTER_BACKENDS = ("cluster", "pallas")
+_STREAM_BACKENDS = ("stream", "pallas_stream")
+
+# Cluster count above which ``backend="auto"`` takes the streaming backend
+# on the card.  The cluster backend tests every tile against every cluster,
+# so its Phase A grows with the scene; the streaming backend pays for its
+# two-level lists and its two-phase shadow resolve whatever the size.
+# chip_smoke.py times both on make_big_scene at 1080p, forward frame, on an
+# NVIDIA H100 80GB HBM3 (700 W), cluster against streaming: at 1,024
+# clusters (16,384 triangles) 29.459 against 81.803 ms; at 4,096 clusters
+# (65,536 triangles) the two tie, 60.832 against 68.014 ms (56.384 against
+# 48.177 in another run: these frames follow the host); at 16,384 clusters
+# 211.353 against 103.138 ms; at 62,500 clusters (1,000,000 triangles)
+# 751.939 ms and 12.9 GiB against 282.891 ms and 2.4 GiB.  So the cluster
+# backend, whose trace also emits the packed rows, keeps every scene up to
+# the size where they tie.
+AUTO_STREAM_MIN_CLUSTERS = 4096
 
 # Pool lanes (banks x pixels) the iterative wavefront shades per chunk when
 # ``chunk_pixels`` is not set and the frame casts shadow rays; four times as
@@ -56,8 +73,11 @@ def use_iterative_wavefront(scene: Scene, settings: RenderSettings) -> bool:
 def make_trace_fn(scene: Scene, settings: RenderSettings):
     """Build the intersection backend ``trace_fn(origins, dirs, active)``.
 
-    "auto", "cluster" and "pallas" (the crt_tpu name) are the binned
-    cluster trace; "bruteforce" is the all-pairs backend.
+    "cluster" and "pallas" (the crt_tpu name) are the binned cluster trace;
+    "stream" and "pallas_stream" the two-level streaming trace for large
+    scenes; "bruteforce" is the all-pairs backend.  "auto" is the cluster
+    trace, and on the card the streaming trace for a scene of more than
+    ``AUTO_STREAM_MIN_CLUSTERS`` clusters.
     """
     if scene.num_triangles == 0:
         def empty_trace(origins, dirs, active=None):
@@ -71,6 +91,11 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
         return empty_trace
 
     backend = settings.backend
+    if backend == "auto":
+        clusters = -(-scene.num_triangles // CLUSTER_SIZE)
+        large = (scene.device.type == "cuda"
+                 and clusters > AUTO_STREAM_MIN_CLUSTERS)
+        backend = "stream" if large else "cluster"
     if backend in _CLUSTER_BACKENDS:
         from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
 
@@ -95,9 +120,11 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
     if backend == "tree":
         raise NotImplementedError(
             "the tree backend is not ported yet (ROADMAP A12)")
-    if backend == "pallas_stream":
-        raise NotImplementedError(
-            "the streaming backend is not ported yet (ROADMAP A11)")
+    if backend in _STREAM_BACKENDS:
+        from crt_tpu_torch.ops.stream_trace import make_stream_trace_fn
+
+        return make_stream_trace_fn(scene,
+                                    shadow_k=settings.stream_shadow_k)
     raise ValueError(f"unknown intersection backend: {backend!r}")
 
 

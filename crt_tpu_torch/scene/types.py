@@ -182,10 +182,15 @@ class RenderSettings:
 
     Every field is accepted so settings written for crt_tpu carry over.
     ``head_compat`` switches on the three reference quirks (no shadows, the
-    unconditional GI divide, the Hadamard y typo).  ``backend``: "auto" and
-    "cluster" are the binned cluster trace (its CUDA kernels on a CUDA
-    scene, their plain versions on a CPU scene); "pallas" is an alias of
-    "cluster"; "bruteforce" is the all-pairs backend.  ``wavefront``: "auto" takes the
+    unconditional GI divide, the Hadamard y typo).  ``backend``: "cluster" is
+    the binned cluster trace (its CUDA kernels on a CUDA scene, their plain
+    versions on a CPU scene) and "pallas" its alias; "stream" is the
+    two-level streaming trace for large scenes and "pallas_stream" its
+    alias; "auto" is the cluster trace, and on the card the streaming trace
+    above ``renderer.AUTO_STREAM_MIN_CLUSTERS`` clusters; "bruteforce" is
+    the all-pairs backend.  ``stream_shadow_k`` is the phase-1 depth of the
+    streaming trace's two-phase shadow resolve (0: one phase; the image
+    does not depend on it).  ``wavefront``: "auto" takes the
     iterative bank wavefront for a scene with live refraction at depth >= 2
     and the unrolled recursion otherwise; "iter" / "recursive" force one.
     ``wavefront_banks`` overrides the pool's bank count (0: 2^min(depth, 3)
@@ -195,7 +200,7 @@ class RenderSettings:
     bit).  ``remat_shading`` keeps no graph of an iterative bounce and runs
     it again in the backward (the same gradients, less memory).  Fields
     that only tune the TPU package (``shadow_tile_rays``,
-    ``fused_light_vjp``, ``stream_shadow_k``) change no output and are
+    ``fused_light_vjp``) change no output and are
     accepted as no-ops.
     """
 

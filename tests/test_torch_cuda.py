@@ -31,6 +31,9 @@ from crt_tpu_torch.ops import (
     cluster_tables,
     cluster_trace,
     segsum,
+    stream_binning,
+    stream_trace,
+    vecmath,
 )
 from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
@@ -290,6 +293,243 @@ def test_render_on_card_matches_cpu(device):
              cluster_trace.occlusion_w_launches)
     assert after == (before[0] + 4, before[1] + 4)
     torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
+
+
+def _dir_shadow_wavefront(scene, tables, tile_rays):
+    """The direction-form shadow wavefront behind the primary hits, padded
+    to ``tile_rays``: (shadow_o [R, 3], ldir [Ll, R, 3], r2 [Ll, R], act
+    [Ll, R], lights), light 1 active on x > 0 only and every third tile of
+    pixels switched off for both."""
+    o, d = _wavefront(scene)
+    t, tri, _ = cluster_trace.closest_hit(
+        tables, o, d, *binning.bin_rays(tables, o, d, 1024))
+    valid = tri >= 0
+    point = o + d * torch.where(valid, t, 0.0)[:, None]
+    shadow_o = (point + 0.01 * torch.tensor([0.0, 1.0, 0.0],
+                                            device=o.device)).contiguous()
+    lights = scene.light_position
+    if lights.shape[0] == 1:
+        lights = torch.cat([lights, lights + 7.0])
+    lv = lights[:, None, :] - point[None]
+    r2 = vecmath.length_squared(lv)
+    ldir = vecmath.safe_normalize(lv)
+    on = (torch.arange(o.shape[0], device=o.device) // tile_rays) % 3 != 2
+    act = torch.stack([valid, valid & (point[:, 0] > 0)]) & on[None]
+    return shadow_o, ldir, r2, act, lights.contiguous()
+
+
+def _flat(shadow_o, ldir, r2, act, lights, tile_rays):
+    Ll, R = r2.shape
+    return (shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
+            ldir.reshape(-1, 3).contiguous(), r2.reshape(-1).contiguous(),
+            act.reshape(-1), lights.repeat_interleave(R // tile_rays, dim=0))
+
+
+def _sized_scene(big, device):
+    return (make_big_scene(65536, 256, 192, device=device) if big
+            else make_test_scene(192, 128, num_quads=24, device=device))
+
+
+@pytest.mark.parametrize("tile_rays", [256, 1024])
+@pytest.mark.parametrize("big", [False, True])
+def test_occlusion_d_kernels_match_plain(device, big, tile_rays):
+    """K5 (shaft lists, origin tiles stored once) and K6 (generic lists,
+    seeded, with and without an active mask) vs their plain version, lane
+    for lane, and K5 == K6 on the active lanes."""
+    scene = _sized_scene(big, device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    shadow_o, ldir, r2, act, lights = _dir_shadow_wavefront(scene, tables,
+                                                            tile_rays)
+    o_f, d_f, r2_f, a_f, apex = _flat(shadow_o, ldir, r2, act, lights,
+                                      tile_rays)
+    tpl = shadow_o.shape[0] // tile_rays
+    cl, cnt = binning.bin_rays(tables, o_f, d_f, tile_rays, a_f, apex=apex,
+                               apex_slack=0.02)
+    before = dict(cluster_trace.occlusion_d_mode_launches)
+    k5 = cluster_trace.occlusion_d(tables, shadow_o, d_f, r2_f, cl, cnt,
+                                   tile_rays, tile_mod=tpl)
+    p5 = cluster_trace.occlusion_d_plain(tables, shadow_o, d_f, r2_f, cl, cnt,
+                                         tile_rays, tile_mod=tpl)
+    gl, gcnt = binning.bin_rays(tables, o_f, d_f, tile_rays, a_f)
+    k6 = cluster_trace.occlusion_d(tables, o_f, d_f, r2_f, gl, gcnt,
+                                   tile_rays, exit=True, active=a_f)
+    p6 = cluster_trace.occlusion_d_plain(tables, o_f, d_f, r2_f, gl, gcnt,
+                                         tile_rays, seed=~a_f)
+    fl, fcnt = binning.bin_rays(tables, o_f, d_f, tile_rays)
+    k6_all = cluster_trace.occlusion_d(tables, o_f, d_f, r2_f, fl, fcnt,
+                                       tile_rays, exit=True)
+    p6_all = cluster_trace.occlusion_d_plain(tables, o_f, d_f, r2_f, fl, fcnt,
+                                             tile_rays)
+    torch.cuda.synchronize()
+    after = cluster_trace.occlusion_d_mode_launches
+    assert after["compact"] == before["compact"] + 1
+    assert after["exit"] == before["exit"] + 2
+    assert torch.equal(k5, p5) and torch.equal(k6, p6)
+    assert torch.equal(k6_all, p6_all)
+    assert torch.equal(k5[a_f], k6[a_f]) and k6[~a_f].all()
+    assert (cnt == 0).any() and k5[a_f].any() and not k5[a_f].all()
+    assert not k5[(cnt == 0).repeat_interleave(tile_rays)].any()
+
+
+@pytest.mark.parametrize("sc", [4, 32])
+@pytest.mark.parametrize("tile_rays", [256, 1024])
+@pytest.mark.parametrize("big", [False, True])
+def test_stream_kernels_match_plain(device, big, tile_rays, sc):
+    """K8 on the primary wavefront (with an active mask that leaves tiles
+    without a pair) and K9 on the shadow wavefront (complete and truncated
+    walks) vs their plain versions; streaming hits == K1's."""
+    scene = _sized_scene(big, device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    st = stream_trace.build_stream_tables(tables, sc)
+    o, d = _wavefront(scene)
+    lane = torch.arange(o.shape[0], device=device)
+    act = (lane % 3 != 0) & ((lane // tile_rays) % 4 != 1)
+    for a in (None, act):
+        bounds = binning.tile_bounds(o, d, tile_rays, a)
+        pair_sc, bits, start = stream_trace.bin_stream_pairs(st, bounds)
+        before = stream_trace.closest_hit_stream_launches
+        k = stream_trace.closest_hit_stream(
+            st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, sc,
+            tile_rays)
+        assert stream_trace.closest_hit_stream_launches == before + 1
+        p = stream_trace.closest_hit_stream_plain(
+            st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, sc,
+            tile_rays)
+        torch.cuda.synchronize()
+        assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+        assert (k[1] >= 0).any()
+        if a is not None:
+            assert (start[1:] == start[:-1]).any()  # tiles without a pair
+        elif tile_rays == 1024:
+            k1 = cluster_trace.closest_hit(
+                tables, o, d, *binning.bin_rays(tables, o, d, 1024))
+            assert torch.equal(k[1], k1[1]) and torch.equal(k[0], k1[0])
+
+    shadow_o, ldir, r2, sact, lights = _dir_shadow_wavefront(scene, tables,
+                                                             tile_rays)
+    o_f, d_f, r2_f, a_f, apex = _flat(shadow_o, ldir, r2, sact, lights,
+                                      tile_rays)
+    bounds = binning.tile_bounds(o_f, d_f, tile_rays, a_f)
+    for kw in (dict(near_first=True), dict(near_first=True, per_tile_cap=2)):
+        pair_sc, bits, start = stream_trace.bin_stream_pairs(
+            st, bounds, apex, 0.02, **kw)
+        before = stream_trace.occlusion_stream_launches
+        k9 = stream_trace.occlusion_stream(st.fused, o_f, d_f, r2_f, ~a_f,
+                                           pair_sc, bits, start, sc,
+                                           tile_rays)
+        assert stream_trace.occlusion_stream_launches == before + 1
+        p9 = stream_trace.occlusion_stream_plain(st.fused, o_f, d_f, r2_f,
+                                                 ~a_f, pair_sc, bits, start,
+                                                 sc, tile_rays)
+        torch.cuda.synchronize()
+        assert torch.equal(k9, p9) and k9[~a_f].all()
+        assert k9[a_f].any() and not k9[a_f].all()
+    # the complete walk answers what K5 answers on the active lanes
+    tpl = shadow_o.shape[0] // tile_rays
+    cl, cnt = binning.bin_rays(tables, o_f, d_f, tile_rays, a_f, apex=apex,
+                               apex_slack=0.02)
+    full = stream_trace.occluded_stream_flat(st, o_f, d_f, r2_f, a_f, apex,
+                                             0.02, tile_rays)
+    k5 = cluster_trace.occlusion_d(tables, shadow_o, d_f, r2_f, cl, cnt,
+                                   tile_rays, tile_mod=tpl)
+    two = stream_trace.occluded_stream_twophase(
+        st, shadow_o, ldir, r2, lights, sact, 0.02, tile_rays, phase1_k=2)
+    assert torch.equal(full[a_f], k5[a_f])
+    assert torch.equal(two.reshape(-1)[a_f], full[a_f])
+
+
+@pytest.mark.parametrize("case", ["blocked_at_first_pair", "inactive_only",
+                                  "no_pair"])
+def test_occlusion_stream_tile_exits(device, case):
+    """One tile under a slab that blocks every lane from its first member
+    on: the block leaves the walk there; a tile seeded all True leaves
+    before its first member; a tile with no pair returns its seed."""
+    from crt_tpu_torch import scene_from_dict
+
+    def tri(y, mat=0):
+        return {"material_index": mat, "triangles": [0, 1, 2],
+                "vertices": [-30, y, -30, 30, y, -30, 0, y, 60]}
+
+    scene = scene_from_dict({
+        "settings": {"background_color": [0, 0, 0],
+                     "image_settings": {"width": 32, "height": 32}},
+        "camera": {"matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1],
+                   "position": [0, 0, 5]},
+        "lights": [{"intensity": 10, "position": [0, 50, 0]}],
+        "materials": [{"type": "diffuse", "albedo": [1, 1, 1],
+                       "smooth_shading": False}],
+        "objects": [tri(1.0 + 0.01 * i) for i in range(40)]}, device=device)
+    st = stream_trace.build_stream_tables(
+        cluster_tables.build_cluster_tables(scene), 1)
+    g = torch.linspace(-0.4, 0.4, 32, device=device)
+    x, z = torch.meshgrid(g, g, indexing="ij")
+    o = torch.stack([x.reshape(-1), torch.zeros(1024, device=device),
+                     z.reshape(-1)], dim=-1).contiguous()
+    d = torch.tensor([0.0, 1.0, 0.0], device=device).expand(1024, 3
+                                                            ).contiguous()
+    r2 = torch.full((1024,), 2500.0, device=device)
+    active = torch.ones(1024, dtype=torch.bool, device=device)
+    apex = scene.light_position[:1]
+    bounds = binning.tile_bounds(o, d, 1024, active)
+    pair_sc, bits, start = stream_trace.bin_stream_pairs(st, bounds, apex, 0.02,
+                                                     near_first=True)
+    assert pair_sc.shape[0] == 3  # three clusters, one pair each
+    seed = torch.zeros_like(active)
+    want = torch.ones_like(active)
+    if case == "inactive_only":
+        seed = torch.ones_like(active)
+    elif case == "no_pair":
+        pair_sc, bits = pair_sc[:0].contiguous(), bits[:0].contiguous()
+        start = torch.zeros_like(start)
+        seed = torch.arange(1024, device=device) % 2 == 0
+        want = seed
+    k = stream_trace.occlusion_stream(st.fused, o, d, r2, seed, pair_sc, bits,
+                                      start, 1, 1024)
+    p = stream_trace.occlusion_stream_plain(st.fused, o, d, r2, seed, pair_sc,
+                                            bits, start, 1, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and torch.equal(k, want)
+
+
+def test_stream_render_on_card_matches_cpu(device):
+    """A small scene through the streaming backend, card vs CPU, and vs the
+    cluster backend on the card; per shading level one K8 launch and the
+    two K9 launches of the two-phase shadow resolve."""
+    scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
+                            device="cpu")
+    st = RenderSettings(backend="pallas_stream")
+    cpu = render_image(scene, st)
+    before = (stream_trace.closest_hit_stream_launches,
+              stream_trace.occlusion_stream_launches,
+              cluster_trace.closest_hit_launches)
+    stream_binning.stream_host_syncs = 0
+    gpu = render_image(scene.to(device), st)
+    after = (stream_trace.closest_hit_stream_launches,
+             stream_trace.occlusion_stream_launches,
+             cluster_trace.closest_hit_launches)
+    assert after == (before[0] + 4, before[1] + 8, before[2])
+    assert stream_binning.stream_host_syncs == 16
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-6)
+    for kw in (dict(backend="cluster"), dict(backend="stream",
+                                             stream_shadow_k=0)):
+        other = render_image(scene.to(device), RenderSettings(**kw))
+        torch.testing.assert_close(other, gpu, rtol=1e-5, atol=1e-6)
+
+
+def test_direction_form_render_on_card(device, monkeypatch):
+    """With the w form off the cluster backend's shadows take K5: the image
+    equals the streaming backend's bit for bit (both direction form)."""
+    scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
+                            device=device)
+    monkeypatch.setattr(cluster_trace, "_APEX_W", False)
+    before = (dict(cluster_trace.occlusion_d_mode_launches),
+              cluster_trace.occlusion_w_launches)
+    img = render_image(scene, RenderSettings(backend="cluster"))
+    assert cluster_trace.occlusion_d_mode_launches["compact"] \
+        == before[0]["compact"] + 4
+    assert cluster_trace.occlusion_w_launches == before[1]
+    assert torch.equal(
+        img, render_image(scene, RenderSettings(backend="stream")))
 
 
 def test_wrapper_rejects_mixed_devices(device):
