@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (crt_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --large]
 
 Phases, each printing what it found; any failure raises (exit code != 0):
 
@@ -33,7 +33,15 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      peak memory; then three Adam steps of fit_scene on the same frame
      from perturbed texture colours, light intensities and vertices (the
      loss must fall at every step);
-  7. glass kernels: on the depth-0 shadow wavefront of the refractive
+  7. variants: on the forward benchmark frame's primary and masked
+     mirror-bounce wavefronts (2,040 tiles) the tile-merged closest hit
+     (K7) at merge 2 and 4 vs its plain version and vs the closest-hit
+     kernel (K1), bit for bit, K1 and K7 timed in turns with the bound;
+     then the CLI frame, in process with the defaults (4 K1 launches) and
+     in a child process with CRT_TILE_MERGE=2 (4 K7 and no K1 launches):
+     the two PPMs equal byte for byte, and in process the float image with
+     the merge equals the default one;
+  8. glass kernels: on the depth-0 shadow wavefront of the refractive
      benchmark scene (make_test_scene(1920, 1080, 64,
      with_refractive=True)) the w-occlusion kernel in its glass-flag mode
      (both outputs) and in its uncapped member-masked mode vs the plain
@@ -45,7 +53,7 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      hit vs its plain version and vs the closest-hit kernel on the same
      lists, and the closest-hit kernel vs its own plain version there and
      on the widest segment of the bend-walk (all bit-equal);
-  8. refract: the CLI renders the refractive scene from a .crtscene file
+  9. refract: the CLI renders the refractive scene from a .crtscene file
      (launch counts reset just before, read just after, and held to what
      the schedule implies: one pool trace and one glass-flag pass per
      bounce, one closest hit per march segment, no capped pass, no
@@ -60,13 +68,13 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      position and mat_ior (vs the all-pairs backend's, time and peak
      memory, with and without remat_shading), and the backward of the
      mat_ior[tri_material] gather at 65,536 triangles on one material;
-  9. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
+ 10. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
      direction-form occlusion kernel in its two launches, K5 (shaft lists,
      origin tiles stored once) and K6 (generic lists, seeded with the
      inactive lanes), vs the plain version lane for lane, K5 == K6 on the
      active lanes, the lanes on which K5 and the w-occlusion kernel differ
      (|n.d| against |n.w| in the parallel test), times and bounds;
- 10. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
+ 11. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
      clusters in 1,954 superclusters): the streaming closest hit (K8) on
      the primary wavefront and the streaming any-hit (K9) on the depth-0
      shadow wavefront, in one phase and in both phases of the two-phase
@@ -76,11 +84,15 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      version on 32 seeded tiles that own pairs (the plain version walks
      one list position at a time to a chunk's longest list: tens of
      seconds over every tile at this size; the kernel's launch on those 32
-     tiles must also repeat its full launch there); K8 vs the all-pairs
+     tiles must also repeat its full launch there); the same launches
+     (the primary and both two-phase shadow launches) in the lane and rows
+     table layouts (K10, K11), each equal to the fused launch on every lane
+     and to its plain version on the same 32 tiles, with times beside the
+     fused ones and the same bounds; K8 vs the all-pairs
      backend on 8192 sampled rays; two-phase == single phase on the
      active lanes; at 65,536 triangles streaming hits == the closest-hit
      kernel's on every lane and K9 == K5 on every active shadow lane;
- 11. big, the large-scene main path: render_image of the 1,000,000-triangle
+ 12. big, the large-scene main path: render_image of the 1,000,000-triangle
      frame with default settings (launch counts reset just before, read
      just after: one K8, two K9, no cluster-backend kernel, so "auto" took
      the streaming backend); the frame vs the all-pairs backend on 8192
@@ -92,28 +104,36 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
      renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
      every pixel and their gradients held together;
- 12. direction-form: the opaque bench frame through the CLI in a child
+ 13. layouts: render_image of the 1,000,000-triangle frame with
+     CRT_STREAM_LAYOUT=fused, lane and rows (launch counts reset just
+     before, read just after: one closest hit and two any-hit launches, all
+     of the layout's kernels); the lane and rows frames equal the fused one
+     bit for bit; frame times in turns (median of 5, host clock around a
+     synchronize);
+ 14. direction-form: the opaque bench frame through the CLI in a child
      process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
      --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
      one 8-bit level of the default frame and of the all-pairs backend's
      on all but 0.01 % of pixels; one frame shaded through a trace built
      with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
- 13. a JSON line of the kernels, then the last line
+ 15. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
-     launches of phase 12's frame).
+     launches of phase 14's frame); K7's launches are those of phase 7's
+     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 13's frames.
 
-``--profile`` runs, instead of phases 3 to 12, a torch.profiler pass over
+``--profile`` runs, instead of phases 3 to 14, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
-``--large`` runs phases 9 to 12 only.
+``--large`` runs phases 10 to 14 only.
 
-Tolerances.  The trace kernels (closest hit, compacted closest hit, every
-mode of the w-occlusion, both launches of the direction-form occlusion,
-the streaming closest hit and any-hit): bit-equal to their plain versions.  The
+Tolerances.  The trace kernels (closest hit, compacted and tile-merged
+closest hit, every mode of the w-occlusion, both launches of the
+direction-form occlusion, the streaming closest hit and any-hit in every
+table layout): bit-equal to their plain versions.  The
 segment-sum kernel: |kernel - fp64| <= 4e-6 * sum|g| per segment, which is
 ten times the largest error this script has read (3.7e-7, on the bench
 frame's 640,651-ray segment) and a tenth of the worst case of the kernel's
@@ -287,8 +307,24 @@ def primary_wavefront(scene):
     return o.contiguous(), d.contiguous()
 
 
-def phase_kernels(device):
+def mirror_bounce(scene, settings, o, d, k):
+    """The masked mirror-bounce wavefront behind closest-hit results ``k``
+    (t, tri, rows), built as the shader builds it: (o, d, active)."""
     from crt_tpu_torch.ops import vecmath
+    from crt_tpu_torch.ops.intersect import Hit
+    from crt_tpu_torch.ops.shade import hit_attributes
+    from crt_tpu_torch.scene.types import MATERIAL_REFLECTIVE
+
+    attrs = hit_attributes(scene, o, d, Hit(t=k[0], tri=k[1]),
+                           kernel_rows=k[2])
+    refl_d = vecmath.reflect(d, attrs.normal).contiguous()
+    refl_o = (attrs.point + attrs.normal * settings.reflection_bias
+              ).contiguous()
+    return refl_o, refl_d, attrs.valid & (attrs.mat_type
+                                          == MATERIAL_REFLECTIVE)
+
+
+def phase_kernels(device):
     from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
     from crt_tpu_torch.ops.cluster_tables import (
         build_cluster_tables, emit_rows_table,
@@ -297,9 +333,8 @@ def phase_kernels(device):
         closest_hit, closest_hit_plain, occlusion_w, occlusion_w_plain,
     )
     from crt_tpu_torch.ops.intersect import Hit
-    from crt_tpu_torch.ops.shade import hit_attributes
     from crt_tpu_torch.scene.procedural import make_test_scene
-    from crt_tpu_torch.scene.types import MATERIAL_REFLECTIVE, RenderSettings
+    from crt_tpu_torch.scene.types import RenderSettings
 
     scene = make_test_scene(**BENCH, device=device)
     st = RenderSettings()
@@ -322,12 +357,7 @@ def phase_kernels(device):
     print(f"[kernels] closest_hit primary: bit-equal on {R} lanes; "
           f"kernel {ms_k1:.3f} ms, plain {ms_k1p:.3f} ms")
 
-    # mirror-bounce wavefront, built as the shader builds it
-    attrs = hit_attributes(scene, o, d, Hit(t=k[0], tri=k[1]),
-                           kernel_rows=k[2])
-    refl_d = vecmath.reflect(d, attrs.normal).contiguous()
-    refl_o = (attrs.point + attrs.normal * st.reflection_bias).contiguous()
-    refl_act = attrs.valid & (attrs.mat_type == MATERIAL_REFLECTIVE)
+    refl_o, refl_d, refl_act = mirror_bounce(scene, st, o, d, k)
     bcl, bcnt = bin_rays(tables, refl_o, refl_d, TILE, refl_act)
     kb = closest_hit(tables, refl_o, refl_d, bcl, bcnt, rows_table)
     pb = closest_hit_plain(tables, refl_o, refl_d, bcl, bcnt, rows_table)
@@ -549,6 +579,7 @@ def reset_launches():
 
     cluster_trace.closest_hit_launches = 0
     cluster_trace.closest_hit_compact_launches = 0
+    cluster_trace.closest_hit_merged_launches = 0
     cluster_trace.occlusion_w_launches = 0
     for mode in cluster_trace.occlusion_w_mode_launches:
         cluster_trace.occlusion_w_mode_launches[mode] = 0
@@ -557,6 +588,10 @@ def reset_launches():
         cluster_trace.occlusion_d_mode_launches[mode] = 0
     stream_trace.closest_hit_stream_launches = 0
     stream_trace.occlusion_stream_launches = 0
+    for counts in (stream_trace.closest_hit_stream_layout_launches,
+                   stream_trace.occlusion_stream_layout_launches):
+        for layout in counts:
+            counts[layout] = 0
     stream_binning.stream_host_syncs = 0
     stream_binning.stream_pairs = 0
     segsum.segsum_launches = 0
@@ -660,6 +695,106 @@ def phase_main_path(device):
     print(f"[main] forward frame {ms:.3f} ms = {W * H / ms / 1e3:.3f} Mrays/s "
           f"(bruteforce backend {ms_bf:.3f} ms)")
     return launches
+
+
+def phase_variants(device):
+    """K7 on the opaque bench frame's primary and mirror-bounce wavefronts
+    at merge 2 and 4, then the CLI frame with CRT_TILE_MERGE=2."""
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.frontend import cli
+    from crt_tpu_torch.ops import cluster_trace as ct
+    from crt_tpu_torch.ops.binning import bin_rays
+    from crt_tpu_torch.ops.cluster_tables import (
+        build_cluster_tables, emit_rows_table,
+    )
+    from crt_tpu_torch.scene.procedural import (
+        make_test_scene, make_test_scene_dict,
+    )
+    from crt_tpu_torch.scene.types import RenderSettings
+
+    scene = make_test_scene(**BENCH, device=device)
+    tables = build_cluster_tables(scene)
+    rows_table = emit_rows_table(scene, tables)
+    o, d = primary_wavefront(scene)
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=device)
+    cl, cnt = bin_rays(tables, o, d, TILE, act)
+    k1 = ct.closest_hit(tables, o, d, cl, cnt, rows_table)
+    ro, rd, ract = mirror_bounce(scene, RenderSettings(), o, d, k1)
+    bcl, bcnt = bin_rays(tables, ro, rd, TILE, ract)
+    waves = {"primary": (o, d, cl, cnt), "bounce": (ro, rd, bcl, bcnt)}
+    err, ms = 0.0, {}
+    for name, args in waves.items():
+        one = ct.closest_hit(tables, *args, rows_table)
+        for merge in (2, 4):
+            k = ct.closest_hit_merged(tables, *args, rows_table, merge=merge)
+            p = ct.closest_hit_merged_plain(tables, *args, rows_table, merge)
+            err = max(err, compare_hits(f"closest_hit_merged {name} merge "
+                                        f"{merge}", k, p))
+            compare_hits(f"closest_hit_merged {name} merge {merge} vs "
+                         "closest_hit", k, one)
+        # in turns: K1, K7 at 2, K7 at 4, and K1 again
+        ms[name, 1] = cuda_ms(lambda: ct.closest_hit(tables, *args,
+                                                     rows_table))
+        for merge in (2, 4):
+            ms[name, merge] = cuda_ms(lambda: ct.closest_hit_merged(
+                tables, *args, rows_table, merge=merge))
+        ms[name, "k1_again"] = cuda_ms(lambda: ct.closest_hit(
+            tables, *args, rows_table))
+    ms_plain = cuda_ms(lambda: ct.closest_hit_merged_plain(
+        tables, o, d, cl, cnt, rows_table, 2))
+    b = walk_bound(tables, cl, cnt, (o, d), k1, act.reshape(-1, TILE),
+                   rows_table=rows_table)
+    bb = walk_bound(tables, bcl, bcnt, (ro, rd), k1, ract.reshape(-1, TILE),
+                    rows_table=rows_table)
+    for name, bound, c in (("primary", b, cnt), ("bounce", bb, bcnt)):
+        print(f"[variants] {name} ({c.shape[0]} tiles, {int((c > 0).sum())} "
+              f"live, {int(c.sum())} walked entries): K7 == plain == K1 bit "
+              f"for bit at merge 2 and 4; K1 {ms[name, 1]:.3f} ms (again "
+              f"{ms[name, 'k1_again']:.3f}), K7 merge 2 {ms[name, 2]:.3f} ms, "
+              f"merge 4 {ms[name, 4]:.3f} ms; bound {bound['bound_ms']:.4f} "
+              f"ms ({bound['bound_by']}), library call none")
+    print(f"[variants] K7 plain version (merge 2, primary): {ms_plain:.3f} ms")
+
+    # the CLI frame: in process with the default K1, in a child with the
+    # merge (crt_tpu and the port read CRT_TILE_MERGE when imported)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "bench.crtscene")
+        with open(scene_path, "w") as f:
+            json.dump(make_test_scene_dict(**BENCH), f)
+        default_ppm = os.path.join(tmp, "default.ppm")
+        merged_ppm = os.path.join(tmp, "merged.ppm")
+        reset_launches()
+        rc = cli.main([scene_path, default_ppm, "--device", str(device)])
+        default_counts = read_launches()
+        counts = cli_child([scene_path, merged_ppm, "--device", str(device)],
+                           {"CRT_TILE_MERGE": "2"})
+        with open(default_ppm) as f1, open(merged_ppm) as f2:
+            same = f1.read() == f2.read()
+    print(f"[variants] CLI default frame: launches {default_counts}; CLI "
+          f"with CRT_TILE_MERGE=2 (child): launches {counts}")
+    check(rc == 0 and default_counts["closest_hit"] == 4,
+          f"the default CLI frame launched {default_counts}")
+    check(counts["closest_hit_merged"] == 4 and counts["closest_hit"] == 0
+          and counts["occlusion_w"] == 4,
+          f"the CRT_TILE_MERGE=2 frame launched {counts}: expected 4 K7, no "
+          "K1 and 4 shadow passes")
+    check(same, "the CRT_TILE_MERGE=2 PPM differs from the default frame's")
+    default = render_image(scene)
+    saved = ct._TILE_MERGE
+    ct._TILE_MERGE = 2
+    try:
+        merged = render_image(scene)
+    finally:
+        ct._TILE_MERGE = saved
+    check(torch.equal(merged, default), "the merged frame's floats differ "
+          "from the default frame's")
+    print("[variants] the CRT_TILE_MERGE=2 PPM equals the default frame's "
+          "byte for byte, and in process the float images are bit-equal")
+    stats = dict(max_abs_err=err, ms=ms["primary", 2], plain_ms=ms_plain,
+                 library_ms=None, ms_merge4=ms["primary", 4],
+                 ms_bounce=ms["bounce", 2], k1_ms=ms["primary", 1],
+                 **{k: b[k] for k in ("bound_ms", "bound_by")})
+    return {"closest_hit_merged": stats}, counts["closest_hit_merged"]
 
 
 def assert_grads_close(name, got, want, rtol, atol_scale):
@@ -1455,6 +1590,34 @@ def phase_stream_kernels(device):
         ms_on_plain_tiles=ms_k8s, library_ms=None, phase_a_ms=ms_pa,
         **{k: b[k] for k in ("bound_ms", "bound_by")})
 
+    # ---- K10 (lane) and K11 (rows) on the same launch
+    layout_tables = {"lane": stt.lane_slab(st.fused, st.sc),
+                     "rows": st.tables}
+    for layout, table in layout_tables.items():
+        full = (table, st.tables.tri_id, o, d, pair_sc, bits, start, st.sc,
+                TILE)
+        lt, ltri = stt.closest_hit_stream(*full, layout=layout)
+        compare_hits(f"closest_hit_stream {layout} vs fused, every lane",
+                     (lt, ltri, None), (t, tri, None))
+        lsub = (table, st.tables.tri_id, so, sd, *sub, st.sc, TILE)
+        kt, ktri = stt.closest_hit_stream(*lsub, layout=layout)
+        (pt, ptri), ms_p = timed_once(
+            lambda: stt.closest_hit_stream_plain(*lsub, layout))
+        lerr = compare_hits(f"closest_hit_stream {layout}", (kt, ktri, None),
+                            (pt, ptri, None))
+        ms = cuda_ms(lambda: stt.closest_hit_stream(*full, layout=layout))
+        stats[f"closest_hit_stream_{layout}"] = dict(
+            max_abs_err=lerr, ms=ms, plain_ms=ms_p, plain_tiles=PLAIN_TILES,
+            library_ms=None, **{k: b[k] for k in ("bound_ms", "bound_by")})
+        print(f"[stream-kernels] K8 in the {layout} layout: bit-equal to the "
+              f"fused launch on all {R} lanes and to its plain version on "
+              f"the {PLAIN_TILES} sampled tiles; kernel {ms:.3f} ms, plain "
+              f"{ms_p:.1f} ms (one run), bound {b['bound_ms']:.4f} ms")
+    ms_k8b = cuda_ms(lambda: stt.closest_hit_stream(*k8_args))
+    stats["closest_hit_stream"]["ms_after_layouts"] = ms_k8b
+    print(f"[stream-kernels] K8 fused timed again after the layouts: "
+          f"{ms_k8b:.3f} ms (first {ms_k8:.3f} ms)")
+
     # ---- K9 on the depth-0 shadow wavefront: one phase, then two
     w = depth0_shadow_wavefront(scene, settings, o, d, Hit(t=t, tri=tri))
     o_f, d_f, r2_f, a_f = flat_shadow(w)
@@ -1483,10 +1646,10 @@ def phase_stream_kernels(device):
     stt.occlusion_stream = recording
     try:
         single = stt.occluded_stream_flat(st, o_f, d_f, r2_f, a_f, apex,
-                                          slack, TILE)
+                                          slack, TILE, layout="fused")
         two = stt.occluded_stream_twophase(
             st, w["shadow_o"], w["ldir"], w["r2"], w["lights"], w["act"],
-            slack, TILE, phase1_k=settings.stream_shadow_k)
+            slack, TILE, phase1_k=settings.stream_shadow_k, layout="fused")
     finally:
         stt.occlusion_stream = real
     check(len(calls) == 3, f"{len(calls)} K9 launches recorded, expected 3")
@@ -1495,7 +1658,7 @@ def phase_stream_kernels(device):
           "lane")
     check(bool(single[~a_f].all()), "K9 left an inactive lane unblocked")
     for name, args in zip(("single phase", "phase 1", "phase 2"), calls):
-        fused, ko, kd, kr2, seed, kpsc, kbits, kstart, ksc, _ = args
+        fused, ko, kd, kr2, seed, kpsc, kbits, kstart, ksc = args[:9]
         k9 = real(*args)
         ms = cuda_ms(lambda: real(*args))
         pick = pick_live_tiles(kstart, gen)
@@ -1527,6 +1690,34 @@ def phase_stream_kernels(device):
                           plain_tiles=PLAIN_TILES, ms_on_plain_tiles=ms_s,
                           library_ms=None,
                           **{k: b[k] for k in ("bound_ms", "bound_by")})
+        if name == "single phase":
+            continue
+        # K10 and K11 on the two launches of the frame's two-phase resolve
+        for layout, table in layout_tables.items():
+            lfull = (table, *args[1:9], TILE)
+            lk9 = real(*lfull, layout=layout)
+            masks_equal(f"occlusion_stream {layout}, {name}, vs fused on "
+                        "every lane", lk9, k9)
+            lsub = (table, *per_lane, *sub, ksc, TILE)
+            lp9, lms_p = timed_once(
+                lambda: stt.occlusion_stream_plain(*lsub, layout))
+            masks_equal(f"occlusion_stream {layout}, {name}",
+                        real(*lsub, layout=layout), lp9)
+            lms = cuda_ms(lambda: real(*lfull, layout=layout))
+            print(f"[stream-kernels] K9 {name} in the {layout} layout: "
+                  f"equal to the fused launch on all {k9.numel()} lanes and "
+                  f"to its plain version on the {PLAIN_TILES} sampled tiles; "
+                  f"kernel {lms:.3f} ms (fused {ms:.3f}), plain {lms_p:.1f} "
+                  f"ms (one run), bound {b['bound_ms']:.4f} ms")
+            lkey = f"occlusion_stream_{layout}"
+            if name == "phase 1":
+                stats[lkey + "_phase1_ms"] = lms
+            else:
+                stats[lkey] = dict(
+                    max_abs_err=0.0, ms=lms, plain_ms=lms_p,
+                    plain_tiles=PLAIN_TILES, library_ms=None,
+                    ms_phase1=stats.pop(lkey + "_phase1_ms"),
+                    **{k: b[k] for k in ("bound_ms", "bound_by")})
     print("[stream-kernels] two-phase == single phase on every active lane")
     # the frame launches phase 1 and phase 2; the entry carries phase 2's
     # time and bound, the other two beside it
@@ -1760,7 +1951,62 @@ def phase_big(device):
                                "backend", sg, cg, rtol=1e-3, atol_scale=1e-4)
             del s_img, c_img, sg, cg
         del sized, auto
-    return launches
+    return launches, scene
+
+
+def phase_layouts(device, scene):
+    """The large-scene main path in the lane and rows table layouts:
+    render_image of the 1,000,000-triangle frame with CRT_STREAM_LAYOUT set
+    (the port reads it when render_image builds the trace)."""
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.ops import cluster_trace, stream_trace
+
+    layouts = ("fused", "lane", "rows")
+    images, launches, ms = {}, {}, {}
+    saved = os.environ.get("CRT_STREAM_LAYOUT")
+    try:
+        for layout in layouts:
+            os.environ["CRT_STREAM_LAYOUT"] = layout
+            reset_launches()
+            images[layout] = render_image(scene)
+            torch.cuda.synchronize()
+            launches[layout] = (
+                dict(stream_trace.closest_hit_stream_layout_launches),
+                dict(stream_trace.occlusion_stream_layout_launches),
+                cluster_trace.closest_hit_launches)
+            print(f"[layouts] CRT_STREAM_LAYOUT={layout}: closest-hit "
+                  f"launches {launches[layout][0]}, any-hit launches "
+                  f"{launches[layout][1]}")
+            want = dict.fromkeys(layouts, 0)
+            check(launches[layout] == ({**want, layout: 1},
+                                       {**want, layout: 2}, 0),
+                  f"the {layout} frame launched {launches[layout]}: expected "
+                  f"one closest hit and two any-hit passes, all {layout}")
+        # frame times in turns, forward then backward
+        for rnd, order in enumerate((layouts, layouts[::-1])):
+            for layout in order:
+                os.environ["CRT_STREAM_LAYOUT"] = layout
+                ms[layout, rnd], _ = host_ms(lambda: render_image(scene),
+                                             warmup=1, reps=5)
+    finally:
+        if saved is None:
+            os.environ.pop("CRT_STREAM_LAYOUT", None)
+        else:
+            os.environ["CRT_STREAM_LAYOUT"] = saved
+    for layout in ("lane", "rows"):
+        check(torch.equal(images[layout], images["fused"]),
+              f"the {layout} frame differs from the fused frame")
+    W, H = scene.width, scene.height
+    for layout in layouts:
+        print(f"[layouts] {layout}: frame {ms[layout, 0]:.3f} ms, then "
+              f"{ms[layout, 1]:.3f} ms (median of 5, host clock around a "
+              f"synchronize) = {W * H / ms[layout, 0] / 1e3:.3f} Mrays/s")
+    print("[layouts] the lane and rows frames equal the fused frame bit for "
+          "bit")
+    return {f"{kind}_{layout}": launches[layout][i][layout]
+            for layout in ("lane", "rows")
+            for i, kind in enumerate(("closest_hit_stream",
+                                      "occlusion_stream"))}
 
 
 _CHILD = r"""
@@ -1770,6 +2016,7 @@ from crt_tpu_torch.ops import cluster_trace, stream_trace
 rc = cli.main(sys.argv[1:])
 print(json.dumps({"rc": rc,
     "closest_hit": cluster_trace.closest_hit_launches,
+    "closest_hit_merged": cluster_trace.closest_hit_merged_launches,
     "occlusion_w": cluster_trace.occlusion_w_launches,
     "occlusion_d": cluster_trace.occlusion_d_mode_launches["compact"],
     "closest_hit_stream": stream_trace.closest_hit_stream_launches,
@@ -1941,8 +2188,8 @@ def main(argv=None) -> int:
                     help="profile forward+backward frames instead of "
                     "running the checks")
     ap.add_argument("--large", action="store_true",
-                    help="run only the large-scene and direction-form "
-                    "phases (no JSON lines)")
+                    help="run only the large-scene, table-layout and "
+                    "direction-form phases (no JSON lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
@@ -1958,7 +2205,10 @@ def main(argv=None) -> int:
     if args.large:
         phase_occlusion_d(device)
         phase_stream_kernels(device)
-        phase_big(device)
+        _, big_scene = phase_big(device)
+        torch.cuda.empty_cache()
+        phase_layouts(device, big_scene)
+        del big_scene
         phase_direction_form(device)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
@@ -1967,13 +2217,18 @@ def main(argv=None) -> int:
     phase_scale(device)
     launches = phase_main_path(device)
     launches["segsum"] = phase_train(device)["segsum"]
+    variants, launches["closest_hit_merged"] = phase_variants(device)
+    stats.update(variants)
     stats.update(phase_glass_kernels(device))
     glass, compact = phase_refract(device)
     torch.cuda.empty_cache()
     stats.update(phase_occlusion_d(device))
     stats.update(phase_stream_kernels(device))
     torch.cuda.empty_cache()
-    big = phase_big(device)
+    big, big_scene = phase_big(device)
+    torch.cuda.empty_cache()
+    launches.update(phase_layouts(device, big_scene))
+    del big_scene
     torch.cuda.empty_cache()
     direction = phase_direction_form(device)
     # the glass frame's own paths: the CLI render (glass-flag passes) and
@@ -1985,10 +2240,12 @@ def main(argv=None) -> int:
     launches["closest_hit_compact"] = compact["closest_hit_compact"]
     launches["occlusion_w_uncapped"] = (glass["occlusion_w_uncapped"]
                                         + compact["occlusion_w_uncapped"])
-    # the large frame's own path (render_image, default settings), the
-    # CRT_APEX_W=0 frame through the CLI (K5), and a frame shaded through a
-    # trace built with use_occlusion_kernel=True (K6: a factory option that
-    # no setting of render_image reaches, here or in crt_tpu)
+    # the large frame's own path (render_image, default settings; with
+    # CRT_STREAM_LAYOUT=lane and =rows for K10 and K11), the CRT_APEX_W=0
+    # frame through the CLI (K5), and a frame shaded through a trace built
+    # with use_occlusion_kernel=True (K6: a factory option that no setting
+    # of render_image reaches, here or in crt_tpu).  K7's launches are the
+    # CRT_TILE_MERGE=2 CLI frame's.
     launches["closest_hit_stream"] = big["closest_hit_stream"]
     launches["occlusion_stream"] = big["occlusion_stream"]
     launches.update(direction)
@@ -2015,6 +2272,16 @@ def main(argv=None) -> int:
          "crt_tpu/ops/pallas_stream.py:576"),
         ("occlusion_stream", "crt_tpu_torch/csrc/stream_trace.cu",
          "crt_tpu/ops/pallas_stream.py:576"),
+        ("closest_hit_merged", "crt_tpu_torch/csrc/closest_hit.cu",
+         "crt_tpu/ops/pallas_trace.py:1598"),
+        ("closest_hit_stream_lane", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:576"),
+        ("occlusion_stream_lane", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:576"),
+        ("closest_hit_stream_rows", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:669"),
+        ("occlusion_stream_rows", "crt_tpu_torch/csrc/stream_trace.cu",
+         "crt_tpu/ops/pallas_stream.py:783"),
     )
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "on_a_render_path": n not in off_path,

@@ -1,9 +1,11 @@
-// K1: binned closest hit with emitted packed rows, and K4: the same over
-// the live tiles only.
+// K1: binned closest hit with emitted packed rows; K4: the same over the
+// live tiles only; K7: the same with `merge` tiles per block.
 //
 // K1 replaces crt_tpu/ops/pallas_trace.py `_trace_kernel` (body
 // `_trace_tile_body`), launched there by `_closest_hit_binned`; K4 replaces
-// `_trace_kernel_compact`, launched by `_closest_hit_binned_compact`.
+// `_trace_kernel_compact`, launched by `_closest_hit_binned_compact`; K7
+// replaces `_trace_kernel_merged`, launched by `_closest_hit_binned_merged`
+// when CRT_TILE_MERGE > 1.
 //
 // What it computes: for each ray of a 1024-ray tile, the closest hit over
 // the tile's binned list of 16-triangle clusters, walked in list order.
@@ -39,6 +41,19 @@
 // n_live on the device, so the launch needs no device-to-host read: group
 // p >= n_live writes its dead tile's miss result (t = +inf, tri = -1, rows
 // 0) and returns.  The walk is K1's, so the outputs are K1's bit for bit.
+//
+// K7 (tile merging).  On the TPU one grid step walks `merge` consecutive
+// tiles' lists back to back on static lane windows of one fat block, which
+// amortises the per-step fixed cost over sparse lists (about 1.6 clusters
+// a tile) while the binning stays at 1024-ray tiles.  Here block (g, b) of
+// a (tiles / merge) x (tile_rays / 256) grid runs K1's walk for lanes
+// b*256 .. b*256+255 of tiles g*merge + sub, sub = 0 .. merge-1, in turn:
+// fewer, longer blocks over the same walks.  A sub-tile with an empty list
+// writes its miss result and the loop goes on; the next sub-tile's first
+// barrier still orders its staging after every read of the cluster staged
+// before.  A cluster staged for one sub-tile is not kept for the next even
+// when that list starts with the same id.  The walk and the tie rule are
+// K1's, so the outputs are K1's bit for bit.
 
 #include "cluster_common.cuh"
 
@@ -146,6 +161,28 @@ __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_compact_kernel(
             best_tri_out, rows_out);
 }
 
+__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_merged_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ n, const float* __restrict__ nv0,
+    const float* __restrict__ m, const float* __restrict__ c,
+    const float* __restrict__ nobf, const int* __restrict__ tid,
+    const int* __restrict__ cluster_list, const int* __restrict__ counts,
+    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
+    int merge, int kp, long long num_rays, float* __restrict__ best_t_out,
+    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
+  __shared__ ClusterSmem s;
+  const int blocks_per_tile = tile_rays / CRT_BLOCK;
+  const int group = blockIdx.x / blocks_per_tile;
+  const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
+  for (int sub = 0; sub < merge; ++sub) {  // uniform over the block
+    const int tile = group * merge + sub;
+    const long long r = (long long)tile * tile_rays + lane;
+    walk_tile(s, r, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
+              counts, rows_table, num_clusters, kp, num_rays, best_t_out,
+              best_tri_out, rows_out);
+  }
+}
+
 }  // namespace
 
 // Host entries, bound with ctypes.  All pointers are device pointers on the
@@ -186,5 +223,27 @@ extern "C" int crt_closest_hit_compact(
       n_live, tile_ids, o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
       rows_table, num_clusters, tile_rays, tile_mod, kp, num_rays, best_t,
       best_tri, rows_out);
+  return (int)cudaGetLastError();
+}
+
+// K7: `merge` tiles per block; num_tiles must divide by merge.
+extern "C" int crt_closest_hit_merged(
+    const float* o, const float* d, const float* n, const float* nv0,
+    const float* m, const float* c, const float* nobf, const int* tid,
+    const int* cluster_list, const int* counts, const float* rows_table,
+    int num_clusters, int num_tiles, int tile_rays, int merge, int kp,
+    float* best_t, int* best_tri, float* rows_out, void* stream) {
+  if (num_tiles <= 0) return 0;
+  if (tile_rays % CRT_BLOCK != 0 || merge < 1 || num_tiles % merge != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)(num_tiles / merge) * (tile_rays / CRT_BLOCK);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long num_rays = (long long)num_tiles * tile_rays;
+  closest_hit_merged_kernel<<<(unsigned)blocks, CRT_BLOCK, 0,
+                              (cudaStream_t)stream>>>(
+      o, d, n, nv0, m, c, nobf, tid, cluster_list, counts, rows_table,
+      num_clusters, tile_rays, merge, kp, num_rays, best_t, best_tri,
+      rows_out);
   return (int)cudaGetLastError();
 }

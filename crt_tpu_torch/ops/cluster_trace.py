@@ -8,6 +8,9 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
   - ``closest_hit_compact`` (K4, ``csrc/closest_hit.cu``) replaces
     ``_trace_kernel_compact`` as launched by
     ``_closest_hit_binned_compact``: K1 over the live tiles;
+  - ``closest_hit_merged`` (K7, ``csrc/closest_hit.cu``) replaces
+    ``_trace_kernel_merged`` as launched by ``_closest_hit_binned_merged``:
+    K1 with ``merge`` tiles per block;
   - ``occlusion_w`` (K2, ``csrc/occlusion_w.cu``) replaces
     ``_occl_kernel_compact_w`` as launched by
     ``_occluded_binned_compact_w``, in its capped, ``capped=False``,
@@ -25,14 +28,18 @@ takes its plain PyTorch version, in this module, only for CPU tensors.
 The plain versions walk the same lists in the same order with the same
 arithmetic, so on the card the kernels must match them bit for bit.
 ``closest_hit_launches`` / ``closest_hit_compact_launches`` /
-``occlusion_w_launches`` / ``occlusion_d_launches`` count kernel launches
+``closest_hit_merged_launches`` / ``occlusion_w_launches`` /
+``occlusion_d_launches`` count kernel launches
 (CUDA launches only; the plain versions do not count);
 ``occlusion_w_mode_launches`` and ``occlusion_d_mode_launches`` split the
 last two by mode.
 
 ``CRT_APEX_W=0`` in the environment (read at import, as crt_tpu reads it)
 takes ``shadow_apex_w`` off the traces built here, so shadows go through
-the direction form (``trace.shadow_apex``, K5).
+the direction form (``trace.shadow_apex``, K5).  ``CRT_TILE_MERGE=k`` with
+k > 1 (read at import, as crt_tpu reads it) sends every closest hit of the
+traces built here through K7 with ``merge=k`` when the wavefront's tile
+count divides by k and the launch is not the compacted one.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ _BIGID = 2**30
 # Launch counts of the kernels (plain module-level integers).
 closest_hit_launches = 0
 closest_hit_compact_launches = 0
+closest_hit_merged_launches = 0
 occlusion_w_launches = 0  # every mode
 occlusion_w_mode_launches = {"capped": 0, "uncapped": 0, "glass": 0}
 occlusion_d_launches = 0  # both modes
@@ -65,9 +73,16 @@ occlusion_d_mode_launches = {"compact": 0, "exit": 0}
 # direction form as the shadow path of the traces built here.
 _APEX_W = os.environ.get("CRT_APEX_W", "1") != "0"
 
-# Tiles per step of the plain versions: bounds their [tiles, 16, TR]
-# temporaries (~64 MB each at 1024-ray tiles) on the card.
+# Tiles per block of the closest hit (K7 when > 1), as crt_tpu's flag.
+_TILE_MERGE = int(os.environ.get("CRT_TILE_MERGE", "1"))
+
+# Tiles per step of the plain versions, and elements of one of their
+# [tiles, positions, 16, TR] temporaries: a step takes as many walk
+# positions as keep it within _PLAIN_ELEMS (at least one), which bounds
+# the temporaries (~64 MB each for 1024 tiles of 1024 rays) and lets a
+# walk over a few tiles take many positions per step.
 _PLAIN_TILE_CHUNK = 1024
+_PLAIN_ELEMS = 1 << 22
 
 
 # ---------------------------------------------------------------------------
@@ -75,10 +90,10 @@ _PLAIN_TILE_CHUNK = 1024
 # ---------------------------------------------------------------------------
 
 def _member_hit(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
-    """([nt, 16, TR] hit at t >= 0, its t) of every member of clusters
-    ``cl`` ([nt]) for the rays of each tile (components [nt, 1, TR]).  The
-    op order of csrc/cluster_common.cuh member_hit."""
-    n = tables.n[cl]  # [nt, 16, 3]
+    """([nt, p, 16, TR] hit at t >= 0, its t) of every member of clusters
+    ``cl`` ([nt, p]) for the rays of each tile (components [nt, 1, 1, TR]).
+    The op order of csrc/cluster_common.cuh member_hit."""
+    n = tables.n[cl]  # [nt, p, 16, 3]
     nx, ny, nz = n[..., 0:1], n[..., 1:2], n[..., 2:3]
     nd = nx * dx + ny * dy + nz * dz
     no = nx * ox + ny * oy + nz * oz
@@ -99,21 +114,30 @@ def _member_hit(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
 
 
 def _member_t(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
-    """[nt, 16, TR] hit distance of every member; +inf where not hit."""
+    """[nt, p, 16, TR] hit distance of every member; +inf where not hit."""
     valid, t = _member_hit(tables, cl, ox, oy, oz, dx, dy, dz)
     return torch.where(valid, t, torch.full_like(t, float("inf")))
 
 
 def _planes(x, nt, tile_rays=TILE_RAYS):
-    """[nt*TR, 3] -> three [nt, 1, TR] component planes."""
-    x = x.reshape(nt, 1, tile_rays, 3)
+    """[nt*TR, 3] -> three [nt, 1, 1, TR] component planes."""
+    x = x.reshape(nt, 1, 1, tile_rays, 3)
     return x[..., 0], x[..., 1], x[..., 2]
+
+
+def _steps(width: int, nt: int, tile_rays: int):
+    """The walk positions [0, width) in steps of as many positions as keep
+    a [nt, p, 16, TR] temporary within _PLAIN_ELEMS."""
+    p = max(1, _PLAIN_ELEMS // max(1, nt * CLUSTER_SIZE * tile_rays))
+    return [(i, min(i + p, width)) for i in range(0, width, p)]
 
 
 def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
                       counts, rows_table=None, tile_rays: int = TILE_RAYS):
-    """Plain version of ``closest_hit``: loop over walk positions,
-    vectorized over tiles x 16 members x rays."""
+    """Plain version of ``closest_hit``: loop over steps of walk positions,
+    vectorized over tiles x positions x 16 members x rays.  Across
+    positions the first one with the least t wins, which is the kernel's
+    strict ``<`` in walk order."""
     R = origins.shape[0]
     tiles = R // tile_rays
     dev = origins.device
@@ -131,21 +155,28 @@ def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
                              tile_rays)
         cnt = counts[s:e]
         bt, btri, bslot = best_t[s:e], best_tri[s:e], best_slot[s:e]
-        for i in range(int(cnt.max()) if nt else 0):
-            live = cnt > i  # [nt]
-            cl = cluster_list[s:e, i].long()
+        width = int(cnt.max()) if nt else 0
+        for i0, i1 in _steps(width, nt, tile_rays):
+            live = cnt[:, None] > torch.arange(i0, i1, device=dev)  # [nt, p]
+            cl = cluster_list[s:e, i0:i1].long()
             tt = _member_t(tables, cl, ox, oy, oz, dx, dy, dz)
-            cl_best = tt.amin(dim=1)  # [nt, TR]
-            tid = tables.tri_id[cl][..., None]  # [nt, 16, 1]
-            at_best = tt <= cl_best[:, None]
-            cl_tri = torch.where(at_best, tid, _BIGID).amin(dim=1)
-            better = (cl_best < bt) & live[:, None]
+            cl_best = tt.amin(dim=2)  # [nt, p, TR]
+            tid = tables.tri_id[cl][..., None]  # [nt, p, 16, 1]
+            at_best = tt <= cl_best[:, :, None]
+            cl_tri = torch.where(at_best, tid, _BIGID).amin(dim=2)
             # the winning member: the one whose (t, id) won the reduction
-            win = (at_best & (tid == cl_tri[:, None])).to(torch.int32)
-            slot = cl[:, None] * CLUSTER_SIZE + win.argmax(dim=1)
-            bt = torch.where(better, cl_best, bt)
-            btri = torch.where(better, cl_tri, btri)
-            bslot = torch.where(better, slot, bslot)
+            win = (at_best & (tid == cl_tri[:, :, None])).to(torch.int32)
+            slot = cl[..., None] * CLUSTER_SIZE + win.argmax(dim=2)
+            # the step's first position with its least t, then the strict
+            # < against the walk so far
+            cl_best = torch.where(live[..., None], cl_best, float("inf"))
+            least = cl_best.amin(dim=1)  # [nt, TR]
+            first = (cl_best == least[:, None]).to(torch.int32).argmax(
+                dim=1, keepdim=True)
+            better = least < bt
+            bt = torch.where(better, least, bt)
+            btri = torch.where(better, cl_tri.gather(1, first)[:, 0], btri)
+            bslot = torch.where(better, slot.gather(1, first)[:, 0], bslot)
         best_t[s:e], best_tri[s:e], best_slot[s:e] = bt, btri, bslot
 
     rows = None
@@ -192,11 +223,41 @@ def closest_hit_compact_plain(tables: ClusterTables, origins, dirs,
     return t, tri, rows
 
 
+def closest_hit_merged_plain(tables: ClusterTables, origins, dirs,
+                             cluster_list, counts, rows_table=None,
+                             merge: int = 2):
+    """Plain version of ``closest_hit_merged``: group g walks its sub-tiles
+    g*merge + sub, sub = 0 .. merge-1, in turn, each list as
+    ``closest_hit_plain`` walks it; here the step ``sub`` of every group is
+    one call, vectorized over the groups."""
+    tiles = counts.shape[0]
+    _require(merge >= 1 and tiles % merge == 0,
+             f"the tile count {tiles} must divide by merge={merge}")
+    dev = origins.device
+    R = tiles * TILE_RAYS
+    t = torch.empty((R,), device=dev)
+    tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    rows = (None if rows_table is None else
+            torch.empty((rows_table.shape[-1], R), device=dev))
+    lanes = torch.arange(TILE_RAYS, device=dev)
+    for sub in range(merge):
+        ids = torch.arange(sub, tiles, merge, device=dev)  # one per group
+        r = (ids[:, None] * TILE_RAYS + lanes).reshape(-1)
+        st, stri, srows = closest_hit_plain(
+            tables, origins[r], dirs[r], cluster_list[ids], counts[ids],
+            rows_table)
+        t[r], tri[r] = st, stri
+        if rows is not None:
+            rows[:, r] = srows
+    return t, tri, rows
+
+
 def occlusion_w_plain(tables: ClusterTables, shadow_o, point, light_positions,
                       cluster_list, counts, capped: bool = True,
                       member_mask=None, glass_flag: bool = False):
     """Plain version of ``occlusion_w`` with the same mode arguments: loop
-    over walk positions, vectorized over tiles x 16 members x lanes."""
+    over steps of walk positions, vectorized over tiles x positions x 16
+    members x lanes."""
     tpl = shadow_o.shape[0] // TILE_RAYS
     tiles = counts.shape[0]
     dev = shadow_o.device
@@ -210,26 +271,28 @@ def occlusion_w_plain(tables: ClusterTables, shadow_o, point, light_positions,
         idx = torch.arange(s, e, device=dev)
         ox, oy, oz = _planes(o_tiles[idx % tpl], nt)
         px, py, pz = _planes(p_tiles[idx % tpl], nt)
-        apex = light_positions[idx // tpl]  # [nt, 3]
-        wx = apex[:, 0, None, None] - px
-        wy = apex[:, 1, None, None] - py
-        wz = apex[:, 2, None, None] - pz
+        apex = light_positions[idx // tpl][:, None, None, None]  # [nt,...,3]
+        wx = apex[..., 0] - px
+        wy = apex[..., 1] - py
+        wz = apex[..., 2] - pz
         cnt = counts[s:e]
         blk = blocked[s:e]
         gls = glass[s:e] if glass_flag else None
-        for i in range(int(cnt.max()) if nt else 0):
-            live = cnt > i
-            cl = cluster_list[s:e, i].long()
+        width = int(cnt.max()) if nt else 0
+        for i0, i1 in _steps(width, nt, TILE_RAYS):
+            live = (cnt[:, None] > torch.arange(i0, i1, device=dev)
+                    )[..., None]  # [nt, p, 1]
+            cl = cluster_list[s:e, i0:i1].long()
             base, tt = _member_hit(tables, cl, ox, oy, oz, wx, wy, wz)
             in_subset = None
             if member_mask is not None:
-                in_subset = (member_mask[cl] > 0.5)[..., None]  # [nt, 16, 1]
+                in_subset = (member_mask[cl] > 0.5)[..., None]  # [nt,p,16,1]
             if in_subset is not None and not glass_flag:
                 base = base & in_subset
             hit = base & (tt <= 1.0) if capped else base
-            blk = blk | (hit.any(dim=1) & live[:, None])
+            blk = blk | (hit.any(dim=2) & live).any(dim=1)
             if glass_flag:
-                gls = gls | ((base & in_subset).any(dim=1) & live[:, None])
+                gls = gls | ((base & in_subset).any(dim=2) & live).any(dim=1)
         blocked[s:e] = blk
         if glass_flag:
             glass[s:e] = gls
@@ -250,7 +313,7 @@ def occlusion_d_plain(tables: ClusterTables, origins, dirs, r2, cluster_list,
     dev = dirs.device
     o_tiles = origins.reshape(-1, tile_rays, 3)
     d_tiles = dirs.reshape(tiles, tile_rays, 3)
-    r2_tiles = r2.reshape(tiles, 1, tile_rays)
+    r2_tiles = r2.reshape(tiles, 1, 1, tile_rays)
     blocked = (torch.zeros((tiles, tile_rays), dtype=torch.bool, device=dev)
                if seed is None else seed.reshape(tiles, tile_rays).clone())
     for s in range(0, tiles, _PLAIN_TILE_CHUNK):
@@ -262,11 +325,14 @@ def occlusion_d_plain(tables: ClusterTables, origins, dirs, r2, cluster_list,
         dx, dy, dz = _planes(d_tiles[s:e], nt, tile_rays)
         cnt = counts[s:e]
         blk = blocked[s:e]
-        for i in range(int(cnt.max()) if nt else 0):
-            cl = cluster_list[s:e, i].long()
+        width = int(cnt.max()) if nt else 0
+        for i0, i1 in _steps(width, nt, tile_rays):
+            live = (cnt[:, None] > torch.arange(i0, i1, device=dev)
+                    )[..., None]  # [nt, p, 1]
+            cl = cluster_list[s:e, i0:i1].long()
             valid, tt = _member_hit(tables, cl, ox, oy, oz, dx, dy, dz)
             hit = valid & (tt * tt <= r2_tiles[s:e])
-            blk = blk | (hit.any(dim=1) & (cnt > i)[:, None])
+            blk = blk | (hit.any(dim=2) & live).any(dim=1)
         blocked[s:e] = blk
     return blocked.reshape(-1)
 
@@ -337,14 +403,9 @@ def _check_rows_table(rows_table, L, device) -> int:
     return kp
 
 
-def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
-                rows_table=None):
-    """K1: closest hit of each ray over its tile's binned cluster list.
-
-    origins, dirs: [R, 3] f32 with R % TILE_RAYS == 0; cluster_list
-    [tiles, L] i32; counts [tiles] i32; rows_table [L, 16, Kp] or None.
-    Returns (t [R] f32, tri [R] i32, rows [Kp, R] f32 or None).
-    """
+def _check_closest_hit(tables, origins, dirs, cluster_list, counts,
+                       rows_table):
+    """Check K1's / K7's arguments -> (R, tiles, L, kp)."""
     dev = origins.device
     R = origins.shape[0]
     _require(R % TILE_RAYS == 0, f"R must be a multiple of {TILE_RAYS}")
@@ -354,7 +415,20 @@ def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
     _check_rays("dirs", dirs, dev, R)
     _check_tables(tables, dev)
     _check_lists(cluster_list, counts, tiles, L, dev)
-    kp = _check_rows_table(rows_table, L, dev)
+    return R, tiles, L, _check_rows_table(rows_table, L, dev)
+
+
+def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
+                rows_table=None):
+    """K1: closest hit of each ray over its tile's binned cluster list.
+
+    origins, dirs: [R, 3] f32 with R % TILE_RAYS == 0; cluster_list
+    [tiles, L] i32; counts [tiles] i32; rows_table [L, 16, Kp] or None.
+    Returns (t [R] f32, tri [R] i32, rows [Kp, R] f32 or None).
+    """
+    dev = origins.device
+    R, tiles, L, kp = _check_closest_hit(tables, origins, dirs, cluster_list,
+                                         counts, rows_table)
 
     if dev.type == "cpu":
         return closest_hit_plain(tables, origins, dirs, cluster_list, counts,
@@ -451,6 +525,54 @@ def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
         _raise_on(err, "closest_hit_compact")
         global closest_hit_compact_launches
         closest_hit_compact_launches += 1
+    return best_t, best_tri, rows
+
+
+def closest_hit_merged(tables: ClusterTables, origins, dirs, cluster_list,
+                       counts, rows_table=None, merge: int = 2):
+    """K7: ``closest_hit`` with ``merge`` consecutive tiles per block.
+
+    Arguments and outputs as ``closest_hit``; the tile count must divide
+    by ``merge`` (ValueError otherwise).  Outputs equal ``closest_hit``'s
+    on the same lists bit for bit.
+    """
+    dev = origins.device
+    R, tiles, L, kp = _check_closest_hit(tables, origins, dirs, cluster_list,
+                                         counts, rows_table)
+    _require(merge >= 1 and tiles % merge == 0,
+             f"the tile count {tiles} must divide by merge={merge}")
+
+    if dev.type == "cpu":
+        return closest_hit_merged_plain(tables, origins, dirs, cluster_list,
+                                        counts, rows_table, merge)
+    if dev.type != "cuda":
+        raise NotImplementedError(
+            f"closest_hit_merged has no kernel for {dev}")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    best_t = torch.empty((R,), dtype=torch.float32, device=dev)
+    best_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    rows = (torch.empty((kp, R), dtype=torch.float32, device=dev)
+            if kp else None)
+    if tiles:
+        with torch.cuda.device(dev):
+            err = lib.crt_closest_hit_merged(
+                origins.data_ptr(), dirs.data_ptr(), tables.n.data_ptr(),
+                tables.nv0.data_ptr(), tables.m.data_ptr(),
+                tables.c.data_ptr(), tables.nobf.data_ptr(),
+                tables.tri_id.data_ptr(), cluster_list.data_ptr(),
+                counts.data_ptr(),
+                rows_table.data_ptr() if kp else None,
+                L, tiles, TILE_RAYS, merge, kp,
+                best_t.data_ptr(), best_tri.data_ptr(),
+                rows.data_ptr() if kp else None,
+                _cuda_stream(dev),
+            )
+        _raise_on(err, "closest_hit_merged")
+        global closest_hit_merged_launches
+        closest_hit_merged_launches += 1
     return best_t, best_tri, rows
 
 
@@ -645,7 +767,8 @@ def occluded_by_closest_hit(trace, shadow_o, light_dirs, r2, active):
 
 def make_cluster_trace_fn(scene, compact_masked: bool = False,
                           use_occlusion_kernel: bool = False,
-                          apex_w: bool | None = None):
+                          apex_w: bool | None = None,
+                          tile_merge: int | None = None):
     """trace_fn factory for the cluster backend (``make_pallas_trace_fn``).
 
     ``trace(o, d, active=None) -> Hit``; ``trace.with_rows(o, d, active)
@@ -671,6 +794,10 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False,
 
     ``compact_masked`` sends every trace that comes with an ``active``
     mask through the live-tile compacted kernel (``closest_hit_compact``).
+    Every other trace whose tile count divides by ``tile_merge`` (None: the
+    module's ``CRT_TILE_MERGE`` flag), when that is above 1, goes through
+    the tile-merged kernel (``closest_hit_merged``), as crt_tpu chooses it;
+    K1 takes the rest.
     A scene with refractive materials also gets, with the arguments of
     ``shadow_apex_w``, ``trace.shadow_apex_w_glass -> (occluded, glass)``
     (the one-pass march router: the capped occlusion bits plus "some
@@ -683,6 +810,8 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False,
     glass_cache = []
     if apex_w is None:
         apex_w = _APEX_W
+    if tile_merge is None:
+        tile_merge = _TILE_MERGE
 
     def _trace_impl(origins, dirs, active, want_rows):
         batch_shape = origins.shape[:-1]
@@ -695,10 +824,13 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False,
                 rows_table_cache.append(emit_rows_table(scene, tables))
             rows_table = rows_table_cache[0]
         cluster_list, counts = bin_rays(tables, o, d, TILE_RAYS, a)
-        launcher = (closest_hit_compact if compact_masked and a is not None
-                    else closest_hit)
-        t, tri, rows = launcher(tables, o, d, cluster_list, counts,
-                                rows_table)
+        args = (tables, o, d, cluster_list, counts, rows_table)
+        if compact_masked and a is not None:
+            t, tri, rows = closest_hit_compact(*args)
+        elif tile_merge > 1 and counts.shape[0] % tile_merge == 0:
+            t, tri, rows = closest_hit_merged(*args, merge=tile_merge)
+        else:
+            t, tri, rows = closest_hit(*args)
         hit = Hit(t=t[:R].reshape(batch_shape),
                   tri=tri[:R].reshape(batch_shape))
         if want_rows:

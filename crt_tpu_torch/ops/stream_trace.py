@@ -2,22 +2,28 @@
 
 Counterpart of the launch half of ``crt_tpu/ops/pallas_stream.py``:
 
-  - ``closest_hit_stream`` (K8, ``csrc/stream_trace.cu``) replaces
-    ``_make_f_kernel(occl=False)`` as launched by ``_launch_stream_kernel``;
-  - ``occlusion_stream`` (K9, ``csrc/stream_trace.cu``) replaces
-    ``_make_f_kernel(occl=True)`` as launched by ``_launch_stream_occl``;
+  - ``closest_hit_stream`` (``csrc/stream_trace.cu``) replaces
+    ``_make_f_kernel(occl=False)`` as launched by ``_launch_stream_kernel``
+    on the fused table (K8), the same with ``lane_sc`` on the lane slab
+    (K10) and ``_stream_kernel`` on the six row arrays (K11);
+  - ``occlusion_stream`` (``csrc/stream_trace.cu``) replaces
+    ``_make_f_kernel(occl=True)`` as launched by ``_launch_stream_occl``
+    (K9, K10 with ``lane_sc``) and ``_stream_occl_kernel`` (K11);
   - ``closest_hit_stream_flat``, ``occluded_stream_flat``,
-    ``occluded_stream_twophase`` and ``make_stream_trace_fn`` replace the
-    functions of those names.
+    ``occluded_stream_twophase``, ``make_stream_trace_fn`` and
+    ``stream_layout`` replace the functions of those names.
 
 The cluster backend tests every tile against every cluster; at a million
 triangles that mask and its intermediates are GBs per trace.  Here Phase A
 (``ops/stream_binning.py``) lists the (tile, supercluster) pairs that can
 interact and the live member clusters of each, and the kernels walk, per
-tile, that tile's range of the pair list over the fused [L, 16, 18] table.
-One launch serves any pair count: a block owns a tile and loops over its
-pairs (crt_tpu cuts its launches at 16,384 pairs and carries the result
-across them).
+tile, that tile's range of the pair list over the table in one of three
+layouts (``stream_layout``, ``CRT_STREAM_LAYOUT``): "fused" [L, 16, 18],
+"lane" [L2, 18, sc*16] (each supercluster's fused rows transposed) or
+"rows" (the six cluster-major arrays).  The layouts change how the table is
+read, never a result.  One launch serves any pair count: a block owns a
+tile and loops over its pairs (crt_tpu cuts its launches at 16,384 pairs
+and carries the result across them).
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version only for CPU tensors.  The plain versions
@@ -25,11 +31,14 @@ expand the pair list to per-tile cluster lists (``pair_lists``) and walk
 them with ``cluster_trace``'s plain walkers, so on a scene both backends
 hold, streaming hits equal the cluster backend's bit for bit.
 ``closest_hit_stream_launches`` and ``occlusion_stream_launches`` count
-kernel launches (CUDA launches only).
+kernel launches (CUDA launches only) in every layout;
+``closest_hit_stream_layout_launches`` and
+``occlusion_stream_layout_launches`` split them by layout.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -43,8 +52,9 @@ from crt_tpu_torch.ops.cluster_tables import (
     build_cluster_tables,
 )
 from crt_tpu_torch.ops.cluster_trace import (
-    _cuda_stream,
     _check_rays,
+    _check_tables,
+    _cuda_stream,
     _raise_on,
     _require,
     closest_hit_plain,
@@ -54,8 +64,28 @@ from crt_tpu_torch.ops.cluster_trace import (
 )
 from crt_tpu_torch.ops.intersect import Hit
 
+LAYOUTS = ("fused", "lane", "rows")
+_LAYOUT_CODE = {name: i for i, name in enumerate(LAYOUTS)}  # stream_trace.cu
+
 closest_hit_stream_launches = 0
 occlusion_stream_launches = 0
+closest_hit_stream_layout_launches = dict.fromkeys(LAYOUTS, 0)
+occlusion_stream_layout_launches = dict.fromkeys(LAYOUTS, 0)
+
+
+def stream_layout() -> str:
+    """The table layout ``CRT_STREAM_LAYOUT`` names (default "fused"), read
+    at every call."""
+    return _check_layout(os.environ.get("CRT_STREAM_LAYOUT", "fused"))
+
+
+def _check_layout(layout: str | None) -> str:
+    """``layout``, or the environment's when None; ValueError if unknown."""
+    if layout is None:
+        return stream_layout()
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown stream layout {layout!r}")
+    return layout
 
 
 class StreamTables(NamedTuple):
@@ -66,13 +96,38 @@ class StreamTables(NamedTuple):
     sc_max: torch.Tensor
     fused: torch.Tensor  # [L, 16, 18] f32 (build_fused_table)
     sc: int  # clusters per supercluster
+    lane: torch.Tensor | None = None  # [L2, 18, sc*16] f32 (lane_slab)
+
+
+def lane_slab(fused, sc: int):
+    """The lane layout: [L2, 18, sc*16], each supercluster's [sc*16, 18]
+    fused rows transposed, contiguous (crt_tpu builds it the same way)."""
+    L = fused.shape[0]
+    return fused.reshape(L // sc, sc * CLUSTER_SIZE, 18).transpose(
+        1, 2).contiguous()
 
 
 def build_stream_tables(tables: ClusterTables,
-                        sc_clusters: int = sb.SC_CLUSTERS) -> StreamTables:
+                        sc_clusters: int = sb.SC_CLUSTERS,
+                        layout: str | None = None) -> StreamTables:
+    """The scene's streaming tables; the lane slab too when ``layout``
+    (None: ``stream_layout()``) is "lane"."""
+    layout = _check_layout(layout)
     tables, sc_min, sc_max = sb.build_supercluster_boxes(tables, sc_clusters)
-    return StreamTables(tables, sc_min, sc_max, sb.build_fused_table(tables),
-                        sc_clusters)
+    fused = sb.build_fused_table(tables)
+    lane = lane_slab(fused, sc_clusters) if layout == "lane" else None
+    return StreamTables(tables, sc_min, sc_max, fused, sc_clusters, lane)
+
+
+def layout_table(st: StreamTables, layout: str):
+    """The table the kernels read in ``layout``: the fused table, the lane
+    slab (built here when ``st`` was built without it) or the padded
+    cluster tables."""
+    if layout == "fused":
+        return st.fused
+    if layout == "lane":
+        return st.lane if st.lane is not None else lane_slab(st.fused, st.sc)
+    return st.tables
 
 
 # ---------------------------------------------------------------------------
@@ -102,42 +157,75 @@ def pair_lists(pair_sc, pair_bits, tile_start, sc: int):
     return cluster_list, counts.to(torch.int32)
 
 
-def _fused_tables(fused, tri_id) -> ClusterTables:
-    """The fused table's columns under the names the plain walkers read."""
-    return ClusterTables(n=fused[..., 0:3], nv0=fused[..., 3],
-                         m=fused[..., 4:13], c=fused[..., 13:16],
-                         nobf=fused[..., 16], tri_id=tri_id, cl_min=None,
+def _walker_tables(table, tri_id, layout: str) -> ClusterTables:
+    """The columns of ``table`` (in ``layout``) under the names the plain
+    walkers read, cluster-major: the fused table's column slices, the lane
+    slab transposed back to them, or the six row arrays."""
+    if layout == "rows":
+        return table._replace(tri_id=tri_id)
+    if layout == "lane":
+        table = table.transpose(1, 2).reshape(-1, CLUSTER_SIZE, 18)
+    return ClusterTables(n=table[..., 0:3], nv0=table[..., 3],
+                         m=table[..., 4:13], c=table[..., 13:16],
+                         nobf=table[..., 16], tri_id=tri_id, cl_min=None,
                          cl_max=None, rank=None)
 
 
-def closest_hit_stream_plain(fused, tri_id, origins, dirs, pair_sc, pair_bits,
-                             tile_start, sc: int, tile_rays: int = TILE_RAYS):
+def closest_hit_stream_plain(table, tri_id, origins, dirs, pair_sc,
+                             pair_bits, tile_start, sc: int,
+                             tile_rays: int = TILE_RAYS,
+                             layout: str = "fused"):
     """Plain version of ``closest_hit_stream`` -> (t [R], tri [R])."""
     cluster_list, counts = pair_lists(pair_sc, pair_bits, tile_start, sc)
-    t, tri, _ = closest_hit_plain(_fused_tables(fused, tri_id), origins, dirs,
-                                  cluster_list, counts, tile_rays=tile_rays)
+    t, tri, _ = closest_hit_plain(_walker_tables(table, tri_id, layout),
+                                  origins, dirs, cluster_list, counts,
+                                  tile_rays=tile_rays)
     return t, tri
 
 
-def occlusion_stream_plain(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
-                           tile_start, sc: int, tile_rays: int = TILE_RAYS):
+def occlusion_stream_plain(table, origins, dirs, r2, seed, pair_sc,
+                           pair_bits, tile_start, sc: int,
+                           tile_rays: int = TILE_RAYS, layout: str = "fused"):
     """Plain version of ``occlusion_stream`` -> blocked [R] bool."""
     cluster_list, counts = pair_lists(pair_sc, pair_bits, tile_start, sc)
-    return occlusion_d_plain(_fused_tables(fused, None), origins, dirs, r2,
-                             cluster_list, counts, tile_rays, seed=seed)
+    return occlusion_d_plain(_walker_tables(table, None, layout), origins,
+                             dirs, r2, cluster_list, counts, tile_rays,
+                             seed=seed)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev):
-    _require(fused.device == dev and fused.dtype == torch.float32
-             and fused.is_contiguous() and fused.dim() == 3
-             and tuple(fused.shape[1:]) == (CLUSTER_SIZE, 18)
-             and 1 <= sc <= 32 and fused.shape[0] % sc == 0,
-             f"fused must be a contiguous float32 [L, 16, 18] on {dev} with "
-             "L a multiple of sc")
+def _check_table(table, layout: str, sc: int, dev) -> int:
+    """Check the streamed table of ``layout``; return its cluster count."""
+    _require(layout in LAYOUTS, f"unknown stream layout {layout!r}")
+    _require(1 <= sc <= 32, "sc must be in 1..32")
+    if layout == "rows":
+        _check_tables(table, dev)
+        L = table.n.shape[0]
+    else:
+        shape = ((CLUSTER_SIZE, 18) if layout == "fused"
+                 else (18, sc * CLUSTER_SIZE))
+        _require(table.device == dev and table.dtype == torch.float32
+                 and table.is_contiguous() and table.dim() == 3
+                 and tuple(table.shape[1:]) == shape,
+                 f"the {layout} table must be a contiguous float32 "
+                 f"[*, {shape[0]}, {shape[1]}] on {dev}")
+        L = table.shape[0] * (sc if layout == "lane" else 1)
+    _require(L % sc == 0, "the cluster count must be a multiple of sc")
+    return L
+
+
+def _table_ptrs(table, layout: str) -> list:
+    """The five table pointers of csrc/stream_trace.cu's host entries."""
+    if layout == "rows":
+        return [table.n.data_ptr(), table.nv0.data_ptr(), table.m.data_ptr(),
+                table.c.data_ptr(), table.nobf.data_ptr()]
+    return [table.data_ptr(), None, None, None, None]
+
+
+def _check_pairs(pair_sc, pair_bits, tile_start, tiles, dev):
     P = pair_sc.shape[0]
     for name, x in (("pair_sc", pair_sc), ("pair_bits", pair_bits)):
         _require(x.device == dev and x.dtype == torch.int32
@@ -149,15 +237,21 @@ def _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev):
              f"tile_start must be a contiguous int32 [{tiles + 1}] on {dev}")
 
 
-def closest_hit_stream(fused, tri_id, origins, dirs, pair_sc, pair_bits,
-                       tile_start, sc: int, tile_rays: int = TILE_RAYS):
-    """K8: closest hit of each ray over its tile's pairs.
+def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
+                       tile_start, sc: int, tile_rays: int = TILE_RAYS,
+                       layout: str = "fused"):
+    """K8 (fused), K10 (lane), K11 (rows): closest hit of each ray over its
+    tile's pairs.
 
-    fused [L, 16, 18] f32 and tri_id [L, 16] i32 (L a multiple of ``sc``);
+    table: in ``layout`` (``LAYOUTS``), the fused table [L, 16, 18] f32,
+    the lane slab [L / sc, 18, sc * 16] f32 (``lane_slab``) or the padded
+    ``ClusterTables`` (rows); tri_id [L, 16] i32, L a multiple of ``sc``;
     origins, dirs [R, 3] f32 with R % tile_rays == 0; pair_sc, pair_bits
     [P] i32 (supercluster index and member mask of each pair, tile-major);
     tile_start [tiles + 1] i32 with tile_start[-1] == P.
     Returns (t [R] f32, tri [R] i32); +inf and -1 where nothing is hit.
+    The three layouts give the same bits.  ``layout`` names the form of
+    ``table``, so it is never read from the environment here.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -166,15 +260,17 @@ def closest_hit_stream(fused, tri_id, origins, dirs, pair_sc, pair_bits,
     tiles = R // tile_rays
     _check_rays("origins", origins, dev, R)
     _check_rays("dirs", dirs, dev, R)
-    _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev)
+    L = _check_table(table, layout, sc, dev)
+    _check_pairs(pair_sc, pair_bits, tile_start, tiles, dev)
     _require(tri_id.device == dev and tri_id.dtype == torch.int32
              and tri_id.is_contiguous()
-             and tuple(tri_id.shape) == tuple(fused.shape[:2]),
-             "tri_id must be a contiguous int32 [L, 16] beside fused")
+             and tuple(tri_id.shape) == (L, CLUSTER_SIZE),
+             f"tri_id must be a contiguous int32 [{L}, 16] beside the table")
 
     if dev.type == "cpu":
-        return closest_hit_stream_plain(fused, tri_id, origins, dirs, pair_sc,
-                                        pair_bits, tile_start, sc, tile_rays)
+        return closest_hit_stream_plain(table, tri_id, origins, dirs, pair_sc,
+                                        pair_bits, tile_start, sc, tile_rays,
+                                        layout)
     if dev.type != "cuda":
         raise NotImplementedError(
             f"closest_hit_stream has no kernel for {dev}")
@@ -188,25 +284,30 @@ def closest_hit_stream(fused, tri_id, origins, dirs, pair_sc, pair_bits,
     if tiles:
         with torch.cuda.device(dev):
             err = lib.crt_closest_hit_stream(
-                origins.data_ptr(), dirs.data_ptr(), fused.data_ptr(),
-                tri_id.data_ptr(), pair_sc.data_ptr(), pair_bits.data_ptr(),
+                origins.data_ptr(), dirs.data_ptr(), _LAYOUT_CODE[layout],
+                *_table_ptrs(table, layout), tri_id.data_ptr(),
+                pair_sc.data_ptr(), pair_bits.data_ptr(),
                 tile_start.data_ptr(), sc, tiles, tile_rays,
                 best_t.data_ptr(), best_tri.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_stream")
         global closest_hit_stream_launches
         closest_hit_stream_launches += 1
+        closest_hit_stream_layout_launches[layout] += 1
     return best_t, best_tri
 
 
-def occlusion_stream(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
-                     tile_start, sc: int, tile_rays: int = TILE_RAYS):
-    """K9: any-hit occlusion of each ray over its tile's pairs.
+def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
+                     tile_start, sc: int, tile_rays: int = TILE_RAYS,
+                     layout: str = "fused"):
+    """K9 (fused), K10 (lane), K11 (rows): any-hit occlusion of each ray
+    over its tile's pairs.
 
-    Arguments as ``closest_hit_stream``, with r2 [R] f32 (squared reach)
-    and seed [R] bool: a lane starts, and a lane of a tile without pairs
-    stays, at its seed (True on lanes whose answer nothing consumes, so
-    they never hold a tile's walk open).  Returns blocked [R] bool.
+    Arguments as ``closest_hit_stream`` (no ids: the rows layout's tri_id
+    is not passed to the kernel), with r2 [R] f32 (squared reach) and seed
+    [R] bool: a lane starts, and a lane of a tile without pairs stays, at
+    its seed (True on lanes whose answer nothing consumes, so they never
+    hold a tile's walk open).  Returns blocked [R] bool.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -215,7 +316,8 @@ def occlusion_stream(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
     tiles = R // tile_rays
     _check_rays("origins", origins, dev, R)
     _check_rays("dirs", dirs, dev, R)
-    _check_pairs(fused, pair_sc, pair_bits, tile_start, sc, tiles, dev)
+    _check_table(table, layout, sc, dev)
+    _check_pairs(pair_sc, pair_bits, tile_start, tiles, dev)
     _require(r2.device == dev and r2.dtype == torch.float32
              and r2.is_contiguous() and tuple(r2.shape) == (R,),
              f"r2 must be a contiguous float32 [{R}] on {dev}")
@@ -224,8 +326,9 @@ def occlusion_stream(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
              f"seed must be a contiguous bool [{R}] on {dev}")
 
     if dev.type == "cpu":
-        return occlusion_stream_plain(fused, origins, dirs, r2, seed, pair_sc,
-                                      pair_bits, tile_start, sc, tile_rays)
+        return occlusion_stream_plain(table, origins, dirs, r2, seed,
+                                      pair_sc, pair_bits, tile_start, sc,
+                                      tile_rays, layout)
     if dev.type != "cuda":
         raise NotImplementedError(f"occlusion_stream has no kernel for {dev}")
     _require(tile_rays % 256 == 0, "the kernel takes 256-lane blocks")
@@ -238,13 +341,15 @@ def occlusion_stream(fused, origins, dirs, r2, seed, pair_sc, pair_bits,
         with torch.cuda.device(dev):
             err = lib.crt_occlusion_stream(
                 origins.data_ptr(), dirs.data_ptr(), r2.data_ptr(),
-                seed.data_ptr(), fused.data_ptr(), pair_sc.data_ptr(),
+                seed.data_ptr(), _LAYOUT_CODE[layout],
+                *_table_ptrs(table, layout), pair_sc.data_ptr(),
                 pair_bits.data_ptr(), tile_start.data_ptr(), sc, tiles,
                 tile_rays, occ.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_stream")
         global occlusion_stream_launches
         occlusion_stream_launches += 1
+        occlusion_stream_layout_launches[layout] += 1
     return occ
 
 
@@ -265,27 +370,34 @@ def bin_stream_pairs(st: StreamTables, bounds, apex=None, apex_slack=0.0,
 
 def closest_hit_stream_flat(st: StreamTables, origins, dirs, active=None,
                             tile_rays: int = TILE_RAYS, apex=None,
-                            apex_slack: float = 0.0):
-    """Streaming closest hit of a flat wavefront (R % tile_rays == 0).
+                            apex_slack: float = 0.0,
+                            layout: str | None = None):
+    """Streaming closest hit of a flat wavefront (R % tile_rays == 0) over
+    the table in ``layout`` (None: ``stream_layout()``).
     Returns (Hit, number of pairs)."""
+    layout = _check_layout(layout)
     bounds = tile_bounds(origins, dirs, tile_rays, active)
     pair_sc, bits, tile_start = bin_stream_pairs(st, bounds, apex, apex_slack)
-    t, tri = closest_hit_stream(st.fused, st.tables.tri_id, origins, dirs,
-                                pair_sc, bits, tile_start, st.sc, tile_rays)
+    t, tri = closest_hit_stream(layout_table(st, layout), st.tables.tri_id,
+                                origins, dirs, pair_sc, bits, tile_start,
+                                st.sc, tile_rays, layout)
     return Hit(t=t, tri=tri), pair_sc.shape[0]
 
 
 def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
                          apex_slack, tile_rays: int = TILE_RAYS,
                          per_tile_cap: int | None = None,
-                         lane_exact: bool = True):
+                         lane_exact: bool = True,
+                         layout: str | None = None):
     """Streaming any-hit occlusion of a point-light shadow wavefront ->
-    blocked [R] bool.  ``apex`` [tiles, 3] is each tile's light.  Pairs
+    blocked [R] bool over the table in ``layout`` (None:
+    ``stream_layout()``).  ``apex`` [tiles, 3] is each tile's light.  Pairs
     come nearest first.  A complete walk (``per_tile_cap`` None) admits a
     pair only if some lane's own segment reaches the supercluster
     (``lane_exact_sc_mask`` over the shaft hull's survivors); a truncated
     one skips that test, its list being short anyway.  Lanes outside
     ``active`` return True."""
+    layout = _check_layout(layout)
     bounds = tile_bounds(origins, dirs, tile_rays, active)
     extra = None
     if per_tile_cap is None and lane_exact:
@@ -298,14 +410,16 @@ def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
         per_tile_cap=per_tile_cap, extra_mask=extra)
     seed = (torch.zeros(r2.shape, dtype=torch.bool, device=r2.device)
             if active is None else ~active)
-    return occlusion_stream(st.fused, origins, dirs, r2, seed, pair_sc, bits,
-                            tile_start, st.sc, tile_rays)
+    return occlusion_stream(layout_table(st, layout), origins, dirs, r2, seed,
+                            pair_sc, bits, tile_start, st.sc, tile_rays,
+                            layout)
 
 
 def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
                              light_positions, active, origin_slack,
                              tile_rays: int = TILE_RAYS, phase1_k: int = 8,
-                             lane_exact: bool = True):
+                             lane_exact: bool = True,
+                             layout: str | None = None):
     """Two-phase streaming shadow occlusion -> [Ll, R] bool.
 
     Phase 1 walks only each tile's ``phase1_k`` nearest superclusters.
@@ -316,8 +430,10 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
     1 left open gets a complete walk.
 
     shadow_o [R, 3] per-pixel origins shared by the lights; light_dirs
-    [Ll, R, 3]; r2, active [Ll, R]; light_positions [Ll, 3].
+    [Ll, R, 3]; r2, active [Ll, R]; light_positions [Ll, 3].  Both phases
+    read the table in ``layout`` (None: ``stream_layout()``).
     """
+    layout = _check_layout(layout)
     Ll, R = r2.shape
     tpl = R // tile_rays
     apex = light_positions.repeat_interleave(tpl, dim=0)
@@ -325,7 +441,7 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
         st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
         light_dirs.reshape(-1, 3).contiguous(), r2.reshape(-1).contiguous(),
         active.reshape(-1), apex, origin_slack, tile_rays,
-        per_tile_cap=phase1_k).reshape(Ll, R)
+        per_tile_cap=phase1_k, layout=layout).reshape(Ll, R)
 
     surv = active & ~occ1
     perm = torch.argsort((~surv).to(torch.uint8), dim=1, stable=True)
@@ -335,14 +451,14 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
                      ).reshape(-1, 3),
         torch.gather(r2, 1, perm).reshape(-1),
         torch.gather(surv, 1, perm).reshape(-1), apex, origin_slack,
-        tile_rays, lane_exact=lane_exact).reshape(Ll, R)
+        tile_rays, lane_exact=lane_exact, layout=layout).reshape(Ll, R)
     occ2_back = torch.empty_like(occ2).scatter_(1, perm, occ2)
     return occ1 | (occ2_back & surv)
 
 
 def make_stream_trace_fn(scene, tile_rays: int | None = None,
                          sc_clusters: int = sb.SC_CLUSTERS,
-                         shadow_k: int = 2):
+                         shadow_k: int = 2, layout: str | None = None):
     """trace_fn factory for the streaming backend ("pallas_stream").
 
     ``trace(o, d, active=None) -> Hit``, rays padded to a tile multiple
@@ -354,11 +470,14 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
     (``RenderSettings.stream_shadow_k``; 0 walks every list in one phase).
     ``trace.rank`` is the triangle id -> Morton rank map, which keeps the
     segment sum's id bands narrow in a backward.  The trace emits no packed
-    rows: shading gathers them.
+    rows: shading gathers them.  Every launch reads the table in ``layout``
+    (None: ``stream_layout()``, read here, as crt_tpu reads it when it
+    builds the trace); only the lane layout builds its slab.
     """
     tile_rays = tile_rays or TILE_RAYS
+    layout = _check_layout(layout)
     tables = build_cluster_tables(scene)
-    st = build_stream_tables(tables, sc_clusters)
+    st = build_stream_tables(tables, sc_clusters, layout)
 
     def trace(origins, dirs, active=None):
         batch_shape = origins.shape[:-1]
@@ -366,7 +485,8 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
         o, d, a = pad_rays(origins.detach().reshape(-1, 3),
                            dirs.detach().reshape(-1, 3), active, tile_rays,
                            pad_all_active=True)
-        hit, _ = closest_hit_stream_flat(st, o, d, a, tile_rays)
+        hit, _ = closest_hit_stream_flat(st, o, d, a, tile_rays,
+                                         layout=layout)
         return Hit(t=hit.t[:R].reshape(batch_shape),
                    tri=hit.tri[:R].reshape(batch_shape))
 
@@ -383,13 +503,13 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
         if shadow_k > 0:
             return occluded_stream_twophase(
                 st, shadow_o, light_dirs, r2, light_positions, active,
-                origin_slack, tile_rays, phase1_k=shadow_k)
+                origin_slack, tile_rays, phase1_k=shadow_k, layout=layout)
         apex = light_positions.repeat_interleave(R // tile_rays, dim=0)
         occ = occluded_stream_flat(
             st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
             light_dirs.reshape(-1, 3).contiguous(),
             r2.reshape(-1).contiguous(), active.reshape(-1), apex,
-            origin_slack, tile_rays)
+            origin_slack, tile_rays, layout=layout)
         return occ.reshape(Ll, R)
 
     trace.shadow_apex = shadow_apex

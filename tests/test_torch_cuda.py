@@ -258,6 +258,62 @@ def test_closest_hit_compact_matches_plain_and_k1(device, case):
         assert (k[1] >= 0).any() and (cnt == 0).any()
 
 
+@pytest.mark.parametrize("merge", [2, 4])
+def test_closest_hit_merged_matches_plain_and_k1(device, merge):
+    """K7 vs its plain version and vs K1 on the same lists, bit for bit
+    (t, tri, rows), on a masked wavefront with empty lists among each
+    block's sub-tiles; a merge that does not divide the tile count is
+    refused by the wrapper and by the host entry itself."""
+    from crt_tpu_torch.ops import cuda_lib
+
+    scene = make_test_scene(192, 128, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    o, d = _wavefront(scene)  # 24 tiles
+    lane = torch.arange(o.shape[0], device=device)
+    act = (lane % 3 != 0) & ((lane // 1024) % 3 != 1)
+    cl, cnt = binning.bin_rays(tables, o, d, 1024, act)
+    before = (cluster_trace.closest_hit_merged_launches,
+              cluster_trace.closest_hit_launches)
+    k = cluster_trace.closest_hit_merged(tables, o, d, cl, cnt, rows_table,
+                                         merge=merge)
+    assert (cluster_trace.closest_hit_merged_launches,
+            cluster_trace.closest_hit_launches) == (before[0] + 1, before[1])
+    p = cluster_trace.closest_hit_merged_plain(tables, o, d, cl, cnt,
+                                               rows_table, merge)
+    k1 = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    for got, plain, one in zip(k, p, k1):
+        assert torch.equal(got, plain) and torch.equal(got, one)
+    assert (k[1] >= 0).any() and (cnt == 0).any()
+    with pytest.raises(ValueError):
+        cluster_trace.closest_hit_merged(tables, o, d, cl, cnt, merge=5)
+    lib, _ = cuda_lib.load()
+    err = lib.crt_closest_hit_merged(
+        o.data_ptr(), d.data_ptr(), tables.n.data_ptr(),
+        tables.nv0.data_ptr(), tables.m.data_ptr(), tables.c.data_ptr(),
+        tables.nobf.data_ptr(), tables.tri_id.data_ptr(), cl.data_ptr(),
+        cnt.data_ptr(), None, tables.n.shape[0], cnt.shape[0], 1024, 5, 0,
+        k[0].data_ptr(), k[1].data_ptr(), None,
+        torch.cuda.current_stream(device).cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue, nothing launched
+
+
+def test_tile_merge_render_on_card(device, monkeypatch):
+    """With the merge at 2 every closest hit of the frame takes K7 (6
+    tiles) and the image equals the default one bit for bit."""
+    scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
+                            device=device)
+    default = render_image(scene)
+    monkeypatch.setattr(cluster_trace, "_TILE_MERGE", 2)
+    before = (cluster_trace.closest_hit_merged_launches,
+              cluster_trace.closest_hit_launches)
+    img = render_image(scene)
+    assert (cluster_trace.closest_hit_merged_launches,
+            cluster_trace.closest_hit_launches) == (before[0] + 4, before[1])
+    assert torch.equal(img, default)
+
+
 @pytest.mark.parametrize("settings", [
     dict(), dict(wavefront_sched="grow"), dict(wavefront="recursive"),
     dict(compact_bounces=True)])
@@ -436,6 +492,81 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
         st, shadow_o, ldir, r2, lights, sact, 0.02, tile_rays, phase1_k=2)
     assert torch.equal(full[a_f], k5[a_f])
     assert torch.equal(two.reshape(-1)[a_f], full[a_f])
+
+
+def _layout_counts():
+    return (dict(stream_trace.closest_hit_stream_layout_launches),
+            dict(stream_trace.occlusion_stream_layout_launches))
+
+
+def _added(before, after):
+    return [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+            for b, a in zip(before, after)]
+
+
+@pytest.mark.parametrize("layout", ["lane", "rows"])
+@pytest.mark.parametrize("sc", [4, 32])
+@pytest.mark.parametrize("big", [False, True])
+def test_stream_layout_kernels_match_plain_and_fused(device, big, sc,
+                                                     layout):
+    """K10 (lane) and K11 (rows) vs their plain versions and vs K8 / K9 on
+    the fused table, on the same pair lists: the primary wavefront with an
+    active mask that leaves tiles without a pair, and the shadow wavefront
+    walked complete and truncated."""
+    scene = _sized_scene(big, device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    st = stream_trace.build_stream_tables(tables, sc, layout=layout)
+    table = stream_trace.layout_table(st, layout)
+    o, d = _wavefront(scene)
+    lane = torch.arange(o.shape[0], device=device)
+    act = (lane % 3 != 0) & ((lane // 1024) % 4 != 1)
+    pairs = stream_trace.bin_stream_pairs(
+        st, binning.tile_bounds(o, d, 1024, act))
+    before = _layout_counts()
+    k = stream_trace.closest_hit_stream(table, st.tables.tri_id, o, d,
+                                        *pairs, sc, 1024, layout=layout)
+    assert _added(before, _layout_counts()) == [{layout: 1}, {}]
+    p = stream_trace.closest_hit_stream_plain(table, st.tables.tri_id, o, d,
+                                              *pairs, sc, 1024, layout)
+    f = stream_trace.closest_hit_stream(st.fused, st.tables.tri_id, o, d,
+                                        *pairs, sc, 1024)
+    torch.cuda.synchronize()
+    assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
+    assert torch.equal(k[1], f[1]) and torch.equal(k[0], f[0])
+    assert (k[1] >= 0).any() and (pairs[2][1:] == pairs[2][:-1]).any()
+
+    shadow_o, ldir, r2, sact, lights = _dir_shadow_wavefront(scene, tables,
+                                                             1024)
+    o_f, d_f, r2_f, a_f, apex = _flat(shadow_o, ldir, r2, sact, lights, 1024)
+    bounds = binning.tile_bounds(o_f, d_f, 1024, a_f)
+    for kw in (dict(near_first=True), dict(near_first=True, per_tile_cap=2)):
+        pairs = stream_trace.bin_stream_pairs(st, bounds, apex, 0.02, **kw)
+        args = (o_f, d_f, r2_f, ~a_f, *pairs, sc, 1024)
+        before = _layout_counts()
+        k9 = stream_trace.occlusion_stream(table, *args, layout=layout)
+        assert _added(before, _layout_counts()) == [{}, {layout: 1}]
+        p9 = stream_trace.occlusion_stream_plain(table, *args, layout)
+        f9 = stream_trace.occlusion_stream(st.fused, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(k9, p9) and torch.equal(k9, f9)
+        assert k9[a_f].any() and not k9[a_f].all()
+
+
+@pytest.mark.parametrize("layout", ["lane", "rows"])
+def test_stream_render_layout_on_card(device, monkeypatch, layout):
+    """CRT_STREAM_LAYOUT alone moves a streaming frame's launches (one
+    closest hit and two any-hit passes per shading level) to the layout's
+    kernels; the image equals the fused frame bit for bit."""
+    scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
+                            device=device)
+    settings = RenderSettings(backend="stream")
+    monkeypatch.delenv("CRT_STREAM_LAYOUT", raising=False)
+    fused = render_image(scene, settings)
+    monkeypatch.setenv("CRT_STREAM_LAYOUT", layout)
+    before = _layout_counts()
+    img = render_image(scene, settings)
+    assert _added(before, _layout_counts()) == [{layout: 4}, {layout: 8}]
+    assert torch.equal(img, fused)
 
 
 @pytest.mark.parametrize("case", ["blocked_at_first_pair", "inactive_only",
