@@ -66,8 +66,10 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      peak memory; then value_and_grad of the
      image sum with respect to vertices, light intensities, camera
      position and mat_ior (vs the all-pairs backend's, time and peak
-     memory, with and without remat_shading), and the backward of the
-     mat_ior[tri_material] gather at 65,536 triangles on one material;
+     memory, with and without remat_shading; per bounce one segment sum
+     for the packed rows and one for the ior row), and the backward of
+     the mat_ior[tri_material] gather at 65,536 triangles on one material,
+     through packed_gather as build_packed reads it and by plain indexing;
  10. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
      direction-form occlusion kernel in its two launches, K5 (shaft lists,
      origin tiles stored once) and K6 (generic lists, seeded with the
@@ -84,20 +86,27 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      version on 32 seeded tiles that own pairs (the plain version walks
      one list position at a time to a chunk's longest list: tens of
      seconds over every tile at this size; the kernel's launch on those 32
-     tiles must also repeat its full launch there); the same launches
-     (the primary and both two-phase shadow launches) in the lane and rows
-     table layouts (K10, K11), each equal to the fused launch on every lane
-     and to its plain version on the same 32 tiles, with times beside the
-     fused ones and the same bounds; K8 vs the all-pairs
-     backend on 8192 sampled rays; two-phase == single phase on the
-     active lanes; at 65,536 triangles streaming hits == the closest-hit
+     tiles must also repeat its full launch there), each also with its
+     walks cut into items of 8 live members, bit-equal to the default
+     item length on every lane, with the no-FMA floor beside the bound and
+     the time on the 32 tiles beside the full launch's, and K8 and phase
+     2 timed at item lengths 16 to 512; the same launches (the primary
+     and the three shadow launches) in the lane and rows table layouts
+     (K10, K11), each equal to the fused launch on every lane, with 8
+     members an item to the default, and to its plain version on the same
+     32 tiles, with times beside the fused ones and the same bounds; K8 vs
+     the all-pairs backend on 8192 sampled rays; two-phase == single phase
+     on the active lanes; at 65,536 triangles streaming hits == the closest-hit
      kernel's on every lane and K9 == K5 on every active shadow lane;
  12. big, the large-scene main path: render_image of the 1,000,000-triangle
      frame with default settings (launch counts reset just before, read
      just after: one K8, two K9, no cluster-backend kernel, so "auto" took
-     the streaming backend); the frame vs the all-pairs backend on 8192
-     sampled pixels; forward frame time and Mrays/s (host clock around a
-     synchronize, median of 5), device time and launches of a profiled
+     the streaming backend); a second forward frame bit-identical to the
+     first; the frame vs the all-pairs backend on 8192 sampled pixels;
+     render_image(backend="bruteforce") of the same scene at 64x36 (its
+     ray chunk sized from T) vs the streaming frame; forward frame time
+     and Mrays/s (host clock around a synchronize, median of 5), device
+     time and launches of a profiled
      frame, the streaming kernels' and Phase A's share, pairs, host reads,
      peak memory; value_and_grad of the frame's sum (finite, time, peak,
      segment-sum launches); both backends timed on make_big_scene at
@@ -177,6 +186,14 @@ H100_FP32_FLOPS = 67e12
 # member_t of csrc/cluster_common.cuh: two 3-dots and a subtract for the
 # plane, a divide, and per edge two 3-dots, a subtract, a multiply, an add.
 FLOPS_PER_MEMBER = 5 + 5 + 1 + 1 + 3 * 13
+# The no-FMA floor of a bit-exact member test: the kernels are built with
+# -fmad=false, so each of the 50 multiplies and adds is an FP32 instruction
+# of its own, and the IEEE divide is a sequence (a reciprocal at a quarter
+# of the FP32 rate and about five FMA-class steps: ~9 issue slots).  At one
+# FP32 instruction a lane a clock the card issues H100_FP32_FLOPS / 2 a
+# second (the rate counts an FMA as two flops).
+NOFMA_SLOTS_PER_MEMBER = 50 + 9
+H100_FP32_ISSUE = H100_FP32_FLOPS / 2
 
 
 def bound_ms(num_bytes: float, flops: float) -> dict:
@@ -1269,7 +1286,8 @@ def phase_refract(device):
     g_launches = read_glass_launches()
     print(f"[refract] value_and_grad of the glass image sum: value "
           f"{float(value):.6e}; launches {g_launches}")
-    check(g_launches["segsum"] == bounces
+    # per bounce the packed rows and the ior row of build_packed
+    check(g_launches["segsum"] == 2 * bounces
           and g_launches["occlusion_w_glass"] == bounces,
           f"the glass backward launched {g_launches}")
     for k, gk in grads.items():
@@ -1297,17 +1315,26 @@ def phase_refract(device):
     assert_grads_close("glass, remat_shading vs not", remat, grads,
                        rtol=1e-4, atol_scale=1e-5)
 
-    # the small-table gather that feeds refraction: 65,536 triangles on one
-    # material, plain indexing (its backward is an index_put_ accumulate)
+    # the small-table gather that feeds refraction, 65,536 triangles on one
+    # material: build_packed's read through packed_gather (its backward the
+    # segment sum), and plain indexing (an index_put_ accumulate) beside it
+    from crt_tpu_torch.ops.segsum import packed_gather
+
     ior = torch.ones((3,), device=device, requires_grad=True)
     mat = torch.zeros((65536,), dtype=torch.long, device=device)
 
-    def ior_gather():
-        ior.grad = None
-        ior[mat].sum().backward()
+    def ior_gather(read):
+        def run():
+            ior.grad = None
+            read().sum().backward()
+        return run
 
+    ms_new = cuda_ms(ior_gather(lambda: packed_gather(ior[None, :], mat)))
+    ms_old = cuda_ms(ior_gather(lambda: ior[mat]))
     print(f"[refract] mat_ior[tri_material] at 65,536 triangles on one "
-          f"material, forward+backward: {cuda_ms(ior_gather):.3f} ms")
+          f"material, forward+backward: through packed_gather (as "
+          f"build_packed reads it) {ms_new:.3f} ms, by plain indexing "
+          f"{ms_old:.3f} ms")
     return launches, c_launches
 
 
@@ -1434,7 +1461,8 @@ def stream_bound(st, pair_sc, bits, start, ray_bytes_per_lane, outputs,
     table once (16 x 18 floats, and its 16 ids for the closest hit) however
     many tiles walk it, the per-lane inputs of the tiles that have a pair,
     every output in full.  Operations: the member tests the answer needs,
-    counted as ``walk_bound`` counts them."""
+    counted as ``walk_bound`` counts them.  ``floor_ms`` is what those
+    tests cost at the no-FMA floor (``NOFMA_SLOTS_PER_MEMBER``)."""
     from crt_tpu_torch.ops.stream_trace import pair_lists
 
     cl, cnt = pair_lists(pair_sc, bits, start, st.sc)
@@ -1451,6 +1479,7 @@ def stream_bound(st, pair_sc, bits, start, ray_bytes_per_lane, outputs,
     if blocked is not None:
         tests += int((active & blocked).sum())
     return {**bound_ms(num_bytes, tests * FLOPS_PER_MEMBER),
+            "floor_ms": tests * NOFMA_SLOTS_PER_MEMBER / H100_FP32_ISSUE * 1e3,
             "member_tests": tests, "pairs": int(pair_sc.shape[0]),
             "live_members": int(cnt.sum()), "clusters_touched": touched,
             "longest_list": int(cnt.max())}
@@ -1500,6 +1529,27 @@ def pick_live_tiles(start, gen):
     live = torch.nonzero(start[1:] > start[:-1])[:, 0]
     keep = torch.randperm(live.shape[0], generator=gen)[:PLAIN_TILES]
     return live[keep.to(live.device)].sort().values
+
+
+SMALL_CHUNK = 8  # the forced item length, against the default
+SWEEP_CHUNKS = (16, 32, 64, 128, 256, 512)
+
+
+def same_bits(name, got, want):
+    """Every tensor of ``got`` has the bits of its ``want``, lane for lane
+    (a float by its bits: -0.0 differs from +0.0)."""
+    for g, w in zip(got, want):
+        check(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+              f"{name}: the bits differ")
+
+
+def chunk_sweep(fn) -> dict:
+    """CUDA-event times of fn(chunk) over SWEEP_CHUNKS."""
+    return {c: cuda_ms(lambda: fn(c)) for c in SWEEP_CHUNKS}
+
+
+def fmt_sweep(sweep) -> str:
+    return ", ".join(f"{c}: {ms:.3f} ms" for c, ms in sweep.items())
 
 
 def timed_once(fn):
@@ -1555,6 +1605,9 @@ def phase_stream_kernels(device):
                TILE)
     t, tri = stt.closest_hit_stream(*k8_args)
     ms_k8 = cuda_ms(lambda: stt.closest_hit_stream(*k8_args))
+    same_bits(f"closest_hit_stream chunk={SMALL_CHUNK} vs the default chunk "
+              "on every lane", stt.closest_hit_stream(
+                  *k8_args, chunk=SMALL_CHUNK), (t, tri))
     # The plain version walks every tile of a chunk to the chunk's longest
     # list, one walk position at a time: tens of seconds over all tiles at
     # this size.  It is held on PLAIN_TILES seeded tiles, where the kernel
@@ -1579,8 +1632,10 @@ def phase_stream_kernels(device):
           f"clusters touched), hits {int((tri >= 0).sum())} of {R}; Phase A "
           f"{ms_pa:.3f} ms, kernel {ms_k8:.3f} ms, bound {b['bound_ms']:.4f} "
           f"ms ({b['bound_by']}, {b['member_tests']} member tests needed), "
-          f"library call none; on {PLAIN_TILES} sampled tiles (list lengths "
-          f"up to {int((sub[2][1:] - sub[2][:-1]).max())} pairs) bit-equal to "
+          f"no-FMA floor {b['floor_ms']:.3f} ms, library call none; "
+          f"chunk={SMALL_CHUNK} bit-equal to the default chunk on all {R} "
+          f"lanes; on {PLAIN_TILES} sampled tiles (list lengths up to "
+          f"{int((sub[2][1:] - sub[2][:-1]).max())} pairs) bit-equal to "
           f"the plain version: kernel {ms_k8s:.3f} ms, plain {ms_k8p:.1f} ms "
           "(one run)")
     bruteforce_agreement("[stream-kernels] K8", scene, o, d, t, tri, gen,
@@ -1588,7 +1643,7 @@ def phase_stream_kernels(device):
     stats["closest_hit_stream"] = dict(
         max_abs_err=err, ms=ms_k8, plain_ms=ms_k8p, plain_tiles=PLAIN_TILES,
         ms_on_plain_tiles=ms_k8s, library_ms=None, phase_a_ms=ms_pa,
-        **{k: b[k] for k in ("bound_ms", "bound_by")})
+        **{k: b[k] for k in ("bound_ms", "bound_by", "floor_ms")})
 
     # ---- K10 (lane) and K11 (rows) on the same launch
     layout_tables = {"lane": stt.lane_slab(st.fused, st.sc),
@@ -1599,6 +1654,9 @@ def phase_stream_kernels(device):
         lt, ltri = stt.closest_hit_stream(*full, layout=layout)
         compare_hits(f"closest_hit_stream {layout} vs fused, every lane",
                      (lt, ltri, None), (t, tri, None))
+        same_bits(f"closest_hit_stream {layout} chunk={SMALL_CHUNK} vs the "
+                  "default chunk on every lane", stt.closest_hit_stream(
+                      *full, layout=layout, chunk=SMALL_CHUNK), (lt, ltri))
         lsub = (table, st.tables.tri_id, so, sd, *sub, st.sc, TILE)
         kt, ktri = stt.closest_hit_stream(*lsub, layout=layout)
         (pt, ptri), ms_p = timed_once(
@@ -1606,17 +1664,25 @@ def phase_stream_kernels(device):
         lerr = compare_hits(f"closest_hit_stream {layout}", (kt, ktri, None),
                             (pt, ptri, None))
         ms = cuda_ms(lambda: stt.closest_hit_stream(*full, layout=layout))
+        ms_s = cuda_ms(lambda: stt.closest_hit_stream(*lsub, layout=layout))
         stats[f"closest_hit_stream_{layout}"] = dict(
             max_abs_err=lerr, ms=ms, plain_ms=ms_p, plain_tiles=PLAIN_TILES,
-            library_ms=None, **{k: b[k] for k in ("bound_ms", "bound_by")})
+            ms_on_plain_tiles=ms_s, library_ms=None,
+            **{k: b[k] for k in ("bound_ms", "bound_by", "floor_ms")})
         print(f"[stream-kernels] K8 in the {layout} layout: bit-equal to the "
-              f"fused launch on all {R} lanes and to its plain version on "
-              f"the {PLAIN_TILES} sampled tiles; kernel {ms:.3f} ms, plain "
-              f"{ms_p:.1f} ms (one run), bound {b['bound_ms']:.4f} ms")
+              f"fused launch on all {R} lanes, chunk={SMALL_CHUNK} to the "
+              f"default chunk, and to its plain version on the "
+              f"{PLAIN_TILES} sampled tiles; kernel {ms:.3f} ms (on the "
+              f"sampled tiles {ms_s:.3f} ms), plain {ms_p:.1f} ms (one run), "
+              f"bound {b['bound_ms']:.4f} ms, floor {b['floor_ms']:.3f} ms")
     ms_k8b = cuda_ms(lambda: stt.closest_hit_stream(*k8_args))
     stats["closest_hit_stream"]["ms_after_layouts"] = ms_k8b
     print(f"[stream-kernels] K8 fused timed again after the layouts: "
           f"{ms_k8b:.3f} ms (first {ms_k8:.3f} ms)")
+    sweep = chunk_sweep(lambda c: stt.closest_hit_stream(*k8_args, chunk=c))
+    stats["closest_hit_stream"]["chunk_sweep_ms"] = sweep
+    print(f"[stream-kernels] K8 fused by chunk length (live members an "
+          f"item; default {stt.CHUNK_MEMBERS}): {fmt_sweep(sweep)}")
 
     # ---- K9 on the depth-0 shadow wavefront: one phase, then two
     w = depth0_shadow_wavefront(scene, settings, o, d, Hit(t=t, tri=tri))
@@ -1657,10 +1723,14 @@ def phase_stream_kernels(device):
           "the two-phase resolve differs from the single phase on an active "
           "lane")
     check(bool(single[~a_f].all()), "K9 left an inactive lane unblocked")
+    layout_ms = {}
     for name, args in zip(("single phase", "phase 1", "phase 2"), calls):
         fused, ko, kd, kr2, seed, kpsc, kbits, kstart, ksc = args[:9]
         k9 = real(*args)
         ms = cuda_ms(lambda: real(*args))
+        masks_equal(f"occlusion_stream, {name}, chunk={SMALL_CHUNK} vs the "
+                    "default chunk on every lane",
+                    real(*args, chunk=SMALL_CHUNK), k9)
         pick = pick_live_tiles(kstart, gen)
         sub, per_lane, lanes = tile_subset(pick, kpsc, kbits, kstart, ko, kd,
                                            kr2, seed)
@@ -1679,52 +1749,69 @@ def phase_stream_kernels(device):
               f"{b['longest_list']}), {int((~seed).sum())} active lanes, "
               f"{int((k9 & ~seed).sum())} of them blocked; kernel {ms:.3f} "
               f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{b['member_tests']} member tests needed), library call none; "
-              f"on {PLAIN_TILES} sampled tiles equal to the plain version "
-              f"lane for lane: kernel {ms_s:.3f} ms, plain {ms_p:.1f} ms (one "
-              "run)")
+              f"{b['member_tests']} member tests needed), no-FMA floor "
+              f"{b['floor_ms']:.3f} ms, library call none; chunk="
+              f"{SMALL_CHUNK} equal to the default chunk on all {k9.numel()} "
+              f"lanes; on {PLAIN_TILES} sampled tiles equal to the plain "
+              f"version lane for lane: kernel {ms_s:.3f} ms, plain "
+              f"{ms_p:.1f} ms (one run)")
         key = {"single phase": "occlusion_stream_single",
                "phase 1": "occlusion_stream_phase1",
                "phase 2": "occlusion_stream"}[name]
         stats[key] = dict(max_abs_err=0.0, ms=ms, plain_ms=ms_p,
                           plain_tiles=PLAIN_TILES, ms_on_plain_tiles=ms_s,
                           library_ms=None,
-                          **{k: b[k] for k in ("bound_ms", "bound_by")})
-        if name == "single phase":
-            continue
-        # K10 and K11 on the two launches of the frame's two-phase resolve
+                          **{k: b[k] for k in ("bound_ms", "bound_by",
+                                               "floor_ms")})
+        if name == "phase 2":
+            sweep = chunk_sweep(lambda c: real(*args, chunk=c))
+            stats[key]["chunk_sweep_ms"] = sweep
+            print(f"[stream-kernels] K9 phase 2 fused by chunk length: "
+                  f"{fmt_sweep(sweep)}")
+        # K10 and K11 on the frame's launches
         for layout, table in layout_tables.items():
             lfull = (table, *args[1:9], TILE)
             lk9 = real(*lfull, layout=layout)
             masks_equal(f"occlusion_stream {layout}, {name}, vs fused on "
                         "every lane", lk9, k9)
+            masks_equal(f"occlusion_stream {layout}, {name}, chunk="
+                        f"{SMALL_CHUNK} vs the default chunk on every lane",
+                        real(*lfull, layout=layout, chunk=SMALL_CHUNK), lk9)
             lsub = (table, *per_lane, *sub, ksc, TILE)
             lp9, lms_p = timed_once(
                 lambda: stt.occlusion_stream_plain(*lsub, layout))
             masks_equal(f"occlusion_stream {layout}, {name}",
                         real(*lsub, layout=layout), lp9)
             lms = cuda_ms(lambda: real(*lfull, layout=layout))
+            lms_s = cuda_ms(lambda: real(*lsub, layout=layout))
+            layout_ms[layout, name] = (lms, lms_p, lms_s)
             print(f"[stream-kernels] K9 {name} in the {layout} layout: "
-                  f"equal to the fused launch on all {k9.numel()} lanes and "
-                  f"to its plain version on the {PLAIN_TILES} sampled tiles; "
-                  f"kernel {lms:.3f} ms (fused {ms:.3f}), plain {lms_p:.1f} "
-                  f"ms (one run), bound {b['bound_ms']:.4f} ms")
-            lkey = f"occlusion_stream_{layout}"
-            if name == "phase 1":
-                stats[lkey + "_phase1_ms"] = lms
-            else:
-                stats[lkey] = dict(
-                    max_abs_err=0.0, ms=lms, plain_ms=lms_p,
-                    plain_tiles=PLAIN_TILES, library_ms=None,
-                    ms_phase1=stats.pop(lkey + "_phase1_ms"),
-                    **{k: b[k] for k in ("bound_ms", "bound_by")})
+                  f"equal to the fused launch on all {k9.numel()} lanes, "
+                  f"chunk={SMALL_CHUNK} to the default chunk, and to its "
+                  f"plain version on the {PLAIN_TILES} sampled tiles; kernel "
+                  f"{lms:.3f} ms (fused {ms:.3f}; on the sampled tiles "
+                  f"{lms_s:.3f} ms), plain {lms_p:.1f} ms (one run), bound "
+                  f"{b['bound_ms']:.4f} ms, floor {b['floor_ms']:.3f} ms")
     print("[stream-kernels] two-phase == single phase on every active lane")
-    # the frame launches phase 1 and phase 2; the entry carries phase 2's
+    # the frame launches phase 1 and phase 2; each entry carries phase 2's
     # time and bound, the other two beside it
-    stats["occlusion_stream"]["ms_phase1"] = stats.pop(
-        "occlusion_stream_phase1")["ms"]
-    stats["occlusion_stream"]["ms_single_phase"] = stats.pop(
-        "occlusion_stream_single")["ms"]
+    p1 = stats.pop("occlusion_stream_phase1")
+    one = stats.pop("occlusion_stream_single")
+    stats["occlusion_stream"].update(
+        ms_phase1=p1["ms"], bound_ms_phase1=p1["bound_ms"],
+        floor_ms_phase1=p1["floor_ms"],
+        ms_phase1_on_plain_tiles=p1["ms_on_plain_tiles"],
+        ms_single_phase=one["ms"], bound_ms_single_phase=one["bound_ms"],
+        floor_ms_single_phase=one["floor_ms"])
+    for layout in layout_tables:
+        lms, lms_p, lms_s = layout_ms[layout, "phase 2"]
+        stats[f"occlusion_stream_{layout}"] = dict(
+            max_abs_err=0.0, ms=lms, plain_ms=lms_p, plain_tiles=PLAIN_TILES,
+            ms_on_plain_tiles=lms_s, library_ms=None,
+            ms_phase1=layout_ms[layout, "phase 1"][0],
+            ms_single_phase=layout_ms[layout, "single phase"][0],
+            **{k: stats["occlusion_stream"][k]
+               for k in ("bound_ms", "bound_by", "floor_ms")})
     del calls, w, o_f, d_f, r2_f, a_f, hull, extra, single, two
 
     # ---- a scene both backends hold: K8 == K1, K9 == K5
@@ -1839,6 +1926,10 @@ def phase_big(device):
           "no cluster-backend kernel (auto must choose the streaming backend)")
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
           "the large frame is not a finite [H, W, 3]")
+    # the forward is deterministic: the closest hit's chunks combine through
+    # atomics in any order, and must still give the same bits
+    same_bits("[big] a second forward frame", (render_image(scene),), (img,))
+    print("[big] a second forward frame equals the first bit for bit")
 
     # the all-pairs backend on sampled rays, shaded as the frame shades them
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -1863,6 +1954,26 @@ def phase_big(device):
                     "sampled pixels", colors[rays], ref, min_frac=0.999)
     lit = (colors[rays] != scene.background_color).any(dim=-1)
     print(f"[big] {int(lit.sum())} of the 8192 sampled pixels hit geometry")
+
+    # render_image through the all-pairs backend at this size, at 64x36: its
+    # default ray chunk is sized from T so that the [chunk, 4 T] product fits
+    small = make_big_scene(**dict(BIG, width=64, height=36), seed=0,
+                           device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bf_img, bf_ms = timed_once(
+        lambda: render_image(small, RenderSettings(backend="bruteforce")))
+    bf_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(bf_img.shape) == (36, 64, 3)
+          and bool(torch.isfinite(bf_img).all()),
+          "the all-pairs frame at 64x36 is not a finite [36, 64, 3]")
+    image_agreement("[big] 64x36, all-pairs backend vs streaming", bf_img,
+                    render_image(small), min_frac=0.999)
+    print(f"[big] render_image(backend=\"bruteforce\") of "
+          f"{small.num_triangles} triangles at 64x36: {bf_ms:.1f} ms (one "
+          f"run), ray chunk {intersect.default_ray_chunk(small.num_triangles)}"
+          f", peak {bf_peak:.3f} GiB")
+    del small, bf_img
 
     # time: the frame, and what a profiled frame spends where
     phase_a = phase_a_ms(lambda: render_image(scene))

@@ -1,5 +1,5 @@
 // Shared pieces of the cluster-walk kernels (closest_hit.cu, occlusion_w.cu,
-// occlusion_d.cu, stream_trace.cu).
+// occlusion_d.cu; stream_trace.cu stages its own member-major records).
 //
 // A cluster is 16 Morton-consecutive triangles.  Its test constants live in
 // the cluster-major tables built by crt_tpu_torch/ops/cluster_tables.py
@@ -61,63 +61,11 @@ __device__ __forceinline__ void stage_cluster(
   }
 }
 
-// The same staging from the streaming backend's fused-column tables.  Per
-// slot the 18 columns are n xyz | nv0 | m (9) | c (3) | nobf | id as f32
-// (crt_tpu_torch/ops/stream_binning.py build_fused_table).  Ids come from
-// the int32 `tid` table beside them (null where none are needed); the f32
-// id column is never read.
+// The streaming backend's fused-column tables hold, per slot, 18 columns:
+// n xyz | nv0 | m (9) | c (3) | nobf | id as f32
+// (crt_tpu_torch/ops/stream_binning.py build_fused_table); the kernels read
+// the first 17 and take ids from the int32 `tid` table beside them.
 #define CRT_FUSED_COLS 18
-
-// Column `col` (< 17) of slot j into its ClusterSmem field.
-__device__ __forceinline__ void put_column(ClusterSmem& s, int j, int col,
-                                           float v) {
-  if (col < 3) s.n[3 * j + col] = v;
-  else if (col == 3) s.nv0[j] = v;
-  else if (col < 13) s.m[9 * j + (col - 4)] = v;
-  else if (col < 16) s.c[3 * j + (col - 13)] = v;
-  else s.nobf[j] = v;
-}
-
-__device__ __forceinline__ void stage_ids(ClusterSmem& s, long long cl,
-                                          const int* __restrict__ tid) {
-  if (tid != nullptr && threadIdx.x < CRT_CLUSTER_SIZE)
-    s.tid[threadIdx.x] = tid[cl * CRT_CLUSTER_SIZE + threadIdx.x];
-}
-
-// The fused layout [L,16,18]: one contiguous run of 288 floats per
-// cluster, 256 threads taking two strides of it.
-__device__ __forceinline__ void stage_fused(ClusterSmem& s, long long cl,
-                                            const float* __restrict__ fused,
-                                            const int* __restrict__ tid) {
-  const float* src = fused + cl * (CRT_CLUSTER_SIZE * CRT_FUSED_COLS);
-  for (int i = threadIdx.x; i < CRT_CLUSTER_SIZE * CRT_FUSED_COLS;
-       i += CRT_BLOCK) {
-    const int j = i / CRT_FUSED_COLS, col = i % CRT_FUSED_COLS;
-    if (col < CRT_FUSED_COLS - 1) put_column(s, j, col, src[i]);
-  }
-  stage_ids(s, cl, tid);
-}
-
-// The lane layout [L2, 18, sc*16] (the fused table of each supercluster
-// transposed, triangle slots on the last axis): member `member` of
-// supercluster `sc_idx` is column col's floats
-// lane[(sc_idx*18 + col) * sc*16 + member*16 + j], j = 0..15, so 17 runs of
-// 64 contiguous bytes at a stride of sc*64 bytes (the id column skipped).
-// Thread i takes slot i % 16 of column i / 16: a half-warp per run.
-__device__ __forceinline__ void stage_lane(ClusterSmem& s, long long sc_idx,
-                                           int member, int sc,
-                                           const float* __restrict__ lane,
-                                           const int* __restrict__ tid) {
-  const long long S = (long long)sc * CRT_CLUSTER_SIZE;
-  const float* src = lane + sc_idx * CRT_FUSED_COLS * S +
-                     (long long)member * CRT_CLUSTER_SIZE;
-  for (int i = threadIdx.x; i < (CRT_FUSED_COLS - 1) * CRT_CLUSTER_SIZE;
-       i += CRT_BLOCK) {
-    const int col = i / CRT_CLUSTER_SIZE, j = i % CRT_CLUSTER_SIZE;
-    put_column(s, j, col, src[col * S + j]);
-  }
-  stage_ids(s, sc_idx * sc + member, tid);
-}
 
 // Whether the line (ox,oy,oz) + t*(dx,dy,dz) hits member j of the staged
 // cluster at t >= 0, and that t: plane test with the PARALLEL_EPS gate, the

@@ -33,6 +33,12 @@
 //     sequential f32 additions, not 10^6.
 //   - The shared and global stages use atomics, so the order of the
 //     partials, and with it the last bits, can change from run to run.
+//     That is the port's determinism contract, settled as "forward only",
+//     which is what crt_tpu checks (crt_tpu/utils/checks.py compares two
+//     renders): two forward renders give the same bits (the card test
+//     test_forward_render_is_deterministic, chip_smoke.py's [big]); a
+//     gradient through this kernel is held to its stated tolerance and may
+//     differ in the last bits between runs.
 
 #include <cuda_runtime.h>
 

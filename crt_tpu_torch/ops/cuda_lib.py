@@ -110,10 +110,10 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.crt_occlusion_d.restype = i
     lib.crt_closest_hit_merged.argtypes = [p] * 11 + [i] * 5 + [p] * 4
     lib.crt_closest_hit_merged.restype = i
-    lib.crt_closest_hit_stream.argtypes = ([p] * 2 + [i] + [p] * 9 + [i] * 3
-                                           + [p] * 3)
+    lib.crt_closest_hit_stream.argtypes = ([p] * 2 + [i] + [p] * 13
+                                           + [i] * 6 + [p] * 4)
     lib.crt_closest_hit_stream.restype = i
-    lib.crt_occlusion_stream.argtypes = ([p] * 4 + [i] + [p] * 8 + [i] * 3
+    lib.crt_occlusion_stream.argtypes = ([p] * 3 + [i] + [p] * 12 + [i] * 6
                                          + [p] * 2)
     lib.crt_occlusion_stream.restype = i
     lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]

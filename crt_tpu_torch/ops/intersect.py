@@ -26,6 +26,11 @@ import torch
 from crt_tpu_torch.ops import vecmath
 
 PARALLEL_EPS = 1e-6
+# Rays per chunk of the all-pairs test: at most RAY_CHUNK, and no more than
+# keep one [chunk, 4T] f32 product within PRODUCT_BYTES (67 rays at
+# 1,000,000 triangles, where 8,192 rays would ask for 122 GiB).
+RAY_CHUNK = 8192
+PRODUCT_BYTES = 1 << 30
 
 
 class TriangleData(NamedTuple):
@@ -98,12 +103,21 @@ def _intersect_chunk(tri: TriangleData, origins, dirs) -> Hit:
     return Hit(t=best, tri=idx.to(torch.int32))
 
 
+def default_ray_chunk(num_triangles: int) -> int:
+    """Rays per chunk for ``num_triangles``: ``RAY_CHUNK`` or fewer, so that
+    the [chunk, 4T] f32 product stays within ``PRODUCT_BYTES``."""
+    per_ray = 4 * 4 * max(num_triangles, 1)
+    return max(1, min(RAY_CHUNK, PRODUCT_BYTES // per_ray))
+
+
 def closest_hit_bruteforce(tri: TriangleData, origins, dirs,
-                           ray_chunk: int = 8192) -> Hit:
-    """Closest hit over every triangle, chunked over rays to bound memory.
+                           ray_chunk: int | None = None) -> Hit:
+    """Closest hit over every triangle, chunked over rays to bound memory
+    (``ray_chunk`` rays a chunk; None: ``default_ray_chunk(tri.num)``).
 
     Works for any leading batch shape; returns Hit with that batch shape.
     """
+    ray_chunk = ray_chunk or default_ray_chunk(tri.num)
     batch_shape = origins.shape[:-1]
     o = origins.reshape(-1, 3)
     d = dirs.reshape(-1, 3)

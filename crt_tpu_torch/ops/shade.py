@@ -133,7 +133,7 @@ def build_packed(scene) -> torch.Tensor:
     needed) | mat_type|mat_albedo_tex|mat_smooth|mat_ior — the four
     material rows are always the last four.  Small ints are exact in f32.
     The discrete material rows are detached; the ior row stays
-    differentiable.
+    differentiable and is read through ``segsum.packed_gather``.
     """
     idx = scene.tri_vidx.long()
     cols = [scene.vertices[idx[:, 0]], scene.vertices[idx[:, 1]],
@@ -148,7 +148,8 @@ def build_packed(scene) -> torch.Tensor:
             scene.mat_type[mt].to(torch.float32).detach()[:, None],
             scene.mat_albedo_tex[mt].to(torch.float32).detach()[:, None],
             scene.mat_smooth[mt].to(torch.float32).detach()[:, None],
-            scene.mat_ior[mt][:, None],
+            # a small table with grad: its backward is the segment sum
+            packed_gather(scene.mat_ior[None, :], mt).T,
         ]
     else:
         cols += [torch.zeros((idx.shape[0], 4), dtype=torch.float32,

@@ -21,9 +21,11 @@ tile, that tile's range of the pair list over the table in one of three
 layouts (``stream_layout``, ``CRT_STREAM_LAYOUT``): "fused" [L, 16, 18],
 "lane" [L2, 18, sc*16] (each supercluster's fused rows transposed) or
 "rows" (the six cluster-major arrays).  The layouts change how the table is
-read, never a result.  One launch serves any pair count: a block owns a
-tile and loops over its pairs (crt_tpu cuts its launches at 16,384 pairs
-and carries the result across them).
+read, never a result.  One launch serves any pair count: each tile's walk
+is cut into chunks of at most ``chunk`` live members (``CHUNK_MEMBERS``),
+``stream_items`` lists them on the device, and the kernels' blocks take
+them longest tile first and combine the chunks of a tile (crt_tpu cuts its
+launches at 16,384 pairs and carries the result across them).
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version only for CPU tensors.  The plain versions
@@ -66,6 +68,9 @@ from crt_tpu_torch.ops.intersect import Hit
 
 LAYOUTS = ("fused", "lane", "rows")
 _LAYOUT_CODE = {name: i for i, name in enumerate(LAYOUTS)}  # stream_trace.cu
+# Live members of a tile's walk in one work item of the kernels (the
+# wrappers' ``chunk=None``); chip_smoke.py sweeps it on the 1 M frame.
+CHUNK_MEMBERS = 64
 
 closest_hit_stream_launches = 0
 occlusion_stream_launches = 0
@@ -194,6 +199,68 @@ def occlusion_stream_plain(table, origins, dirs, r2, seed, pair_sc,
 
 
 # ---------------------------------------------------------------------------
+# Work items of the kernels
+# ---------------------------------------------------------------------------
+
+class StreamItems(NamedTuple):
+    """The kernels' work items: chunk c of work tile w covers members
+    [pair_off[tile_start[w // groups]] + c * chunk, + chunk) of the walk of
+    tile w // groups (clipped to the tile's end), for the tile's lane group
+    w % groups.  Item i is chunk i - item_end[pos - 1] of work tile
+    order[pos], pos the first with item_end[pos] > i."""
+
+    order: torch.Tensor  # [wtiles] i32, the work tiles longest walk first
+    item_end: torch.Tensor  # [wtiles] i32, inclusive prefix of their chunks
+    pair_off: torch.Tensor  # [P + 1] i32, live members before each pair
+    groups: int  # work tiles per tile
+    chunk: int  # live members per item at most
+
+
+def stream_items(pair_bits, tile_start, chunk: int,
+                 groups: int = 1) -> StreamItems:
+    """The work items of a launch, on the device, with no host read."""
+    dev = pair_bits.device
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    live = ((pair_bits[:, None] >> shifts) & 1).sum(dim=1)
+    pair_off = torch.zeros((pair_bits.shape[0] + 1,), dtype=torch.int32,
+                           device=dev)
+    pair_off[1:] = live.cumsum(dim=0)
+    walk = pair_off[tile_start.long()]
+    n = (walk[1:] - walk[:-1]).repeat_interleave(groups)  # per work tile
+    order = torch.argsort(n, descending=True, stable=True)
+    item_end = torch.div(n + (chunk - 1), chunk, rounding_mode="floor")[
+        order].cumsum(dim=0).to(torch.int32)
+    return StreamItems(order.to(torch.int32), item_end, pair_off, groups,
+                       chunk)
+
+
+def _max_items(tiles: int, pairs: int, items: StreamItems) -> int:
+    """A bound on the item count that the host knows: each work tile has
+    at most one partial chunk, and a tile's walk at most 32 members a
+    pair."""
+    return (tiles * items.groups
+            + items.groups * pairs * -(-32 // items.chunk))
+
+
+def _check_chunk(chunk) -> int:
+    """``chunk``, or ``CHUNK_MEMBERS`` when None; ValueError unless >= 1."""
+    chunk = CHUNK_MEMBERS if chunk is None else chunk
+    _require(isinstance(chunk, int) and chunk >= 1,
+             "chunk must be a positive int")
+    return chunk
+
+
+def _items_for(pair_bits, tile_start, tile_rays: int, chunk: int):
+    """The launch's items: a work tile is 256 lanes, a kernel block."""
+    return stream_items(pair_bits, tile_start, chunk, tile_rays // 256)
+
+
+def _item_ptrs(items: StreamItems, nxt) -> list:
+    return [items.order.data_ptr(), items.item_end.data_ptr(),
+            items.pair_off.data_ptr(), nxt.data_ptr()]
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -239,7 +306,7 @@ def _check_pairs(pair_sc, pair_bits, tile_start, tiles, dev):
 
 def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
                        tile_start, sc: int, tile_rays: int = TILE_RAYS,
-                       layout: str = "fused"):
+                       layout: str = "fused", chunk: int | None = None):
     """K8 (fused), K10 (lane), K11 (rows): closest hit of each ray over its
     tile's pairs.
 
@@ -251,7 +318,9 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
     tile_start [tiles + 1] i32 with tile_start[-1] == P.
     Returns (t [R] f32, tri [R] i32); +inf and -1 where nothing is hit.
     The three layouts give the same bits.  ``layout`` names the form of
-    ``table``, so it is never read from the environment here.
+    ``table``, so it is never read from the environment here.  ``chunk``
+    (None: ``CHUNK_MEMBERS``) is the kernel's item length in live members;
+    it changes no bit, and the plain version has no use for it.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -266,6 +335,7 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
              and tri_id.is_contiguous()
              and tuple(tri_id.shape) == (L, CLUSTER_SIZE),
              f"tri_id must be a contiguous int32 [{L}, 16] beside the table")
+    chunk = _check_chunk(chunk)
 
     if dev.type == "cpu":
         return closest_hit_stream_plain(table, tri_id, origins, dirs, pair_sc,
@@ -282,12 +352,17 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
     best_t = torch.empty((R,), dtype=torch.float32, device=dev)
     best_tri = torch.empty((R,), dtype=torch.int32, device=dev)
     if tiles:
+        items = _items_for(pair_bits, tile_start, tile_rays, chunk)
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
+        key = torch.full((R,), -1, dtype=torch.int64, device=dev)  # no hit
         with torch.cuda.device(dev):
             err = lib.crt_closest_hit_stream(
                 origins.data_ptr(), dirs.data_ptr(), _LAYOUT_CODE[layout],
                 *_table_ptrs(table, layout), tri_id.data_ptr(),
                 pair_sc.data_ptr(), pair_bits.data_ptr(),
-                tile_start.data_ptr(), sc, tiles, tile_rays,
+                tile_start.data_ptr(), *_item_ptrs(items, nxt), sc, tiles,
+                tile_rays, items.groups, items.chunk,
+                _max_items(tiles, pair_sc.shape[0], items), key.data_ptr(),
                 best_t.data_ptr(), best_tri.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_stream")
@@ -299,7 +374,7 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
 
 def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
                      tile_start, sc: int, tile_rays: int = TILE_RAYS,
-                     layout: str = "fused"):
+                     layout: str = "fused", chunk: int | None = None):
     """K9 (fused), K10 (lane), K11 (rows): any-hit occlusion of each ray
     over its tile's pairs.
 
@@ -307,7 +382,8 @@ def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
     is not passed to the kernel), with r2 [R] f32 (squared reach) and seed
     [R] bool: a lane starts, and a lane of a tile without pairs stays, at
     its seed (True on lanes whose answer nothing consumes, so they never
-    hold a tile's walk open).  Returns blocked [R] bool.
+    hold a tile's walk open).  Returns blocked [R] bool.  ``chunk`` as in
+    ``closest_hit_stream``.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -324,6 +400,7 @@ def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
     _require(seed.device == dev and seed.dtype == torch.bool
              and seed.is_contiguous() and tuple(seed.shape) == (R,),
              f"seed must be a contiguous bool [{R}] on {dev}")
+    chunk = _check_chunk(chunk)
 
     if dev.type == "cpu":
         return occlusion_stream_plain(table, origins, dirs, r2, seed,
@@ -336,15 +413,19 @@ def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
     from crt_tpu_torch.ops import cuda_lib
 
     lib, _ = cuda_lib.load()
-    occ = torch.empty((R,), dtype=torch.bool, device=dev)
+    occ = seed.clone()  # the kernel ORs the hits in
     if tiles:
+        items = _items_for(pair_bits, tile_start, tile_rays, chunk)
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             err = lib.crt_occlusion_stream(
                 origins.data_ptr(), dirs.data_ptr(), r2.data_ptr(),
-                seed.data_ptr(), _LAYOUT_CODE[layout],
-                *_table_ptrs(table, layout), pair_sc.data_ptr(),
-                pair_bits.data_ptr(), tile_start.data_ptr(), sc, tiles,
-                tile_rays, occ.data_ptr(), _cuda_stream(dev),
+                _LAYOUT_CODE[layout], *_table_ptrs(table, layout),
+                pair_sc.data_ptr(), pair_bits.data_ptr(),
+                tile_start.data_ptr(), *_item_ptrs(items, nxt), sc, tiles,
+                tile_rays, items.groups, items.chunk,
+                _max_items(tiles, pair_sc.shape[0], items), occ.data_ptr(),
+                _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_stream")
         global occlusion_stream_launches

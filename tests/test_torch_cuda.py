@@ -433,7 +433,9 @@ def test_occlusion_d_kernels_match_plain(device, big, tile_rays):
 def test_stream_kernels_match_plain(device, big, tile_rays, sc):
     """K8 on the primary wavefront (with an active mask that leaves tiles
     without a pair) and K9 on the shadow wavefront (complete and truncated
-    walks) vs their plain versions; streaming hits == K1's."""
+    walks) vs their plain versions; streaming hits == K1's.  Each launch
+    again with walks cut into items of 8 members (``chunk=8``): the same
+    bits."""
     scene = _sized_scene(big, device)
     tables = cluster_tables.build_cluster_tables(scene)
     st = stream_trace.build_stream_tables(tables, sc)
@@ -454,6 +456,9 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
         torch.cuda.synchronize()
         assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
         assert (k[1] >= 0).any()
+        _same_as_small_chunks(k, stream_trace.closest_hit_stream(
+            st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, sc,
+            tile_rays, chunk=8), bits, start, big)
         if a is not None:
             assert (start[1:] == start[:-1]).any()  # tiles without a pair
         elif tile_rays == 1024:
@@ -480,6 +485,9 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
         torch.cuda.synchronize()
         assert torch.equal(k9, p9) and k9[~a_f].all()
         assert k9[a_f].any() and not k9[a_f].all()
+        _same_as_small_chunks(k9, stream_trace.occlusion_stream(
+            st.fused, o_f, d_f, r2_f, ~a_f, pair_sc, bits, start, sc,
+            tile_rays, chunk=8), bits, start, False)
     # the complete walk answers what K5 answers on the active lanes
     tpl = shadow_o.shape[0] // tile_rays
     cl, cnt = binning.bin_rays(tables, o_f, d_f, tile_rays, a_f, apex=apex,
@@ -492,6 +500,16 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
         st, shadow_o, ldir, r2, lights, sact, 0.02, tile_rays, phase1_k=2)
     assert torch.equal(full[a_f], k5[a_f])
     assert torch.equal(two.reshape(-1)[a_f], full[a_f])
+
+
+def _same_as_small_chunks(default, small, bits, start, long_walks):
+    """A launch with ``chunk=8`` gives the default launch's bits; where
+    ``long_walks``, some tile's walk really takes more than one item."""
+    for a, b in zip(default if isinstance(default, tuple) else (default,),
+                    small if isinstance(small, tuple) else (small,)):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    if long_walks:
+        assert int(stream_trace.stream_items(bits, start, 8).item_end[0]) > 1
 
 
 def _layout_counts():
@@ -512,7 +530,7 @@ def test_stream_layout_kernels_match_plain_and_fused(device, big, sc,
     """K10 (lane) and K11 (rows) vs their plain versions and vs K8 / K9 on
     the fused table, on the same pair lists: the primary wavefront with an
     active mask that leaves tiles without a pair, and the shadow wavefront
-    walked complete and truncated."""
+    walked complete and truncated; each launch also with ``chunk=8``."""
     scene = _sized_scene(big, device)
     tables = cluster_tables.build_cluster_tables(scene)
     st = stream_trace.build_stream_tables(tables, sc, layout=layout)
@@ -534,6 +552,9 @@ def test_stream_layout_kernels_match_plain_and_fused(device, big, sc,
     assert torch.equal(k[1], p[1]) and torch.equal(k[0], p[0])
     assert torch.equal(k[1], f[1]) and torch.equal(k[0], f[0])
     assert (k[1] >= 0).any() and (pairs[2][1:] == pairs[2][:-1]).any()
+    _same_as_small_chunks(k, stream_trace.closest_hit_stream(
+        table, st.tables.tri_id, o, d, *pairs, sc, 1024, layout=layout,
+        chunk=8), *pairs[1:], big)
 
     shadow_o, ldir, r2, sact, lights = _dir_shadow_wavefront(scene, tables,
                                                              1024)
@@ -550,6 +571,8 @@ def test_stream_layout_kernels_match_plain_and_fused(device, big, sc,
         torch.cuda.synchronize()
         assert torch.equal(k9, p9) and torch.equal(k9, f9)
         assert k9[a_f].any() and not k9[a_f].all()
+        _same_as_small_chunks(k9, stream_trace.occlusion_stream(
+            table, *args, layout=layout, chunk=8), *pairs[1:], False)
 
 
 @pytest.mark.parametrize("layout", ["lane", "rows"])
@@ -645,6 +668,31 @@ def test_stream_render_on_card_matches_cpu(device):
                                              stream_shadow_k=0)):
         other = render_image(scene.to(device), RenderSettings(**kw))
         torch.testing.assert_close(other, gpu, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("frame", ["opaque", "stream"])
+def test_forward_render_is_deterministic(device, monkeypatch, frame):
+    """Two forward renders give the same bits: the port's determinism, as
+    crt_tpu's utils/checks.py checks it, is forward only (the segment
+    sum's gradients may differ in the last bits from run to run).  The
+    streaming frame runs with items of 8 members, so tiles' walks span
+    several items that combine through atomics in any order."""
+    if frame == "opaque":
+        scene = make_test_scene(192, 128, num_quads=24, device=device)
+        settings = RenderSettings()
+    else:
+        scene = make_big_scene(65536, 256, 192, device=device)
+        settings = RenderSettings(backend="stream")
+        monkeypatch.setattr(stream_trace, "CHUNK_MEMBERS", 8)
+        st = stream_trace.build_stream_tables(
+            cluster_tables.build_cluster_tables(scene))
+        o, d = _wavefront(scene)
+        _, bits, start = stream_trace.bin_stream_pairs(
+            st, binning.tile_bounds(o, d, 1024, None))
+        assert int(stream_trace.stream_items(bits, start, 8).item_end[0]) > 1
+    first = render_image(scene, settings)
+    second = render_image(scene, settings)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 def test_direction_form_render_on_card(device, monkeypatch):

@@ -313,6 +313,37 @@ def test_refractive_grads_match_jax(glass, wavefront):
             atol=scale * float(np.abs(jg[k]).max()), err_msg=k)
 
 
+def test_ior_reads_through_the_segment_sum(glass, monkeypatch):
+    """``mat_ior`` is read through ``packed_gather`` (its backward is the
+    segment sum over the materials): d/d mat_ior equals jax.grad of
+    crt_tpu's render and the gradient of the plain indexing it replaced."""
+    jscene, tscene, arrays = glass
+    arrays = {"mat_ior": arrays["mat_ior"]}
+    kw = dict(max_ray_depth=2, wavefront="recursive")
+    segments = []
+    real = segsum.segment_accumulate
+
+    def counting(ids, g, num_segments):
+        segments.append(num_segments)
+        return real(ids, g, num_segments)
+
+    monkeypatch.setattr(segsum, "segment_accumulate", counting)
+    v, g = torch_value_and_grads(tscene, arrays, RenderSettings(**kw))
+    assert tscene.mat_ior.shape[0] in segments
+    assert np.abs(g["mat_ior"]).max() > 0
+    _, jg = jax_value_and_grads(jscene, arrays, "bruteforce", **kw)
+    assert_grads_close(g, jg)
+    # the read before: plain indexing (here for every packed_gather of the
+    # shading module, whose other reads it leaves the same)
+    monkeypatch.setattr(tshade, "packed_gather",
+                        lambda packed, tri: packed[:, tri.long()])
+    segments.clear()
+    vo, go = torch_value_and_grads(tscene, arrays, RenderSettings(**kw))
+    assert tscene.mat_ior.shape[0] not in segments
+    np.testing.assert_allclose(vo, v, rtol=1e-6)
+    assert_grads_close(go, g)
+
+
 @pytest.mark.parametrize("variant", ["recursive", "grow", "remat", "compact",
                                      "chunked", "bruteforce"])
 def test_refractive_grads_agree_inside_the_port(glass, variant):

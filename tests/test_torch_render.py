@@ -69,3 +69,35 @@ def test_head_compat_matches_crt_tpu(backend):
     img = render_image(make_test_scene(device="cpu"),
                        RenderSettings(backend=backend, head_compat=True))
     np.testing.assert_allclose(img.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_bruteforce_chunk_changes_no_hit(monkeypatch):
+    """The all-pairs backend's ray chunk is sized from the triangle count
+    (a [chunk, 4T] f32 product within ``PRODUCT_BYTES``; 67 rays at
+    1,000,000 triangles, where crt_tpu's 8,192 would ask for 122 GiB); an
+    explicit ``ray_chunk`` wins, and no chunk size changes a hit."""
+    from crt_tpu_torch.ops import intersect
+    from crt_tpu_torch.ops.camera import generate_rays
+    from crt_tpu_torch.renderer import make_tiler
+
+    assert intersect.default_ray_chunk(66) == 8192
+    assert intersect.default_ray_chunk(1_000_000) == 67
+    assert intersect.default_ray_chunk(1 << 30) == 1
+    scene = make_test_scene(64, 36, num_quads=24, device="cpu")
+    rx, ry, _ = make_tiler(scene.height, scene.width)
+    o, d = generate_rays(scene.cam_position, scene.cam_rotation,
+                         scene.cam_tan_half_fov, scene.width, scene.height,
+                         rx, ry)
+    td = intersect.build_triangle_data(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    want = intersect.closest_hit_bruteforce(td, o, d)
+    assert (want.tri >= 0).any() and (want.tri < 0).any()
+    for chunk in (1, 7, 100, 8192):
+        hit = intersect.closest_hit_bruteforce(td, o, d, ray_chunk=chunk)
+        assert torch.equal(hit.tri, want.tri) and torch.equal(hit.t, want.t)
+    # a budget that leaves 5 rays a chunk: the default follows it
+    monkeypatch.setattr(intersect, "PRODUCT_BYTES", 5 * 16 * td.num)
+    assert intersect.default_ray_chunk(td.num) == 5
+    hit = intersect.closest_hit_bruteforce(td, o, d)
+    assert torch.equal(hit.tri, want.tri) and torch.equal(hit.t, want.t)
