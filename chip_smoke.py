@@ -20,7 +20,21 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      terms and vs itself (two launches), with index_add_ timed beside it;
   4. scale: make_big_scene(65536) at 1920x1080 (4096 clusters): the
      closest-hit kernel vs its plain version on 16 sampled tiles (bit-equal)
-     and vs the all-pairs backend on 8192 sampled rays;
+     and vs the all-pairs backend on 8192 sampled rays; then the closest
+     hit (K1) and the w-occlusion (K2) at the eight shapes of their
+     redesign, each line tagged with the phase its inputs come from
+     ([kernels]: the opaque primary, the masked mirror bounce, the capped
+     depth-0 shadow wavefront; [glass]: the bounce-1 pool's trace and
+     glass-flag pass recorded from a real frame, the uncapped
+     member-masked pass; [scale]: the 65,536-triangle primary and its
+     capped depth-0 shadow wavefront): bit-equal to the plain version on
+     every lane (on 16 seeded tiles at 65,536 triangles), list lengths,
+     the kernel's time (10 launches back to back between CUDA events,
+     median of 5 after 2 warm-ups), the time of the same launch with every
+     count zeroed (every tile dead: the fixed cost of the tiles and the
+     output stores), for K1 with rows the time at kp = 0 (the rows
+     epilogue), for K2 the member tests a walk without any exit would do
+     beside those the answer needs, the bound and the no-FMA floor;
   5. main path: the CLI renders the benchmark scene from a .crtscene file
      (launch counts reset just before, read just after: 4 and 4 expected);
      render_image on the card vs the all-pairs backend and vs the CPU
@@ -137,7 +151,14 @@ Phases, each printing what it found; any failure raises (exit code != 0):
 ``--profile`` runs, instead of phases 3 to 14, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
-``--large`` runs phases 10 to 14 only.
+``--large`` runs phases 10 to 14 only.  ``--parent DIR`` builds the
+kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files and
+entry points) beside this one's and runs only phase 4's K1 / K2 shapes,
+each also held to the other build's kernel on every lane and every time
+taken in turns (other, this, this, other), then profiles the opaque
+forward and forward+backward frames and the glass scan frame with each
+build in the same turns (device time and launches, K1's and K2's share);
+no JSON lines.
 
 Tolerances.  The trace kernels (closest hit, compacted and tile-merged
 closest hit, every mode of the w-occlusion, both launches of the
@@ -235,11 +256,8 @@ def walk_bound(tables, cl, cnt, rays, outputs, active, blocked=None,
         ray_bytes += needed * TILE * x.shape[1] * x.element_size()
     num_bytes = (ray_bytes + nbytes(cnt, *small, *outputs) + 4 * walked
                  + table_bytes)
-    members = (tables.tri_id >= 0).sum(dim=1)  # [L] real members
-    on_list = torch.arange(cl.shape[1], device=cl.device) < cnt[:, None]
-    tile_members = (members[cl.long()] * on_list).sum(dim=1)  # [tiles]
     full = active if blocked is None else active & ~blocked
-    tests = int((full.sum(dim=1) * tile_members).sum())
+    tests = int((full.sum(dim=1) * tile_members(tables, cl, cnt)).sum())
     if blocked is not None:
         tests += int((active & blocked).sum())
     return {**bound_ms(num_bytes, tests * FLOPS_PER_MEMBER),
@@ -587,6 +605,365 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
 
     bruteforce_agreement("[scale] closest_hit", scene, o, d, t, tri, gen,
                          device)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 at the shapes of their redesign (PERF.md, section 6)
+# ---------------------------------------------------------------------------
+
+SHAPE_SAMPLE_TILES = 16  # tiles held to the plain version at 65,536 triangles
+
+
+def tile_members(tables, cl, cnt):
+    """[tiles] real members on each tile's list."""
+    members = (tables.tri_id >= 0).sum(dim=1)
+    on_list = torch.arange(cl.shape[1], device=cl.device) < cnt[:, None]
+    return (members[cl.long()] * on_list).sum(dim=1)
+
+
+def floor_ms(tests: int) -> float:
+    """The no-FMA floor of ``tests`` member tests."""
+    return tests * NOFMA_SLOTS_PER_MEMBER / H100_FP32_ISSUE * 1e3
+
+
+def cuda_ms_many(fn, launches: int = 10, warmup: int = 2,
+                 reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``launches`` calls of
+    fn() back to back, per call, after warm-ups: a short kernel queues
+    behind the previous one instead of waiting for the host."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+class kernels_from:
+    """Within the block the kernel wrappers launch the kernels of ``lib``
+    (a library built by cuda_lib.build from another checkout's sources)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __enter__(self):
+        from crt_tpu_torch.ops import cuda_lib
+
+        self.load = cuda_lib.load
+        cuda_lib.load = lambda: (self.lib, None)
+
+    def __exit__(self, *exc):
+        from crt_tpu_torch.ops import cuda_lib
+
+        cuda_lib.load = self.load
+
+
+def sample_tiles(cnt, gen, n=SHAPE_SAMPLE_TILES):
+    """``n`` seeded tiles with a list (all of them when fewer)."""
+    live = torch.nonzero(cnt > 0)[:, 0].cpu()
+    pick = live[torch.randperm(live.numel(), generator=gen)[:n]]
+    return pick.sort().values.to(cnt.device)
+
+
+def k1_shape(tag, name, tables, o, d, act, rows_table, gen=None):
+    """K1 on one wavefront: its lists, calls, plain check and bound."""
+    from crt_tpu_torch.ops.binning import bin_rays
+    from crt_tpu_torch.ops.cluster_trace import closest_hit, closest_hit_plain
+
+    cl, cnt = bin_rays(tables, o, d, TILE, act)
+    dead = torch.zeros_like(cnt)
+
+    def run(counts=cnt, rows=rows_table):
+        return closest_hit(tables, o, d, cl, counts, rows)
+
+    out = run()
+    if gen is None:  # every lane
+        compare_hits(f"{tag} {name}", out,
+                     closest_hit_plain(tables, o, d, cl, cnt, rows_table))
+        held = "every lane"
+    else:  # sampled tiles: the plain version walks long lists slowly
+        pick = sample_tiles(cnt, gen)
+        lanes = (pick[:, None] * TILE
+                 + torch.arange(TILE, device=o.device)).reshape(-1)
+        sub = closest_hit_plain(tables, o[lanes].contiguous(),
+                                d[lanes].contiguous(), cl[pick].contiguous(),
+                                cnt[pick].contiguous(), rows_table)
+        got = (out[0][lanes], out[1][lanes],
+               None if out[2] is None else out[2][:, lanes])
+        compare_hits(f"{tag} {name}", got, sub)
+        held = f"{pick.numel()} sampled tiles"
+    act2 = (torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+            if act is None else act).reshape(-1, TILE)
+    b = walk_bound(tables, cl, cnt, (o, d),
+                   tuple(x for x in out if x is not None), act2,
+                   rows_table=rows_table)
+    calls = {"kernel": run, "dead": lambda: run(dead)}
+    if rows_table is not None:
+        calls["kp0"] = lambda: run(rows=None)
+    kp = 0 if rows_table is None else rows_table.shape[-1]
+    return dict(tag=tag, name=name, kernel="K1", calls=calls, out=out,
+                bound=b, held=held,
+                text=(f"{o.shape[0]} lanes in {cnt.numel()} tiles "
+                      f"({int((cnt > 0).sum())} live), list length mean "
+                      f"{float(cnt.float().mean()):.3f} max {int(cnt.max())}"
+                      f", kp {kp}"))
+
+
+def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
+             gen=None, **kw):
+    """K2 in one mode on one shadow wavefront."""
+    from crt_tpu_torch.ops.cluster_trace import occlusion_w, occlusion_w_plain
+
+    dead = torch.zeros_like(cnt)
+
+    def run(counts=cnt):
+        return occlusion_w(tables, shadow_o, point, lights, cl, counts, **kw)
+
+    out = run()
+    outs = out if isinstance(out, tuple) else (out,)
+    tpl = shadow_o.shape[0] // TILE
+    if gen is None:
+        want = occlusion_w_plain(tables, shadow_o, point, lights, cl, cnt,
+                                 **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        got = outs
+        held = "every lane"
+    else:  # sampled tiles, one light at a time
+        pick = sample_tiles(cnt, gen)
+        lane = torch.arange(TILE, device=cnt.device)
+        got, want = [[] for _ in outs], [[] for _ in outs]
+        for light in torch.unique(pick // tpl).tolist():
+            mine = pick[pick // tpl == light]
+            src = ((mine % tpl)[:, None] * TILE + lane).reshape(-1)
+            w = occlusion_w_plain(
+                tables, shadow_o[src].contiguous(), point[src].contiguous(),
+                lights[light:light + 1].contiguous(), cl[mine].contiguous(),
+                cnt[mine].contiguous(), **kw)
+            w = w if isinstance(w, tuple) else (w,)
+            rows = (mine[:, None] * TILE + lane).reshape(-1)
+            for i, x in enumerate(outs):
+                got[i].append(x[rows])
+                want[i].append(w[i])
+        got = [torch.cat(g) for g in got]
+        want = [torch.cat(w) for w in want]
+        held = f"{pick.numel()} sampled tiles"
+    n_bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    check(n_bad == 0, f"{tag} {name}: {n_bad} lanes differ from the plain "
+          "version")
+    # a lane may leave once it has nothing left to learn
+    done = outs[0] & outs[1] if len(outs) == 2 else outs[0]
+    gm = kw.get("member_mask")
+    b = walk_bound(tables, cl, cnt, (shadow_o, point), outs,
+                   act_lr.reshape(-1, TILE), blocked=done.reshape(-1, TILE),
+                   small=(lights,) + (() if gm is None else (gm,)))
+    members = tile_members(tables, cl, cnt)
+    no_exit = int(members.sum()) * TILE
+    packed, packed_tests = repacked_rays(shadow_o, point, lights, cnt,
+                                         members)
+    return dict(tag=tag, name=name, kernel="K2", calls={
+        "kernel": run, "dead": lambda: run(dead)}, out=outs, bound=b,
+        held=held,
+        text=(f"{shadow_o.shape[0] * lights.shape[0]} lanes in {cnt.numel()} tiles "
+              f"({int((cnt > 0).sum())} live), list length mean "
+              f"{float(cnt.float().mean()):.3f} max {int(cnt.max())}; "
+              f"{int(done.sum())} lanes done; member tests without any exit "
+              f"{no_exit}, needed {b['member_tests']} "
+              f"({no_exit / max(b['member_tests'], 1):.2f}x); rays walked "
+              f"after repacking {packed} of {int((cnt > 0).sum()) * TILE} "
+              f"lanes of live tiles, member tests of their warps without "
+              f"any exit {packed_tests}"))
+
+
+def repacked_rays(shadow_o, point, lights, cnt, members):
+    """K2's repacking of a shadow wavefront: (rays walked, member tests of
+    the warps they fill) on the tiles with a list.  A lane whose ray (o and
+    w = light - p, bit for bit) is its warp's first lane's is not walked;
+    the other rays of each 256-lane unit fill ceil(n / 32) warps."""
+    Ll = lights.shape[0]
+    w = (lights[:, None, :] - point[None]).reshape(-1, 3)
+    ray = torch.cat([shadow_o.repeat(Ll, 1), w], dim=1).contiguous()
+    bits = ray.view(torch.int32).reshape(-1, 32, 6)
+    own = (bits != bits[:, :1]).any(dim=2)
+    own[:, 0] = True
+    per_unit = own.reshape(-1, 256).sum(dim=1)
+    live = (cnt > 0).repeat_interleave(TILE // 256)
+    warps = torch.div(per_unit + 31, 32, rounding_mode="floor")
+    tests = warps * 32 * members.repeat_interleave(TILE // 256)
+    return int(per_unit[live].sum()), int(tests[live].sum())
+
+
+def kernel_shapes(device):
+    """K1 and K2 at the shapes of PERF.md's redesign table, in the order
+    [kernels] (opaque bench frame), [glass] (refractive bench frame, its
+    bounce-1 pool recorded from a real frame), [scale] (65,536
+    triangles)."""
+    from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
+    from crt_tpu_torch.ops.cluster_tables import (
+        build_cluster_tables, emit_rows_table, glass_subset,
+    )
+    from crt_tpu_torch.ops.cluster_trace import closest_hit
+    from crt_tpu_torch.ops.intersect import Hit
+    from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
+    from crt_tpu_torch.scene.types import RenderSettings
+
+    st = RenderSettings()
+    slack = 2.0 * st.shadow_bias
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    # the opaque bench frame
+    scene = make_test_scene(**BENCH, device=device)
+    tables = build_cluster_tables(scene)
+    rows_table = emit_rows_table(scene, tables)
+    o, d = primary_wavefront(scene)
+    prim = k1_shape("[kernels]", "K1 opaque primary", tables, o, d, None,
+                    rows_table)
+    yield prim
+    k = prim["out"]
+    refl_o, refl_d, refl_act = mirror_bounce(scene, st, o, d, k)
+    yield k1_shape("[kernels]", "K1 opaque masked mirror bounce", tables,
+                   refl_o, refl_d, refl_act, rows_table)
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
+                                kernel_rows=k[2])
+    scl, scnt = bin_apex_shared(tables, w["shadow_o"], w["lights"], w["act"],
+                                TILE, slack)
+    yield k2_shape("[kernels]", "K2 capped, opaque depth-0 shadow", tables,
+                   w["shadow_o"], w["point"], w["lights"], w["act"], scl,
+                   scnt)
+    del prim, k, w
+
+    # the refractive bench frame
+    scene = make_test_scene(**GLASS, device=device)
+    tables = build_cluster_tables(scene)
+    gm, gmin, gmax = glass_subset(scene, tables)
+    rec = record_glass_frame(scene)
+    po, pd, pact = rec["traces"][1]
+    yield k1_shape("[glass]", "K1 glass bounce-1 pool", tables, po, pd, pact,
+                   None)
+    point, shadow_o, lights, act_lr, pslack = rec["shadows"][1]
+    gcl, gcnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE,
+                                pslack, glass_boxes=(gmin, gmax))
+    yield k2_shape("[glass]", "K2 glass-flag, bounce-1 pool", tables,
+                   shadow_o, point, lights, act_lr, gcl, gcnt,
+                   member_mask=gm, glass_flag=True)
+    del rec, po, pd, pact, point, shadow_o, act_lr, gcl, gcnt
+    o, d = primary_wavefront(scene)
+    t, tri, _ = closest_hit(tables, o, d, *bin_rays(tables, o, d, TILE))
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=t, tri=tri))
+    ucl, ucnt = bin_apex_shared(tables, w["shadow_o"], w["lights"], w["act"],
+                                TILE, slack, boxes=(gmin, gmax), capped=False)
+    yield k2_shape("[glass]", "K2 uncapped member-masked, depth-0 shadow",
+                   tables, w["shadow_o"], w["point"], w["lights"], w["act"],
+                   ucl, ucnt, capped=False, member_mask=gm)
+    del w
+
+    # 65,536 triangles: the largest scene `auto` sends to this backend
+    scene = make_big_scene(**MID, seed=0, device=device)
+    tables = build_cluster_tables(scene)
+    rows_table = emit_rows_table(scene, tables)
+    o, d = primary_wavefront(scene)
+    prim = k1_shape("[scale]", "K1 65,536-triangle primary", tables, o, d,
+                    None, rows_table, gen=gen)
+    yield prim
+    k = prim["out"]
+    w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
+                                kernel_rows=k[2])
+    del prim, k
+    scl, scnt = bin_apex_shared(tables, w["shadow_o"], w["lights"], w["act"],
+                                TILE, slack)
+    yield k2_shape("[scale]", "K2 capped, 65,536-triangle depth-0 shadow",
+                   tables, w["shadow_o"], w["point"], w["lights"], w["act"],
+                   scl, scnt, gen=gen)
+
+
+def phase_shapes(device, parent=None):
+    """K1 and K2 at every shape of kernel_shapes: bit-equal to the plain
+    version (every lane, or sampled tiles at 65,536 triangles) and, given
+    ``parent`` (a library of another checkout's kernels), to its kernels on
+    every lane.  Times (cuda_ms_many) of the launch, of the same launch
+    with every count zeroed (every tile dead: the fixed cost of the output
+    stores and the tiles), and for K1 with rows of the launch with kp = 0;
+    given ``parent``, each in turns: parent, new, new, parent.  Bound and
+    no-FMA floor from this run's inputs."""
+    stats = {}
+    for sh in kernel_shapes(device):
+        tag, name = sh["tag"], sh["name"]
+        held = f"bit-equal to the plain version on {sh['held']}"
+        if parent is not None:
+            with kernels_from(parent):
+                pout = sh["calls"]["kernel"]()
+            if sh["kernel"] == "K1":
+                compare_hits(f"{tag} {name} vs the parent's kernel",
+                             sh["out"], pout)
+            else:
+                pout = pout if isinstance(pout, tuple) else (pout,)
+                check(all(torch.equal(a, b) for a, b in zip(sh["out"], pout)),
+                      f"{tag} {name}: the kernel differs from the parent's")
+            held += " and to the parent's kernel on every lane"
+        times = {}
+        for key, fn in sh["calls"].items():
+            if parent is None:
+                times[key] = [cuda_ms_many(fn)]
+                continue
+
+            def in_parent(fn=fn):
+                with kernels_from(parent):
+                    fn()
+
+            p1 = cuda_ms_many(in_parent)
+            n1, n2 = cuda_ms_many(fn), cuda_ms_many(fn)
+            times[key] = [n1, n2, p1, cuda_ms_many(in_parent)]
+        b = sh["bound"]
+        fl = floor_ms(b["member_tests"])
+
+        def fmt(v):
+            text = f"{v[0]:.4f} ms"
+            if len(v) > 1:
+                text += f" ({v[1]:.4f}; parent {v[2]:.4f}, {v[3]:.4f})"
+            return text
+
+        what = {"kernel": "kernel", "dead": "every count zeroed",
+                "kp0": "kp = 0"}
+        print(f"{tag} {name}: {sh['text']}; {held}; "
+              + "; ".join(f"{what[k]} {fmt(v)}" for k, v in times.items())
+              + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{b['member_tests']} member tests needed), no-FMA floor "
+              f"{fl:.4f} ms")
+        stats[name] = dict(times=times, bound_ms=b["bound_ms"],
+                           floor_ms=fl)
+    return stats
+
+
+def profile_turns(device, parent):
+    """Profiled device time and launches of the opaque forward and
+    forward+backward frames and the glass scan frame, with the parent's
+    kernels and the new ones in turns (parent, new, new, parent)."""
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.scene.procedural import make_test_scene
+
+    opaque = make_test_scene(**BENCH, device=device)
+    glass = make_test_scene(**GLASS, device=device)
+    frames = (("opaque forward", lambda: render_image(opaque)),
+              ("opaque forward+backward", lambda: image_sum_grads(opaque)),
+              ("glass scan forward", lambda: render_image(glass)))
+    for name, fn in frames:
+        fn()
+        torch.cuda.synchronize()
+        for who in ("parent", "new", "new", "parent"):
+            if who == "parent":
+                with kernels_from(parent):
+                    dev_ms, n, by_tag = profile_frame(fn)
+            else:
+                dev_ms, n, by_tag = profile_frame(fn)
+            print(f"[turns] {name}, {who} kernels: device {dev_ms:.3f} ms in "
+                  f"{n} launches; K1 {by_tag['closest_hit']:.3f} ms, K2 "
+                  f"{by_tag['occlusion_w']:.3f} ms")
 
 
 def reset_launches():
@@ -2301,6 +2678,11 @@ def main(argv=None) -> int:
     ap.add_argument("--large", action="store_true",
                     help="run only the large-scene, table-layout and "
                     "direction-form phases (no JSON lines)")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="time K1 and K2 at their redesign shapes and "
+                    "profile the opaque and glass frames in turns with the "
+                    "kernels built from DIR/crt_tpu_torch/csrc (another "
+                    "checkout's), and nothing else (no JSON lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
@@ -2312,6 +2694,18 @@ def main(argv=None) -> int:
     phase_build()
     if args.profile:
         phase_profile(device)
+        return 0
+    if args.parent:
+        from crt_tpu_torch.ops import cuda_lib
+
+        info = cuda_lib.build(os.path.join(args.parent, "crt_tpu_torch",
+                                           "csrc"))
+        print(f"[turns] parent kernels {info.path}: {info.seconds:.2f} s in "
+              "nvcc")
+        parent = cuda_lib.bind(info.path)
+        phase_shapes(device, parent)
+        profile_turns(device, parent)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.large:
         phase_occlusion_d(device)
@@ -2326,6 +2720,8 @@ def main(argv=None) -> int:
     stats = phase_kernels(device)
     stats["segsum"] = phase_segsum(device)
     phase_scale(device)
+    phase_shapes(device)
+    torch.cuda.empty_cache()
     launches = phase_main_path(device)
     launches["segsum"] = phase_train(device)["segsum"]
     variants, launches["closest_hit_merged"] = phase_variants(device)

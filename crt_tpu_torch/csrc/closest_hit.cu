@@ -16,20 +16,39 @@
 // attribute values (emit_rows_table) into rows_out [kp, R], coalesced over
 // R; lanes with no hit get t = +inf, tri = -1 and zero rows.
 //
-// What bounds it on an H100: FP32 ALU work.  Each ray-cluster pair costs
-// 16 x ~45 flops against 288 constants that every ray of the tile shares;
-// the tables (a few KB for the benchmark scene, ~4.7 MB at 65k triangles)
-// stay resident in the 50 MB L2, and ray I/O is 24 bytes in, 8 + 4 kp out.
+// What bounds it on an H100.  On the small scenes the cluster backend
+// serves (a few clusters, lists of ~2 on the opaque primary, a bounce pool
+// of mostly empty lists) the outputs, 8 + 4 kp bytes a lane against 24
+// read, and a fixed cost per tile.  On the largest scene it serves (4,096
+// clusters, lists of ~60) FP32 issue: a member test is ~51 flops, which
+// -fmad=false and the IEEE divide make ~59 FP32 instructions, against
+// tables that stay in the 50 MB L2.
 //
-// What the design does about it: one thread per ray, 256-thread blocks,
-// tile_rays / 256 consecutive blocks per tile, so the four blocks of a tile
-// walk the same cluster list.  Each walked cluster is staged once per block
-// into shared memory (one global load per thread) and read back as
-// broadcasts, so the inner loop is pure register arithmetic with no
-// divergence except the winner bookkeeping.  A tile with an empty list
-// writes the miss result without touching the tables.  The TPU kernel's 0/1
-// masked-sum row select becomes a plain copy of the winning slot's row: the
-// same bits.
+// The design, one point per thing that held the earlier walk (a block per
+// quarter tile, a cluster staged per two barriers, 18 scalar shared loads
+// a member test) back (PERF.md, section 6):
+//   - A persistent grid.  As many 256-thread blocks as are resident on the
+//     card at once take quarter tiles (256 lanes, a unit) at a stride of
+//     the grid, reading the counts of 256 units at once
+//     (cluster_common.cuh for_each_unit).  A unit with an empty list costs
+//     its miss stores: no block launch, no barrier, no load latency.
+//   - Staging in batches.  A block stages CRT_BATCH clusters per barrier
+//     (ClusterRing) by cp.async into member-major records, CRT_STAGES - 1
+//     batches ahead of the tests, so a member is read with five 16-byte
+//     shared loads.  Batches are walked in list order, clusters in a batch
+//     in list order, so the strict < across clusters is the list's.
+//   - The shared origin.  When every ray of a unit starts at one point (a
+//     pinhole camera's primary wavefront) the block computes the origin's
+//     terms of each staged member once, opd = nv0 - n.o and mo - c per
+//     edge, with member_hit's operations, and the rays read them: a test
+//     costs ~35 FP32 instructions instead of ~59, with the same bits.
+//   - Members no ray can hit are not tested: a pad (zero normal) and, with
+//     the shared origin, a face that member_hit's face gate rejects for
+//     that origin, marked per cluster at staging (a uniform branch).  A
+//     cluster without one is tested without any branch: per-member warp
+//     votes measured slower on long lists than the tests they skip.
+//   - The epilogue reads the winning slot's row four values at a time, all
+//     loads before the stores, and writes [kp, R] coalesced over R.
 //
 // K4 (live-tile compaction).  A sparse wavefront (a bounce pool whose banks
 // are mostly dead) leaves most tiles with an empty list.  `tile_ids` is a
@@ -40,147 +59,289 @@
 // one copy of the pixel origins).  The grid covers every tile and reads
 // n_live on the device, so the launch needs no device-to-host read: group
 // p >= n_live writes its dead tile's miss result (t = +inf, tri = -1, rows
-// 0) and returns.  The walk is K1's, so the outputs are K1's bit for bit.
+// 0) and returns.  The walk is K1's (walk_unit), so the outputs are K1's
+// bit for bit.
 //
 // K7 (tile merging).  On the TPU one grid step walks `merge` consecutive
 // tiles' lists back to back on static lane windows of one fat block, which
-// amortises the per-step fixed cost over sparse lists (about 1.6 clusters
-// a tile) while the binning stays at 1024-ray tiles.  Here block (g, b) of
-// a (tiles / merge) x (tile_rays / 256) grid runs K1's walk for lanes
-// b*256 .. b*256+255 of tiles g*merge + sub, sub = 0 .. merge-1, in turn:
-// fewer, longer blocks over the same walks.  A sub-tile with an empty list
-// writes its miss result and the loop goes on; the next sub-tile's first
-// barrier still orders its staging after every read of the cluster staged
-// before.  A cluster staged for one sub-tile is not kept for the next even
-// when that list starts with the same id.  The walk and the tie rule are
-// K1's, so the outputs are K1's bit for bit.
+// amortises the per-step fixed cost over sparse lists while the binning
+// stays at 1024-ray tiles.  Here block (g, b) of a (tiles / merge) x
+// (tile_rays / 256) grid runs K1's walk for lanes b*256 .. b*256+255 of
+// tiles g*merge + sub, sub = 0 .. merge-1, in turn.  The walk and the tie
+// rule are K1's, so the outputs are K1's bit for bit.
 
 #include "cluster_common.cuh"
 
 namespace {
 
-// The walk of one block over its tile's list: rays `r_o` (origin) and `r`
-// (direction, outputs), list and count of `tile`.
-__device__ __forceinline__ void walk_tile(
-    ClusterSmem& s, long long r_o, long long r, int tile,
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ n, const float* __restrict__ nv0,
-    const float* __restrict__ m, const float* __restrict__ c,
-    const float* __restrict__ nobf, const int* __restrict__ tid,
-    const int* __restrict__ cluster_list, const int* __restrict__ counts,
-    const float* __restrict__ rows_table, int num_clusters, int kp,
-    long long num_rays, float* __restrict__ best_t_out,
-    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
-  const float ox = o[3 * r_o], oy = o[3 * r_o + 1], oz = o[3 * r_o + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const int count = counts[tile];
-  const int* list = cluster_list + (long long)tile * num_clusters;
+struct HitArgs {
+  const float* o;
+  const float* d;
+  ClusterTables tb;
+  const int* cluster_list;
+  const int* counts;
+  const float* rows_table;
+  int num_clusters, tile_rays, kp;
+  long long num_rays;
+  float* best_t;
+  int* best_tri;
+  float* rows_out;
+};
+
+// Lane r's outputs: t, tri and, with kp > 0, the kp values of slot `slot`
+// (zeros where slot < 0).
+__device__ __forceinline__ void write_hit(const HitArgs& a, long long r,
+                                          float t, int tri, int slot) {
+  a.best_t[r] = t;
+  a.best_tri[r] = tri;
+  if (a.kp == 0) return;
+  const bool hit = slot >= 0;
+  const float* __restrict__ row = a.rows_table + (long long)(hit ? slot : 0) * a.kp;
+  float* out = a.rows_out + r;
+  const long long R = a.num_rays;
+  int k = 0;
+  for (; k + 4 <= a.kp; k += 4) {
+    float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f, v3 = 0.0f;
+    if (hit) {
+      v0 = __ldg(row + k);
+      v1 = __ldg(row + k + 1);
+      v2 = __ldg(row + k + 2);
+      v3 = __ldg(row + k + 3);
+    }
+    out[k * R] = v0;
+    out[(k + 1) * R] = v1;
+    out[(k + 2) * R] = v2;
+    out[(k + 3) * R] = v3;
+  }
+  for (; k < a.kp; ++k) out[k * R] = hit ? __ldg(row + k) : 0.0f;
+}
+
+// One member's test for one ray, member_hit's arithmetic, and the (t, id)
+// rule into cl_best / cl_tri / cl_j.  SHARED: the record holds the ray
+// origin's terms (opd in nv0's place, mo - c in each c's; prepare_batch).
+template <bool SHARED>
+__device__ __forceinline__ void test_member(const float* slot, int j,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float& cl_best, int& cl_tri,
+                                            int& cl_j) {
+  const float4 pw = rec_word(slot, 0);
+  const float nd = pw.x * dx + pw.y * dy + pw.z * dz;
+  float opd;
+  if (SHARED) {
+    opd = pw.w;
+  } else {
+    const float no = pw.x * ox + pw.y * oy + pw.z * oz;
+    opd = pw.w - no;
+  }
+  const bool not_parallel = fabsf(nd) >= CRT_PARALLEL_EPS;
+  const float4 tw = rec_word(slot, 4);
+  bool ok = not_parallel && ((opd < 0.0f) || (tw.x > 0.5f));
+  const float t = opd / (not_parallel ? nd : 1.0f);
+  ok = ok && (t >= 0.0f);
+  if (SHARED) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const float4 me = rec_word(slot, 1 + e);
+      const float md = me.x * dx + me.y * dy + me.z * dz;
+      ok = ok && (me.w + t * md >= 0.0f);
+    }
+  } else {
+    ok = ok && rec_edges(slot, ox, oy, oz, dx, dy, dz, t);
+  }
+  const int id = __float_as_int(tw.y);
+  if (ok && (t < cl_best || (t == cl_best && id < cl_tri))) {
+    cl_best = t;
+    cl_tri = id;
+    cl_j = j;
+  }
+}
+
+// The (t, id) minimum of a cluster's 16 members (record `rec`) for one
+// ray.  `skip` (uniform over the block) marks members that no ray of the
+// block can hit; a cluster without one is tested without branches.
+template <bool SHARED>
+__device__ __forceinline__ void test_cluster(const float* rec, unsigned skip,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float& cl_best, int& cl_tri,
+                                             int& cl_j) {
+  if (skip == 0u) {
+#pragma unroll
+    for (int j = 0; j < CRT_CLUSTER_SIZE; ++j)
+      test_member<SHARED>(rec + j * CRT_SLOT_FLOATS, j, ox, oy, oz, dx, dy,
+                          dz, cl_best, cl_tri, cl_j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < CRT_CLUSTER_SIZE; ++j)
+      if (!((skip >> j) & 1u))
+        test_member<SHARED>(rec + j * CRT_SLOT_FLOATS, j, ox, oy, oz, dx,
+                            dy, dz, cl_best, cl_tri, cl_j);
+  }
+}
+
+// Prepare the `count` staged clusters of batch `st` for the tests (one
+// slot a thread), then a barrier.  With the block's shared origin
+// (`shared`), put the origin's terms into each record: opd = nv0 - n.o in
+// nv0's place, mo - c in each c's, computed as member_hit computes them,
+// so every ray reads them instead of computing them.  Mark in ring.skip
+// the members no ray can hit: a zero normal (a pad: |n.d| is 0 or NaN,
+// never >= PARALLEL_EPS) and, with the shared origin, a face that
+// member_hit's face gate rejects for that origin.
+__device__ __forceinline__ void prepare_batch(ClusterRing& ring, int st,
+                                              int count, bool shared,
+                                              float ox, float oy, float oz) {
+  bool skip = false;
+  if ((int)threadIdx.x < count * CRT_CLUSTER_SIZE) {
+    float* slot = ring.rec + st * CRT_BATCH_FLOATS +
+                  threadIdx.x * CRT_SLOT_FLOATS;
+    skip = slot[0] == 0.0f && slot[1] == 0.0f && slot[2] == 0.0f;
+    if (shared) {
+      const float no = slot[0] * ox + slot[1] * oy + slot[2] * oz;
+      const float opd = slot[3] - no;
+      slot[3] = opd;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        float* me = slot + 4 + 4 * e;
+        const float mo = me[0] * ox + me[1] * oy + me[2] * oz;
+        me[3] = mo - me[3];
+      }
+      skip = skip || !((opd < 0.0f) || (slot[16] > 0.5f));
+    }
+  }
+  // a warp's 32 slots are two clusters' 16
+  const unsigned bits = __ballot_sync(0xffffffffu, skip);
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0 && 2 * w < CRT_BATCH) {
+    ring.skip[st * CRT_BATCH + 2 * w] = bits & 0xffffu;
+    ring.skip[st * CRT_BATCH + 2 * w + 1] = bits >> 16;
+  }
+  __syncthreads();
+}
+
+// The walk of one block over the `count` (> 0 or 0) clusters of `tile`'s
+// list for its rays r_o (origins) and r (directions, outputs).  Uniform
+// over the block; leaves the ring free.
+__device__ __forceinline__ void walk_unit(ClusterRing& ring,
+                                          const ClusterPlan& pl,
+                                          const HitArgs& a, long long r_o,
+                                          long long r, int tile, int count) {
+  const float ox = a.o[3 * r_o], oy = a.o[3 * r_o + 1], oz = a.o[3 * r_o + 2];
+  const float dx = a.d[3 * r], dy = a.d[3 * r + 1], dz = a.d[3 * r + 2];
+  const int* list = a.cluster_list + (long long)tile * a.num_clusters;
+  const int nb = (count + CRT_BATCH - 1) / CRT_BATCH;
+
+  // one origin for every ray of the block (a pinhole camera's wavefront)?
+  bool shared = false;
+  if (nb > 0) {
+    const unsigned* o0 = reinterpret_cast<const unsigned*>(
+        a.o + 3 * (r_o - threadIdx.x));
+    shared = __syncthreads_and(__float_as_uint(ox) == o0[0] &&
+                               __float_as_uint(oy) == o0[1] &&
+                               __float_as_uint(oz) == o0[2]);
+  }
 
   float best_t = CUDART_INF_F;
   int best_tri = -1;
   int best_slot = -1;
-  for (int i = 0; i < count; ++i) {
-    const int cl = list[i];
-    __syncthreads();  // every thread is done with the previous cluster
-    stage_cluster(s, cl, n, nv0, m, c, nobf, tid);
-    __syncthreads();
-
-    // lexicographic (t, id) minimum over the 16 members
-    float cl_best = CUDART_INF_F;
-    int cl_tri = 1 << 30;
-    int cl_j = 0;
 #pragma unroll
-    for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
-      const float t = member_t(s, j, ox, oy, oz, dx, dy, dz);
-      const int id = s.tid[j];
-      if (t < cl_best || (t == cl_best && id < cl_tri)) {
-        cl_best = t;
-        cl_tri = id;
-        cl_j = j;
+  for (int s = 0; s < CRT_STAGES - 1; ++s)
+    issue_clusters(ring, s, list, s * CRT_BATCH, batch_size(s, count), pl);
+  for (int bi = 0; bi < nb; ++bi) {
+    cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
+    __syncthreads();  // batch bi is in; batch bi - 1 is tested
+    const int nx = bi + CRT_STAGES - 1;
+    issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
+                   batch_size(nx, count), pl);
+    const int st = bi % CRT_STAGES;
+    const int nc = batch_size(bi, count);
+    prepare_batch(ring, st, nc, shared, ox, oy, oz);
+    for (int k = 0; k < nc; ++k) {
+      const float* rec =
+          ring.rec + st * CRT_BATCH_FLOATS + k * CRT_CLUSTER_FLOATS;
+      const unsigned skip = ring.skip[st * CRT_BATCH + k];
+      // lexicographic (t, id) minimum over the 16 members (an all-miss
+      // cluster leaves cl_best = inf, which never wins)
+      float cl_best = CUDART_INF_F;
+      int cl_tri = 1 << 30;
+      int cl_j = 0;
+      if (shared)  // uniform over the block
+        test_cluster<true>(rec, skip, ox, oy, oz, dx, dy, dz, cl_best,
+                           cl_tri, cl_j);
+      else
+        test_cluster<false>(rec, skip, ox, oy, oz, dx, dy, dz, cl_best,
+                            cl_tri, cl_j);
+      if (cl_best < best_t) {  // strict: the first cluster walked wins ties
+        best_t = cl_best;
+        best_tri = cl_tri;
+        best_slot = ring.cl[st * CRT_BATCH + k] * CRT_CLUSTER_SIZE + cl_j;
       }
     }
-    if (cl_best < best_t) {  // strict: the first cluster walked wins ties
-      best_t = cl_best;
-      best_tri = cl_tri;
-      best_slot = cl * CRT_CLUSTER_SIZE + cl_j;
-    }
   }
-
-  best_t_out[r] = best_t;
-  best_tri_out[r] = best_tri;
-  for (int k = 0; k < kp; ++k) {
-    rows_out[(long long)k * num_rays + r] =
-        best_slot >= 0 ? rows_table[(long long)best_slot * kp + k] : 0.0f;
-  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next walk
+  write_hit(a, r, best_t, best_tri, best_slot);
 }
 
-__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ n, const float* __restrict__ nv0,
-    const float* __restrict__ m, const float* __restrict__ c,
-    const float* __restrict__ nobf, const int* __restrict__ tid,
-    const int* __restrict__ cluster_list, const int* __restrict__ counts,
-    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
-    int kp, long long num_rays, float* __restrict__ best_t_out,
-    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
-  __shared__ ClusterSmem s;
-  const int blocks_per_tile = tile_rays / CRT_BLOCK;
-  const int tile = blockIdx.x / blocks_per_tile;
-  const long long r = (long long)blockIdx.x * CRT_BLOCK + threadIdx.x;
-  walk_tile(s, r, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
-            counts, rows_table, num_clusters, kp, num_rays, best_t_out,
-            best_tri_out, rows_out);
+__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(HitArgs a,
+                                                                long long units) {
+  __shared__ ClusterRing ring;
+  __shared__ int s_count[CRT_BLOCK];
+  const ClusterPlan pl(a.tb);
+  for_each_unit(units, a.tile_rays / CRT_BLOCK, a.counts, s_count,
+                [&](long long u, int count) {
+                  const long long r = u * CRT_BLOCK + threadIdx.x;
+                  if (count == 0)
+                    write_hit(a, r, CUDART_INF_F, -1, -1);
+                  else
+                    walk_unit(ring, pl, a, r, r,
+                              (int)(u / (a.tile_rays / CRT_BLOCK)), count);
+                });
 }
 
 __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_compact_kernel(
-    const int* __restrict__ n_live, const int* __restrict__ tile_ids,
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ n, const float* __restrict__ nv0,
-    const float* __restrict__ m, const float* __restrict__ c,
-    const float* __restrict__ nobf, const int* __restrict__ tid,
-    const int* __restrict__ cluster_list, const int* __restrict__ counts,
-    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
-    int tile_mod, int kp, long long num_rays, float* __restrict__ best_t_out,
-    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
-  __shared__ ClusterSmem s;
-  const int blocks_per_tile = tile_rays / CRT_BLOCK;
+    HitArgs a, const int* __restrict__ n_live,
+    const int* __restrict__ tile_ids, int tile_mod) {
+  __shared__ ClusterRing ring;
+  const int blocks_per_tile = a.tile_rays / CRT_BLOCK;
   const int group = blockIdx.x / blocks_per_tile;
   const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
   const int tile = tile_ids[group];
-  const long long r = (long long)tile * tile_rays + lane;
+  const long long r = (long long)tile * a.tile_rays + lane;
   if (group >= n_live[0]) {  // a dead tile: the miss result, no walk
-    best_t_out[r] = CUDART_INF_F;
-    best_tri_out[r] = -1;
-    for (int k = 0; k < kp; ++k) rows_out[(long long)k * num_rays + r] = 0.0f;
+    write_hit(a, r, CUDART_INF_F, -1, -1);
     return;
   }
+  const ClusterPlan pl(a.tb);
   const int o_tile = tile_mod > 0 ? tile % tile_mod : tile;
-  const long long r_o = (long long)o_tile * tile_rays + lane;
-  walk_tile(s, r_o, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
-            counts, rows_table, num_clusters, kp, num_rays, best_t_out,
-            best_tri_out, rows_out);
+  const long long r_o = (long long)o_tile * a.tile_rays + lane;
+  walk_unit(ring, pl, a, r_o, r, tile, a.counts[tile]);
 }
 
 __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_merged_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ n, const float* __restrict__ nv0,
-    const float* __restrict__ m, const float* __restrict__ c,
-    const float* __restrict__ nobf, const int* __restrict__ tid,
-    const int* __restrict__ cluster_list, const int* __restrict__ counts,
-    const float* __restrict__ rows_table, int num_clusters, int tile_rays,
-    int merge, int kp, long long num_rays, float* __restrict__ best_t_out,
-    int* __restrict__ best_tri_out, float* __restrict__ rows_out) {
-  __shared__ ClusterSmem s;
-  const int blocks_per_tile = tile_rays / CRT_BLOCK;
+    HitArgs a, int merge) {
+  __shared__ ClusterRing ring;
+  const ClusterPlan pl(a.tb);
+  const int blocks_per_tile = a.tile_rays / CRT_BLOCK;
   const int group = blockIdx.x / blocks_per_tile;
   const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
   for (int sub = 0; sub < merge; ++sub) {  // uniform over the block
     const int tile = group * merge + sub;
-    const long long r = (long long)tile * tile_rays + lane;
-    walk_tile(s, r, r, tile, o, d, n, nv0, m, c, nobf, tid, cluster_list,
-              counts, rows_table, num_clusters, kp, num_rays, best_t_out,
-              best_tri_out, rows_out);
+    const long long r = (long long)tile * a.tile_rays + lane;
+    walk_unit(ring, pl, a, r, r, tile, a.counts[tile]);
   }
+}
+
+HitArgs hit_args(const float* o, const float* d, const float* n,
+                 const float* nv0, const float* m, const float* c,
+                 const float* nobf, const int* tid, const int* cluster_list,
+                 const int* counts, const float* rows_table,
+                 int num_clusters, int num_tiles, int tile_rays, int kp,
+                 float* best_t, int* best_tri, float* rows_out) {
+  return HitArgs{o, d, ClusterTables{n, nv0, m, c, nobf, tid, nullptr},
+                 cluster_list, counts, rows_table, num_clusters, tile_rays,
+                 kp, (long long)num_tiles * tile_rays, best_t, best_tri,
+                 rows_out};
 }
 
 }  // namespace
@@ -196,12 +357,15 @@ extern "C" int crt_closest_hit(
     int* best_tri, float* rows_out, void* stream) {
   if (num_tiles <= 0) return 0;
   if (tile_rays % CRT_BLOCK != 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const long long num_rays = (long long)num_tiles * tile_rays;
-  closest_hit_kernel<<<(unsigned)blocks, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
-      o, d, n, nv0, m, c, nobf, tid, cluster_list, counts, rows_table,
-      num_clusters, tile_rays, kp, num_rays, best_t, best_tri, rows_out);
+  const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
+  const long long grid =
+      persistent_grid((const void*)closest_hit_kernel, units);
+  if (grid <= 0) return (int)cudaGetLastError();
+  closest_hit_kernel<<<(unsigned)grid, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
+      hit_args(o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
+               rows_table, num_clusters, num_tiles, tile_rays, kp, best_t,
+               best_tri, rows_out),
+      units);
   return (int)cudaGetLastError();
 }
 
@@ -217,12 +381,12 @@ extern "C" int crt_closest_hit_compact(
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const long long num_rays = (long long)num_tiles * tile_rays;
   closest_hit_compact_kernel<<<(unsigned)blocks, CRT_BLOCK, 0,
                                (cudaStream_t)stream>>>(
-      n_live, tile_ids, o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
-      rows_table, num_clusters, tile_rays, tile_mod, kp, num_rays, best_t,
-      best_tri, rows_out);
+      hit_args(o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
+               rows_table, num_clusters, num_tiles, tile_rays, kp, best_t,
+               best_tri, rows_out),
+      n_live, tile_ids, tile_mod);
   return (int)cudaGetLastError();
 }
 
@@ -239,11 +403,11 @@ extern "C" int crt_closest_hit_merged(
   const long long blocks =
       (long long)(num_tiles / merge) * (tile_rays / CRT_BLOCK);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const long long num_rays = (long long)num_tiles * tile_rays;
   closest_hit_merged_kernel<<<(unsigned)blocks, CRT_BLOCK, 0,
                               (cudaStream_t)stream>>>(
-      o, d, n, nv0, m, c, nobf, tid, cluster_list, counts, rows_table,
-      num_clusters, tile_rays, merge, kp, num_rays, best_t, best_tri,
-      rows_out);
+      hit_args(o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
+               rows_table, num_clusters, num_tiles, tile_rays, kp, best_t,
+               best_tri, rows_out),
+      merge);
   return (int)cudaGetLastError();
 }

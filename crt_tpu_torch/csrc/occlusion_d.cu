@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(CRT_BLOCK) occlusion_d_kernel(
   for (int i = 0; i < count; ++i) {
     // barrier before restaging, and the block-wide exit
     if (__syncthreads_and(blocked)) break;
-    stage_cluster(s, list[i], n, nv0, m, c, nobf, nullptr);
+    stage_cluster(s, list[i], n, nv0, m, c, nobf);
     __syncthreads();
     if (!blocked) {
 #pragma unroll

@@ -22,88 +22,248 @@
 // A tile with an empty list is all false in every output, which is the TPU
 // launcher's `counts > 0` mask.
 //
-// What bounds it on an H100: FP32 ALU work, as in closest_hit.cu: 16 x ~45
-// flops per ray-cluster pair against L2-resident tables; I/O is 36 bytes in
-// and one or two bytes out per lane.
+// What bounds it on an H100.  The lists of the scenes the cluster backend
+// serves are short and most shadow tiles of a bounce pool have none, so
+// the fixed cost of a tile and the one or two output bytes a lane; where
+// lists are long (4,096 clusters), FP32 issue: ~59 FP32 instructions a
+// member test under -fmad=false, against L2-resident tables.  A lane's
+// answer needs one test once it is blocked, but every member before its
+// blocker, and a lane that is never blocked needs them all.
 //
-// What the design does about it: the layout of closest_hit.cu (one thread
-// per lane, 256-thread blocks, tile_rays / 256 consecutive blocks per tile,
-// each walked cluster staged once per block, the member mask with it).  The
-// TPU's live-tile compaction becomes a block that returns at once on an
-// empty list.  Every output is an OR, so a thread stops testing once its
-// lane has nothing left to learn (blocked, and with the glass flag also
-// flagged: a lane blocked by an early opaque cluster still has to find the
-// glass in a later one), and the block leaves the walk once that holds for
-// all 256 of its lanes.
+// The design (closest_hit.cu's grid and staging, with the any-hit's exits;
+// PERF.md, section 6):
+//   - A persistent grid of resident 256-thread blocks takes quarter tiles
+//     (units) at a stride of the grid; a unit with an empty list stores its
+//     zero bytes four to a thread, with no block launch and no barrier.
+//   - CRT_BATCH clusters are staged per barrier by cp.async into the
+//     member-major records of cluster_common.cuh's ClusterRing, the member
+//     mask in each slot's tail word, CRT_STAGES - 1 batches ahead.
+//   - Repeated rays are walked once.  A lane whose ray (o and w, bit for
+//     bit) is its warp's first lane's takes that lane's answer, and the
+//     other rays are packed to the front of the block, so the warps past
+//     them have nothing to test.  A frame's lanes without a hit all carry
+//     the camera's ray, and they are walked in full, since their bits are
+//     part of the output: at 65,536 triangles they were most of the tests.
+//   - Every output is an OR, so a lane with nothing left to learn (blocked,
+//     and with the glass flag also flagged: a lane blocked by an early
+//     opaque cluster still has to find the glass in a later one) tests no
+//     more: a warp whose lanes are all done skips the batch (warp vote),
+//     and the block leaves the walk when every lane is done at a batch
+//     barrier (__syncthreads_and).  A member outside the member mask is
+//     skipped by every lane.  On lists of at most CRT_VOTE_LIST clusters a
+//     warp also skips a member's divide when no lane passes the plane,
+//     face and done gates, and its edges when no lane's hit could change an
+//     output; on longer lists those votes cost more than they skip.  Every
+//     operation done is member_hit's, so no bit changes.
 
 #include "cluster_common.cuh"
 
+// Lists of at most this many clusters are walked with warp votes that skip
+// a member's divide and edges where no lane needs them, longer ones
+// without (votes on every list, or on none, measured slower; PERF.md).
+#define CRT_VOTE_LIST 32
+
 namespace {
 
-template <bool CAPPED, bool MASKED, bool GLASS>
-__global__ void __launch_bounds__(CRT_BLOCK) occlusion_w_kernel(
-    const float* __restrict__ o, const float* __restrict__ p,
-    const float* __restrict__ lights, const float* __restrict__ n,
-    const float* __restrict__ nv0, const float* __restrict__ m,
-    const float* __restrict__ c, const float* __restrict__ nobf,
-    const float* __restrict__ gm, const int* __restrict__ cluster_list,
-    const int* __restrict__ counts, int num_clusters, int tiles_per_light,
-    int tile_rays, unsigned char* __restrict__ occ,
-    unsigned char* __restrict__ glass_out) {
-  __shared__ ClusterSmem s;
-  const int blocks_per_tile = tile_rays / CRT_BLOCK;
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
-  const long long out = (long long)tile * tile_rays + lane;
-  const int count = counts[tile];
-  if (count == 0) {  // uniform over the block
-    occ[out] = 0;
-    if (GLASS) glass_out[out] = 0;
-    return;
-  }
-  const long long src = (long long)(tile % tiles_per_light) * tile_rays + lane;
-  const int light = tile / tiles_per_light;
-  const float ox = o[3 * src], oy = o[3 * src + 1], oz = o[3 * src + 2];
-  const float wx = lights[3 * light] - p[3 * src];
-  const float wy = lights[3 * light + 1] - p[3 * src + 1];
-  const float wz = lights[3 * light + 2] - p[3 * src + 2];
-  const int* list = cluster_list + (long long)tile * num_clusters;
+struct OcclArgs {
+  const float* o;
+  const float* p;
+  const float* lights;
+  ClusterTables tb;
+  const int* cluster_list;
+  const int* counts;
+  int num_clusters, tiles_per_light, tile_rays;
+  unsigned char* occ;
+  unsigned char* glass_out;
+};
 
-  int blocked = 0;
-  int glass = 0;
-  for (int i = 0; i < count; ++i) {
-    const int done = GLASS ? (blocked && glass) : blocked;
-    // barrier before restaging, and the block-wide exit
-    if (__syncthreads_and(done)) break;
-    stage_cluster(s, list[i], n, nv0, m, c, nobf, nullptr,
-                  (MASKED || GLASS) ? gm : nullptr);
-    __syncthreads();
-    if (!done) {
+// The unit's 256 zero bytes of each output, four a thread.
+template <bool GLASS>
+__device__ __forceinline__ void write_unit_zero(const OcclArgs& a,
+                                                long long u) {
+  if (threadIdx.x < CRT_BLOCK / 4) {
+    const long long w = u * (CRT_BLOCK / 4) + threadIdx.x;
+    reinterpret_cast<unsigned*>(a.occ)[w] = 0u;
+    if (GLASS) reinterpret_cast<unsigned*>(a.glass_out)[w] = 0u;
+  }
+}
+
+// The `count` staged clusters of `img` against one lane's ray (origin o,
+// unnormalized direction w), in list order, into its flags.  Every
+// operation done is member_hit's; a member is skipped only where no lane
+// of the warp (VOTE) or no lane at all (outside the member mask) could
+// change an output with it.
+template <bool CAPPED, bool MASKED, bool GLASS, bool VOTE>
+__device__ __forceinline__ void test_batch(const float* img, int count,
+                                           float ox, float oy, float oz,
+                                           float wx, float wy, float wz,
+                                           bool& blocked, bool& glass) {
+  for (int k = 0; k < count; ++k) {
+    const float* rec = img + k * CRT_CLUSTER_FLOATS;
 #pragma unroll
-      for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
-        float t;
-        bool base = member_hit(s, j, ox, oy, oz, wx, wy, wz, t);
-        if (MASKED) base = base && (s.gm[j] > 0.5f);
-        if (base && (!CAPPED || t <= 1.0f)) blocked = 1;
-        if (GLASS) {
-          if (base && (s.gm[j] > 0.5f)) glass = 1;
-          if (blocked && glass) break;
-        } else if (blocked) {
-          break;
-        }
+    for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
+      const float* slot = rec + j * CRT_SLOT_FLOATS;
+      const float4 tw = rec_word(slot, 4);
+      const bool in_subset = tw.z > 0.5f;
+      if (MASKED && !in_subset) continue;  // the same for every lane
+      const float4 pw = rec_word(slot, 0);
+      const float nd = pw.x * wx + pw.y * wy + pw.z * wz;
+      const float no = pw.x * ox + pw.y * oy + pw.z * oz;
+      const float opd = pw.w - no;
+      const bool not_parallel = fabsf(nd) >= CRT_PARALLEL_EPS;
+      bool ok = not_parallel && ((opd < 0.0f) || (tw.x > 0.5f));
+      if (GLASS)
+        ok = ok && (!blocked || (!glass && in_subset));
+      else
+        ok = ok && !blocked;
+      if (VOTE && !__any_sync(0xffffffffu, ok)) continue;
+      const float t = opd / (not_parallel ? nd : 1.0f);
+      const bool in_cap = !CAPPED || t <= 1.0f;
+      ok = ok && (t >= 0.0f);
+      if (GLASS)
+        ok = ok && ((!blocked && in_cap) || (!glass && in_subset));
+      else
+        ok = ok && in_cap;
+      if (VOTE && !__any_sync(0xffffffffu, ok)) continue;
+      ok = ok && rec_edges(slot, ox, oy, oz, wx, wy, wz, t);
+      if (GLASS) {
+        blocked = blocked || (ok && in_cap);
+        glass = glass || (ok && in_subset);
+      } else {
+        blocked = blocked || ok;
       }
     }
   }
-  occ[out] = (unsigned char)blocked;
-  if (GLASS) glass_out[out] = (unsigned char)glass;
+}
+
+// The block's packed rays and their answers.
+struct RayPack {
+  float ray[6 * CRT_BLOCK];
+  int scan[CRT_BLOCK / 32];
+  unsigned char res[CRT_BLOCK];
+};
+
+template <bool CAPPED, bool MASKED, bool GLASS>
+__device__ __forceinline__ void walk_unit(ClusterRing& ring, RayPack& pk,
+                                          const ClusterPlan& pl,
+                                          const OcclArgs& a, long long u,
+                                          int tile, int count) {
+  const int per_tile = a.tile_rays / CRT_BLOCK;
+  const int lane = (int)(u % per_tile) * CRT_BLOCK + threadIdx.x;
+  const long long out = u * CRT_BLOCK + threadIdx.x;
+  const long long src =
+      (long long)(tile % a.tiles_per_light) * a.tile_rays + lane;
+  const int light = tile / a.tiles_per_light;
+  float ox = a.o[3 * src], oy = a.o[3 * src + 1], oz = a.o[3 * src + 2];
+  float wx = a.lights[3 * light] - a.p[3 * src];
+  float wy = a.lights[3 * light + 1] - a.p[3 * src + 1];
+  float wz = a.lights[3 * light + 2] - a.p[3 * src + 2];
+  const int* list = a.cluster_list + (long long)tile * a.num_clusters;
+  const int nb = (count + CRT_BATCH - 1) / CRT_BATCH;
+
+  bool blocked = false;
+  bool glass = false;
+  // Lanes whose ray is their warp's first lane's, bit for bit, take that
+  // lane's answer; the other rays are packed to the front of the block.
+  float ray[6] = {ox, oy, oz, wx, wy, wz};
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  bool same = true;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {  // every lane takes part in each shuffle
+    const float first = __shfl_sync(0xffffffffu, ray[k], 0);
+    same = same && __float_as_uint(ray[k]) == __float_as_uint(first);
+  }
+  const bool own = ln == 0 || !same;
+  const unsigned mask = __ballot_sync(0xffffffffu, own);
+  if (ln == 0) pk.scan[wp] = __popc(mask);
+  __syncthreads();
+  int pos = __popc(mask & ((1u << ln) - 1u)), live = 0;
+#pragma unroll
+  for (int w = 0; w < CRT_BLOCK / 32; ++w) {
+    pos += w < wp ? pk.scan[w] : 0;
+    live += pk.scan[w];
+  }
+  const int first_pos = __shfl_sync(0xffffffffu, pos, 0);
+  const int my_pos = own ? pos : first_pos;
+  if (own) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) pk.ray[k * CRT_BLOCK + pos] = ray[k];
+  }
+  __syncthreads();
+  const bool has_ray = (int)threadIdx.x < live;
+  ox = pk.ray[threadIdx.x], oy = pk.ray[CRT_BLOCK + threadIdx.x];
+  oz = pk.ray[2 * CRT_BLOCK + threadIdx.x];
+  wx = pk.ray[3 * CRT_BLOCK + threadIdx.x];
+  wy = pk.ray[4 * CRT_BLOCK + threadIdx.x];
+  wz = pk.ray[5 * CRT_BLOCK + threadIdx.x];
+  blocked = glass = !has_ray;  // no ray: nothing to learn
+#pragma unroll
+  for (int s = 0; s < CRT_STAGES - 1; ++s)
+    issue_clusters(ring, s, list, s * CRT_BATCH, batch_size(s, count), pl);
+  for (int bi = 0; bi < nb; ++bi) {
+    cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
+    const bool done = GLASS ? (blocked && glass) : blocked;
+    // the batch barrier, and the block-wide exit
+    if (__syncthreads_and(done)) break;
+    const int nx = bi + CRT_STAGES - 1;
+    issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
+                   batch_size(nx, count), pl);
+    if (__all_sync(0xffffffffu, done)) continue;  // the warp is done
+    const float* img = ring.rec + (bi % CRT_STAGES) * CRT_BATCH_FLOATS;
+    const int nc = batch_size(bi, count);
+    if (count <= CRT_VOTE_LIST)  // uniform over the block
+      test_batch<CAPPED, MASKED, GLASS, true>(img, nc, ox, oy, oz, wx, wy, wz,
+                                              blocked, glass);
+    else
+      test_batch<CAPPED, MASKED, GLASS, false>(img, nc, ox, oy, oz, wx, wy,
+                                               wz, blocked, glass);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next walk
+  pk.res[threadIdx.x] = (unsigned char)(blocked | (glass << 1));
+  __syncthreads();
+  const unsigned char res = pk.res[my_pos];
+  blocked = res & 1;
+  glass = (res >> 1) & 1;
+  a.occ[out] = (unsigned char)blocked;
+  if (GLASS) a.glass_out[out] = (unsigned char)glass;
+}
+
+template <bool CAPPED, bool MASKED, bool GLASS>
+__global__ void __launch_bounds__(CRT_BLOCK) occlusion_w_kernel(
+    OcclArgs a, long long units) {
+  __shared__ ClusterRing ring;
+  __shared__ RayPack pk;
+  __shared__ int s_count[CRT_BLOCK];
+  const ClusterPlan pl(a.tb);
+  const int per_tile = a.tile_rays / CRT_BLOCK;
+  for_each_unit(units, per_tile, a.counts, s_count,
+                [&](long long u, int count) {
+                  if (count == 0)
+                    write_unit_zero<GLASS>(a, u);
+                  else
+                    walk_unit<CAPPED, MASKED, GLASS>(
+                        ring, pk, pl, a, u, (int)(u / per_tile), count);
+                });
+}
+
+template <bool CAPPED, bool MASKED, bool GLASS>
+int launch(const OcclArgs& a, long long units, cudaStream_t st) {
+  const void* k = (const void*)occlusion_w_kernel<CAPPED, MASKED, GLASS>;
+  const long long grid = persistent_grid(k, units);
+  if (grid <= 0) return (int)cudaGetLastError();
+  occlusion_w_kernel<CAPPED, MASKED, GLASS>
+      <<<(unsigned)grid, CRT_BLOCK, 0, st>>>(a, units);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Host entry, bound with ctypes.  All pointers are device pointers on the
 // device that owns `stream`.  `gm` [L,16] is needed when `member_masked` or
-// `glass_flag` is set, `glass_out` when `glass_flag` is.  Returns
-// cudaGetLastError() after the launch.
+// `glass_flag` is set, `glass_out` when `glass_flag` is; `occ` and
+// `glass_out` are 4-byte aligned.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int crt_occlusion_w(
     const float* o, const float* p, const float* lights, const float* n,
     const float* nv0, const float* m, const float* c, const float* nobf,
@@ -118,24 +278,22 @@ extern "C" int crt_occlusion_w(
     return (int)cudaErrorInvalidValue;
   if (glass_flag && (glass_out == nullptr || member_masked))
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
+  if (((size_t)occ | (size_t)glass_out) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool mask = member_masked || glass_flag;
+  const OcclArgs a{o, p, lights,
+                   ClusterTables{n, nv0, m, c, nobf, nullptr,
+                                 mask ? gm : nullptr},
+                   cluster_list, counts, num_clusters, tiles_per_light,
+                   tile_rays, occ, glass_out};
+  const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
-#define CRT_LAUNCH_OCCL(CAP, MSK, GLS)                                       \
-  occlusion_w_kernel<CAP, MSK, GLS><<<grid, CRT_BLOCK, 0, st>>>(             \
-      o, p, lights, n, nv0, m, c, nobf, gm, cluster_list, counts,            \
-      num_clusters, tiles_per_light, tile_rays, occ, glass_out)
-  if (glass_flag) {
-    if (capped) CRT_LAUNCH_OCCL(true, false, true);
-    else CRT_LAUNCH_OCCL(false, false, true);
-  } else if (member_masked) {
-    if (capped) CRT_LAUNCH_OCCL(true, true, false);
-    else CRT_LAUNCH_OCCL(false, true, false);
-  } else {
-    if (capped) CRT_LAUNCH_OCCL(true, false, false);
-    else CRT_LAUNCH_OCCL(false, false, false);
-  }
-#undef CRT_LAUNCH_OCCL
-  return (int)cudaGetLastError();
+  if (glass_flag)
+    return capped ? launch<true, false, true>(a, units, st)
+                  : launch<false, false, true>(a, units, st);
+  if (member_masked)
+    return capped ? launch<true, true, false>(a, units, st)
+                  : launch<false, true, false>(a, units, st);
+  return capped ? launch<true, false, false>(a, units, st)
+                : launch<false, false, false>(a, units, st);
 }

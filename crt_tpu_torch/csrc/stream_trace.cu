@@ -89,7 +89,6 @@
 
 #define CRT_STREAM_BATCH 8   // members staged per barrier
 #define CRT_STREAM_STAGES 3  // batches in the ring
-#define CRT_SLOT_FLOATS 20   // a slot's record: 5 x 16 bytes
 #define CRT_MEMBER_FLOATS (CRT_CLUSTER_SIZE * CRT_SLOT_FLOATS)
 #define CRT_STAGE_FLOATS (CRT_STREAM_BATCH * CRT_MEMBER_FLOATS)
 #define CRT_RING_BYTES (CRT_STREAM_STAGES * CRT_STAGE_FLOATS * 4)  // 30,720
@@ -121,14 +120,6 @@ struct StreamItems {
   int* next;            // the next item to take; 0 at launch
   int wtiles, groups, chunk;
 };
-
-// Place of fused column `col` (< 17) in a slot's record.
-__device__ __forceinline__ int record_pos(int col) {
-  if (col < 4) return col;
-  if (col < 13) return 4 + 4 * ((col - 4) / 3) + (col - 4) % 3;
-  if (col < 16) return 7 + 4 * (col - 13);
-  return 16;
-}
 
 // One float of a member that this thread copies: it lies at
 // src + sc_idx * per_sc + member * per_member + off, and goes to dst in the
@@ -181,22 +172,6 @@ __device__ CopyPlan copy_plan(const StreamTable& tb, int f, int sc) {
   }
   p.per_sc = (long long)sc * p.per_member;  // clusters are sc_idx*sc+member
   return p;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The walk's position: pair p and its members not yet taken.
@@ -556,8 +531,8 @@ __device__ __forceinline__ void load_slot(const StreamTable& tb,
   }
 }
 
-// member_t (cluster_common.cuh) on a slot in fused column order: the same
-// operations in the same order.
+// member_hit (cluster_common.cuh) on a slot in fused column order, the hit
+// distance or +inf: the same operations in the same order.
 __device__ __forceinline__ float slot_t(const float* v, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz) {

@@ -137,7 +137,9 @@ def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
     """Plain version of ``closest_hit``: loop over steps of walk positions,
     vectorized over tiles x positions x 16 members x rays.  Across
     positions the first one with the least t wins, which is the kernel's
-    strict ``<`` in walk order."""
+    strict ``<`` in walk order.  t is always the winner's own value (a
+    gather, never a reduction's least), so on a tie of -0.0 with +0.0 the
+    zero of the member that won is returned, as the kernel returns it."""
     R = origins.shape[0]
     tiles = R // tile_rays
     dev = origins.device
@@ -160,19 +162,21 @@ def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
             live = cnt[:, None] > torch.arange(i0, i1, device=dev)  # [nt, p]
             cl = cluster_list[s:e, i0:i1].long()
             tt = _member_t(tables, cl, ox, oy, oz, dx, dy, dz)
-            cl_best = tt.amin(dim=2)  # [nt, p, TR]
             tid = tables.tri_id[cl][..., None]  # [nt, p, 16, 1]
-            at_best = tt <= cl_best[:, :, None]
+            at_best = tt <= tt.amin(dim=2, keepdim=True)
             cl_tri = torch.where(at_best, tid, _BIGID).amin(dim=2)
-            # the winning member: the one whose (t, id) won the reduction
-            win = (at_best & (tid == cl_tri[:, :, None])).to(torch.int32)
-            slot = cl[..., None] * CLUSTER_SIZE + win.argmax(dim=2)
-            # the step's first position with its least t, then the strict
-            # < against the walk so far
+            # the winning member: the one whose (t, id) won the reduction;
+            # its own t, so a -0.0 that won a tie with +0.0 stays -0.0
+            win = (at_best & (tid == cl_tri[:, :, None])).to(
+                torch.int32).argmax(dim=2, keepdim=True)  # [nt, p, 1, TR]
+            cl_best = tt.gather(2, win)[:, :, 0]  # [nt, p, TR]
+            slot = cl[..., None] * CLUSTER_SIZE + win[:, :, 0]
+            # the step's first position with its least t (its own t), then
+            # the strict < against the walk so far
             cl_best = torch.where(live[..., None], cl_best, float("inf"))
-            least = cl_best.amin(dim=1)  # [nt, TR]
-            first = (cl_best == least[:, None]).to(torch.int32).argmax(
-                dim=1, keepdim=True)
+            first = (cl_best == cl_best.amin(dim=1, keepdim=True)).to(
+                torch.int32).argmax(dim=1, keepdim=True)
+            least = cl_best.gather(1, first)[:, 0]  # [nt, TR]
             better = least < bt
             bt = torch.where(better, least, bt)
             btri = torch.where(better, cl_tri.gather(1, first)[:, 0], btri)

@@ -57,18 +57,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(csrc: pathlib.Path) -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> BuildInfo:
-    """Compile the kernels unless an identical build exists; return where."""
-    out_dir = BUILD_ROOT / _digest()
+def build(csrc: pathlib.Path = CSRC) -> BuildInfo:
+    """Compile the kernels of ``csrc`` (this package's by default; another
+    checkout's sources of the same files to time them in turns) unless an
+    identical build exists; return where."""
+    csrc = pathlib.Path(csrc)
+    out_dir = BUILD_ROOT / _digest(csrc)
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.exists():
@@ -80,8 +83,8 @@ def build() -> BuildInfo:
     # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", tmp,
+           *(str(csrc / s) for s in SOURCES)]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start
@@ -98,7 +101,12 @@ def build() -> BuildInfo:
 def load() -> tuple[ctypes.CDLL, BuildInfo]:
     """Build (first use) and load the library; bind its entry points."""
     info = build()
-    lib = ctypes.CDLL(info.path)
+    return bind(info.path), info
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare its entry points."""
+    lib = ctypes.CDLL(path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crt_closest_hit.argtypes = [p] * 11 + [i] * 4 + [p] * 4
     lib.crt_closest_hit.restype = i
@@ -118,4 +126,4 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
     lib.crt_occlusion_stream.restype = i
     lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]
     lib.crt_segment_accumulate.restype = i
-    return lib, info
+    return lib

@@ -21,7 +21,7 @@ from crt_tpu_torch.ops import intersect as intersect_ops
 from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE
 from crt_tpu_torch.ops.shade import check_supported, shade_wavefront
 from crt_tpu_torch.ops.shade_iter import default_banks, shade_wavefront_iter
-from crt_tpu_torch.scene.types import RenderSettings, Scene
+from crt_tpu_torch.scene.types import RenderSettings, Scene, resolve_device
 
 # Wavefront pixel-tile shape: consecutive runs of TILE_H * TILE_W rays are
 # one spatially coherent 32x32 block, the binning tile of the cluster trace.
@@ -128,12 +128,14 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
     raise ValueError(f"unknown intersection backend: {backend!r}")
 
 
-def make_tiler(h: int, w: int, device="cpu"):
+def make_tiler(h: int, w: int, device=None):
     """Pixel-tile reordering helpers for an h x w region.
 
     Returns (raster_x [R], raster_y [R], untile(colors [R, 3]) -> [h, w, 3])
-    with rays ordered in TILE_H x TILE_W blocks.
+    with rays ordered in TILE_H x TILE_W blocks, the rasters on ``device``
+    (None: the card; RuntimeError where there is none).
     """
+    device = resolve_device(device)
     hp = -(-h // TILE_H) * TILE_H
     wp = -(-w // TILE_W) * TILE_W
     raster_y, raster_x = torch.meshgrid(

@@ -168,8 +168,8 @@ def test_occlusion_w_modes_match_plain(device, mode, sparse):
 
 def test_glass_flag_found_behind_an_opaque_blocker(device):
     """A lane blocked by an opaque triangle of an early cluster still finds
-    the glass of a later one: the walk may leave only when the lane is
-    blocked and flagged."""
+    the glass of a later one, also when the glass comes in a later staging
+    batch: the walk may leave only when the lane is blocked and flagged."""
     from crt_tpu_torch import scene_from_dict
 
     def tri(x, y, z, mat):
@@ -181,7 +181,7 @@ def test_glass_flag_found_behind_an_opaque_blocker(device):
     objects = [tri(-0.5 + 0.001 * i, 1.0, 0.0, 0) for i in range(16)]
     objects.append(tri(4.0, 2.0, 0.0, 1))
     objects.append(tri(0.0, 2.0, 0.0, 1))
-    scene = scene_from_dict({
+    scene_spec = {
         "settings": {"background_color": [0, 0, 0],
                      "image_settings": {"width": 32, "height": 32}},
         "camera": {"matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1],
@@ -191,7 +191,8 @@ def test_glass_flag_found_behind_an_opaque_blocker(device):
                        "smooth_shading": False},
                       {"type": "refractive", "ior": 1.5,
                        "smooth_shading": False}],
-        "objects": objects}, device=device)
+        "objects": list(objects)}
+    scene = scene_from_dict(scene_spec, device=device)
     tables = cluster_tables.build_cluster_tables(scene)
     gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
     assert not gm[0].any() and gm[1].any()
@@ -214,6 +215,224 @@ def test_glass_flag_found_behind_an_opaque_blocker(device):
         glass_flag=True)
     assert occ.all() and glass.all()
     assert torch.equal(occ, p_occ) and torch.equal(glass, p_glass)
+
+    # the glass in a later staging batch than the blocker: with fillers
+    # far off (never hit) for enough clusters, the opaque cluster walked 8
+    # times fills batch 0 and the glass cluster comes in batch 1
+    for i in range(16 * 8):
+        objects.append(tri(20.0 + 0.1 * i, -20.0, 20.0, 0))
+    scene = scene_from_dict(dict(scene_spec, objects=objects), device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    gm, _, _ = cluster_tables.glass_subset(scene, tables)
+    assert not gm[0].any() and gm[1].any() and tables.n.shape[0] >= 9
+    cl = torch.zeros((1, tables.n.shape[0]), dtype=torch.int32,
+                     device=device)
+    cl[0, 8] = 1
+    cnt = torch.full((1,), 9, dtype=torch.int32, device=device)
+    occ, glass = cluster_trace.occlusion_w(
+        tables, shadow_o, point, lights, cl, cnt, member_mask=gm,
+        glass_flag=True)
+    p_occ, p_glass = cluster_trace.occlusion_w_plain(
+        tables, shadow_o, point, lights, cl, cnt, member_mask=gm,
+        glass_flag=True)
+    assert occ.all() and glass.all()
+    assert torch.equal(occ, p_occ) and torch.equal(glass, p_glass)
+
+
+def _same_bits(a, b):
+    """Float tensors equal bit for bit (-0.0 and +0.0 differ)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _hits_equal(got, want):
+    """(t, tri, rows) of two closest-hit launches equal bit for bit."""
+    assert _same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[2] is None) == (want[2] is None)
+    if got[2] is not None:
+        assert _same_bits(got[2], want[2])
+
+
+@pytest.fixture(scope="module")
+def long_lists(device):
+    """A 65,536-triangle scene (4,096 clusters) at 256x128: primary lists
+    and capped shadow lists much longer than one staging batch of the
+    cluster kernels (CRT_BATCH = 8 clusters)."""
+    scene = make_big_scene(65536, 256, 128, seed=1, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    o, d = _wavefront(scene)
+    cl, cnt = binning.bin_rays(tables, o, d, 1024)
+    shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    act = act[:1]
+    scl, scnt = binning.bin_apex_shared(tables, shadow_o, lights[:1], act,
+                                        1024, 0.02)
+    return dict(tables=tables, rows_table=rows_table, o=o, d=d, cl=cl,
+                cnt=cnt, shadow=(shadow_o, point, lights[:1].contiguous()),
+                scl=scl, scnt=scnt)
+
+
+@pytest.mark.parametrize("kernel", ["closest_hit", "compact", "merged",
+                                    "occlusion_w"])
+def test_cluster_kernels_on_lists_longer_than_a_batch(device, long_lists,
+                                                      kernel):
+    """K1 (and K4 / K7, which take its walk) and K2 on lists of tens to
+    hundreds of clusters, staged in many batches: bit-equal to the plain
+    version on every lane."""
+    L = long_lists
+    tables, o, d = L["tables"], L["o"], L["d"]
+    if kernel == "occlusion_w":
+        assert int(L["scnt"].max()) > 8 * 8
+        k = cluster_trace.occlusion_w(tables, *L["shadow"], L["scl"],
+                                      L["scnt"])
+        p = cluster_trace.occlusion_w_plain(tables, *L["shadow"], L["scl"],
+                                            L["scnt"])
+        torch.cuda.synchronize()
+        assert torch.equal(k, p) and k.any() and not k.all()
+        return
+    cl, cnt, rows_table = L["cl"], L["cnt"], L["rows_table"]
+    assert int(cnt.min()) > 8 and int(cnt.max()) > 8 * 8
+    fn = dict(closest_hit=cluster_trace.closest_hit,
+              compact=cluster_trace.closest_hit_compact,
+              merged=cluster_trace.closest_hit_merged)[kernel]
+    k = fn(tables, o, d, cl, cnt, rows_table)
+    p = cluster_trace.closest_hit_plain(tables, o, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    _hits_equal(k, p)
+    assert (k[1] >= 0).any() and (k[1] < 0).any()
+
+
+@pytest.mark.parametrize("first", ["A", "B"])
+def test_exact_t_ties_across_batches(device, first):
+    """The tie scene of test_torch_trace_kernels.py with -0.0 / +0.0 ties
+    (test_torch_stream_chunks.py), with fillers behind the camera for
+    enough clusters: A's cluster and B's walked in different staging
+    batches (the first of them repeated to fill batch 0).  The cluster
+    walked first wins every exact-t tie, with its own zero; bit-equal to
+    the plain version."""
+    import numpy as np
+    from crt_tpu_torch import scene_from_dict
+    from test_torch_stream_chunks import tie_scene_negzero
+
+    spec, o, d = tie_scene_negzero()
+    for i in range(16 * 9):  # behind the camera (it looks down -z)
+        x = 10.0 + 0.1 * i
+        spec["objects"].append({
+            "material_index": 0, "triangles": [0, 1, 2],
+            "vertices": [x, 10, 20, x + 0.05, 10, 20, x, 10.05, 20]})
+    scene = scene_from_dict(spec, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    ids = tables.tri_id.cpu()
+    c_a = int(torch.nonzero(ids == 16)[0, 0])  # A
+    c_b = int(torch.nonzero(ids == 15)[0, 0])  # B
+    assert c_a != c_b and tables.n.shape[0] >= 9
+    o = torch.from_numpy(np.ascontiguousarray(o)).to(device)
+    d = torch.from_numpy(np.ascontiguousarray(d)).to(device)
+    walk = [c_a] * 8 + [c_b] if first == "A" else [c_b] * 8 + [c_a]
+    tiles = o.shape[0] // 1024
+    cl = torch.zeros((tiles, tables.n.shape[0]), dtype=torch.int32)
+    cl[:, :9] = torch.tensor(walk, dtype=torch.int32)
+    cl = cl.to(device)
+    cnt = torch.full((tiles,), 9, dtype=torch.int32, device=device)
+    k = cluster_trace.closest_hit(tables, o, d, cl, cnt)
+    p = cluster_trace.closest_hit_plain(tables, o, d, cl, cnt)
+    torch.cuda.synchronize()
+    _hits_equal(k, p)
+    assert (k[1] == (16 if first == "A" else 15)).all()
+    # on the second tile's rays A's t is -0.0 and B's +0.0
+    negative = torch.signbit(k[0][1024:])
+    assert negative.all() if first == "A" else not negative.any()
+
+
+@pytest.mark.parametrize("kernel", ["closest_hit", "occlusion_w"])
+def test_dead_tiles_between_live_ones(device, kernel):
+    """A wavefront of more units (256-lane quarter tiles) than the
+    persistent grid has blocks, its tiles dead and live in a pattern, so
+    each block walks some units and writes the miss result of others:
+    bit-equal to the plain version on every lane, misses on dead tiles."""
+    scene = make_test_scene(1024, 512, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    tile = torch.arange(1024 * 512, device=device) // 1024
+    keep = (tile % 5 == 1) | (tile % 7 == 3)
+    if kernel == "closest_hit":
+        rows_table = cluster_tables.emit_rows_table(scene, tables)
+        o, d = _wavefront(scene)
+        cl, cnt = binning.bin_rays(tables, o, d, 1024, keep)
+        k = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
+        p = cluster_trace.closest_hit_plain(tables, o, d, cl, cnt, rows_table)
+        torch.cuda.synchronize()
+        _hits_equal(k, p)
+        dead = (cnt == 0).repeat_interleave(1024)
+        assert dead.any() and (~dead).any()
+        assert (k[1][dead] == -1).all() and not k[2][:, dead].any()
+        return
+    shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    act = act & keep
+    cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                      0.02)
+    k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt)
+    p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
+                                        cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and k.any()
+    assert (cnt == 0).any() and (cnt > 0).any()
+
+
+@pytest.mark.parametrize("kp", [0, 1, 7])
+def test_closest_hit_rows_of_any_width(device, kp):
+    """K1's rows epilogue at kp = 0 (no rows table), 1 and an odd width:
+    bit-equal to the plain version (t, tri and rows) on a masked
+    wavefront."""
+    scene = make_test_scene(192, 128, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    rows_table = rows_table[..., -kp:].contiguous() if kp else None
+    o, d = _wavefront(scene)
+    act = torch.arange(o.shape[0], device=device) % 3 != 0
+    cl, cnt = binning.bin_rays(tables, o, d, 1024, act)
+    k = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
+    p = cluster_trace.closest_hit_plain(tables, o, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    assert _same_bits(k[0], p[0]) and torch.equal(k[1], p[1])
+    if kp:
+        assert _same_bits(k[2], p[2]) and k[2].shape == (kp, o.shape[0])
+    else:
+        assert k[2] is None and p[2] is None
+
+
+@pytest.mark.parametrize("mode", ["capped", "uncapped_masked", "glass"])
+def test_occlusion_w_with_repeated_rays(device, mode):
+    """Lanes that share their warp's first lane's ray, bit for bit, take
+    its answer: every other warp of the wavefront repeats that lane's ray
+    (as a frame's lanes without a hit repeat the camera's), the rest are
+    distinct; bit-equal to the plain version in each mode."""
+    scene = make_test_scene(192, 128, num_quads=24, with_refractive=True,
+                            device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
+    shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    lane = torch.arange(shadow_o.shape[0], device=device)
+    lead = lane - lane % 32
+    rep = (lane // 32) % 2 == 1
+    src = torch.where(rep, lead, lane)
+    shadow_o, point = shadow_o[src].contiguous(), point[src].contiguous()
+    kw, bin_kw = dict(
+        capped=({}, {}),
+        uncapped_masked=(dict(capped=False, member_mask=gm),
+                         dict(boxes=(gmin, gmax), capped=False)),
+        glass=(dict(member_mask=gm, glass_flag=True),
+               dict(glass_boxes=(gmin, gmax))))[mode]
+    cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                      0.02, **bin_kw)
+    k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt,
+                                  **kw)
+    p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
+                                        cnt, **kw)
+    torch.cuda.synchronize()
+    k = k if isinstance(k, tuple) else (k,)
+    p = p if isinstance(p, tuple) else (p,)
+    for got, want in zip(k, p):
+        assert torch.equal(got, want)
+    assert k[0].any() and not k[0].all()
 
 
 @pytest.mark.parametrize("case", ["rows", "tile_mod", "all_dead"])

@@ -25,6 +25,7 @@ from crt_tpu_torch import (
 )
 from crt_tpu_torch.frontend import cli
 from crt_tpu_torch.io.ppm import read_ppm
+from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_test_scene, make_test_scene_dict
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
@@ -98,10 +99,12 @@ def test_no_card_is_an_error_not_a_cpu_run(tmp_path, capsys, monkeypatch):
     assert "Execution time" not in captured.out and not out.exists()
     for build in (lambda: load_scene(str(scene_path)),
                   lambda: scene_from_dict(make_test_scene_dict(16, 8, 2)),
-                  lambda: make_test_scene(16, 8, 2)):
+                  lambda: make_test_scene(16, 8, 2),
+                  lambda: make_tiler(8, 16)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build()
     assert load_scene(str(scene_path), device="cpu").device.type == "cpu"
+    assert make_tiler(8, 16, device="cpu")[0].device.type == "cpu"
 
 
 def test_import_does_not_load_jax():

@@ -223,7 +223,7 @@ def test_batched_rays_read_through_the_adapters(monkeypatch, path):
         return real(ids, g, num_segments)
 
     monkeypatch.setattr(segsum, "segment_accumulate", counting)
-    rx, ry, _ = make_tiler(tscene.height, tscene.width)
+    rx, ry, _ = make_tiler(tscene.height, tscene.width, device=tscene.device)
     o, d = camera.generate_rays(
         tscene.cam_position, tscene.cam_rotation, tscene.cam_tan_half_fov,
         tscene.width, tscene.height, rx, ry)

@@ -86,7 +86,7 @@ def _glass_scene():
 
 def _shadow_inputs(scene, trace):
     """Primary hit points, biased origins and an all-valid active mask."""
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
                                 scene.cam_tan_half_fov, scene.width,
                                 scene.height, rx, ry)

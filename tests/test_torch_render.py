@@ -84,7 +84,7 @@ def test_bruteforce_chunk_changes_no_hit(monkeypatch):
     assert intersect.default_ray_chunk(1_000_000) == 67
     assert intersect.default_ray_chunk(1 << 30) == 1
     scene = make_test_scene(64, 36, num_quads=24, device="cpu")
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = generate_rays(scene.cam_position, scene.cam_rotation,
                          scene.cam_tan_half_fov, scene.width, scene.height,
                          rx, ry)

@@ -153,7 +153,7 @@ def test_scene_from_json_and_bitmap_not_implemented():
 def test_make_tiler_bit_equal(hw):
     h, w = hw
     jx, jy, juntile = jrenderer.make_tiler(h, w)
-    tx, ty, tuntile = trenderer.make_tiler(h, w)
+    tx, ty, tuntile = trenderer.make_tiler(h, w, device="cpu")
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
     colors = np.random.default_rng(0).random((tx.shape[0], 3), np.float32)
@@ -169,7 +169,7 @@ def test_generate_rays_bit_equal(name):
     js = jscene_from_dict(data, build_accel=False)
     ts = scene_from_dict(data, device="cpu")
     jx, jy, _ = jrenderer.make_tiler(js.height, js.width)
-    tx, ty, _ = trenderer.make_tiler(ts.height, ts.width)
+    tx, ty, _ = trenderer.make_tiler(ts.height, ts.width, device="cpu")
     jo, jd = jcamera.generate_rays(js.cam_position, js.cam_rotation,
                                    js.cam_tan_half_fov, js.width, js.height,
                                    jx, jy)

@@ -137,7 +137,7 @@ def test_compact_bounces_go_through_the_compacted_kernel(monkeypatch):
 
 
 def _primary(scene):
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
                                 scene.cam_tan_half_fov, scene.width,
                                 scene.height, rx, ry)

@@ -410,7 +410,7 @@ def test_stream_hits_equal_cluster_and_bruteforce(base_tables, sc):
     from crt_tpu_torch.ops import camera
     from crt_tpu_torch.renderer import make_tiler
 
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
                                 scene.cam_tan_half_fov, scene.width,
                                 scene.height, rx, ry)

@@ -19,16 +19,18 @@ rule.  Here, on the CPU:
     walked against a +0.0 in the next;
   - on that tie scene crt_tpu's streaming trace (interpret-mode
     ``pallas_stream``, in a subprocess without FMA) gives the model's
-    bits, -0.0 included, and the plain version's values and ids.
+    bits, -0.0 included, and the plain version's bits and ids; routed
+    through the cluster backend, ``closest_hit_plain`` gives the bits of
+    crt_tpu's binned closest hit (interpret-mode ``pallas_trace``).
 
 The plain versions are held to interpret-mode ``pallas_stream`` on larger
 inputs by tests/test_torch_stream.py; the CUDA kernels to the plain
 versions, forced small chunks included, by tests/test_torch_cuda.py and
 chip_smoke.py on the card.
 
-Tolerance: EXACT; t is compared by its bits (-0.0 and +0.0 differ),
-except against the plain version on a tie of -0.0 with +0.0, where it
-takes either zero (``test_ties_and_negative_zero_across_chunks``).
+Tolerance: EXACT; t is compared by its bits (-0.0 and +0.0 differ), the
+plain versions' too: they take t from the winning member itself, so on a
+tie of -0.0 with +0.0 they keep the zero of the cluster walked first.
 """
 
 import json
@@ -260,7 +262,7 @@ def _scene_wavefronts(tile_rays):
     from crt_tpu_torch.renderer import make_tiler
 
     scene = make_test_scene(**SCENE, device="cpu")
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
                                 scene.cam_tan_half_fov, scene.width,
                                 scene.height, rx, ry)
@@ -331,10 +333,10 @@ def test_ties_and_negative_zero_across_chunks():
     """With one cluster per supercluster and one member per chunk, A and B
     are walked by different items: the first walked must still win the
     exact-t ties, and A's -0.0 must beat B's +0.0 though +0.0 has the
-    smaller bits (hence the key's -0.0 -> +0.0).  The walk returns A's
-    -0.0; the plain version takes t as the least over the walk positions,
-    and on a tie of -0.0 with +0.0 that may be either zero, so t is held
-    to it by value and to crt_tpu by its bits (the next test)."""
+    smaller bits (hence the key's -0.0 -> +0.0).  The walk and the plain
+    version both return A's -0.0: the plain version takes t from the
+    winning member, not as the least over the walk positions (which may be
+    either zero), so t is held to it by its bits."""
     spec, o, d = tie_scene_negzero()
     scene = scene_from_dict(spec, device="cpu")
     o, d = torch.from_numpy(o), torch.from_numpy(d)
@@ -344,13 +346,14 @@ def test_ties_and_negative_zero_across_chunks():
     want = tst.closest_hit_stream_plain(st.fused, st.tables.tri_id, o, d,
                                         *pairs, 1, TR)
     assert (want[1] == 16).all() and (want[0][1024:] == 0).all()
+    assert torch.signbit(want[0][1024:]).all()  # the plain version: A's zero
     gen = np.random.default_rng(1)
     for layout in tst.LAYOUTS:
         table = tst.layout_table(st, layout)
         for chunk in (1, 2):
             t, tri = chunked_closest_hit(table, st.tables.tri_id, o, d,
                                          *pairs, 1, TR, layout, chunk, gen)
-            assert torch.equal(t, want[0]) and torch.equal(tri, want[1])
+            assert same_bits(t, want[0]) and torch.equal(tri, want[1])
             assert torch.signbit(t[1024:]).all()  # A's own zero
 
 
@@ -393,7 +396,7 @@ def test_ties_and_negative_zero_match_crt_tpu(tmp_path):
     hit = tst.make_stream_trace_fn(scene, tile_rays=TR, sc_clusters=1)(
         torch.from_numpy(o), torch.from_numpy(d))
     assert torch.equal(hit.tri, ref_tri.to(torch.int32))
-    assert torch.equal(hit.t, ref_t)  # the plain version: by value
+    assert same_bits(hit.t, ref_t)  # the plain version: by its bits
     gen = np.random.default_rng(2)
     st = tst.build_stream_tables(tct.build_cluster_tables(scene), 1)
     o, d = torch.from_numpy(o), torch.from_numpy(d)
@@ -401,3 +404,56 @@ def test_ties_and_negative_zero_match_crt_tpu(tmp_path):
     t, tri = chunked_closest_hit(st.fused, st.tables.tri_id, o, d, *pairs, 1,
                                  TR, "fused", 1, gen)
     assert same_bits(t, ref_t) and torch.equal(tri, ref_tri.to(torch.int32))
+
+
+_CLUSTER_REF_SCRIPT = r"""
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from crt_tpu.ops import pallas_trace as pt
+from crt_tpu.scene.json_loader import scene_from_dict
+
+spec = json.load(open(sys.argv[2]))
+scene = scene_from_dict(spec["scene"], build_accel=False)
+trace = pt.make_pallas_trace_fn(scene, interpret=True)
+hit = jax.jit(trace)(jnp.asarray(spec["o"], jnp.float32),
+                     jnp.asarray(spec["d"], jnp.float32))
+np.savez(sys.argv[1], t=np.asarray(hit.t), tri=np.asarray(hit.tri))
+"""
+
+
+def test_negative_zero_cluster_backend_matches_crt_tpu(tmp_path):
+    """The tie scene through the cluster backend: ``closest_hit_plain`` (by
+    itself on bin_rays' lists, and through the trace factory) returns
+    crt_tpu's binned closest hit bit for bit, A's -0.0 included, where a
+    least over the walk positions could return B's +0.0."""
+    from crt_tpu_torch.ops import cluster_trace as tct_trace
+
+    spec, o, d = tie_scene_negzero()
+    (tmp_path / "spec.json").write_text(json.dumps(
+        {"scene": spec, "o": o.tolist(), "d": d.tolist()}))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=AVX "
+                         "--xla_cpu_multi_thread_eigen=false",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLUSTER_REF_SCRIPT, str(tmp_path / "ref.npz"),
+         str(tmp_path / "spec.json")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with np.load(tmp_path / "ref.npz") as z:
+        ref_t = torch.from_numpy(z["t"])
+        ref_tri = torch.from_numpy(z["tri"]).to(torch.int32)
+    assert torch.signbit(ref_t[1024:]).all() and (ref_tri == 16).all()
+    scene = scene_from_dict(spec, device="cpu")
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    tables = tct.build_cluster_tables(scene)
+    cl, cnt = binning.bin_rays(tables, o, d, 1024)
+    assert cl[:, :2].tolist() == [[0, 1], [0, 1]] and cnt.tolist() == [2, 2]
+    t, tri, _ = tct_trace.closest_hit_plain(tables, o, d, cl, cnt)
+    assert same_bits(t, ref_t) and torch.equal(tri, ref_tri)
+    hit = tct_trace.make_cluster_trace_fn(scene)(o, d)
+    assert same_bits(hit.t, ref_t) and torch.equal(hit.tri, ref_tri)

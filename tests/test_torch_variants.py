@@ -258,7 +258,7 @@ def test_trace_factory_takes_k7_where_crt_tpu_does(monkeypatch, merge,
     from crt_tpu_torch.renderer import make_tiler
 
     scene = make_test_scene(device="cpu")  # 64x36 in 32x32 blocks: 4 tiles
-    rx, ry, _ = make_tiler(scene.height, scene.width)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=scene.device)
     o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
                                 scene.cam_tan_half_fov, scene.width,
                                 scene.height, rx, ry)
