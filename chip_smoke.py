@@ -21,20 +21,31 @@ Phases, each printing what it found; any failure raises (exit code != 0):
   4. scale: make_big_scene(65536) at 1920x1080 (4096 clusters): the
      closest-hit kernel vs its plain version on 16 sampled tiles (bit-equal)
      and vs the all-pairs backend on 8192 sampled rays; then the closest
-     hit (K1) and the w-occlusion (K2) at the eight shapes of their
-     redesign, each line tagged with the phase its inputs come from
-     ([kernels]: the opaque primary, the masked mirror bounce, the capped
-     depth-0 shadow wavefront; [glass]: the bounce-1 pool's trace and
-     glass-flag pass recorded from a real frame, the uncapped
-     member-masked pass; [scale]: the 65,536-triangle primary and its
-     capped depth-0 shadow wavefront): bit-equal to the plain version on
-     every lane (on 16 seeded tiles at 65,536 triangles), list lengths,
+     hit (K1), the w-occlusion (K2), the segment sum (K3) and the
+     live-tile compacted closest hit (K4) at the shapes of their redesign,
+     each line tagged with the phase its inputs come from ([kernels]: the
+     opaque primary, the masked mirror bounce (K1 and K4), the capped
+     depth-0 shadow wavefront, the depth-0 cotangents of the packed rows
+     and of the texture colours recorded from a real fit_scene backward;
+     [glass]: the bounce-1 pool's trace (K1 and K4) and glass-flag pass
+     recorded from a real frame, the uncapped member-masked pass, the
+     segment sums of a real glass backward over the packed rows of the
+     pool and over the ior row; [scale]:
+     the 65,536-triangle primary, the segment sum over its wide id band,
+     and its capped depth-0 shadow wavefront): K1, K2 and K4 bit-equal to
+     the plain version on every lane (on 16 seeded tiles at 65,536
+     triangles), K4 also to K1 and its live-tile list to the plain one, K3
+     within its tolerances of fp64 and of the plain version; list lengths,
      the kernel's time (10 launches back to back between CUDA events,
-     median of 5 after 2 warm-ups), the time of the same launch with every
-     count zeroed (every tile dead: the fixed cost of the tiles and the
-     output stores), for K1 with rows the time at kp = 0 (the rows
-     epilogue), for K2 the member tests a walk without any exit would do
-     beside those the answer needs, the bound and the no-FMA floor;
+     median of 5 after 2 warm-ups; for K3 and K4 also a single launch and
+     the device time a profiler reads, which leaves the wrapper's host
+     time out), the time of the same launch with every count zeroed (every
+     tile dead: the fixed cost of the tiles and the output stores), for K1
+     with rows the time at kp = 0 (the rows epilogue), for K2 the member
+     tests a walk without any exit would do beside those the answer needs,
+     for K4 K1's times on the same lists and its tile list's device time,
+     for K3 the device time with every id -1, the bound and the no-FMA
+     floor;
   5. main path: the CLI renders the benchmark scene from a .crtscene file
      (launch counts reset just before, read just after: 4 and 4 expected);
      render_image on the card vs the all-pairs backend and vs the CPU
@@ -65,15 +76,18 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      launches it at, and the one its time and bound are taken at), on that
      bounce's pool trace (active-masked) the live-tile compacted closest
      hit vs its plain version and vs the closest-hit kernel on the same
-     lists, and the closest-hit kernel vs its own plain version there and
-     on the widest segment of the bend-walk (all bit-equal);
+     lists (timed as a single launch, 10 back to back and by the profiler,
+     beside the closest-hit kernel), and the closest-hit kernel vs its own
+     plain version there and on the widest segment of the bend-walk (all
+     bit-equal);
   9. refract: the CLI renders the refractive scene from a .crtscene file
      (launch counts reset just before, read just after, and held to what
      the schedule implies: one pool trace and one glass-flag pass per
      bounce, one closest hit per march segment, no capped pass, no
      compacted launch); the image vs the all-pairs backend and, on a small
      scene, vs the CPU; compact_bounces=True bit-equal with every trace a
-     compacted launch; the router's flag vs the separate uncapped gate
+     compacted launch (each with one launch of its live-list kernel); the
+     router's flag vs the separate uncapped gate
      through the trace factory; frame times of the scan and grow schedules,
      of scan with compact_bounces, of the recursive tree and of scan in 8
      chunks, host syncs, device time and launches of a profiled frame,
@@ -152,13 +166,16 @@ Phases, each printing what it found; any failure raises (exit code != 0):
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
 ``--large`` runs phases 10 to 14 only.  ``--parent DIR`` builds the
-kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files and
-entry points) beside this one's and runs only phase 4's K1 / K2 shapes,
-each also held to the other build's kernel on every lane and every time
-taken in turns (other, this, this, other), then profiles the opaque
-forward and forward+backward frames and the glass scan frame with each
-build in the same turns (device time and launches, K1's and K2's share);
-no JSON lines.
+kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files)
+beside this one's and runs only phase 4's K1 / K2 / K3 / K4 shapes, K1,
+K2 and K4 also held to the other build's kernel on every lane (K3's
+distance from it printed: its atomics add in another order) and every
+time taken in turns (other, this, this, other), then profiles the opaque
+forward and forward+backward frames, the glass scan frame and the glass
+scan frame with compact_bounces with each build in the same turns (device
+time and launches, each redesigned kernel's share); no JSON lines.  The
+other checkout's kernels must have this one's entry points and
+signatures (a library without ``crt_live_tiles`` is refused).
 
 Tolerances.  The trace kernels (closest hit, compacted and tile-merged
 closest hit, every mode of the w-occlusion, both launches of the
@@ -455,32 +472,80 @@ def image_sum_grads(scene, settings=None, keys=TRAINED):
     return value.detach(), {k: p.grad for k, p in params.items()}
 
 
-def capture_depth0_cotangents(scene):
-    """One real backward of the frame with the segment sum's inputs
-    recorded: (ids, g, T) of the call with the most live rays, which is the
-    primary wavefront's."""
+def record_segsums(scene, keys=TRAINED):
+    """(ids, g, T) of every segment sum that one real backward of the
+    frame (value_and_grad of the image sum w.r.t. ``keys``) makes."""
     from crt_tpu_torch.ops import segsum
 
     calls = []
     real = segsum.segment_accumulate
 
     def recording(ids, g, num_segments, *args, **kw):
-        live = int((ids >= 0).sum())
-        if not calls or live > calls[0][0]:
-            calls[:] = [(live, ids, g, num_segments)]
-        recording.count += 1
+        calls.append((ids, g, num_segments))
         return real(ids, g, num_segments, *args, **kw)
 
-    recording.count = 0
     segsum.segment_accumulate = recording
     try:
-        image_sum_grads(scene)
+        image_sum_grads(scene, keys=keys)
     finally:
         segsum.segment_accumulate = real
-    check(recording.count == 4,
-          f"the backward called the segment sum {recording.count} times, "
+    return calls
+
+
+def live_rays(ids, T) -> int:
+    return int(((ids >= 0) & (ids < T)).sum())
+
+
+def most_live(calls):
+    """The recorded call with the most live rays (the primary
+    wavefront's)."""
+    return max(calls, key=lambda c: live_rays(c[0], c[2]))
+
+
+def capture_depth0_cotangents(scene):
+    """One real backward of the frame with the segment sum's inputs
+    recorded: (ids, g, T) of the call with the most live rays, which is the
+    primary wavefront's."""
+    calls = record_segsums(scene)
+    check(len(calls) == 4,
+          f"the backward called the segment sum {len(calls)} times, "
           "expected 4 (one per shading level)")
-    return calls[0][1:]
+    return most_live(calls)
+
+
+def segsum_bound(ids, g, T) -> dict:
+    """K3's bound from this run's data: every id read, the g values of the
+    rays with a valid id (a miss's cotangents are not needed, and the
+    kernel reads none), every output written."""
+    K, R = g.shape
+    live = live_rays(ids, T)
+    return bound_ms(4 * R + 4 * K * live + 4 * K * T, K * live)
+
+
+def hold_segsum(name, ids, g, T, out):
+    """K3's result ``out`` vs an fp64 sum of the same terms (4e-6 of each
+    segment's sum|g|) and vs the plain version (5e-4); prints both, with
+    the plain version's own distance from fp64.  -> (max |out - fp64|,
+    max |out - plain|)."""
+    from crt_tpu_torch.ops import segsum
+
+    plain = segsum.segment_accumulate_plain(ids, g, T)
+    exact = segsum.segment_accumulate_plain(ids, g.double(), T)
+    mass = segsum.segment_accumulate_plain(ids, g.double().abs(), T)
+    err = (out.double() - exact).abs()
+    plain_err = (plain.double() - exact).abs()
+    rel = float((err / mass.clamp(min=1e-300)).max())
+    plain_rel = float((plain_err / mass.clamp(min=1e-300)).max())
+    vs_plain = (out - plain).abs()
+    print(f"{name}: vs fp64 max abs {float(err.max()):.3e} max rel to "
+          f"sum|g| {rel:.3e} (plain version: {float(plain_err.max()):.3e}, "
+          f"{plain_rel:.3e}); vs plain max abs {float(vs_plain.max()):.3e}")
+    check(bool(torch.isfinite(out).all()), f"{name}: not finite")
+    check(bool((err <= 4e-6 * mass).all()),
+          f"{name}: off the fp64 sum by {rel:.3e} of sum|g| (tolerance 4e-6)")
+    check(bool((vs_plain.double() <= 5e-4 * mass).all()),
+          f"{name}: off the plain version by more than 5e-4 sum|g|")
+    return float(err.max()), float(vs_plain.max())
 
 
 def check_segsum(name, ids, g, T):
@@ -491,28 +556,12 @@ def check_segsum(name, ids, g, T):
     out = segsum.segment_accumulate(ids, g, T)
     again = segsum.segment_accumulate(ids, g, T)
     torch.cuda.synchronize()
-    plain = segsum.segment_accumulate_plain(ids, g, T)
-    exact = segsum.segment_accumulate_plain(ids, g.double(), T)
-    mass = segsum.segment_accumulate_plain(ids, g.double().abs(), T)
-    err = (out.double() - exact).abs()
-    plain_err = (plain.double() - exact).abs()
-    rel = float((err / mass.clamp(min=1e-300)).max())
-    plain_rel = float((plain_err / mass.clamp(min=1e-300)).max())
-    vs_plain = (out - plain).abs()
     rerun = float((out - again).abs().max())
-    live = int(((ids >= 0) & (ids < T)).sum())
+    live = live_rays(ids, T)
     top = int(torch.bincount(ids[ids >= 0].long(), minlength=1).max())
     print(f"[kernels] segsum {name}: K {K}, R {R}, T {T}, {live} live rays, "
-          f"largest segment {top} rays; vs fp64 max abs {float(err.max()):.3e}"
-          f" max rel to sum|g| {rel:.3e} (plain version: "
-          f"{float(plain_err.max()):.3e}, {plain_rel:.3e}); vs plain max abs "
-          f"{float(vs_plain.max()):.3e}; two launches differ by {rerun:.3e}")
-    check(bool(torch.isfinite(out).all()), f"segsum {name}: not finite")
-    check(bool((err <= 4e-6 * mass).all()),
-          f"segsum {name}: off the fp64 sum by {rel:.3e} of sum|g| "
-          "(tolerance 4e-6)")
-    check(bool((vs_plain.double() <= 5e-4 * mass).all()),
-          f"segsum {name}: off the plain version by more than 5e-4 sum|g|")
+          f"largest segment {top} rays; two launches differ by {rerun:.3e}")
+    err, vs_plain = hold_segsum(f"[kernels] segsum {name}", ids, g, T, out)
 
     col = torch.where((ids >= 0) & (ids < T), ids, T).long()
 
@@ -522,12 +571,11 @@ def check_segsum(name, ids, g, T):
     ms = cuda_ms(lambda: segsum.segment_accumulate(ids, g, T))
     ms_plain = cuda_ms(lambda: segsum.segment_accumulate_plain(ids, g, T))
     ms_lib = cuda_ms(library)
-    b = bound_ms((K + 1) * R * 4 + K * T * 4, K * live)
+    b = segsum_bound(ids, g, T)
     print(f"[kernels] segsum {name}: kernel {ms:.3f} ms, plain {ms_plain:.3f}"
           f" ms, index_add_ {ms_lib:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
-    return dict(max_abs_err=float(err.max()),
-                max_abs_err_vs_plain=float(vs_plain.max()), ms=ms,
+    return dict(max_abs_err=err, max_abs_err_vs_plain=vs_plain, ms=ms,
                 plain_ms=ms_plain, library_ms=ms_lib, **b)
 
 
@@ -608,7 +656,7 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
 
 
 # ---------------------------------------------------------------------------
-# K1 and K2 at the shapes of their redesign (PERF.md, section 6)
+# The redesigned kernels at the shapes of their redesign (PERF.md, section 6)
 # ---------------------------------------------------------------------------
 
 SHAPE_SAMPLE_TILES = 16  # tiles held to the plain version at 65,536 triangles
@@ -630,7 +678,8 @@ def cuda_ms_many(fn, launches: int = 10, warmup: int = 2,
                  reps: int = 5) -> float:
     """Median over ``reps`` of the CUDA-event time of ``launches`` calls of
     fn() back to back, per call, after warm-ups: a short kernel queues
-    behind the previous one instead of waiting for the host."""
+    behind the previous one instead of waiting for the host (unless the
+    host takes longer to enqueue a call than the device to run it)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -646,9 +695,45 @@ def cuda_ms_many(fn, launches: int = 10, warmup: int = 2,
     return statistics.median(times)
 
 
+def dev_us(ev) -> float:
+    """An event's own device time (us) in torch.profiler's key_averages."""
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, calls: int = 10, traces: int = 3) -> float:
+    """Device time per call of fn(): every device row of a torch.profiler
+    trace (kernels, memsets, copies) over ``calls`` calls after a warm-up,
+    summed; the median of ``traces`` traces (a trace now and then misses
+    events, and now and then records none at all: such a trace is taken
+    again, up to ``3 * traces`` traces in all).  Unlike cuda_ms_many, the
+    host's enqueue time is not in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3 * traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(dev_us(ev) for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            times.append(us)
+        if len(times) == traces:
+            break
+    check(len(times) == traces,
+          f"the profiler recorded device time in {len(times)} of "
+          f"{3 * traces} traces")
+    return statistics.median(times) / calls / 1e3
+
+
 class kernels_from:
     """Within the block the kernel wrappers launch the kernels of ``lib``
-    (a library built by cuda_lib.build from another checkout's sources)."""
+    (bind_parent: a library built by cuda_lib.build from another
+    checkout's sources)."""
 
     def __init__(self, lib):
         self.lib = lib
@@ -656,13 +741,37 @@ class kernels_from:
     def __enter__(self):
         from crt_tpu_torch.ops import cuda_lib
 
-        self.load = cuda_lib.load
+        self.saved = cuda_lib.load
         cuda_lib.load = lambda: (self.lib, None)
 
     def __exit__(self, *exc):
         from crt_tpu_torch.ops import cuda_lib
 
-        cuda_lib.load = self.load
+        cuda_lib.load = self.saved
+
+
+def on(lib, fn):
+    """fn() with the kernels of ``lib``, or of this checkout (None)."""
+    if lib is None:
+        return fn()
+    with kernels_from(lib):
+        return fn()
+
+
+def bind_parent(path):
+    """Load another checkout's library with this checkout's interface
+    (cuda_lib.bind); refuse one whose entry points differ."""
+    import ctypes
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    if not hasattr(ctypes.CDLL(path), "crt_live_tiles"):
+        raise RuntimeError(
+            f"{path}: the other checkout's kernels have no crt_live_tiles "
+            "entry, so their K4 and K3 take other arguments than this "
+            "checkout's wrappers pass; --parent needs a checkout with this "
+            "interface")
+    return cuda_lib.bind(path)
 
 
 def sample_tiles(cnt, gen, n=SHAPE_SAMPLE_TILES):
@@ -687,7 +796,7 @@ def k1_shape(tag, name, tables, o, d, act, rows_table, gen=None):
     if gen is None:  # every lane
         compare_hits(f"{tag} {name}", out,
                      closest_hit_plain(tables, o, d, cl, cnt, rows_table))
-        held = "every lane"
+        held = "bit-equal to the plain version on every lane"
     else:  # sampled tiles: the plain version walks long lists slowly
         pick = sample_tiles(cnt, gen)
         lanes = (pick[:, None] * TILE
@@ -698,22 +807,94 @@ def k1_shape(tag, name, tables, o, d, act, rows_table, gen=None):
         got = (out[0][lanes], out[1][lanes],
                None if out[2] is None else out[2][:, lanes])
         compare_hits(f"{tag} {name}", got, sub)
-        held = f"{pick.numel()} sampled tiles"
+        held = f"bit-equal to the plain version on {pick.numel()} sampled tiles"
     act2 = (torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
             if act is None else act).reshape(-1, TILE)
     b = walk_bound(tables, cl, cnt, (o, d),
                    tuple(x for x in out if x is not None), act2,
                    rows_table=rows_table)
-    calls = {"kernel": run, "dead": lambda: run(dead)}
+    calls = {"kernel": lambda lib=None: on(lib, run),
+             "dead": lambda lib=None: on(lib, lambda: run(dead))}
     if rows_table is not None:
-        calls["kp0"] = lambda: run(rows=None)
+        calls["kp0"] = lambda lib=None: on(lib, lambda: run(rows=None))
     kp = 0 if rows_table is None else rows_table.shape[-1]
     return dict(tag=tag, name=name, kernel="K1", calls=calls, out=out,
-                bound=b, held=held,
+                bound=b, held=held, lists=(cl, cnt), act=act2,
                 text=(f"{o.shape[0]} lanes in {cnt.numel()} tiles "
                       f"({int((cnt > 0).sum())} live), list length mean "
                       f"{float(cnt.float().mean()):.3f} max {int(cnt.max())}"
                       f", kp {kp}"))
+
+
+def k4_shape(tag, name, tables, o, d, k1, rows_table):
+    """K4 on the lists of K1's shape ``k1``: bit-equal to its plain
+    version and to K1 on every lane, its tile list equal to the plain
+    one; calls timed beside K1's on the same lists."""
+    from crt_tpu_torch.ops import cluster_trace as ct
+
+    cl, cnt = k1["lists"]
+    dead = torch.zeros_like(cnt)
+
+    def run(lib=None, counts=cnt):
+        return on(lib, lambda: ct.closest_hit_compact(tables, o, d, cl, counts,
+                                                      rows_table))
+
+    def k1_run(lib=None):
+        return on(lib, lambda: ct.closest_hit(tables, o, d, cl, cnt,
+                                              rows_table))
+
+    out = run()
+    compare_hits(f"{tag} {name} vs plain", out,
+                 ct.closest_hit_compact_plain(tables, o, d, cl, cnt,
+                                              rows_table))
+    compare_hits(f"{tag} {name} vs K1", out, k1["out"])
+    ids, n_live = ct.live_tiles(cnt)
+    want_ids, want_n = ct.live_tiles_plain(cnt)
+    check(torch.equal(ids, want_ids) and torch.equal(n_live, want_n),
+          f"{tag} {name}: the live-tile list differs from its plain version")
+    b = walk_bound(tables, cl, cnt, (o, d),
+                   tuple(x for x in out if x is not None), k1["act"],
+                   rows_table=rows_table, small=(ids, n_live))
+    return dict(
+        tag=tag, name=name, kernel="K4", out=out, bound=b,
+        held=("bit-equal to the plain version and to K1 on every lane, its "
+              "tile list equal to the plain one"),
+        calls={"kernel": run, "single": run, "device": run,
+               "dead": lambda lib=None: run(lib, dead), "K1": k1_run,
+               "K1 device": k1_run,
+               "list device": lambda lib=None: on(
+                   lib, lambda: ct.live_tiles(cnt))},
+        timers={"single": cuda_ms, "device": device_ms,
+                "K1 device": device_ms, "list device": device_ms},
+        text=f"{k1['text']}; {int(n_live)} live tiles first")
+
+
+def k3_shape(tag, name, ids, g, T):
+    """K3 on recorded or seeded cotangents: within 4e-6 sum|g| of fp64 and
+    5e-4 sum|g| of the plain version."""
+    from crt_tpu_torch.ops import segsum
+
+    def run(lib=None, ids=ids):
+        return on(lib, lambda: segsum.segment_accumulate(ids, g, T))
+
+    misses = torch.full_like(ids, -1)
+    out = run()
+    torch.cuda.synchronize()
+    hold_segsum(f"{tag} {name}", ids, g, T, out)
+    K, R = g.shape
+    live = live_rays(ids, T)
+    runs = int((ids[1:] != ids[:-1]).sum()) + 1
+    return dict(
+        tag=tag, name=name, kernel="K3", out=out, inputs=(ids, g, T),
+        bound=segsum_bound(ids, g, T),
+        held=("within 4e-6 sum|g| of fp64 and 5e-4 sum|g| of the plain "
+              "version"),
+        calls={"kernel": run, "single": run, "device": run,
+               "misses device": lambda lib=None: run(lib, misses)},
+        timers={"single": cuda_ms, "device": device_ms,
+                "misses device": device_ms},
+        text=(f"K {K}, R {R}, T {T}, {live} live rays in {runs} runs of "
+              "equal ids"))
 
 
 def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
@@ -734,7 +915,7 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
                                  **kw)
         want = want if isinstance(want, tuple) else (want,)
         got = outs
-        held = "every lane"
+        held = "equal to the plain version on every lane"
     else:  # sampled tiles, one light at a time
         pick = sample_tiles(cnt, gen)
         lane = torch.arange(TILE, device=cnt.device)
@@ -753,7 +934,7 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
                 want[i].append(w[i])
         got = [torch.cat(g) for g in got]
         want = [torch.cat(w) for w in want]
-        held = f"{pick.numel()} sampled tiles"
+        held = f"equal to the plain version on {pick.numel()} sampled tiles"
     n_bad = sum(int((g != w).sum()) for g, w in zip(got, want))
     check(n_bad == 0, f"{tag} {name}: {n_bad} lanes differ from the plain "
           "version")
@@ -768,8 +949,9 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
     packed, packed_tests = repacked_rays(shadow_o, point, lights, cnt,
                                          members)
     return dict(tag=tag, name=name, kernel="K2", calls={
-        "kernel": run, "dead": lambda: run(dead)}, out=outs, bound=b,
-        held=held,
+        "kernel": lambda lib=None: on(lib, run),
+        "dead": lambda lib=None: on(lib, lambda: run(dead))},
+        out=outs, bound=b, held=held,
         text=(f"{shadow_o.shape[0] * lights.shape[0]} lanes in {cnt.numel()} tiles "
               f"({int((cnt > 0).sum())} live), list length mean "
               f"{float(cnt.float().mean()):.3f} max {int(cnt.max())}; "
@@ -800,10 +982,10 @@ def repacked_rays(shadow_o, point, lights, cnt, members):
 
 
 def kernel_shapes(device):
-    """K1 and K2 at the shapes of PERF.md's redesign table, in the order
-    [kernels] (opaque bench frame), [glass] (refractive bench frame, its
-    bounce-1 pool recorded from a real frame), [scale] (65,536
-    triangles)."""
+    """K1, K2, K3 and K4 at the shapes of PERF.md's redesign tables, in the
+    order [kernels] (opaque bench frame), [glass] (refractive bench frame,
+    its bounce-1 pool and backward recorded from a real frame), [scale]
+    (65,536 triangles)."""
     from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
     from crt_tpu_torch.ops.cluster_tables import (
         build_cluster_tables, emit_rows_table, glass_subset,
@@ -827,8 +1009,12 @@ def kernel_shapes(device):
     yield prim
     k = prim["out"]
     refl_o, refl_d, refl_act = mirror_bounce(scene, st, o, d, k)
-    yield k1_shape("[kernels]", "K1 opaque masked mirror bounce", tables,
-                   refl_o, refl_d, refl_act, rows_table)
+    bounce = k1_shape("[kernels]", "K1 opaque masked mirror bounce", tables,
+                      refl_o, refl_d, refl_act, rows_table)
+    yield bounce
+    yield k4_shape("[kernels]", "K4 opaque masked mirror bounce", tables,
+                   refl_o, refl_d, bounce, rows_table)
+    del bounce
     w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
                                 kernel_rows=k[2])
     scl, scnt = bin_apex_shared(tables, w["shadow_o"], w["lights"], w["act"],
@@ -837,6 +1023,17 @@ def kernel_shapes(device):
                    w["shadow_o"], w["point"], w["lights"], w["act"], scl,
                    scnt)
     del prim, k, w
+    # the backward of a fit_scene step: the packed rows (K 22) and the
+    # texture colours (K 3) of every shading level
+    calls = record_segsums(scene, keys=TRAINED + ("tex_color_a",))
+    check(len(calls) == 8 and sum(g.shape[0] == 3 for _, g, _ in calls) == 4,
+          f"a fit_scene backward made {len(calls)} segment sums, expected 4 "
+          "of the packed rows and 4 of the texture colours")
+    yield k3_shape("[kernels]", "K3 bench frame, depth-0 cotangents",
+                   *most_live([c for c in calls if c[1].shape[0] != 3]))
+    yield k3_shape("[kernels]", "K3 fit_scene texture colours, depth 0",
+                   *most_live([c for c in calls if c[1].shape[0] == 3]))
+    del calls
 
     # the refractive bench frame
     scene = make_test_scene(**GLASS, device=device)
@@ -844,8 +1041,12 @@ def kernel_shapes(device):
     gm, gmin, gmax = glass_subset(scene, tables)
     rec = record_glass_frame(scene)
     po, pd, pact = rec["traces"][1]
-    yield k1_shape("[glass]", "K1 glass bounce-1 pool", tables, po, pd, pact,
+    pool = k1_shape("[glass]", "K1 glass bounce-1 pool", tables, po, pd, pact,
+                    None)
+    yield pool
+    yield k4_shape("[glass]", "K4 glass bounce-1 pool", tables, po, pd, pool,
                    None)
+    del pool
     point, shadow_o, lights, act_lr, pslack = rec["shadows"][1]
     gcl, gcnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE,
                                 pslack, glass_boxes=(gmin, gmax))
@@ -862,6 +1063,14 @@ def kernel_shapes(device):
                    tables, w["shadow_o"], w["point"], w["lights"], w["act"],
                    ucl, ucnt, capped=False, member_mask=gm)
     del w
+    # the glass backward: per bounce the packed rows over the pool (K 22)
+    # and the ior row (K 1)
+    calls = record_segsums(scene, keys=GLASS_TRAINED)
+    yield k3_shape("[glass]", "K3 glass backward packed rows",
+                   *most_live([c for c in calls if c[1].shape[0] != 1]))
+    yield k3_shape("[glass]", "K3 glass backward ior row",
+                   *most_live([c for c in calls if c[1].shape[0] == 1]))
+    del calls
 
     # 65,536 triangles: the largest scene `auto` sends to this backend
     scene = make_big_scene(**MID, seed=0, device=device)
@@ -872,6 +1081,15 @@ def kernel_shapes(device):
                     None, rows_table, gen=gen)
     yield prim
     k = prim["out"]
+    # the wide band: the primary's slot ranks (K1's last row), seeded
+    # cotangents, as [kernels] segsum takes them
+    ids = torch.where(k[1] >= 0, k[2][-1].to(torch.int32), -1).contiguous()
+    g = torch.randn((k[2].shape[0] - 1, 1024), generator=gen).to(device)
+    g = g.repeat(1, ids.shape[0] // 1024).contiguous()
+    g *= 1.0 + torch.arange(g.shape[1], device=device) % 7
+    yield k3_shape("[scale]", "K3 65,536-triangle wide band", ids, g,
+                   scene.num_triangles)
+    del ids, g
     w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
                                 kernel_rows=k[2])
     del prim, k
@@ -882,88 +1100,111 @@ def kernel_shapes(device):
                    scl, scnt, gen=gen)
 
 
+SHAPE_CALLS = {"kernel": "kernel", "single": "single launch",
+               "device": "device time", "dead": "every count zeroed",
+               "kp0": "kp = 0", "K1": "K1 on the same lists",
+               "K1 device": "K1 device time",
+               "list device": "tile list device time",
+               "misses device": "device time with every id -1"}
+
+
 def phase_shapes(device, parent=None):
-    """K1 and K2 at every shape of kernel_shapes: bit-equal to the plain
-    version (every lane, or sampled tiles at 65,536 triangles) and, given
-    ``parent`` (a library of another checkout's kernels), to its kernels on
-    every lane.  Times (cuda_ms_many) of the launch, of the same launch
-    with every count zeroed (every tile dead: the fixed cost of the output
-    stores and the tiles), and for K1 with rows of the launch with kp = 0;
-    given ``parent``, each in turns: parent, new, new, parent.  Bound and
-    no-FMA floor from this run's inputs."""
-    stats = {}
-    for sh in kernel_shapes(device):
-        tag, name = sh["tag"], sh["name"]
-        held = f"bit-equal to the plain version on {sh['held']}"
-        if parent is not None:
-            with kernels_from(parent):
-                pout = sh["calls"]["kernel"]()
-            if sh["kernel"] == "K1":
-                compare_hits(f"{tag} {name} vs the parent's kernel",
-                             sh["out"], pout)
-            else:
-                pout = pout if isinstance(pout, tuple) else (pout,)
-                check(all(torch.equal(a, b) for a, b in zip(sh["out"], pout)),
-                      f"{tag} {name}: the kernel differs from the parent's")
-            held += " and to the parent's kernel on every lane"
-        times = {}
-        for key, fn in sh["calls"].items():
-            if parent is None:
-                times[key] = [cuda_ms_many(fn)]
-                continue
+    """The redesigned kernels at every shape of kernel_shapes, each held
+    and timed by shape_turns."""
+    return {sh["name"]: shape_turns(sh, parent)
+            for sh in kernel_shapes(device)}
 
-            def in_parent(fn=fn):
-                with kernels_from(parent):
-                    fn()
 
-            p1 = cuda_ms_many(in_parent)
-            n1, n2 = cuda_ms_many(fn), cuda_ms_many(fn)
-            times[key] = [n1, n2, p1, cuda_ms_many(in_parent)]
-        b = sh["bound"]
-        fl = floor_ms(b["member_tests"])
+def shape_turns(sh, parent=None):
+    """One shape of kernel_shapes: K1, K2 and K4 bit-equal to the plain
+    version (every lane, or sampled tiles at 65,536 triangles), K4 also to
+    K1; K3 within its tolerances of fp64 and of the plain version (held by
+    k3_shape).  Given ``parent`` (a library of another checkout's kernels,
+    bind_parent), K1, K2 and K4 also equal to its kernels on every lane,
+    K3 its distance printed.  Times of the shape's calls: cuda_ms_many
+    unless the shape names another timer (a single launch, cuda_ms; device
+    time, device_ms): the launch, the launch with every count zeroed (every
+    tile dead: the fixed cost of the output stores and the tiles), K1 with
+    rows at kp = 0, K4's tile list and K1 on K4's lists, K3 with every id
+    -1; given ``parent``, each in turns: parent, new, new, parent.  Bound
+    and, where the kernel tests members, no-FMA floor from this run's
+    inputs.  -> dict(times, bound_ms)."""
+    tag, name = sh["tag"], sh["name"]
+    held = sh["held"]
+    if parent is not None:
+        pout = sh["calls"]["kernel"](parent)
+        if sh["kernel"] in ("K1", "K4"):
+            compare_hits(f"{tag} {name} vs the parent's kernel",
+                         sh["out"], pout)
+            held += "; equal to the parent's kernel on every lane"
+        elif sh["kernel"] == "K2":
+            pout = pout if isinstance(pout, tuple) else (pout,)
+            check(all(torch.equal(a, b) for a, b in zip(sh["out"], pout)),
+                  f"{tag} {name}: the kernel differs from the parent's")
+            held += "; equal to the parent's kernel on every lane"
+        else:  # atomics: the last bits may differ
+            held += ("; max |new - parent| "
+                     f"{float((sh['out'] - pout).abs().max()):.3e}")
+    timers = sh.get("timers", {})
+    times = {}
+    for key, fn in sh["calls"].items():
+        timer = timers.get(key, cuda_ms_many)
+        if parent is None:
+            times[key] = [timer(fn)]
+            continue
+        p1 = timer(lambda fn=fn: fn(parent))
+        n1, n2 = timer(fn), timer(fn)
+        times[key] = [n1, n2, p1, timer(lambda fn=fn: fn(parent))]
+    b = sh["bound"]
 
-        def fmt(v):
-            text = f"{v[0]:.4f} ms"
-            if len(v) > 1:
-                text += f" ({v[1]:.4f}; parent {v[2]:.4f}, {v[3]:.4f})"
-            return text
+    def fmt(v):
+        text = f"{v[0]:.4f} ms"
+        if len(v) > 1:
+            text += f" ({v[1]:.4f}; parent {v[2]:.4f}, {v[3]:.4f})"
+        return text
 
-        what = {"kernel": "kernel", "dead": "every count zeroed",
-                "kp0": "kp = 0"}
-        print(f"{tag} {name}: {sh['text']}; {held}; "
-              + "; ".join(f"{what[k]} {fmt(v)}" for k, v in times.items())
-              + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-              f"{b['member_tests']} member tests needed), no-FMA floor "
-              f"{fl:.4f} ms")
-        stats[name] = dict(times=times, bound_ms=b["bound_ms"],
-                           floor_ms=fl)
-    return stats
+    if "member_tests" in b:
+        tail = (f", {b['member_tests']} member tests needed), no-FMA "
+                f"floor {floor_ms(b['member_tests']):.4f} ms")
+    else:
+        tail = ")"
+    print(f"{tag} {name}: {sh['text']}; {held}; "
+          + "; ".join(f"{SHAPE_CALLS[k]} {fmt(v)}"
+                      for k, v in times.items())
+          + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}{tail}")
+    return dict(times=times, bound_ms=b["bound_ms"])
 
 
 def profile_turns(device, parent):
     """Profiled device time and launches of the opaque forward and
-    forward+backward frames and the glass scan frame, with the parent's
-    kernels and the new ones in turns (parent, new, new, parent)."""
-    from crt_tpu_torch import render_image
+    forward+backward frames, the glass scan frame and the glass scan frame
+    with compact_bounces, with the parent's kernels and the new ones in
+    turns (parent, new, new, parent), and the redesigned kernels' share."""
+    from crt_tpu_torch import RenderSettings, render_image
     from crt_tpu_torch.scene.procedural import make_test_scene
 
     opaque = make_test_scene(**BENCH, device=device)
     glass = make_test_scene(**GLASS, device=device)
+    compact = RenderSettings(compact_bounces=True)
     frames = (("opaque forward", lambda: render_image(opaque)),
               ("opaque forward+backward", lambda: image_sum_grads(opaque)),
-              ("glass scan forward", lambda: render_image(glass)))
+              ("glass scan forward", lambda: render_image(glass)),
+              ("glass scan forward, compact_bounces",
+               lambda: render_image(glass, compact)))
+    tags = {"K1": "closest_hit_kernel", "K2": "occlusion_w",
+            "K3": "segment_accumulate", "K4": "closest_hit_compact_kernel",
+            "K4 list": "live_tiles_kernel"}
     for name, fn in frames:
         fn()
         torch.cuda.synchronize()
         for who in ("parent", "new", "new", "parent"):
-            if who == "parent":
-                with kernels_from(parent):
-                    dev_ms, n, by_tag = profile_frame(fn)
-            else:
-                dev_ms, n, by_tag = profile_frame(fn)
+            lib = parent if who == "parent" else None
+            dev_ms, n, by_tag = on(lib, lambda: profile_frame(
+                fn, tags=tuple(tags.values())))
             print(f"[turns] {name}, {who} kernels: device {dev_ms:.3f} ms in "
-                  f"{n} launches; K1 {by_tag['closest_hit']:.3f} ms, K2 "
-                  f"{by_tag['occlusion_w']:.3f} ms")
+                  f"{n} launches; " + ", ".join(
+                      f"{k} {by_tag[v]:.3f} ms" for k, v in tags.items()
+                      if by_tag[v] > 0))
 
 
 def reset_launches():
@@ -973,6 +1214,7 @@ def reset_launches():
 
     cluster_trace.closest_hit_launches = 0
     cluster_trace.closest_hit_compact_launches = 0
+    cluster_trace.live_tiles_launches = 0
     cluster_trace.closest_hit_merged_launches = 0
     cluster_trace.occlusion_w_launches = 0
     for mode in cluster_trace.occlusion_w_mode_launches:
@@ -1029,6 +1271,7 @@ def read_glass_launches() -> dict:
     modes = cluster_trace.occlusion_w_mode_launches
     return {"closest_hit": cluster_trace.closest_hit_launches,
             "closest_hit_compact": cluster_trace.closest_hit_compact_launches,
+            "live_tiles": cluster_trace.live_tiles_launches,
             "occlusion_w": modes["capped"],
             "occlusion_w_glass": modes["glass"],
             "occlusion_w_uncapped": modes["uncapped"],
@@ -1448,11 +1691,18 @@ def phase_glass_kernels(device):
     compare_hits("closest_hit_compact vs closest_hit", k4, k1)
     compare_hits("closest_hit on the pool vs plain", k1, p1)
     del p1
-    ms = cuda_ms(lambda: closest_hit_compact(tables, po_, pd_, pcl, pcnt))
-    ms_1 = cuda_ms(lambda: closest_hit(tables, po_, pd_, pcl, pcnt))
+    def k4_call():
+        return closest_hit_compact(tables, po_, pd_, pcl, pcnt)
+
+    def k1_call():
+        return closest_hit(tables, po_, pd_, pcl, pcnt)
+
+    ms, ms_1 = cuda_ms(k4_call), cuda_ms(k1_call)
+    many, many_1 = cuda_ms_many(k4_call), cuda_ms_many(k1_call)
+    dev, dev_1 = device_ms(k4_call), device_ms(k1_call)
     ms_p = cuda_ms(lambda: closest_hit_compact_plain(tables, po_, pd_, pcl,
                                                      pcnt), warmup=1, reps=3)
-    # the permutation and the live count are inputs the launch reads
+    # the tile list and the live count are written and read by the launch
     perm = torch.empty((pcnt.numel() + 1,), dtype=torch.int32, device=device)
     b = walk_bound(tables, pcl, pcnt, (po_, pd_), k4[:2],
                    pact.reshape(-1, TILE), small=(perm,))
@@ -1462,13 +1712,15 @@ def phase_glass_kernels(device):
           f"({int((pcnt > 0).sum())} live, {int(pact.sum())} active lanes, "
           f"{int(pcnt.sum())} walked entries), bit-equal to its plain version "
           f"and to closest_hit, which equals its own plain version there; "
-          f"kernel {ms:.3f} ms, closest_hit on the same lists {ms_1:.3f} ms, "
-          f"plain {ms_p:.3f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}, {tests} member tests, {ray_bytes} ray bytes "
-          "needed)")
+          f"kernel {ms:.3f} ms a single launch, {many:.4f} ms in 10 back "
+          f"to back, device time {dev:.4f} ms; closest_hit on the same lists "
+          f"{ms_1:.3f}, {many_1:.4f}, {dev_1:.4f} ms; plain {ms_p:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {tests} member "
+          f"tests, {ray_bytes} ray bytes needed)")
     stats["closest_hit_compact"] = dict(
-        max_abs_err=err, ms=ms, ms_closest_hit=ms_1, plain_ms=ms_p,
-        library_ms=None, **b)
+        max_abs_err=err, ms=ms, ms_many=many, device_ms=dev,
+        ms_closest_hit=ms_1, ms_many_closest_hit=many_1,
+        device_ms_closest_hit=dev_1, plain_ms=ms_p, library_ms=None, **b)
 
     # the widest segment of the bend-walk: the live 1024-lane blocks
     mo, md, mact = max(rec["march"], key=lambda c: int(c[2].sum()))
@@ -1494,10 +1746,6 @@ def profile_frame(fn, top=0, tag="[refract]",
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
 
     rows = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
@@ -1584,6 +1832,7 @@ def phase_refract(device):
           "compact_bounces=True changed the image")
     check(c_launches["closest_hit"] == 0
           and c_launches["closest_hit_compact"] == launches["closest_hit"]
+          and c_launches["live_tiles"] == c_launches["closest_hit_compact"]
           and c_launches["occlusion_w_glass"] == bounces,
           f"compact_bounces launched {c_launches}")
     print(f"[refract] compact_bounces=True: image bit-equal, every trace a "
@@ -2679,10 +2928,11 @@ def main(argv=None) -> int:
                     help="run only the large-scene, table-layout and "
                     "direction-form phases (no JSON lines)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="time K1 and K2 at their redesign shapes and "
-                    "profile the opaque and glass frames in turns with the "
-                    "kernels built from DIR/crt_tpu_torch/csrc (another "
-                    "checkout's), and nothing else (no JSON lines)")
+                    help="time K1, K2, K3 and K4 at their redesign "
+                    "shapes and profile the opaque and glass frames in "
+                    "turns with the kernels built from "
+                    "DIR/crt_tpu_torch/csrc (another checkout's, with this "
+                    "one's interface), and nothing else (no JSON lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
@@ -2702,7 +2952,7 @@ def main(argv=None) -> int:
                                            "csrc"))
         print(f"[turns] parent kernels {info.path}: {info.seconds:.2f} s in "
               "nvcc")
-        parent = cuda_lib.bind(info.path)
+        parent = bind_parent(info.path)
         phase_shapes(device, parent)
         profile_turns(device, parent)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
@@ -2745,6 +2995,7 @@ def main(argv=None) -> int:
     # printed by [refract] and not counted here.
     launches["occlusion_w_glass"] = glass["occlusion_w_glass"]
     launches["closest_hit_compact"] = compact["closest_hit_compact"]
+    stats["closest_hit_compact"]["live_tiles_launches"] = compact["live_tiles"]
     launches["occlusion_w_uncapped"] = (glass["occlusion_w_uncapped"]
                                         + compact["occlusion_w_uncapped"])
     # the large frame's own path (render_image, default settings; with

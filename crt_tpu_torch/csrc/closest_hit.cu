@@ -51,17 +51,30 @@
 //     loads before the stores, and writes [kp, R] coalesced over R.
 //
 // K4 (live-tile compaction).  A sparse wavefront (a bounce pool whose banks
-// are mostly dead) leaves most tiles with an empty list.  `tile_ids` is a
-// permutation of the tiles with the `n_live` live ones first, built on the
-// device; block group p takes tile tile_ids[p], so the blocks that have a
-// walk to do are scheduled first and together.  Origins are read from tile
-// tile_ids[p] % tile_mod when tile_mod > 0 (per-light shadow tiles share
-// one copy of the pixel origins).  The grid covers every tile and reads
-// n_live on the device, so the launch needs no device-to-host read: group
-// p >= n_live writes its dead tile's miss result (t = +inf, tri = -1, rows
-// 0) and returns.  The walk is K1's (walk_unit), so the outputs are K1's
-// bit for bit.
-//
+// are mostly dead) leaves most tiles with an empty list.  K4 takes K1's
+// persistent loop over a live-first tile list built on the device:
+//   - live_tiles_kernel, one block of CRT_LIST_THREADS threads, writes the
+//     tile ids with a list (counts > 0) first, then the others, each part
+//     in ascending order, and their number n_live behind them: a pass
+//     counts the live tiles, a second places each tile by its warp's ballot
+//     and a block-wide scan, batches of chunks of 1024 tiles a step with
+//     coalesced loads in flight.  A stable scan rather than a warp-aggregated
+//     append: one block needs no counter zeroed before it and the list is
+//     the plain version's (an argsort of the dead flags) to the bit, which
+//     the card tests compare; on the 16,320 tiles of a bounce pool it is a
+//     few microseconds.  It replaces the wrapper's compare, sum, radix-sort
+//     argsort and cast (five or more device kernels and their host time).
+//   - closest_hit_compact_kernel: as many resident 256-thread blocks as
+//     the card holds take items at a stride of the grid
+//     (cluster_common.cuh for_each_listed_item): first the live tiles'
+//     256-lane units in list order, so the blocks walk them together
+//     (walk_unit, K1's walk: K1's outputs bit for bit), then one item per
+//     dead tile, whose miss result (t = +inf, tri = -1, rows 0) the block
+//     writes with 16-byte stores, four lanes a thread.  Origins are read
+//     from tile % tile_mod when tile_mod > 0 (per-light shadow tiles share
+//     one copy of the pixel origins).  Both kernels read n_live on the
+//     device, so the launch needs no device-to-host read.
+
 // K7 (tile merging).  On the TPU one grid step walks `merge` consecutive
 // tiles' lists back to back on static lane windows of one fat block, which
 // amortises the per-step fixed cost over sparse lists while the binning
@@ -299,23 +312,129 @@ __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_kernel(HitArgs a,
                 });
 }
 
-__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_compact_kernel(
-    HitArgs a, const int* __restrict__ n_live,
-    const int* __restrict__ tile_ids, int tile_mod) {
-  __shared__ ClusterRing ring;
-  const int blocks_per_tile = a.tile_rays / CRT_BLOCK;
-  const int group = blockIdx.x / blocks_per_tile;
-  const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
-  const int tile = tile_ids[group];
-  const long long r = (long long)tile * a.tile_rays + lane;
-  if (group >= n_live[0]) {  // a dead tile: the miss result, no walk
-    write_hit(a, r, CUDART_INF_F, -1, -1);
-    return;
+// The miss result of a whole dead tile, four lanes a thread in 16-byte
+// stores (the outputs are 16-byte aligned and tile_rays divides by 4).
+__device__ __forceinline__ void write_miss_tile(const HitArgs& a, int tile) {
+  const long long base = (long long)tile * a.tile_rays;
+  const float inf = CUDART_INF_F;
+  for (int q = 4 * (int)threadIdx.x; q < a.tile_rays; q += 4 * CRT_BLOCK) {
+    *reinterpret_cast<float4*>(a.best_t + base + q) =
+        make_float4(inf, inf, inf, inf);
+    *reinterpret_cast<int4*>(a.best_tri + base + q) = make_int4(-1, -1, -1, -1);
+    for (int k = 0; k < a.kp; ++k)
+      *reinterpret_cast<float4*>(a.rows_out + k * a.num_rays + base + q) =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+}
+
+#define CRT_LIST_THREADS 1024
+#define CRT_LIST_BATCH 16  // 1024-tile chunks whose flags a thread holds
+
+// The live-first tile list of `counts` [tiles] into list [tiles + 1]:
+// live tiles (counts > 0) ascending, then dead ones ascending, then n_live.
+// Thread t takes tiles t, t + 1024, ... (coalesced loads, a batch of them
+// in flight) and places each from its warp's ballot and a scan of the
+// (chunk, warp) counts.  A dead tile's place needs n_live: with more tiles
+// than one batch holds, a first pass counts them.
+__global__ void __launch_bounds__(CRT_LIST_THREADS) live_tiles_kernel(
+    const int* __restrict__ counts, int tiles, int* __restrict__ list) {
+  __shared__ int s_pre[CRT_LIST_BATCH * 32];  // live before (chunk, warp)
+  __shared__ int s_warp[32];
+  __shared__ int s_carry;
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int step = CRT_LIST_BATCH * CRT_LIST_THREADS;
+
+  int n_live = 0;
+  if (tiles > step) {
+    int mine = 0;
+    for (int b0 = 0; b0 < tiles; b0 += step) {
+#pragma unroll
+      for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+        const int tile = b0 + i * CRT_LIST_THREADS + t;
+        mine += tile < tiles && counts[tile] > 0;
+      }
+    }
+    mine = __reduce_add_sync(full, mine);
+    if (lane == 0) s_warp[w] = mine;
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) n_live += s_warp[i];
+  }
+  if (t == 0) s_carry = 0;
+
+  for (int b0 = 0; b0 < tiles; b0 += step) {
+    bool live[CRT_LIST_BATCH];
+    unsigned bits[CRT_LIST_BATCH];
+#pragma unroll
+    for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+      const int tile = b0 + i * CRT_LIST_THREADS + t;
+      live[i] = tile < tiles && counts[tile] > 0;
+    }
+#pragma unroll
+    for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+      bits[i] = __ballot_sync(full, live[i]);
+      if (lane == 0) s_pre[i * 32 + w] = __popc(bits[i]);
+    }
+    __syncthreads();
+    if (w == 0) {  // exclusive scan over (chunk, warp), in tile order
+      int v[CRT_LIST_BATCH], sum = 0;
+#pragma unroll
+      for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+        v[i] = s_pre[lane * CRT_LIST_BATCH + i];
+        sum += v[i];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int y = __shfl_up_sync(full, incl, s);
+        if (lane >= s) incl += y;
+      }
+      int at = s_carry + incl - sum;
+#pragma unroll
+      for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+        s_pre[lane * CRT_LIST_BATCH + i] = at;
+        at += v[i];
+      }
+      __syncwarp();
+      if (lane == 31) s_carry = at;
+    }
+    __syncthreads();
+    if (tiles <= step) n_live = s_carry;  // one batch: its total
+#pragma unroll
+    for (int i = 0; i < CRT_LIST_BATCH; ++i) {
+      const int tile = b0 + i * CRT_LIST_THREADS + t;
+      if (tile < tiles) {
+        // live tiles before this one
+        const int before =
+            s_pre[i * 32 + w] + __popc(bits[i] & ((1u << lane) - 1u));
+        list[live[i] ? before : n_live + (tile - before)] = tile;
+      }
+    }
+    __syncthreads();  // s_pre and s_carry are read before the next batch
+  }
+  if (t == 0) list[tiles] = n_live;
+}
+
+__global__ void __launch_bounds__(CRT_BLOCK) closest_hit_compact_kernel(
+    HitArgs a, const int* __restrict__ list, int tiles, int tile_mod) {
+  __shared__ ClusterRing ring;
+  __shared__ int s_tile[CRT_BLOCK];
+  __shared__ int s_count[CRT_BLOCK];
   const ClusterPlan pl(a.tb);
-  const int o_tile = tile_mod > 0 ? tile % tile_mod : tile;
-  const long long r_o = (long long)o_tile * a.tile_rays + lane;
-  walk_unit(ring, pl, a, r_o, r, tile, a.counts[tile]);
+  const int units_per_tile = a.tile_rays / CRT_BLOCK;
+  for_each_listed_item(
+      tiles, units_per_tile, list, a.counts, s_tile, s_count,
+      [&](long long i, int tile, int count) {
+        if (count == 0) {
+          write_miss_tile(a, tile);
+          return;
+        }
+        const int lane = (int)(i % units_per_tile) * CRT_BLOCK + threadIdx.x;
+        const int o_tile = tile_mod > 0 ? tile % tile_mod : tile;
+        walk_unit(ring, pl, a, (long long)o_tile * a.tile_rays + lane,
+                  (long long)tile * a.tile_rays + lane, tile, count);
+      });
 }
 
 __global__ void __launch_bounds__(CRT_BLOCK) closest_hit_merged_kernel(
@@ -369,24 +488,43 @@ extern "C" int crt_closest_hit(
   return (int)cudaGetLastError();
 }
 
+// The live-first tile list of counts [tiles] into list [tiles + 1].
+extern "C" int crt_live_tiles(const int* counts, int tiles, int* list,
+                              void* stream) {
+  if (tiles < 0) return (int)cudaErrorInvalidValue;
+  live_tiles_kernel<<<1, CRT_LIST_THREADS, 0, (cudaStream_t)stream>>>(
+      counts, tiles, list);
+  return (int)cudaGetLastError();
+}
+
+// K4: the live-tile list into `list` [num_tiles + 1] (scratch, written
+// here), then the closest hit over it.  best_t, best_tri and rows_out must
+// be 16-byte aligned.
 extern "C" int crt_closest_hit_compact(
-    const int* n_live, const int* tile_ids, const float* o, const float* d,
-    const float* n, const float* nv0, const float* m, const float* c,
-    const float* nobf, const int* tid, const int* cluster_list,
-    const int* counts, const float* rows_table, int num_clusters,
-    int num_tiles, int tile_rays, int tile_mod, int kp,
-    float* best_t, int* best_tri, float* rows_out, void* stream) {
+    int* list, const float* o, const float* d, const float* n,
+    const float* nv0, const float* m, const float* c, const float* nobf,
+    const int* tid, const int* cluster_list, const int* counts,
+    const float* rows_table, int num_clusters, int num_tiles, int tile_rays,
+    int tile_mod, int kp, float* best_t, int* best_tri, float* rows_out,
+    void* stream) {
   if (num_tiles <= 0) return 0;
-  if (tile_rays % CRT_BLOCK != 0 || tile_mod < 0)
+  const unsigned long long aligned =
+      (unsigned long long)best_t | (unsigned long long)best_tri |
+      (unsigned long long)rows_out;
+  if (tile_rays % CRT_BLOCK != 0 || tile_mod < 0 || (aligned & 15u) != 0)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  closest_hit_compact_kernel<<<(unsigned)blocks, CRT_BLOCK, 0,
+  const int err = crt_live_tiles(counts, num_tiles, list, stream);
+  if (err != 0) return err;
+  const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
+  const long long grid =
+      persistent_grid((const void*)closest_hit_compact_kernel, units);
+  if (grid <= 0) return (int)cudaGetLastError();
+  closest_hit_compact_kernel<<<(unsigned)grid, CRT_BLOCK, 0,
                                (cudaStream_t)stream>>>(
       hit_args(o, d, n, nv0, m, c, nobf, tid, cluster_list, counts,
                rows_table, num_clusters, num_tiles, tile_rays, kp, best_t,
                best_tri, rows_out),
-      n_live, tile_ids, tile_mod);
+      list, num_tiles, tile_mod);
   return (int)cudaGetLastError();
 }
 

@@ -277,6 +277,45 @@ __device__ __forceinline__ void for_each_unit(long long units,
   }
 }
 
+// The persistent schedule over a live-first tile list (K4).  `list` holds
+// `tiles` tile ids, those with a cluster list first (list[tiles] of them,
+// n_live), then the others, and n_live at list[tiles].  Items i <
+// n_live * units_per_tile are the live tiles' units in list order (item i
+// is unit i % units_per_tile of tile list[i / units_per_tile]); each later
+// item is one whole dead tile.  Block b takes items b, b + G, b + 2G, ...
+// (G the grid), so the resident blocks walk the live units together and
+// then only store misses, and calls visit(i, tile, count), count 0 for a
+// dead tile.  The tiles of CRT_BLOCK items (and the live ones' counts) are
+// read at once into s_tile / s_count.  Uniform over the block.
+template <typename Visit>
+__device__ __forceinline__ void for_each_listed_item(
+    int tiles, int units_per_tile, const int* __restrict__ list,
+    const int* __restrict__ counts, int* s_tile, int* s_count, Visit visit) {
+  const int n_live = list[tiles];
+  const long long live_units = (long long)n_live * units_per_tile;
+  const long long items = live_units + (tiles - n_live);
+  for (long long i0 = blockIdx.x; i0 < items;
+       i0 += (long long)CRT_BLOCK * gridDim.x) {
+    __syncthreads();  // the previous chunk's tiles are read
+    const long long mine = i0 + (long long)threadIdx.x * gridDim.x;
+    int tile = 0, count = 0;
+    if (mine < items) {
+      const bool live = mine < live_units;
+      tile = list[live ? mine / units_per_tile
+                       : n_live + (mine - live_units)];
+      count = live ? counts[tile] : 0;
+    }
+    s_tile[threadIdx.x] = tile;
+    s_count[threadIdx.x] = count;
+    __syncthreads();
+    for (int k = 0; k < CRT_BLOCK; ++k) {
+      const long long i = i0 + (long long)k * gridDim.x;
+      if (i >= items) break;
+      visit(i, s_tile[k], s_count[k]);
+    }
+  }
+}
+
 // The number of blocks of a persistent launch of `kernel`: as many as are
 // resident at once on the current device, at most `units`.  0 on an error
 // (the caller then returns cudaGetLastError()).

@@ -7,7 +7,8 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
     ``_closest_hit_binned``, with emitted packed rows;
   - ``closest_hit_compact`` (K4, ``csrc/closest_hit.cu``) replaces
     ``_trace_kernel_compact`` as launched by
-    ``_closest_hit_binned_compact``: K1 over the live tiles;
+    ``_closest_hit_binned_compact``: K1 over the live tiles, whose list
+    ``live_tiles`` builds on the device;
   - ``closest_hit_merged`` (K7, ``csrc/closest_hit.cu``) replaces
     ``_trace_kernel_merged`` as launched by ``_closest_hit_binned_merged``:
     K1 with ``merge`` tiles per block;
@@ -29,7 +30,7 @@ The plain versions walk the same lists in the same order with the same
 arithmetic, so on the card the kernels must match them bit for bit.
 ``closest_hit_launches`` / ``closest_hit_compact_launches`` /
 ``closest_hit_merged_launches`` / ``occlusion_w_launches`` /
-``occlusion_d_launches`` count kernel launches
+``occlusion_d_launches`` / ``live_tiles_launches`` count kernel launches
 (CUDA launches only; the plain versions do not count);
 ``occlusion_w_mode_launches`` and ``occlusion_d_mode_launches`` split the
 last two by mode.
@@ -63,6 +64,7 @@ _BIGID = 2**30
 # Launch counts of the kernels (plain module-level integers).
 closest_hit_launches = 0
 closest_hit_compact_launches = 0
+live_tiles_launches = 0  # K4's live-list kernel, by either wrapper
 closest_hit_merged_launches = 0
 occlusion_w_launches = 0  # every mode
 occlusion_w_mode_launches = {"capped": 0, "uncapped": 0, "glass": 0}
@@ -193,6 +195,16 @@ def closest_hit_plain(tables: ClusterTables, origins, dirs, cluster_list,
     return best_t.reshape(-1), best_tri.reshape(-1), rows
 
 
+def live_tiles_plain(counts):
+    """Plain version of ``live_tiles``: the stable argsort of the dead
+    flags, as crt_tpu's ``_closest_hit_binned_compact`` orders its tiles,
+    -> (tile_ids [tiles] i32, n_live [1] i32)."""
+    live = counts > 0
+    order = torch.argsort((~live).to(torch.int32), stable=True)
+    return (order.to(torch.int32),
+            live.sum(dtype=torch.int32).reshape(1))
+
+
 def closest_hit_compact_plain(tables: ClusterTables, origins, dirs,
                               cluster_list, counts, rows_table=None,
                               tile_mod: int = 0):
@@ -204,10 +216,9 @@ def closest_hit_compact_plain(tables: ClusterTables, origins, dirs,
     tiles = counts.shape[0]
     dev = dirs.device
     R = tiles * TILE_RAYS
-    live = counts > 0
-    order = torch.argsort((~live).to(torch.int32), stable=True)
-    n_live = int(live.sum())
-    ids = order[:n_live]
+    order, n_live = live_tiles_plain(counts)
+    n_live = int(n_live)
+    ids = order[:n_live].long()
     o_ids = ids % tile_mod if tile_mod else ids
     lanes = torch.arange(TILE_RAYS, device=dev)
     t = torch.full((R,), float("inf"), device=dev)
@@ -467,17 +478,47 @@ def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
     return best_t, best_tri, rows
 
 
+def live_tiles(counts):
+    """The live-first tile list of ``counts`` [tiles] i32 ->
+    (tile_ids [tiles] i32, n_live [1] i32): the tiles with counts > 0 in
+    ascending order, then the others in ascending order, and how many are
+    live.  On the card one block of ``live_tiles_kernel``
+    (``csrc/closest_hit.cu``), which ``closest_hit_compact`` launches
+    itself; ``live_tiles_plain`` for CPU tensors.  Both equal bit for bit.
+    """
+    _require(counts.dtype == torch.int32 and counts.is_contiguous()
+             and counts.dim() == 1, "counts must be a contiguous int32 [tiles]")
+    dev = counts.device
+    if dev.type == "cpu":
+        return live_tiles_plain(counts)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"live_tiles has no kernel for {dev}")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    tiles = counts.shape[0]
+    lst = torch.empty((tiles + 1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.crt_live_tiles(counts.data_ptr(), tiles, lst.data_ptr(),
+                                 _cuda_stream(dev))
+    _raise_on(err, "live_tiles")
+    global live_tiles_launches
+    live_tiles_launches += 1
+    return lst[:tiles], lst[tiles:]
+
+
 def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
                         counts, rows_table=None, tile_mod: int = 0):
     """K4: ``closest_hit`` launched over the live tiles (counts > 0).
 
-    A live-first tile permutation and the live count are built on the
-    device from ``counts``; tiles with an empty list get the miss result
-    (t = inf, tri = -1, rows 0).  With ``tile_mod`` > 0 ``origins`` is
-    [tile_mod * TILE_RAYS, 3] and tile i reads origin tile i % tile_mod.
-    The launch covers every tile and reads the live count on the device,
-    so it needs no device-to-host read.  Outputs equal ``closest_hit``'s
-    on the same lists bit for bit.
+    A live-first tile list and the live count are built on the device from
+    ``counts`` (``live_tiles``' kernel, launched by the same call); tiles
+    with an empty list get the miss result (t = inf, tri = -1, rows 0).
+    With ``tile_mod`` > 0 ``origins`` is [tile_mod * TILE_RAYS, 3] and tile
+    i reads origin tile i % tile_mod.  The launch reads the live count on
+    the device, so it needs no device-to-host read.  Outputs equal
+    ``closest_hit``'s on the same lists bit for bit.
     """
     dev = dirs.device
     R = dirs.shape[0]
@@ -503,18 +544,19 @@ def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
     from crt_tpu_torch.ops import cuda_lib
 
     lib, _ = cuda_lib.load()
-    live = counts > 0
-    n_live = live.sum(dtype=torch.int32).reshape(1)
-    tile_ids = torch.argsort((~live).to(torch.int32),
-                             stable=True).to(torch.int32)
     best_t = torch.empty((R,), dtype=torch.float32, device=dev)
-    best_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    # tri, then the scratch the launch writes its live-first tile list and
+    # n_live into (one allocation: the wrapper's host time is the launch's
+    # floor on a sparse wavefront)
+    tri_and_list = torch.empty((R + tiles + 1,), dtype=torch.int32,
+                               device=dev)
+    best_tri = tri_and_list[:R]
     rows = (torch.empty((kp, R), dtype=torch.float32, device=dev)
             if kp else None)
     if tiles:
         with torch.cuda.device(dev):
             err = lib.crt_closest_hit_compact(
-                n_live.data_ptr(), tile_ids.data_ptr(),
+                tri_and_list.data_ptr() + 4 * R,
                 origins.data_ptr(), dirs.data_ptr(), tables.n.data_ptr(),
                 tables.nv0.data_ptr(), tables.m.data_ptr(),
                 tables.c.data_ptr(), tables.nobf.data_ptr(),
@@ -527,8 +569,9 @@ def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
                 _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_compact")
-        global closest_hit_compact_launches
+        global closest_hit_compact_launches, live_tiles_launches
         closest_hit_compact_launches += 1
+        live_tiles_launches += 1
     return best_t, best_tri, rows
 
 

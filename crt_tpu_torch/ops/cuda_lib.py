@@ -110,8 +110,10 @@ def bind(path: str) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crt_closest_hit.argtypes = [p] * 11 + [i] * 4 + [p] * 4
     lib.crt_closest_hit.restype = i
-    lib.crt_closest_hit_compact.argtypes = [p] * 13 + [i] * 5 + [p] * 4
+    lib.crt_closest_hit_compact.argtypes = [p] * 12 + [i] * 5 + [p] * 4
     lib.crt_closest_hit_compact.restype = i
+    lib.crt_live_tiles.argtypes = [p, i, p, p]
+    lib.crt_live_tiles.restype = i
     lib.crt_occlusion_w.argtypes = [p] * 11 + [i] * 7 + [p] * 3
     lib.crt_occlusion_w.restype = i
     lib.crt_occlusion_d.argtypes = [p] * 11 + [i] * 4 + [p] * 2

@@ -75,16 +75,17 @@ def segment_accumulate(ids: torch.Tensor, g: torch.Tensor,
     from crt_tpu_torch.ops.cluster_trace import _cuda_stream, _raise_on
 
     lib, _ = cuda_lib.load()
-    out = torch.zeros((K, T), dtype=torch.float32, device=dev)
-    if K and R and T:
+    out = torch.empty((K, T), dtype=torch.float32, device=dev)
+    if K and T:  # the entry point zeroes out, then launches when R > 0
         with torch.cuda.device(dev):
             err = lib.crt_segment_accumulate(
                 g.data_ptr(), ids.data_ptr(), K, R, T,
                 out.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "segment_accumulate")
-        global segsum_launches
-        segsum_launches += 1
+        if R:
+            global segsum_launches
+            segsum_launches += 1
     return out
 
 

@@ -477,6 +477,90 @@ def test_closest_hit_compact_matches_plain_and_k1(device, case):
         assert (k[1] >= 0).any() and (cnt == 0).any()
 
 
+@pytest.fixture(scope="module")
+def wide_wavefront(device):
+    """A 1024x512 wavefront (512 tiles, 2,048 units: more than the
+    persistent grid's blocks) of a 24-quad scene, its tables and rows."""
+    scene = make_test_scene(1024, 512, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    o, d = _wavefront(scene)
+    return tables, rows_table, o, d
+
+
+@pytest.mark.parametrize("rows", [False, True])
+@pytest.mark.parametrize("tile_mod", [False, True])
+@pytest.mark.parametrize("layout", ["first", "last", "interleaved", "none"])
+def test_closest_hit_compact_live_tile_layouts(device, wide_wavefront,
+                                               layout, tile_mod, rows):
+    """K4 where the live tiles come first, last, interleaved with dead ones
+    or not at all, with and without wrapped origin tiles and rows: bit-equal
+    to its plain version and to K1 on every lane, misses on dead tiles;
+    one K4 launch and one of its tile list."""
+    tables, rows_table, o, d = wide_wavefront
+    rows_table = rows_table if rows else None
+    tiles = o.shape[0] // 1024
+    tile = torch.arange(o.shape[0], device=device) // 1024
+    keep = dict(first=tile < tiles // 5, last=tile >= tiles - tiles // 5,
+                interleaved=(tile % 7 == 2) | (tile % 11 == 5),
+                none=torch.zeros_like(tile, dtype=torch.bool))[layout]
+    act = keep & (torch.arange(o.shape[0], device=device) % 5 != 0)
+    o_full, mod = o, 0
+    if tile_mod:  # a second set of directions over the same origins
+        mod = tiles
+        d = torch.cat([d, d.flip(0)]).contiguous()
+        act = torch.cat([act.flip(0), act])
+        o_full = torch.cat([o, o]).contiguous()
+    cl, cnt = binning.bin_rays(tables, o_full, d, 1024, act)
+    before = (cluster_trace.closest_hit_compact_launches,
+              cluster_trace.live_tiles_launches)
+    k = cluster_trace.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
+                                          tile_mod=mod)
+    assert (cluster_trace.closest_hit_compact_launches,
+            cluster_trace.live_tiles_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    p = cluster_trace.closest_hit_compact_plain(tables, o, d, cl, cnt,
+                                                rows_table, mod)
+    k1 = cluster_trace.closest_hit(tables, o_full, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    _hits_equal(k, p)
+    _hits_equal(k, k1)
+    dead = (cnt == 0).repeat_interleave(1024)
+    assert (k[1][dead] == -1).all() and torch.isinf(k[0][dead]).all()
+    if rows:
+        assert not k[2][:, dead].any()
+    if layout == "none":
+        assert dead.all()
+    else:
+        assert (cnt > 0).any() and dead.any()
+
+
+@pytest.mark.parametrize("pattern", ["none", "all", "random", "first",
+                                     "last"])
+@pytest.mark.parametrize("tiles", [1, 1000, 16320, 70001])
+def test_live_tiles_matches_plain(device, tiles, pattern):
+    """K4's live-list kernel: the live tiles ascending, then the dead ones
+    ascending, then their number; equal to the plain version (the stable
+    argsort) for any tile count, more tiles than the block's threads
+    included."""
+    gen = torch.Generator().manual_seed(tiles)
+    counts = torch.randint(0, 3, (tiles,), generator=gen, dtype=torch.int32)
+    pos = torch.arange(tiles)
+    counts = dict(none=torch.zeros_like(counts),
+                  all=counts + 1, random=counts,
+                  first=torch.where(pos < tiles // 3 + 1, counts + 1, 0),
+                  last=torch.where(pos >= tiles // 2, counts + 1, 0)
+                  )[pattern].to(torch.int32).to(device)
+    before = cluster_trace.live_tiles_launches
+    ids, n_live = cluster_trace.live_tiles(counts)
+    assert cluster_trace.live_tiles_launches == before + 1
+    want_ids, want_n = cluster_trace.live_tiles_plain(counts)
+    torch.cuda.synchronize()
+    assert ids.dtype == torch.int32 and n_live.dtype == torch.int32
+    assert torch.equal(n_live, want_n) and torch.equal(ids, want_ids)
+    assert int(n_live) == int((counts > 0).sum())
+
+
 @pytest.mark.parametrize("merge", [2, 4])
 def test_closest_hit_merged_matches_plain_and_k1(device, merge):
     """K7 vs its plain version and vs K1 on the same lists, bit for bit
@@ -953,6 +1037,15 @@ def _segsum_case(name, R, T, device):
         ids[::97] = -1
     elif name == "one_segment":  # every ray on one id: worst contention
         ids = torch.full((R,), T // 2)
+    elif name == "runs":  # runs of 1 to 300 rays across warps and blocks
+        lens = torch.randint(1, 300, (R // 100,), generator=gen)
+        seg = torch.randint(-1, T, (R // 100,), generator=gen)
+        ids = seg.repeat_interleave(lens)[:R]
+        ids = torch.cat([ids, torch.full((R - ids.numel(),), -1)])
+    elif name == "beyond_T":  # runs of valid ids among ids >= T and -1
+        ids = torch.randint(-1, 2 * T, (R // 16,), generator=gen)
+        ids = ids.repeat_interleave(16)[:R]
+        ids = torch.cat([ids, torch.full((R - ids.numel(),), T)])
     else:  # all misses
         ids = torch.full((R,), -1)
     return ids.to(torch.int32).to(device)
@@ -986,6 +1079,63 @@ def test_segsum_kernel_matches_plain_and_fp64(device, name, K):
     exact = segsum.segment_accumulate_plain(
         wide, g[:, :20_000].double(), 65_536)
     torch.testing.assert_close(out.double(), exact, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["runs", "one_segment", "all_miss",
+                                  "beyond_T", "wide"])
+@pytest.mark.parametrize("r_mod", [1, 2, 3])
+@pytest.mark.parametrize("K", [1, 3, 22, 31])
+def test_segsum_kernel_shapes(device, K, r_mod, case):
+    """K3 at the row counts the port launches it with (1: the ior row, 3:
+    texture colours, 22: packed rows) and one more, with R not a multiple
+    of 4 (rows past the first are not 16-byte aligned), within 4e-6 of
+    each segment's sum|g| of an fp64 sum and 5e-4 of the plain version;
+    "wide" spreads random ids over 65,536 segments (the direct-global
+    path)."""
+    R = 300_000 + r_mod
+    T = 65_536 if case == "wide" else 700
+    ids = _segsum_case("random" if case == "wide" else case, R, T, device)
+    g = torch.randn((K, R), generator=torch.Generator().manual_seed(K)
+                    ).to(device)
+    before = segsum.segsum_launches
+    out = segsum.segment_accumulate(ids, g, T)
+    assert segsum.segsum_launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (K, T) and out.dtype == torch.float32
+    plain = segsum.segment_accumulate_plain(ids, g, T)
+    exact = segsum.segment_accumulate_plain(ids, g.double(), T)
+    mass = segsum.segment_accumulate_plain(ids, g.double().abs(), T)
+    assert bool(((out.double() - exact).abs() <= 4e-6 * mass).all())
+    assert bool(((out - plain).abs().double() <= 5e-4 * mass).all())
+    assert out.any() == (case != "all_miss")
+
+
+@pytest.mark.parametrize("case", ["random", "all_miss", "beyond_T"])
+@pytest.mark.parametrize("R", [1, 66, 256, 257, 5_000, 140_000])
+@pytest.mark.parametrize("K,T", [(1, 4), (22, 66), (3, 700)])
+def test_segsum_kernel_few_rays(device, K, T, R, case):
+    """K3 where the rays fill few blocks: a warp walks fewer steps, and a
+    launch of one block whose accumulators hold every id (K 1, T 4: the
+    glass backward's ior row; K 22, T 66) writes the whole output itself,
+    zeros included, over memory that held NaN; within 4e-6 of each
+    segment's sum|g| of an fp64 sum and 5e-4 of the plain version."""
+    ids = _segsum_case(case, R, T, device)
+    g = torch.randn((K, R), generator=torch.Generator().manual_seed(R)
+                    ).to(device)
+    poison = torch.full((K, T), float("nan"), device=device)
+    del poison  # the caching allocator hands its block to the output
+    before = segsum.segsum_launches
+    out = segsum.segment_accumulate(ids, g, T)
+    assert segsum.segsum_launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (K, T) and bool(torch.isfinite(out).all())
+    plain = segsum.segment_accumulate_plain(ids, g, T)
+    exact = segsum.segment_accumulate_plain(ids, g.double(), T)
+    mass = segsum.segment_accumulate_plain(ids, g.double().abs(), T)
+    assert bool(((out.double() - exact).abs() <= 4e-6 * mass).all())
+    assert bool(((out - plain).abs().double() <= 5e-4 * mass).all())
+    if case == "all_miss":
+        assert not out.any()
 
 
 def test_grads_on_card_match_cpu(device):

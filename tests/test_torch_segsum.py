@@ -62,7 +62,29 @@ def banded_case():
     return tri, g, T, rank
 
 
-CASES = {"random": random_case, "banded": banded_case}
+def runs_case(seed, R, K, T, miss):
+    """Ids in runs of 1 to 80 rays (as consecutive pixels hit one
+    triangle), a share ``miss`` of the runs -1."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 80, size=R)
+    ids = rng.integers(0, T, size=R)
+    ids[rng.random(R) < miss] = -1
+    tri = np.repeat(ids, lens)[:R].astype(np.int32)
+    g = rng.normal(size=(K, R)).astype(np.float32)
+    return tri, g, T, rng.permutation(T).astype(np.int32)
+
+
+CASES = {
+    "random": random_case,
+    "banded": banded_case,
+    # the texture colours of a fit_scene step: K = 3, every ray on one of
+    # 3 segments; R = 1 (mod 4), as K3's rows past the first then are not
+    # 16-byte aligned
+    "texture_k3": lambda: runs_case(17, 301, 3, 3, 0.0),
+    # packed rows (K = 22) at R = 2 (mod 4), the ior row (K = 1) at 3
+    "rows_k22": lambda: runs_case(19, 2050, 22, 66, 0.3),
+    "ior_k1": lambda: runs_case(23, 1027, 1, 5, 0.5),
+}
 
 
 def fp64_reference(tri, g, T):

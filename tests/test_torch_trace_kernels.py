@@ -178,6 +178,23 @@ def scene_ref_jit(s, tables, rows_table, trace, o, d):
         tables, planes(b_o), d2_t, cl, cnt, 1024, True, tile_mod=tiles)
     res["mod/t"], res["mod/tri"] = bt.reshape(-1), bi.reshape(-1)
 
+    # K4 on the primary wavefront with no live tile and with one, and the
+    # live-first order its launcher builds (pallas_trace.py
+    # _closest_hit_binned_compact: live = counts > 0, a stable argsort)
+    tile = jnp.arange(R) // 1024
+    for wave, a in (("dead", jnp.zeros(R, bool)),
+                    ("one", valid & (tile == tiles // 2))):
+        cl, cnt = pt.bin_rays(tables, o, d, 1024, a)
+        bt, bi, br = pt._closest_hit_binned_compact(
+            tables, planes(o), planes(d), cl, cnt, 1024, True,
+            rows_table=rows_table)
+        live = cnt > 0
+        res[wave + "_act"] = a
+        res[wave + "/order"] = jnp.argsort(~live, stable=True).astype(jnp.int32)
+        res[wave + "/n_live"] = jnp.sum(live, dtype=jnp.int32)
+        res[wave + "/t"], res[wave + "/tri"] = bt.reshape(-1), bi.reshape(-1)
+        res[wave + "/rows"] = jnp.moveaxis(br, 1, 0).reshape(br.shape[1], -1)
+
     if s.has_refractive:
         # K2's other modes, with the factory's glass subset rebuilt here
         ids = jnp.maximum(tables.tri_id, 0)
@@ -328,6 +345,30 @@ def test_closest_hit_compact_plain_matches_pallas(ref, name, wave):
         np.testing.assert_array_equal(rows.numpy(), ref[p + "/rows"])
         assert torch.equal(rows, rows1)
     assert (tri >= 0).any() and (tri < 0).any()
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+@pytest.mark.parametrize("wave", ["dead", "one"])
+def test_compact_plain_and_live_list_match_pallas_sparse(ref, name, wave):
+    """K4's tile list (``live_tiles``, its plain version on CPU tensors) vs
+    the live-first order ``_closest_hit_binned_compact`` builds, and K4's
+    plain version vs that launch in interpret mode, on a wavefront with no
+    live tile and on one with a single live tile: t, tri and rows equal."""
+    _, tables, rows_table = _tables(name)
+    o, d = T(ref[name + "/o"]), T(ref[name + "/d"])
+    cl, cnt = tbin.bin_rays(tables, o, d, 1024, T(ref[f"{name}/{wave}_act"]))
+    assert int((cnt > 0).sum()) == (0 if wave == "dead" else 1)
+    p = f"{name}/{wave}"
+    ttr.live_tiles_launches = ttr.closest_hit_compact_launches = 0
+    ids, n_live = ttr.live_tiles(cnt)
+    np.testing.assert_array_equal(ids.numpy(), ref[p + "/order"])
+    assert int(n_live) == int(ref[p + "/n_live"])
+    t, tri, rows = ttr.closest_hit_compact(tables, o, d, cl, cnt, rows_table)
+    assert ttr.live_tiles_launches == ttr.closest_hit_compact_launches == 0
+    np.testing.assert_array_equal(tri.numpy(), ref[p + "/tri"])
+    np.testing.assert_array_equal(t.numpy(), ref[p + "/t"])
+    np.testing.assert_array_equal(rows.numpy(), ref[p + "/rows"])
+    assert (tri >= 0).any() == (wave == "one")
 
 
 def test_glass_subset_matches_crt_tpu(ref):
