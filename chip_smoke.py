@@ -21,31 +21,36 @@ Phases, each printing what it found; any failure raises (exit code != 0):
   4. scale: make_big_scene(65536) at 1920x1080 (4096 clusters): the
      closest-hit kernel vs its plain version on 16 sampled tiles (bit-equal)
      and vs the all-pairs backend on 8192 sampled rays; then the closest
-     hit (K1), the w-occlusion (K2), the segment sum (K3) and the
-     live-tile compacted closest hit (K4) at the shapes of their redesign,
-     each line tagged with the phase its inputs come from ([kernels]: the
-     opaque primary, the masked mirror bounce (K1 and K4), the capped
-     depth-0 shadow wavefront, the depth-0 cotangents of the packed rows
-     and of the texture colours recorded from a real fit_scene backward;
+     hit (K1), the w-occlusion (K2), the segment sum (K3), the live-tile
+     compacted closest hit (K4) and the direction-form occlusion (K5 on
+     shaft lists, K6 on generic lists seeded with the inactive lanes) at
+     the shapes of their redesign, each line tagged with the phase its
+     inputs come from ([kernels]: the opaque primary, the masked mirror
+     bounce (K1 and K4), the capped depth-0 shadow wavefront (K2, and K5 /
+     K6 in the direction form), the depth-1 shadow pass of a real frame
+     with the w form off (K5 / K6), the depth-0 cotangents of the packed
+     rows and of the texture colours recorded from a real fit_scene
+     backward;
      [glass]: the bounce-1 pool's trace (K1 and K4) and glass-flag pass
      recorded from a real frame, the uncapped member-masked pass, the
      segment sums of a real glass backward over the packed rows of the
      pool and over the ior row; [scale]:
      the 65,536-triangle primary, the segment sum over its wide id band,
-     and its capped depth-0 shadow wavefront): K1, K2 and K4 bit-equal to
-     the plain version on every lane (on 16 seeded tiles at 65,536
-     triangles), K4 also to K1 and its live-tile list to the plain one, K3
-     within its tolerances of fp64 and of the plain version; list lengths,
-     the kernel's time (10 launches back to back between CUDA events,
-     median of 5 after 2 warm-ups; for K3 and K4 also a single launch and
-     the device time a profiler reads, which leaves the wrapper's host
-     time out), the time of the same launch with every count zeroed (every
-     tile dead: the fixed cost of the tiles and the output stores), for K1
-     with rows the time at kp = 0 (the rows epilogue), for K2 the member
-     tests a walk without any exit would do beside those the answer needs,
-     for K4 K1's times on the same lists and its tile list's device time,
-     for K3 the device time with every id -1, the bound and the no-FMA
-     floor;
+     and its depth-0 shadow wavefront, capped (K2) and in the direction
+     form (K5 / K6)): K1, K2, K4, K5 and K6 bit-equal to the plain version
+     on every lane (on 16 seeded tiles at 65,536 triangles), K4 also to K1
+     and its live-tile list to the plain one, K3 within its tolerances of
+     fp64 and of the plain version; list lengths, the kernel's time (10
+     launches back to back between CUDA events, median of 5 after 2
+     warm-ups; for K3-K6 also a single launch and the device time a
+     profiler reads, which leaves the wrapper's host time out), the time
+     of the same launch with every count zeroed (every tile dead: the
+     fixed cost of the tiles and the output stores), for K1 with rows the
+     time at kp = 0 (the rows epilogue), for K2, K5 and K6 the member
+     tests a walk without any exit would do beside those the answer needs
+     and the rays left after repacking, for K4 K1's times on the same
+     lists and its tile list's device time, for K3 the device time with
+     every id -1, the bound and the no-FMA floor;
   5. main path: the CLI renders the benchmark scene from a .crtscene file
      (launch counts reset just before, read just after: 4 and 4 expected);
      render_image on the card vs the all-pairs backend and vs the CPU
@@ -167,13 +172,15 @@ three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
 ``--large`` runs phases 10 to 14 only.  ``--parent DIR`` builds the
 kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files)
-beside this one's and runs only phase 4's K1 / K2 / K3 / K4 shapes, K1,
-K2 and K4 also held to the other build's kernel on every lane (K3's
+beside this one's and runs only phase 4's K1-K6 shapes, K1, K2, K4, K5
+and K6 also held to the other build's kernel on every lane (K3's
 distance from it printed: its atomics add in another order) and every
 time taken in turns (other, this, this, other), then profiles the opaque
-forward and forward+backward frames, the glass scan frame and the glass
-scan frame with compact_bounces with each build in the same turns (device
-time and launches, each redesigned kernel's share); no JSON lines.  The
+forward and forward+backward frames, the opaque forward frame with the w
+form off (4 K5) and shaded with use_occlusion_kernel=True (4 K6), the
+glass scan frame and the glass scan frame with compact_bounces with each
+build in the same turns (device time, launches, each redesigned kernel's
+share); no JSON lines.  The
 other checkout's kernels must have this one's entry points and
 signatures (a library without ``crt_live_tiles`` is refused).
 
@@ -221,8 +228,9 @@ TRAINED = ("vertices", "light_intensity", "cam_position")
 # and dense fp32 rate outside the tensor cores.
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
-# member_t of csrc/cluster_common.cuh: two 3-dots and a subtract for the
-# plane, a divide, and per edge two 3-dots, a subtract, a multiply, an add.
+# The member test of csrc/cluster_common.cuh: two 3-dots and a subtract for
+# the plane, a divide, and per edge two 3-dots, a subtract, a multiply, an
+# add.
 FLOPS_PER_MEMBER = 5 + 5 + 1 + 1 + 3 * 13
 # The no-FMA floor of a bit-exact member test: the kernels are built with
 # -fmad=false, so each of the 50 multiplies and adds is an FP32 instruction
@@ -232,6 +240,9 @@ FLOPS_PER_MEMBER = 5 + 5 + 1 + 1 + 3 * 13
 # second (the rate counts an FMA as two flops).
 NOFMA_SLOTS_PER_MEMBER = 50 + 9
 H100_FP32_ISSUE = H100_FP32_FLOPS / 2
+# csrc/cluster_common.cuh CRT_VOTE_LIST: K5 / K6 pack repeated rays on
+# longer lists only.
+VOTE_LIST = 32
 
 
 def bound_ms(num_bytes: float, flops: float) -> dict:
@@ -946,8 +957,10 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
                    small=(lights,) + (() if gm is None else (gm,)))
     members = tile_members(tables, cl, cnt)
     no_exit = int(members.sum()) * TILE
-    packed, packed_tests = repacked_rays(shadow_o, point, lights, cnt,
-                                         members)
+    Ll = lights.shape[0]
+    w = (lights[:, None, :] - point[None]).reshape(-1, 3)
+    packed, packed_tests = repacked_rays(
+        torch.cat([shadow_o.repeat(Ll, 1), w], dim=1), cnt, members)
     return dict(tag=tag, name=name, kernel="K2", calls={
         "kernel": lambda lib=None: on(lib, run),
         "dead": lambda lib=None: on(lib, lambda: run(dead))},
@@ -963,27 +976,163 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
               f"any exit {packed_tests}"))
 
 
-def repacked_rays(shadow_o, point, lights, cnt, members):
-    """K2's repacking of a shadow wavefront: (rays walked, member tests of
-    the warps they fill) on the tiles with a list.  A lane whose ray (o and
-    w = light - p, bit for bit) is its warp's first lane's is not walked;
-    the other rays of each 256-lane unit fill ceil(n / 32) warps."""
-    Ll = lights.shape[0]
-    w = (lights[:, None, :] - point[None]).reshape(-1, 3)
-    ray = torch.cat([shadow_o.repeat(Ll, 1), w], dim=1).contiguous()
-    bits = ray.view(torch.int32).reshape(-1, 32, 6)
-    own = (bits != bits[:, :1]).any(dim=2)
-    own[:, 0] = True
+def repacked_rays(ray, cnt, members, open_lanes=None, pack_above=-1):
+    """The repacking of K2, K5 and K6: (rays walked, member tests of the
+    warps they fill) on the tiles with a list.  ``ray`` [R, k] holds each
+    lane's ray (K2: o and w = light - p; K5 / K6: o, d and r2); only the
+    ``open_lanes`` (K6: the unseeded ones; None: all) are walked.  On a
+    tile whose list is longer than ``pack_above`` clusters (K2: every
+    tile; K5 / K6: CRT_VOTE_LIST) a lane whose ray is, bit for bit, its
+    warp's first open lane's is not walked, and the other rays of each
+    256-lane unit fill ceil(n / 32) warps; on the others every warp with
+    an open lane walks."""
+    bits = ray.contiguous().view(torch.int32).reshape(-1, 32, ray.shape[1])
+    if open_lanes is None:
+        open_lanes = torch.ones(bits.shape[:2], dtype=torch.bool,
+                                device=ray.device)
+    open_lanes = open_lanes.reshape(-1, 32)
+    lead = open_lanes.to(torch.int32).argmax(dim=1)  # the first open lane
+    first = bits[torch.arange(bits.shape[0], device=ray.device), lead]
+    is_lead = torch.arange(32, device=ray.device) == lead[:, None]
+    own = open_lanes & ((bits != first[:, None]).any(dim=2) | is_lead)
     per_unit = own.reshape(-1, 256).sum(dim=1)
-    live = (cnt > 0).repeat_interleave(TILE // 256)
     warps = torch.div(per_unit + 31, 32, rounding_mode="floor")
+    unpacked = (cnt <= pack_above).repeat_interleave(TILE // 256)
+    per_unit = torch.where(unpacked, open_lanes.reshape(-1, 256).sum(dim=1),
+                           per_unit)
+    warps = torch.where(unpacked,
+                        open_lanes.reshape(-1, 8, 32).any(dim=2).sum(dim=1),
+                        warps)
+    live = (cnt > 0).repeat_interleave(TILE // 256)
     tests = warps * 32 * members.repeat_interleave(TILE // 256)
     return int(per_unit[live].sum()), int(tests[live].sum())
 
 
+def direction_inputs(tables, shadow_o, ldir, r2, lights, act, slack):
+    """K5's and K6's inputs on one shadow wavefront (shadow_o [R, 3], ldir
+    [Ll, R, 3], r2 and act [Ll, R]), as ``trace.shadow_apex`` and
+    ``trace.occluded`` build them: the flat o, d, r2 and active lanes,
+    K5's shaft lists (bin_rays' apex mode) and K6's generic lists."""
+    from crt_tpu_torch.ops.binning import bin_rays
+
+    Ll, R = r2.shape
+    tpl = R // TILE
+    o_f = shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous()
+    d_f = ldir.reshape(-1, 3).contiguous()
+    a_f = act.reshape(-1)
+    return dict(o=shadow_o.contiguous(), o_f=o_f, d_f=d_f,
+                r2_f=r2.reshape(-1).contiguous(), a_f=a_f, tpl=tpl,
+                shaft=bin_rays(tables, o_f, d_f, TILE, a_f,
+                               apex=lights.repeat_interleave(tpl, dim=0),
+                               apex_slack=slack),
+                generic=bin_rays(tables, o_f, d_f, TILE, a_f))
+
+
+def kd_shape(tag, name, tables, w, exit=False, gen=None):
+    """K5 (shaft lists, origin tiles stored once) or K6 (``exit``: generic
+    lists, seeded with the inactive lanes) on the direction_inputs ``w``
+    of one shadow wavefront: equal to the plain version on every lane (on
+    sampled tiles given ``gen``)."""
+    from crt_tpu_torch.ops.cluster_trace import occlusion_d, occlusion_d_plain
+
+    act = w["a_f"]
+    if exit:
+        cl, cnt = w["generic"]
+        o, tpl, kw, seed = w["o_f"], 0, dict(exit=True, active=act), ~act
+    else:
+        cl, cnt = w["shaft"]
+        o, tpl, seed = w["o"], w["tpl"], None
+        kw = dict(tile_mod=tpl)
+    d, r2 = w["d_f"], w["r2_f"]
+    dead = torch.zeros_like(cnt)
+
+    def run(lib=None, counts=cnt):
+        return on(lib, lambda: occlusion_d(tables, o, d, r2, cl, counts,
+                                           TILE, **kw))
+
+    out = run()
+    if gen is None:
+        got = out
+        want = occlusion_d_plain(tables, o, d, r2, cl, cnt, TILE, tpl, seed)
+        held = "equal to the plain version on every lane"
+    else:  # sampled tiles: the plain version walks long lists slowly
+        pick = sample_tiles(cnt, gen)
+        lane = torch.arange(TILE, device=cnt.device)
+        rows = (pick[:, None] * TILE + lane).reshape(-1)
+        src = (((pick % tpl) if tpl else pick)[:, None] * TILE
+               + lane).reshape(-1)
+        got = out[rows]
+        want = occlusion_d_plain(
+            tables, o[src].contiguous(), d[rows].contiguous(),
+            r2[rows].contiguous(), cl[pick].contiguous(),
+            cnt[pick].contiguous(), TILE, 0,
+            None if seed is None else seed[rows].contiguous())
+        held = f"equal to the plain version on {pick.numel()} sampled tiles"
+    n_bad = int((got != want).sum())
+    check(n_bad == 0, f"{tag} {name}: {n_bad} lanes differ from the plain "
+          "version")
+    rays = (o, d, r2[:, None]) + ((act[:, None],) if exit else ())
+    b = walk_bound(tables, cl, cnt, rays, (out,), act.reshape(-1, TILE),
+                   blocked=out.reshape(-1, TILE))
+    members = tile_members(tables, cl, cnt)
+    no_exit = int(members.sum()) * TILE
+    packed, packed_tests = repacked_rays(
+        torch.cat([w["o_f"], d, r2[:, None]], dim=1), cnt, members,
+        act if exit else None, pack_above=VOTE_LIST)
+    lanes = cnt.numel() * TILE
+    return dict(tag=tag, name=name, kernel="K6" if exit else "K5", out=(out,),
+                bound=b, held=held,
+                calls={"kernel": run, "single": run, "device": run,
+                       "dead": lambda lib=None: run(lib, dead),
+                       "dead device": lambda lib=None: run(lib, dead)},
+                timers={"single": cuda_ms, "device": device_ms,
+                        "dead device": device_ms},
+                text=(f"{lanes} lanes in {cnt.numel()} tiles "
+                      f"({int((cnt > 0).sum())} live), {int(act.sum())} "
+                      f"active, list length mean "
+                      f"{float(cnt.float().mean()):.3f} max {int(cnt.max())};"
+                      f" {int((out & act).sum())} active lanes blocked; "
+                      f"member tests without any exit {no_exit}, needed "
+                      f"{b['member_tests']} "
+                      f"({no_exit / max(b['member_tests'], 1):.2f}x); rays "
+                      f"walked after repacking {packed} of "
+                      f"{int((cnt > 0).sum()) * TILE} lanes of live tiles, "
+                      f"member tests of their warps without any exit "
+                      f"{packed_tests}"))
+
+
+def record_direction_frame(scene):
+    """The arguments of ``trace.shadow_apex`` (K5's pass: shadow_o, ldir,
+    r2, lights, act, slack) at each shading level of one real forward
+    frame, shaded through a trace built with ``apex_w=False``."""
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
+    from crt_tpu_torch.ops.shade import shade_wavefront
+
+    trace = make_cluster_trace_fn(scene, apex_w=False)
+    real = trace.shadow_apex
+    calls = []
+
+    def recording(*args):
+        calls.append(tuple(x.detach().clone() if torch.is_tensor(x) else x
+                           for x in args))
+        return real(*args)
+
+    trace.shadow_apex = recording
+    st = RenderSettings()
+    o, d = primary_wavefront(scene)
+    with torch.no_grad():
+        shade_wavefront(scene, st, trace, o, d)
+    check(len(calls) == st.max_ray_depth + 1,
+          f"a frame with the w form off made {len(calls)} direction-form "
+          "shadow passes, expected one per shading level")
+    return calls
+
+
 def kernel_shapes(device):
-    """K1, K2, K3 and K4 at the shapes of PERF.md's redesign tables, in the
-    order [kernels] (opaque bench frame), [glass] (refractive bench frame,
+    """K1-K6 at the shapes of PERF.md's redesign tables, in the order
+    [kernels] (opaque bench frame; K5 / K6 also on the depth-1 shadow pass
+    of a real frame with the w form off), [glass] (refractive bench frame,
     its bounce-1 pool and backward recorded from a real frame), [scale]
     (65,536 triangles)."""
     from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
@@ -1022,7 +1171,16 @@ def kernel_shapes(device):
     yield k2_shape("[kernels]", "K2 capped, opaque depth-0 shadow", tables,
                    w["shadow_o"], w["point"], w["lights"], w["act"], scl,
                    scnt)
-    del prim, k, w
+    # the same wavefront in the direction form, then the depth-1 (mirror
+    # bounce) pass of a real frame shaded with the w form off
+    for where, dw in (("depth-0", direction_inputs(
+            tables, w["shadow_o"], w["ldir"], w["r2"], w["lights"], w["act"],
+            slack)), ("depth-1 (mirror bounce)", direction_inputs(
+                tables, *record_direction_frame(scene)[1]))):
+        yield kd_shape("[kernels]", f"K5 opaque {where} shadow", tables, dw)
+        yield kd_shape("[kernels]", f"K6 opaque {where} shadow", tables, dw,
+                       exit=True)
+    del prim, k, w, dw
     # the backward of a fit_scene step: the packed rows (K 22) and the
     # texture colours (K 3) of every shading level
     calls = record_segsums(scene, keys=TRAINED + ("tex_color_a",))
@@ -1098,10 +1256,17 @@ def kernel_shapes(device):
     yield k2_shape("[scale]", "K2 capped, 65,536-triangle depth-0 shadow",
                    tables, w["shadow_o"], w["point"], w["lights"], w["act"],
                    scl, scnt, gen=gen)
+    dw = direction_inputs(tables, w["shadow_o"], w["ldir"], w["r2"],
+                          w["lights"], w["act"], slack)
+    yield kd_shape("[scale]", "K5 65,536-triangle depth-0 shadow", tables,
+                   dw, gen=gen)
+    yield kd_shape("[scale]", "K6 65,536-triangle depth-0 shadow", tables,
+                   dw, exit=True, gen=gen)
 
 
 SHAPE_CALLS = {"kernel": "kernel", "single": "single launch",
                "device": "device time", "dead": "every count zeroed",
+               "dead device": "device time with every count zeroed",
                "kp0": "kp = 0", "K1": "K1 on the same lists",
                "K1 device": "K1 device time",
                "list device": "tile list device time",
@@ -1116,17 +1281,18 @@ def phase_shapes(device, parent=None):
 
 
 def shape_turns(sh, parent=None):
-    """One shape of kernel_shapes: K1, K2 and K4 bit-equal to the plain
-    version (every lane, or sampled tiles at 65,536 triangles), K4 also to
-    K1; K3 within its tolerances of fp64 and of the plain version (held by
-    k3_shape).  Given ``parent`` (a library of another checkout's kernels,
-    bind_parent), K1, K2 and K4 also equal to its kernels on every lane,
-    K3 its distance printed.  Times of the shape's calls: cuda_ms_many
-    unless the shape names another timer (a single launch, cuda_ms; device
-    time, device_ms): the launch, the launch with every count zeroed (every
-    tile dead: the fixed cost of the output stores and the tiles), K1 with
-    rows at kp = 0, K4's tile list and K1 on K4's lists, K3 with every id
-    -1; given ``parent``, each in turns: parent, new, new, parent.  Bound
+    """One shape of kernel_shapes: K1, K2, K4, K5 and K6 bit-equal to the
+    plain version (every lane, or sampled tiles at 65,536 triangles), K4
+    also to K1; K3 within its tolerances of fp64 and of the plain version
+    (held by k3_shape).  Given ``parent`` (a library of another checkout's
+    kernels, bind_parent), K1, K2, K4, K5 and K6 also equal to its kernels
+    on every lane, K3 its distance printed.  Times of the shape's calls:
+    cuda_ms_many unless the shape names another timer (a single launch,
+    cuda_ms; device time, device_ms): the launch, the launch with every
+    count zeroed (every tile dead: the fixed cost of the output stores and
+    the tiles), K1 with rows at kp = 0, K4's tile list and K1 on K4's
+    lists, K3 with every id -1; given ``parent``, each in turns: parent,
+    new, new, parent.  Bound
     and, where the kernel tests members, no-FMA floor from this run's
     inputs.  -> dict(times, bound_ms)."""
     tag, name = sh["tag"], sh["name"]
@@ -1137,7 +1303,7 @@ def shape_turns(sh, parent=None):
             compare_hits(f"{tag} {name} vs the parent's kernel",
                          sh["out"], pout)
             held += "; equal to the parent's kernel on every lane"
-        elif sh["kernel"] == "K2":
+        elif sh["kernel"] in ("K2", "K5", "K6"):
             pout = pout if isinstance(pout, tuple) else (pout,)
             check(all(torch.equal(a, b) for a, b in zip(sh["out"], pout)),
                   f"{tag} {name}: the kernel differs from the parent's")
@@ -1177,34 +1343,61 @@ def shape_turns(sh, parent=None):
 
 def profile_turns(device, parent):
     """Profiled device time and launches of the opaque forward and
-    forward+backward frames, the glass scan frame and the glass scan frame
-    with compact_bounces, with the parent's kernels and the new ones in
-    turns (parent, new, new, parent), and the redesigned kernels' share."""
+    forward+backward frames, the opaque forward frame with the w form off
+    (K5 shadows) and shaded through a trace built with
+    use_occlusion_kernel=True (K6 shadows), the glass scan frame and the
+    glass scan frame with compact_bounces, with the parent's kernels and
+    the new ones in turns (parent, new, new, parent), and the redesigned
+    kernels' share of the device time."""
     from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch.ops import cluster_trace
+    from crt_tpu_torch.ops.shade import shade_wavefront
     from crt_tpu_torch.scene.procedural import make_test_scene
 
     opaque = make_test_scene(**BENCH, device=device)
     glass = make_test_scene(**GLASS, device=device)
     compact = RenderSettings(compact_bounces=True)
+    o, d = primary_wavefront(opaque)
+
+    def w_form_off():
+        saved = cluster_trace._APEX_W  # read when the trace is built
+        cluster_trace._APEX_W = False
+        try:
+            return render_image(opaque)
+        finally:
+            cluster_trace._APEX_W = saved
+
+    def any_hit_frame():
+        with torch.no_grad():
+            return shade_wavefront(
+                opaque, RenderSettings(), cluster_trace.make_cluster_trace_fn(
+                    opaque, use_occlusion_kernel=True, apex_w=False), o, d)
+
     frames = (("opaque forward", lambda: render_image(opaque)),
               ("opaque forward+backward", lambda: image_sum_grads(opaque)),
+              ("opaque forward, w form off (K5)", w_form_off),
+              ("opaque frame shaded with use_occlusion_kernel (K6)",
+               any_hit_frame),
               ("glass scan forward", lambda: render_image(glass)),
               ("glass scan forward, compact_bounces",
                lambda: render_image(glass, compact)))
     tags = {"K1": "closest_hit_kernel", "K2": "occlusion_w",
             "K3": "segment_accumulate", "K4": "closest_hit_compact_kernel",
-            "K4 list": "live_tiles_kernel"}
+            "K4 list": "live_tiles_kernel", "K5 / K6": "occlusion_d"}
     for name, fn in frames:
         fn()
         torch.cuda.synchronize()
         for who in ("parent", "new", "new", "parent"):
             lib = parent if who == "parent" else None
+            reset_launches()
             dev_ms, n, by_tag = on(lib, lambda: profile_frame(
                 fn, tags=tuple(tags.values())))
+            kd = cluster_trace.occlusion_d_mode_launches
             print(f"[turns] {name}, {who} kernels: device {dev_ms:.3f} ms in "
-                  f"{n} launches; " + ", ".join(
-                      f"{k} {by_tag[v]:.3f} ms" for k, v in tags.items()
-                      if by_tag[v] > 0))
+                  f"{n} launches ({kd['compact']} K5, {kd['exit']} K6); "
+                  + ", ".join(f"{k} {by_tag[v]:.3f} ms "
+                              f"({100 * by_tag[v] / dev_ms:.2f} %)"
+                              for k, v in tags.items() if by_tag[v] > 0))
 
 
 def reset_launches():
@@ -2020,19 +2213,19 @@ def phase_occlusion_d(device):
     o, d = primary_wavefront(scene)
     t, tri, _ = closest_hit(tables, o, d, *bin_rays(tables, o, d, TILE))
     w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=t, tri=tri))
-    o_f, d_f, r2_f, a_f = flat_shadow(w)
     slack = 2.0 * st.shadow_bias
-    tpl = o.shape[0] // TILE
-    apex = w["lights"].repeat_interleave(tpl, dim=0)
+    dw = direction_inputs(tables, w["shadow_o"], w["ldir"], w["r2"],
+                          w["lights"], w["act"], slack)
+    o_f, d_f, r2_f, a_f, tpl = (dw[k] for k in ("o_f", "d_f", "r2_f", "a_f",
+                                                "tpl"))
     act_t = a_f.reshape(-1, TILE)
 
-    cl, cnt = bin_rays(tables, o_f, d_f, TILE, a_f, apex=apex,
-                       apex_slack=slack)
+    cl, cnt = dw["shaft"]
     k5_args = (tables, w["shadow_o"], d_f, r2_f, cl, cnt, TILE)
     k5 = occlusion_d(*k5_args, tile_mod=tpl)
     masks_equal("occlusion_d (K5)", k5,
                 occlusion_d_plain(*k5_args, tile_mod=tpl))
-    gl, gcnt = bin_rays(tables, o_f, d_f, TILE, a_f)
+    gl, gcnt = dw["generic"]
     k6_args = (tables, o_f, d_f, r2_f, gl, gcnt, TILE)
     k6 = occlusion_d(*k6_args, exit=True, active=a_f)
     masks_equal("occlusion_d exit mode (K6)", k6,
@@ -2928,7 +3121,7 @@ def main(argv=None) -> int:
                     help="run only the large-scene, table-layout and "
                     "direction-form phases (no JSON lines)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="time K1, K2, K3 and K4 at their redesign "
+                    help="time K1-K6 at their redesign "
                     "shapes and profile the opaque and glass frames in "
                     "turns with the kernels built from "
                     "DIR/crt_tpu_torch/csrc (another checkout's, with this "

@@ -40,11 +40,11 @@
 //   - The shared origin.  When every ray of a unit starts at one point (a
 //     pinhole camera's primary wavefront) the block computes the origin's
 //     terms of each staged member once, opd = nv0 - n.o and mo - c per
-//     edge, with member_hit's operations, and the rays read them: a test
-//     costs ~35 FP32 instructions instead of ~59, with the same bits.
+//     edge, with the member test's operations, and the rays read them: a
+//     test costs ~35 FP32 instructions instead of ~59, with the same bits.
 //   - Members no ray can hit are not tested: a pad (zero normal) and, with
-//     the shared origin, a face that member_hit's face gate rejects for
-//     that origin, marked per cluster at staging (a uniform branch).  A
+//     the shared origin, a face that the member test's face gate rejects
+//     for that origin, marked per cluster at staging (a uniform branch).  A
 //     cluster without one is tested without any branch: per-member warp
 //     votes measured slower on long lists than the tests they skip.
 //   - The epilogue reads the winning slot's row four values at a time, all
@@ -129,8 +129,8 @@ __device__ __forceinline__ void write_hit(const HitArgs& a, long long r,
   for (; k < a.kp; ++k) out[k * R] = hit ? __ldg(row + k) : 0.0f;
 }
 
-// One member's test for one ray, member_hit's arithmetic, and the (t, id)
-// rule into cl_best / cl_tri / cl_j.  SHARED: the record holds the ray
+// One member's test for one ray, the member test's arithmetic, and the
+// (t, id) rule into cl_best / cl_tri / cl_j.  SHARED: the record holds the ray
 // origin's terms (opd in nv0's place, mo - c in each c's; prepare_batch).
 template <bool SHARED>
 __device__ __forceinline__ void test_member(const float* slot, int j,
@@ -196,11 +196,11 @@ __device__ __forceinline__ void test_cluster(const float* rec, unsigned skip,
 // Prepare the `count` staged clusters of batch `st` for the tests (one
 // slot a thread), then a barrier.  With the block's shared origin
 // (`shared`), put the origin's terms into each record: opd = nv0 - n.o in
-// nv0's place, mo - c in each c's, computed as member_hit computes them,
-// so every ray reads them instead of computing them.  Mark in ring.skip
-// the members no ray can hit: a zero normal (a pad: |n.d| is 0 or NaN,
-// never >= PARALLEL_EPS) and, with the shared origin, a face that
-// member_hit's face gate rejects for that origin.
+// nv0's place, mo - c in each c's, computed as the member test computes
+// them, so every ray reads them instead of computing them.  Mark in
+// ring.skip the members no ray can hit: a zero normal (a pad: |n.d| is 0
+// or NaN, never >= PARALLEL_EPS) and, with the shared origin, a face that
+// the member test's face gate rejects for that origin.
 __device__ __forceinline__ void prepare_batch(ClusterRing& ring, int st,
                                               int count, bool shared,
                                               float ox, float oy, float oz) {

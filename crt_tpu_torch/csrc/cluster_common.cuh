@@ -5,14 +5,21 @@
 // the cluster-major tables built by crt_tpu_torch/ops/cluster_tables.py
 // (the rows layout of the streaming kernels):
 //   n [L,16,3], nv0 [L,16], m [L,16,9], c [L,16,3], nobf [L,16], tid [L,16].
-// Two ways to stage them in shared memory:
-//   - stage_cluster (occlusion_d.cu): a 256-thread block copies one
-//     cluster's constants (256 floats + 16 nobf) with one load per thread,
-//     two barriers a cluster, for member_hit;
-//   - ClusterRing (closest_hit.cu, occlusion_w.cu): batches of CRT_BATCH
-//     clusters copied by cp.async into member-major records, a ring of
-//     CRT_STAGES batches, one barrier a batch; stream_trace.cu stages the
-//     same records from its own tables.
+// The cluster kernels stage them in batches of CRT_BATCH clusters copied by
+// cp.async into member-major records, a ring of CRT_STAGES batches, one
+// barrier a batch (ClusterRing); stream_trace.cu stages the same records
+// from its own tables.
+//
+// The member test.  Whether the line o + t*d hits a member at t >= 0, and
+// that t: the plane word first (nd = n.d, opd = nv0 - n.o, the parallel
+// gate |nd| >= PARALLEL_EPS, the face gate opd < 0 || nobf > 0.5), then t
+// = opd / nd (1 in place of a parallel nd) and t >= 0, then the three edge
+// half-spaces (mo - c) + t*md >= 0 (rec_edges).  Dot products sum x, y, z
+// left to right.  Every kernel keeps these operations in this order (a
+// kernel may skip a test whose answer cannot change its output, or compute
+// an origin's terms once for many rays with the same operations), as
+// occlusion_d.cu's test_batch shows plainly and the plain versions'
+// `_member_hit` (ops/cluster_trace.py) computes them.
 //
 // Arithmetic follows crt_tpu/ops/pallas_trace.py:1242-1267 operation by
 // operation.  The library is built with -fmad=false and without fast math,
@@ -27,66 +34,11 @@
 #define CRT_BLOCK 256
 #define CRT_PARALLEL_EPS 1e-6f
 
-struct ClusterSmem {
-  float n[CRT_CLUSTER_SIZE * 3];
-  float nv0[CRT_CLUSTER_SIZE];
-  float m[CRT_CLUSTER_SIZE * 9];
-  float c[CRT_CLUSTER_SIZE * 3];
-  float nobf[CRT_CLUSTER_SIZE];
-};
-
-// Block-cooperative copy of cluster `cl` into shared memory.  Needs exactly
-// CRT_BLOCK threads: 48 + 16 + 144 + 48 = 256 floats, one per thread, then
-// nobf on the first 16.
-__device__ __forceinline__ void stage_cluster(
-    ClusterSmem& s, int cl, const float* __restrict__ n,
-    const float* __restrict__ nv0, const float* __restrict__ m,
-    const float* __restrict__ c, const float* __restrict__ nobf) {
-  const int t = threadIdx.x;
-  const long long base = (long long)cl * CRT_CLUSTER_SIZE;
-  if (t < 48) {
-    s.n[t] = n[base * 3 + t];
-  } else if (t < 64) {
-    s.nv0[t - 48] = nv0[base + (t - 48)];
-  } else if (t < 208) {
-    s.m[t - 64] = m[base * 9 + (t - 64)];
-  } else {
-    s.c[t - 208] = c[base * 3 + (t - 208)];
-  }
-  if (t < CRT_CLUSTER_SIZE) s.nobf[t] = nobf[base + t];
-}
-
 // The streaming backend's fused-column tables hold, per slot, 18 columns:
 // n xyz | nv0 | m (9) | c (3) | nobf | id as f32
 // (crt_tpu_torch/ops/stream_binning.py build_fused_table); the kernels read
 // the first 17 and take ids from the int32 `tid` table beside them.
 #define CRT_FUSED_COLS 18
-
-// Whether the line (ox,oy,oz) + t*(dx,dy,dz) hits member j of the staged
-// cluster at t >= 0, and that t: plane test with the PARALLEL_EPS gate, the
-// backface gate, t >= 0, then the three edge half-spaces
-// (mo - c) + t*md >= 0.  Dot products sum x, y, z left to right.
-__device__ __forceinline__ bool member_hit(const ClusterSmem& s, int j,
-                                           float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           float& t) {
-  const float nx = s.n[3 * j], ny = s.n[3 * j + 1], nz = s.n[3 * j + 2];
-  const float nd = nx * dx + ny * dy + nz * dz;
-  const float no = nx * ox + ny * oy + nz * oz;
-  const float opd = s.nv0[j] - no;
-  const bool not_parallel = fabsf(nd) >= CRT_PARALLEL_EPS;
-  const bool face_ok = (opd < 0.0f) || (s.nobf[j] > 0.5f);
-  t = opd / (not_parallel ? nd : 1.0f);
-  bool valid = not_parallel && face_ok && (t >= 0.0f);
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const float* me = &s.m[9 * j + 3 * e];
-    const float md = me[0] * dx + me[1] * dy + me[2] * dz;
-    const float mo = me[0] * ox + me[1] * oy + me[2] * oz;
-    valid = valid && ((mo - s.c[3 * j + e]) + t * md >= 0.0f);
-  }
-  return valid;
-}
 
 // ---------------------------------------------------------------------------
 // Member-major records
@@ -237,8 +189,8 @@ __device__ __forceinline__ float4 rec_word(const float* slot, int w) {
   return *reinterpret_cast<const float4*>(slot + 4 * w);
 }
 
-// The three edge half-spaces of a slot (mo - c) + t * md >= 0, as
-// member_hit computes them.
+// The three edge half-spaces of a slot (mo - c) + t * md >= 0, in the
+// member test's order.
 __device__ __forceinline__ bool rec_edges(const float* slot, float ox,
                                           float oy, float oz, float dx,
                                           float dy, float dz, float t) {
@@ -330,4 +282,113 @@ inline long long persistent_grid(const void* kernel, long long units) {
     return 0;
   const long long full = (long long)sms * (per_sm > 0 ? per_sm : 1);
   return units < full ? units : full;
+}
+
+// ---------------------------------------------------------------------------
+// The any-hit walk of the shadow kernels (K2 in occlusion_w.cu, K5 / K6 in
+// occlusion_d.cu)
+// ---------------------------------------------------------------------------
+
+// Lists of at most this many clusters are walked with warp votes that skip
+// a member's divide and edges where no lane needs them, longer ones
+// without (votes on every list, or on none, measured slower: PERF.md).
+#define CRT_VOTE_LIST 32
+
+// A block's packed rays (RAY floats each, component-major) and the answers
+// of their walks.
+template <int RAY>
+struct RayPack {
+  float ray[RAY * CRT_BLOCK];
+  int scan[CRT_BLOCK / 32];
+  unsigned char res[CRT_BLOCK];
+};
+
+// Repeated rays are walked once.  Of the `open` lanes (those with something
+// to learn), a lane whose ray is, bit for bit, its warp's first open lane's
+// takes that lane's answer, and the rays of the others are packed to the
+// front of the block, so the warps past them have nothing to test.  `ray`
+// becomes the packed ray at this thread's place and `live` the number of
+// packed rays (places >= live hold none).  Returns the place whose answer
+// this lane takes (unused by a lane that is not open).  Every thread of
+// the block calls it; two barriers.
+template <int RAY>
+__device__ __forceinline__ int pack_rays(RayPack<RAY>& pk, float (&ray)[RAY],
+                                         bool open, int& live) {
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const unsigned opens = __ballot_sync(0xffffffffu, open);
+  const int lead = opens != 0u ? __ffs(opens) - 1 : 0;
+  bool same = true;
+#pragma unroll
+  for (int k = 0; k < RAY; ++k) {  // every lane takes part in each shuffle
+    const float first = __shfl_sync(0xffffffffu, ray[k], lead);
+    same = same && __float_as_uint(ray[k]) == __float_as_uint(first);
+  }
+  const bool own = open && (ln == lead || !same);
+  const unsigned mask = __ballot_sync(0xffffffffu, own);
+  if (ln == 0) pk.scan[wp] = __popc(mask);
+  __syncthreads();
+  int pos = __popc(mask & ((1u << ln) - 1u));
+  live = 0;
+#pragma unroll
+  for (int w = 0; w < CRT_BLOCK / 32; ++w) {
+    pos += w < wp ? pk.scan[w] : 0;
+    live += pk.scan[w];
+  }
+  const int lead_pos = __shfl_sync(0xffffffffu, pos, lead);
+  if (own) {
+#pragma unroll
+    for (int k = 0; k < RAY; ++k) pk.ray[k * CRT_BLOCK + pos] = ray[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < RAY; ++k) ray[k] = pk.ray[k * CRT_BLOCK + threadIdx.x];
+  return own ? pos : lead_pos;
+}
+
+// The answer at place `from` of the walks' answers (`answer` this thread's,
+// at its place).  Every thread calls it, after the walk.
+template <int RAY>
+__device__ __forceinline__ unsigned char answer_at(RayPack<RAY>& pk,
+                                                   unsigned char answer,
+                                                   int from) {
+  pk.res[threadIdx.x] = answer;
+  __syncthreads();
+  return pk.res[from];
+}
+
+// The walk of a tile's `count` clusters of `list` by an any-hit ray state
+// `s`: s.done() (nothing left to learn; the outputs are ORs) and
+// s.test<VOTE>(img, n) (the n clusters staged at img, in list order; VOTE:
+// warp votes may skip a member's later stages, on lists of at most
+// CRT_VOTE_LIST clusters).  CRT_BATCH clusters are staged per barrier,
+// CRT_STAGES - 1 batches ahead; a warp whose lanes are all done skips the
+// batch, and the block leaves the walk when every lane is done at a batch
+// barrier.  Every thread of the block calls it; the ring is free after.
+template <class State>
+__device__ __forceinline__ void walk_any_hit(ClusterRing& ring,
+                                             const ClusterPlan& pl,
+                                             const int* __restrict__ list,
+                                             int count, State& s) {
+#pragma unroll
+  for (int st = 0; st < CRT_STAGES - 1; ++st)
+    issue_clusters(ring, st, list, st * CRT_BATCH, batch_size(st, count), pl);
+  const int nb = (count + CRT_BATCH - 1) / CRT_BATCH;
+  for (int bi = 0; bi < nb; ++bi) {
+    cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
+    const bool done = s.done();
+    // the batch barrier, and the block-wide exit
+    if (__syncthreads_and(done)) break;
+    const int nx = bi + CRT_STAGES - 1;
+    issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
+                   batch_size(nx, count), pl);
+    if (__all_sync(0xffffffffu, done)) continue;  // the warp is done
+    const float* img = ring.rec + (bi % CRT_STAGES) * CRT_BATCH_FLOATS;
+    const int nc = batch_size(bi, count);
+    if (count <= CRT_VOTE_LIST)  // uniform over the block
+      s.template test<true>(img, nc);
+    else
+      s.template test<false>(img, nc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next walk
 }

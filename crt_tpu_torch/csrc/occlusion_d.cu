@@ -18,75 +18,180 @@
 //                      blocked), and a tile with an empty list returns its
 //                      seed.
 //
-// What bounds it on an H100: FP32 ALU work, as in occlusion_w.cu: 16 x ~47
-// flops per ray-cluster pair against L2-resident tables; I/O is 28 bytes in
-// (12 of them shared between the lights of a K5 pass) and one byte out per
-// lane.
+// What bounds it on an H100: as for occlusion_w.cu, whose capped mode does
+// the same member work on the same wavefronts.  The shadow lists of the
+// scenes the cluster backend serves are short and the passes after the
+// first bounce are sparse, so the fixed cost of a unit and the byte a
+// lane; where lists are long (4,096 clusters), FP32 issue: ~59 FP32
+// instructions a member test under -fmad=false, against L2-resident
+// tables.  A lane's answer needs one test once it is blocked, but every
+// member before its blocker, and a lane that is never blocked needs them
+// all.  I/O is 28 bytes in (12 of them shared between the lights of a K5
+// pass) and one byte out per lane.
 //
-// What the design does about it: the layout of occlusion_w.cu (one thread
-// per lane, 256-thread blocks, tile_rays / 256 consecutive blocks per tile,
-// each walked cluster staged once per block).  The TPU's live-tile
-// compaction becomes a block that returns at once on an empty list.  The
-// output is an OR, so a thread stops testing once its lane is blocked and
-// the block leaves the walk once all 256 of its lanes are.  The TPU runs K5
-// without that exit and K6 with it; here both have it, since a lane that is
-// not blocked keeps the block walking and so no lane's answer changes.
+// The design (occlusion_w.cu's, in the direction form; PERF.md, section
+// 6):
+//   - A persistent grid of resident 256-thread blocks takes 256-lane units
+//     at a stride of the grid, reading their tiles' counts 256 at a time; a
+//     unit with an empty list stores its 256 bytes four to a thread (K5
+//     zeros, K6 its seed bytes), with no block launch and no barrier.
+//   - CRT_BATCH clusters are staged per barrier by cp.async into the
+//     member-major records of cluster_common.cuh's ClusterRing,
+//     CRT_STAGES - 1 batches ahead, and read with 16-byte shared loads
+//     (walk_any_hit, K2's walk).
+//   - On lists of more than CRT_VOTE_LIST clusters repeated rays are
+//     walked once (pack_rays, K2's packing).  A lane whose ray (o, d and
+//     r2, bit for bit) is its warp's first unseeded lane's takes that
+//     lane's answer, and the other unseeded rays are packed to the front
+//     of the block, so the warps past them have nothing to test; a seeded
+//     lane (K6) takes no place, and a unit whose lanes are all seeded
+//     walks nothing.  On shorter lists each lane walks its own ray, a
+//     seeded one blocked from the start.
+//   - The output is an OR, so a blocked lane tests no more: a warp whose
+//     lanes are all blocked skips the batch (warp vote), and the block
+//     leaves the walk when every lane is blocked at a batch barrier
+//     (__syncthreads_and).  On lists of at most CRT_VOTE_LIST clusters a
+//     warp also skips a member's divide when no lane passes the plane and
+//     face gates, and its edges when no lane passes t >= 0 and t * t <= r2.
+//     The TPU runs K5 without these exits and K6 with them; here both have
+//     them, since a lane that is not blocked keeps testing every member and
+//     so no lane's answer changes.  Every operation done is the member
+//     test's (cluster_common.cuh), in its order, so no bit changes.
 
 #include "cluster_common.cuh"
 
+// The floats of a packed ray: o, d, r2.
+#define CRT_RAY_D 7
+
 namespace {
 
-__global__ void __launch_bounds__(CRT_BLOCK) occlusion_d_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ r2, const unsigned char* __restrict__ seed,
-    const float* __restrict__ n, const float* __restrict__ nv0,
-    const float* __restrict__ m, const float* __restrict__ c,
-    const float* __restrict__ nobf, const int* __restrict__ cluster_list,
-    const int* __restrict__ counts, int num_clusters, int tile_rays,
-    int tile_mod, unsigned char* __restrict__ occ) {
-  __shared__ ClusterSmem s;
-  const int blocks_per_tile = tile_rays / CRT_BLOCK;
-  const int tile = blockIdx.x / blocks_per_tile;
-  const int lane = (blockIdx.x % blocks_per_tile) * CRT_BLOCK + threadIdx.x;
-  const long long r = (long long)tile * tile_rays + lane;
-  int blocked = seed != nullptr ? (seed[r] != 0) : 0;
-  const int count = counts[tile];
-  if (count == 0) {  // uniform over the block
-    occ[r] = (unsigned char)blocked;
-    return;
-  }
-  const int o_tile = tile_mod > 0 ? tile % tile_mod : tile;
-  const long long r_o = (long long)o_tile * tile_rays + lane;
-  const float ox = o[3 * r_o], oy = o[3 * r_o + 1], oz = o[3 * r_o + 2];
-  const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const float reach2 = r2[r];
-  const int* list = cluster_list + (long long)tile * num_clusters;
+struct OcclDArgs {
+  const float* o;
+  const float* d;
+  const float* r2;
+  const unsigned char* seed;
+  ClusterTables tb;
+  const int* cluster_list;
+  const int* counts;
+  int num_clusters, tile_rays, tile_mod;
+  unsigned char* occ;
+};
 
-  for (int i = 0; i < count; ++i) {
-    // barrier before restaging, and the block-wide exit
-    if (__syncthreads_and(blocked)) break;
-    stage_cluster(s, list[i], n, nv0, m, c, nobf);
-    __syncthreads();
-    if (!blocked) {
+// The 256 bytes of a unit with an empty list, four a thread: zeros, or the
+// unit's seed bytes.
+__device__ __forceinline__ void write_unit_seed(const OcclDArgs& a,
+                                                long long u) {
+  if (threadIdx.x < CRT_BLOCK / 4) {
+    const long long w = u * (CRT_BLOCK / 4) + threadIdx.x;
+    reinterpret_cast<unsigned*>(a.occ)[w] =
+        a.seed != nullptr ? reinterpret_cast<const unsigned*>(a.seed)[w]
+                          : 0u;
+  }
+}
+
+// The `count` staged clusters of `img` against one lane's ray, in list
+// order, into `blocked`: the member test's operations in its order; a
+// stage is skipped only where no lane of the warp (VOTE) still passes the
+// gates before it.
+template <bool VOTE>
+__device__ __forceinline__ void test_batch(const float* img, int count,
+                                           float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float reach2, bool& blocked) {
+  for (int k = 0; k < count; ++k) {
+    const float* rec = img + k * CRT_CLUSTER_FLOATS;
 #pragma unroll
-      for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
-        float t;
-        if (member_hit(s, j, ox, oy, oz, dx, dy, dz, t) && t * t <= reach2) {
-          blocked = 1;
-          break;
-        }
-      }
+    for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
+      const float* slot = rec + j * CRT_SLOT_FLOATS;
+      // nobf is read before the gates: read under the face gate's ||, it
+      // cost a branch and a reconvergence a member (PERF.md, section 6)
+      const float4 tw = rec_word(slot, 4);
+      const float4 pw = rec_word(slot, 0);
+      const float nd = pw.x * dx + pw.y * dy + pw.z * dz;
+      const float no = pw.x * ox + pw.y * oy + pw.z * oz;
+      const float opd = pw.w - no;
+      const bool not_parallel = fabsf(nd) >= CRT_PARALLEL_EPS;
+      bool ok = not_parallel && ((opd < 0.0f) || (tw.x > 0.5f));
+      ok = ok && !blocked;
+      if (VOTE && !__any_sync(0xffffffffu, ok)) continue;
+      const float t = opd / (not_parallel ? nd : 1.0f);
+      const bool in_reach = t * t <= reach2;
+      ok = ok && (t >= 0.0f);
+      ok = ok && in_reach;
+      if (VOTE && !__any_sync(0xffffffffu, ok)) continue;
+      ok = ok && rec_edges(slot, ox, oy, oz, dx, dy, dz, t);
+      blocked = blocked || ok;
     }
   }
-  occ[r] = (unsigned char)blocked;
+}
+
+// One lane's packed ray and flag, walked by walk_any_hit.
+struct DRay {
+  float ox, oy, oz, dx, dy, dz, reach2;
+  bool blocked;
+  __device__ __forceinline__ bool done() const { return blocked; }
+  template <bool VOTE>
+  __device__ __forceinline__ void test(const float* img, int count) {
+    test_batch<VOTE>(img, count, ox, oy, oz, dx, dy, dz, reach2, blocked);
+  }
+};
+
+__device__ __forceinline__ void walk_unit(ClusterRing& ring,
+                                          RayPack<CRT_RAY_D>& pk,
+                                          const ClusterPlan& pl,
+                                          const OcclDArgs& a, long long u,
+                                          int count) {
+  const int per_tile = a.tile_rays / CRT_BLOCK;
+  const int tile = (int)(u / per_tile);
+  const int lane = (int)(u % per_tile) * CRT_BLOCK + threadIdx.x;
+  const long long r = u * CRT_BLOCK + threadIdx.x;
+  const long long src =
+      (long long)(a.tile_mod > 0 ? tile % a.tile_mod : tile) * a.tile_rays +
+      lane;
+  float ray[CRT_RAY_D] = {a.o[3 * src],     a.o[3 * src + 1],
+                          a.o[3 * src + 2], a.d[3 * r],
+                          a.d[3 * r + 1],   a.d[3 * r + 2],
+                          a.r2[r]};
+  const bool seeded = a.seed != nullptr && a.seed[r] != 0;
+  // Repeated rays are packed on lists longer than CRT_VOTE_LIST; on shorter
+  // ones each lane walks its own ray (there the packing's barriers cost
+  // more than it saves: PERF.md, section 6).
+  const bool pack = count > CRT_VOTE_LIST;  // uniform over the block
+  int from = threadIdx.x, live = CRT_BLOCK;
+  if (pack) from = pack_rays(pk, ray, !seeded, live);
+  // nothing to learn: seeded, or no packed ray at this place
+  DRay s{ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], ray[6],
+         pack ? (int)threadIdx.x >= live : seeded};
+  // uniform; a packed unit whose lanes are all seeded walks nothing
+  if (live > 0)
+    walk_any_hit(ring, pl, a.cluster_list + (long long)tile * a.num_clusters,
+                 count, s);
+  const bool blocked =
+      pack ? answer_at(pk, (unsigned char)s.blocked, from) != 0 : s.blocked;
+  a.occ[r] = (unsigned char)(seeded || blocked);
+}
+
+__global__ void __launch_bounds__(CRT_BLOCK) occlusion_d_kernel(
+    OcclDArgs a, long long units) {
+  __shared__ ClusterRing ring;
+  __shared__ RayPack<CRT_RAY_D> pk;
+  __shared__ int s_count[CRT_BLOCK];
+  const ClusterPlan pl(a.tb);
+  for_each_unit(units, a.tile_rays / CRT_BLOCK, a.counts, s_count,
+                [&](long long u, int count) {
+                  if (count == 0)
+                    write_unit_seed(a, u);
+                  else
+                    walk_unit(ring, pk, pl, a, u, count);
+                });
 }
 
 }  // namespace
 
 // Host entry, bound with ctypes.  All pointers are device pointers on the
 // device that owns `stream`.  `o` holds tile_mod tiles when tile_mod > 0,
-// else num_tiles; `seed` [num_tiles * tile_rays] bytes or null.  Returns
-// cudaGetLastError() after the launch.
+// else num_tiles; `seed` [num_tiles * tile_rays] bytes or null; `seed` and
+// `occ` are 4-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int crt_occlusion_d(
     const float* o, const float* d, const float* r2,
     const unsigned char* seed, const float* n, const float* nv0,
@@ -97,10 +202,17 @@ extern "C" int crt_occlusion_d(
   if (num_tiles <= 0) return 0;
   if (tile_rays <= 0 || tile_rays % CRT_BLOCK != 0 || tile_mod < 0)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)num_tiles * (tile_rays / CRT_BLOCK);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  occlusion_d_kernel<<<(unsigned)blocks, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
-      o, d, r2, seed, n, nv0, m, c, nobf, cluster_list, counts, num_clusters,
-      tile_rays, tile_mod, occ);
+  if (((size_t)occ | (size_t)seed) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const OcclDArgs a{o, d, r2, seed,
+                    ClusterTables{n, nv0, m, c, nobf, nullptr, nullptr},
+                    cluster_list, counts, num_clusters, tile_rays, tile_mod,
+                    occ};
+  const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
+  const long long grid =
+      persistent_grid((const void*)occlusion_d_kernel, units);
+  if (grid <= 0) return (int)cudaGetLastError();
+  occlusion_d_kernel<<<(unsigned)grid, CRT_BLOCK, 0, (cudaStream_t)stream>>>(
+      a, units);
   return (int)cudaGetLastError();
 }

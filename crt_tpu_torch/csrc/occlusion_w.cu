@@ -37,13 +37,15 @@
 //     zero bytes four to a thread, with no block launch and no barrier.
 //   - CRT_BATCH clusters are staged per barrier by cp.async into the
 //     member-major records of cluster_common.cuh's ClusterRing, the member
-//     mask in each slot's tail word, CRT_STAGES - 1 batches ahead.
-//   - Repeated rays are walked once.  A lane whose ray (o and w, bit for
-//     bit) is its warp's first lane's takes that lane's answer, and the
-//     other rays are packed to the front of the block, so the warps past
-//     them have nothing to test.  A frame's lanes without a hit all carry
-//     the camera's ray, and they are walked in full, since their bits are
-//     part of the output: at 65,536 triangles they were most of the tests.
+//     mask in each slot's tail word, CRT_STAGES - 1 batches ahead
+//     (cluster_common.cuh walk_any_hit, which K5 / K6 walk too).
+//   - Repeated rays are walked once (pack_rays).  A lane whose ray (o and
+//     w, bit for bit) is its warp's first lane's takes that lane's answer,
+//     and the other rays are packed to the front of the block, so the
+//     warps past them have nothing to test.  A frame's lanes without a hit
+//     all carry the camera's ray, and they are walked in full, since their
+//     bits are part of the output: at 65,536 triangles they were most of
+//     the tests.
 //   - Every output is an OR, so a lane with nothing left to learn (blocked,
 //     and with the glass flag also flagged: a lane blocked by an early
 //     opaque cluster still has to find the glass in a later one) tests no
@@ -54,14 +56,10 @@
 //     warp also skips a member's divide when no lane passes the plane,
 //     face and done gates, and its edges when no lane's hit could change an
 //     output; on longer lists those votes cost more than they skip.  Every
-//     operation done is member_hit's, so no bit changes.
+//     operation done is the member test's (cluster_common.cuh), in its
+//     order, so no bit changes.
 
 #include "cluster_common.cuh"
-
-// Lists of at most this many clusters are walked with warp votes that skip
-// a member's divide and edges where no lane needs them, longer ones
-// without (votes on every list, or on none, measured slower; PERF.md).
-#define CRT_VOTE_LIST 32
 
 namespace {
 
@@ -90,9 +88,9 @@ __device__ __forceinline__ void write_unit_zero(const OcclArgs& a,
 
 // The `count` staged clusters of `img` against one lane's ray (origin o,
 // unnormalized direction w), in list order, into its flags.  Every
-// operation done is member_hit's; a member is skipped only where no lane
-// of the warp (VOTE) or no lane at all (outside the member mask) could
-// change an output with it.
+// operation done is the member test's; a member is skipped only where no
+// lane of the warp (VOTE) or no lane at all (outside the member mask)
+// could change an output with it.
 template <bool CAPPED, bool MASKED, bool GLASS, bool VOTE>
 __device__ __forceinline__ void test_batch(const float* img, int count,
                                            float ox, float oy, float oz,
@@ -136,15 +134,24 @@ __device__ __forceinline__ void test_batch(const float* img, int count,
   }
 }
 
-// The block's packed rays and their answers.
-struct RayPack {
-  float ray[6 * CRT_BLOCK];
-  int scan[CRT_BLOCK / 32];
-  unsigned char res[CRT_BLOCK];
+// One lane's packed ray and flags, walked by walk_any_hit.
+template <bool CAPPED, bool MASKED, bool GLASS>
+struct WRay {
+  float ox, oy, oz, wx, wy, wz;
+  bool blocked, glass;
+  __device__ __forceinline__ bool done() const {
+    return GLASS ? (blocked && glass) : blocked;
+  }
+  template <bool VOTE>
+  __device__ __forceinline__ void test(const float* img, int count) {
+    test_batch<CAPPED, MASKED, GLASS, VOTE>(img, count, ox, oy, oz, wx, wy,
+                                            wz, blocked, glass);
+  }
 };
 
 template <bool CAPPED, bool MASKED, bool GLASS>
-__device__ __forceinline__ void walk_unit(ClusterRing& ring, RayPack& pk,
+__device__ __forceinline__ void walk_unit(ClusterRing& ring,
+                                          RayPack<6>& pk,
                                           const ClusterPlan& pl,
                                           const OcclArgs& a, long long u,
                                           int tile, int count) {
@@ -154,86 +161,28 @@ __device__ __forceinline__ void walk_unit(ClusterRing& ring, RayPack& pk,
   const long long src =
       (long long)(tile % a.tiles_per_light) * a.tile_rays + lane;
   const int light = tile / a.tiles_per_light;
-  float ox = a.o[3 * src], oy = a.o[3 * src + 1], oz = a.o[3 * src + 2];
-  float wx = a.lights[3 * light] - a.p[3 * src];
-  float wy = a.lights[3 * light + 1] - a.p[3 * src + 1];
-  float wz = a.lights[3 * light + 2] - a.p[3 * src + 2];
-  const int* list = a.cluster_list + (long long)tile * a.num_clusters;
-  const int nb = (count + CRT_BATCH - 1) / CRT_BATCH;
-
-  bool blocked = false;
-  bool glass = false;
-  // Lanes whose ray is their warp's first lane's, bit for bit, take that
-  // lane's answer; the other rays are packed to the front of the block.
-  float ray[6] = {ox, oy, oz, wx, wy, wz};
-  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
-  bool same = true;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {  // every lane takes part in each shuffle
-    const float first = __shfl_sync(0xffffffffu, ray[k], 0);
-    same = same && __float_as_uint(ray[k]) == __float_as_uint(first);
-  }
-  const bool own = ln == 0 || !same;
-  const unsigned mask = __ballot_sync(0xffffffffu, own);
-  if (ln == 0) pk.scan[wp] = __popc(mask);
-  __syncthreads();
-  int pos = __popc(mask & ((1u << ln) - 1u)), live = 0;
-#pragma unroll
-  for (int w = 0; w < CRT_BLOCK / 32; ++w) {
-    pos += w < wp ? pk.scan[w] : 0;
-    live += pk.scan[w];
-  }
-  const int first_pos = __shfl_sync(0xffffffffu, pos, 0);
-  const int my_pos = own ? pos : first_pos;
-  if (own) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) pk.ray[k * CRT_BLOCK + pos] = ray[k];
-  }
-  __syncthreads();
-  const bool has_ray = (int)threadIdx.x < live;
-  ox = pk.ray[threadIdx.x], oy = pk.ray[CRT_BLOCK + threadIdx.x];
-  oz = pk.ray[2 * CRT_BLOCK + threadIdx.x];
-  wx = pk.ray[3 * CRT_BLOCK + threadIdx.x];
-  wy = pk.ray[4 * CRT_BLOCK + threadIdx.x];
-  wz = pk.ray[5 * CRT_BLOCK + threadIdx.x];
-  blocked = glass = !has_ray;  // no ray: nothing to learn
-#pragma unroll
-  for (int s = 0; s < CRT_STAGES - 1; ++s)
-    issue_clusters(ring, s, list, s * CRT_BATCH, batch_size(s, count), pl);
-  for (int bi = 0; bi < nb; ++bi) {
-    cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
-    const bool done = GLASS ? (blocked && glass) : blocked;
-    // the batch barrier, and the block-wide exit
-    if (__syncthreads_and(done)) break;
-    const int nx = bi + CRT_STAGES - 1;
-    issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
-                   batch_size(nx, count), pl);
-    if (__all_sync(0xffffffffu, done)) continue;  // the warp is done
-    const float* img = ring.rec + (bi % CRT_STAGES) * CRT_BATCH_FLOATS;
-    const int nc = batch_size(bi, count);
-    if (count <= CRT_VOTE_LIST)  // uniform over the block
-      test_batch<CAPPED, MASKED, GLASS, true>(img, nc, ox, oy, oz, wx, wy, wz,
-                                              blocked, glass);
-    else
-      test_batch<CAPPED, MASKED, GLASS, false>(img, nc, ox, oy, oz, wx, wy,
-                                               wz, blocked, glass);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the next walk
-  pk.res[threadIdx.x] = (unsigned char)(blocked | (glass << 1));
-  __syncthreads();
-  const unsigned char res = pk.res[my_pos];
-  blocked = res & 1;
-  glass = (res >> 1) & 1;
-  a.occ[out] = (unsigned char)blocked;
-  if (GLASS) a.glass_out[out] = (unsigned char)glass;
+  float ray[6] = {a.o[3 * src], a.o[3 * src + 1], a.o[3 * src + 2],
+                  a.lights[3 * light] - a.p[3 * src],
+                  a.lights[3 * light + 1] - a.p[3 * src + 1],
+                  a.lights[3 * light + 2] - a.p[3 * src + 2]};
+  int live;
+  const int from = pack_rays(pk, ray, true, live);
+  const bool no_ray = (int)threadIdx.x >= live;  // nothing to learn
+  WRay<CAPPED, MASKED, GLASS> s{ray[0], ray[1], ray[2], ray[3],
+                                ray[4], ray[5], no_ray, no_ray};
+  walk_any_hit(ring, pl, a.cluster_list + (long long)tile * a.num_clusters,
+               count, s);
+  const unsigned char res =
+      answer_at(pk, (unsigned char)(s.blocked | (s.glass << 1)), from);
+  a.occ[out] = res & 1;
+  if (GLASS) a.glass_out[out] = (res >> 1) & 1;
 }
 
 template <bool CAPPED, bool MASKED, bool GLASS>
 __global__ void __launch_bounds__(CRT_BLOCK) occlusion_w_kernel(
     OcclArgs a, long long units) {
   __shared__ ClusterRing ring;
-  __shared__ RayPack pk;
+  __shared__ RayPack<6> pk;
   __shared__ int s_count[CRT_BLOCK];
   const ClusterPlan pl(a.tb);
   const int per_tile = a.tile_rays / CRT_BLOCK;

@@ -79,7 +79,8 @@
 //     before the three edge half-spaces; a stage is skipped where no
 //     lane of the warp can still pass, and within a stage every ray
 //     computes without branches.  Every condition and every operation of
-//     member_hit stays as it is, so no bit changes.
+//     the member test (cluster_common.cuh) stays as it is, so no bit
+//     changes.
 //   - The any-hit repacks its unblocked rays to the front of the block at
 //     a batch barrier whenever that empties a warp, and a warp whose rays
 //     are all blocked skips the tests: blocked lanes stop costing issue
@@ -531,8 +532,8 @@ __device__ __forceinline__ void load_slot(const StreamTable& tb,
   }
 }
 
-// member_hit (cluster_common.cuh) on a slot in fused column order, the hit
-// distance or +inf: the same operations in the same order.
+// The member test (cluster_common.cuh) on a slot in fused column order,
+// the hit distance or +inf: the same operations in the same order.
 __device__ __forceinline__ float slot_t(const float* v, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz) {

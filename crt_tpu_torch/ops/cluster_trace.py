@@ -94,7 +94,7 @@ _PLAIN_ELEMS = 1 << 22
 def _member_hit(tables: ClusterTables, cl, ox, oy, oz, dx, dy, dz):
     """([nt, p, 16, TR] hit at t >= 0, its t) of every member of clusters
     ``cl`` ([nt, p]) for the rays of each tile (components [nt, 1, 1, TR]).
-    The op order of csrc/cluster_common.cuh member_hit."""
+    The op order of the kernels' member test (csrc/cluster_common.cuh)."""
     n = tables.n[cl]  # [nt, p, 16, 3]
     nx, ny, nz = n[..., 0:1], n[..., 1:2], n[..., 2:3]
     nd = nx * dx + ny * dy + nz * dz

@@ -268,18 +268,65 @@ def long_lists(device):
                                         1024, 0.02)
     return dict(tables=tables, rows_table=rows_table, o=o, d=d, cl=cl,
                 cnt=cnt, shadow=(shadow_o, point, lights[:1].contiguous()),
-                scl=scl, scnt=scnt)
+                act=act, scl=scl, scnt=scnt)
+
+
+def _kd_wave(tables, shadow_o, point, lights, act, tile_rays=1024):
+    """The direction form of a shadow wavefront (shadow_o, point [R, 3],
+    lights [Ll, 3], act [Ll, R]): the flat o, d, r2 and active lanes, K5's
+    shaft lists and K6's generic lists."""
+    lv = lights[:, None, :] - point[None]
+    Ll, R = act.shape
+    o_f = shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous()
+    d_f = vecmath.safe_normalize(lv).reshape(-1, 3).contiguous()
+    a_f = act.reshape(-1)
+    tpl = R // tile_rays
+    return dict(o=shadow_o, o_f=o_f, d_f=d_f, a_f=a_f, tpl=tpl,
+                r2_f=vecmath.length_squared(lv).reshape(-1).contiguous(),
+                tile_rays=tile_rays,
+                shaft=binning.bin_rays(
+                    tables, o_f, d_f, tile_rays, a_f,
+                    apex=lights.repeat_interleave(tpl, dim=0),
+                    apex_slack=0.02),
+                generic=binning.bin_rays(tables, o_f, d_f, tile_rays, a_f))
+
+
+def _kd_equal(tables, w, exit):
+    """K5 (or K6, ``exit``) on ``w`` (_kd_wave) equal to the plain version
+    on every lane -> (the kernel's mask, its counts)."""
+    tr = w["tile_rays"]
+    if exit:
+        cl, cnt = w["generic"]
+        args = (tables, w["o_f"], w["d_f"], w["r2_f"], cl, cnt, tr)
+        k = cluster_trace.occlusion_d(*args, exit=True, active=w["a_f"])
+        p = cluster_trace.occlusion_d_plain(*args, seed=~w["a_f"])
+    else:
+        cl, cnt = w["shaft"]
+        args = (tables, w["o"], w["d_f"], w["r2_f"], cl, cnt, tr)
+        k = cluster_trace.occlusion_d(*args, tile_mod=w["tpl"])
+        p = cluster_trace.occlusion_d_plain(*args, tile_mod=w["tpl"])
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    return k, cnt
 
 
 @pytest.mark.parametrize("kernel", ["closest_hit", "compact", "merged",
-                                    "occlusion_w"])
+                                    "occlusion_w", "occlusion_d",
+                                    "occlusion_d_exit"])
 def test_cluster_kernels_on_lists_longer_than_a_batch(device, long_lists,
                                                       kernel):
-    """K1 (and K4 / K7, which take its walk) and K2 on lists of tens to
-    hundreds of clusters, staged in many batches: bit-equal to the plain
-    version on every lane."""
+    """K1 (and K4 / K7, which take its walk), K2, K5 and K6 on lists of
+    tens to hundreds of clusters, staged in many batches: bit-equal to the
+    plain version on every lane."""
     L = long_lists
     tables, o, d = L["tables"], L["o"], L["d"]
+    if kernel.startswith("occlusion_d"):
+        w = _kd_wave(tables, *L["shadow"], L["act"])
+        k, cnt = _kd_equal(tables, w, kernel == "occlusion_d_exit")
+        assert int(cnt.max()) > 8 * 8
+        act = w["a_f"]
+        assert k[act].any() and not k[act].all()
+        return
     if kernel == "occlusion_w":
         assert int(L["scnt"].max()) > 8 * 8
         k = cluster_trace.occlusion_w(tables, *L["shadow"], L["scl"],
@@ -343,12 +390,14 @@ def test_exact_t_ties_across_batches(device, first):
     assert negative.all() if first == "A" else not negative.any()
 
 
-@pytest.mark.parametrize("kernel", ["closest_hit", "occlusion_w"])
+@pytest.mark.parametrize("kernel", ["closest_hit", "occlusion_w",
+                                    "occlusion_d", "occlusion_d_exit"])
 def test_dead_tiles_between_live_ones(device, kernel):
     """A wavefront of more units (256-lane quarter tiles) than the
     persistent grid has blocks, its tiles dead and live in a pattern, so
     each block walks some units and writes the miss result of others:
-    bit-equal to the plain version on every lane, misses on dead tiles."""
+    bit-equal to the plain version on every lane, misses on dead tiles
+    (K6: their seeds)."""
     scene = make_test_scene(1024, 512, num_quads=24, device=device)
     tables = cluster_tables.build_cluster_tables(scene)
     tile = torch.arange(1024 * 512, device=device) // 1024
@@ -367,6 +416,15 @@ def test_dead_tiles_between_live_ones(device, kernel):
         return
     shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
     act = act & keep
+    if kernel.startswith("occlusion_d"):
+        w = _kd_wave(tables, shadow_o, point, lights, act)
+        exit = kernel == "occlusion_d_exit"
+        k, cnt = _kd_equal(tables, w, exit)
+        dead = (cnt == 0).repeat_interleave(1024)
+        assert dead.any() and (~dead).any() and k[~dead].any()
+        assert torch.equal(k[dead], ~w["a_f"][dead] if exit
+                           else torch.zeros_like(k[dead]))
+        return
     cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
                                       0.02)
     k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt)
@@ -433,6 +491,92 @@ def test_occlusion_w_with_repeated_rays(device, mode):
     for got, want in zip(k, p):
         assert torch.equal(got, want)
     assert k[0].any() and not k[0].all()
+
+
+@pytest.mark.parametrize("long", [False, True])
+@pytest.mark.parametrize("exit", [False, True])
+def test_occlusion_d_with_repeated_rays(device, long_lists, exit, long):
+    """K5 and K6 where every other warp repeats its first lane's ray (o, d
+    and r2 bit for bit, as a frame's lanes without a hit repeat the
+    camera's) and, in those warps, the first lane is inactive (K6 seeds
+    it, so the warp's first unseeded lane leads), on short lists (each
+    lane walks its own ray) and on long_lists' (repeated rays packed):
+    bit-equal to the plain version on every lane."""
+    if long:
+        tables = long_lists["tables"]
+        shadow_o, point, lights = long_lists["shadow"]
+        act = long_lists["act"]
+    else:
+        scene = make_test_scene(192, 128, num_quads=24, device=device)
+        tables = cluster_tables.build_cluster_tables(scene)
+        shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    lane = torch.arange(shadow_o.shape[0], device=device)
+    rep = (lane // 32) % 2 == 1
+    src = torch.where(rep, lane - lane % 32, lane)
+    act = act & (lane % 64 != 32)
+    w = _kd_wave(tables, shadow_o[src].contiguous(), point[src].contiguous(),
+                 lights, act)
+    k, cnt = _kd_equal(tables, w, exit)
+    assert k[w["a_f"]].any() and not k[w["a_f"]].all()
+    assert (int(cnt.max()) > 32) == long  # CRT_VOTE_LIST
+
+
+@pytest.mark.parametrize("exit", [False, True])
+def test_occlusion_d_member_test_boundaries(device, exit):
+    """tests/test_torch_occlusion_d.py's boundary_case on the card: t * t
+    == r2 exactly, hits at t = -0.0 and +0.0 with r2 = 0, |n.d| at
+    PARALLEL_EPS and just below, on the lists given (K6 seeded with every
+    third lane): bit-equal to the plain version and to the expected
+    pattern."""
+    from crt_tpu_torch import scene_from_dict
+    from test_torch_occlusion_d import boundary_case
+
+    bd = boundary_case()
+    tables = cluster_tables.build_cluster_tables(
+        scene_from_dict(bd["spec"], device=device))
+    o, d, r2, act, cl, cnt = (bd[k].to(device) for k in (
+        "o", "d", "r2", "act", "cl", "cnt"))
+    args = (tables, o.contiguous(), d.contiguous(), r2, cl, cnt)
+    if exit:
+        k = cluster_trace.occlusion_d(*args, exit=True, active=act)
+        p = cluster_trace.occlusion_d_plain(*args, seed=~act)
+    else:
+        k = cluster_trace.occlusion_d(*args)
+        p = cluster_trace.occlusion_d_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    lane = torch.arange(4096, device=device)
+    tile = lane // 1024
+    want = ((tile == 1) | (tile == 2) | (lane % 2 == 0)) | (exit & ~act)
+    assert torch.equal(k, want)
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("tile_rays", [256, 1024])
+@pytest.mark.parametrize("seeded", ["all", "none"])
+def test_occlusion_d_exit_seeding(device, seeded, tile_rays, big):
+    """K6 on lists binned for every lane, short or (``big``) long enough
+    for the repeated-ray packing, with every lane seeded (each returns
+    True; live tiles whose lanes are all seeded walk nothing) and with
+    none (the full answer, equal to the launch without a mask): bit-equal
+    to the plain version."""
+    scene = _sized_scene(big, device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    shadow_o, ldir, r2, act, lights = _dir_shadow_wavefront(scene, tables,
+                                                            tile_rays)
+    o_f, d_f, r2_f, _, _ = _flat(shadow_o, ldir, r2, act, lights, tile_rays)
+    cl, cnt = binning.bin_rays(tables, o_f, d_f, tile_rays)
+    act = torch.full_like(r2_f, seeded == "none", dtype=torch.bool)
+    args = (tables, o_f, d_f, r2_f, cl, cnt, tile_rays)
+    k = cluster_trace.occlusion_d(*args, exit=True, active=act)
+    p = cluster_trace.occlusion_d_plain(*args, seed=~act)
+    unmasked = cluster_trace.occlusion_d(*args, exit=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and (cnt > 0).any()
+    if seeded == "all":
+        assert k.all()
+    else:
+        assert torch.equal(k, unmasked) and k.any() and not k.all()
 
 
 @pytest.mark.parametrize("case", ["rows", "tile_mod", "all_dead"])

@@ -7,6 +7,12 @@ held to ``_occluded_binned_compact`` (K5, through ``trace.shadow_apex`` of
 mode of ``bin_rays`` that feeds K5, the order in which
 ``shade._occlusion_masks`` picks a shadow path, and the image the cluster
 backend renders when the w form is switched off (``CRT_APEX_W=0``).
+Also the cases the kernels' batched walk and exits stress: lists of 58 to
+150 clusters (``make_big_scene`` at 4,096 triangles, many staging
+batches), the boundaries of the member test on a hand-built scene (t * t
+== r2 exactly, hits at t = -0.0 and +0.0 with r2 = 0, |n.d| exactly at
+PARALLEL_EPS and just below it), and K6 with every lane seeded and with
+none.
 
 Tolerance: EXACT for lists and masks, inactive-lane conventions included
 (K5 seeds nothing and masks dead tiles; K6 returns True on inactive
@@ -26,19 +32,99 @@ import numpy as np
 import pytest
 import torch
 
-from crt_tpu_torch import RenderSettings, render_image
+from crt_tpu_torch import RenderSettings, render_image, scene_from_dict
 from crt_tpu_torch.ops import binning as tbin
+from crt_tpu_torch.ops import camera, vecmath
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.ops import cluster_trace as ttr
 from crt_tpu_torch.ops import shade as tshade
 from crt_tpu_torch.ops.intersect import Hit
-from crt_tpu_torch.scene.procedural import make_test_scene
+from crt_tpu_torch.renderer import make_tiler
+from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SCENE = dict(width=96, height=64, num_quads=16, with_edges=True)
 IMAGE_SCENE = dict(width=64, height=36)
 SLACK = 0.02
+BIG = (4096, 64, 32)  # make_big_scene: lists of 58-150 clusters
+
+
+def big_wavefront():
+    """The direction-form shadow wavefront behind the primary hits of
+    make_big_scene(*BIG), built as the reference run's main one: shadow_o
+    [R, 3], lights, and the flat d, r2 and active lanes (every hit)."""
+    s = make_big_scene(*BIG, device="cpu")
+    tables = tct.build_cluster_tables(s)
+    o, d = _primary(s)
+    t, tri, _ = ttr.closest_hit_plain(tables, o, d,
+                                      *tbin.bin_rays(tables, o, d, 1024))
+    valid = tri >= 0
+    point = o + d * torch.where(valid, t, 0.0)[:, None]
+    lv = s.light_position[:, None, :] - point[None]
+    return dict(shadow_o=point + torch.tensor([0.0, 1e-2, 0.0]),
+                lights=s.light_position,
+                d_f=vecmath.safe_normalize(lv).reshape(-1, 3),
+                r2_f=vecmath.length_squared(lv).reshape(-1),
+                a_f=valid.expand(lv.shape[0], -1).reshape(-1))
+
+
+def _primary(s):
+    rx, ry, _ = make_tiler(s.height, s.width, device="cpu")
+    o, d = camera.generate_rays(s.cam_position, s.cam_rotation,
+                                s.cam_tan_half_fov, s.width, s.height, rx,
+                                ry)
+    return o.contiguous(), d.contiguous()
+
+
+def boundary_case():
+    """The member test's boundaries on the tie scene with B's winding
+    reversed (tests/test_torch_stream_chunks.py): A (cluster 0, normal +z)
+    and B (cluster 1, normal -z) overlap in z = -5.  Four tiles, each with
+    the list given (``cl``, ``cnt``): 0, rays from the camera through the
+    overlap, where A and B are hit at the same t, with r2 = t * t exactly
+    on even lanes and the next float below it on odd ones (lists A, B);
+    1 and 2, rays that start on the plane, where A's t is -0.0 and B's
+    +0.0, with r2 = 0 on even lanes and 1 on odd ones (lists A alone, B
+    alone); 3, rays from just above the plane with d = (0, 0, -e), |n.d|
+    = e = PARALLEL_EPS on even lanes and the next float below it on odd
+    ones, r2 = 4 (lists A, B).  Every third lane is inactive (K6's seed).
+    Expected: blocked on every even lane of tiles 0 and 3, on no odd one,
+    and on every lane of tiles 1 and 2."""
+    from test_torch_stream_chunks import tie_scene_negzero
+
+    spec, o, d = tie_scene_negzero()
+    scene = scene_from_dict(spec, device="cpu")
+    tables = tct.build_cluster_tables(scene)
+    ids = tables.tri_id
+    c_a = int(torch.nonzero(ids == 16)[0, 0])
+    c_b = int(torch.nonzero(ids == 15)[0, 0])
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    even = torch.arange(1024) % 2 == 0
+    both = torch.tensor([[c_a, c_b]] * 2, dtype=torch.int32)
+    t, tri, _ = ttr.closest_hit_plain(tables, o[:1024], d[:1024], both[:1],
+                                      torch.tensor([2], dtype=torch.int32))
+    assert (tri == 16).all()
+    tt = t * t
+    r2_tie = torch.where(even, tt, torch.nextafter(tt, torch.zeros(())))
+    r2_zero = torch.where(even, 0.0, 1.0)
+    eps = torch.tensor(1e-6, dtype=torch.float32)
+    ez = torch.where(even, eps, torch.nextafter(eps, torch.zeros(())))
+    o_eps = o[:1024].clone()
+    o_eps[:, 0] = o[1024:, 0]  # inside the overlap
+    o_eps[:, 1] = o[1024:, 1]
+    o_eps[:, 2] = -4.999999
+    d_eps = torch.zeros((1024, 3))
+    d_eps[:, 2] = -ez
+    cl = torch.tensor([[c_a, c_b], [c_a, c_a], [c_b, c_b], [c_a, c_b]],
+                      dtype=torch.int32)
+    return dict(spec=spec,
+                o=torch.cat([o[:1024], o[1024:], o[1024:], o_eps]),
+                d=torch.cat([d[:1024], d[1024:], d[1024:], d_eps]),
+                r2=torch.cat([r2_tie, r2_zero, r2_zero,
+                              torch.full((1024,), 4.0)]),
+                act=torch.arange(4096) % 3 != 0, cl=cl,
+                cnt=torch.tensor([2, 1, 1, 2], dtype=torch.int32))
 
 # Runs in the subprocess: the JAX side, saved to an .npz.
 _REF_SCRIPT = r"""
@@ -51,10 +137,12 @@ import crt_tpu
 from crt_tpu import renderer
 from crt_tpu.ops import camera, vecmath
 from crt_tpu.ops import pallas_trace as pt
-from crt_tpu.scene.procedural import make_test_scene
+from crt_tpu.scene.json_loader import scene_from_dict
+from crt_tpu.scene.procedural import make_big_scene, make_test_scene
 
-out_path, spec_path = sys.argv[1], sys.argv[2]
+out_path, spec_path, in_path = sys.argv[1], sys.argv[2], sys.argv[3]
 spec = json.load(open(spec_path))
+inp = dict(np.load(in_path))
 SLACK = spec["slack"]
 assert not pt._APEX_W
 res = {}
@@ -107,6 +195,40 @@ res["k6_all"] = pt.occluded_pallas_flat(tables, o_f, d_f, r2_f, None,
 n = o_f.shape[0] - 100  # padded to a tile multiple by the factory
 res["k6_e2e"] = trace.occluded_kernel(o_f[:n], d_f[:n], r2_f[:n], a_f[:n])
 res["k6_e2e_all"] = trace.occluded_kernel(o_f[:n], d_f[:n], r2_f[:n])
+# K6 with every lane seeded, and with none
+res["k6_seeded"] = pt.occluded_pallas_flat(tables, o_f, d_f, r2_f,
+                                           jnp.zeros_like(a_f),
+                                           interpret=True)
+res["k6_open"] = pt.occluded_pallas_flat(tables, o_f, d_f, r2_f,
+                                         jnp.ones_like(a_f), interpret=True)
+
+# lists longer than a staging batch: make_big_scene at 4,096 triangles
+big = make_big_scene(*spec["big"], build_accel=False)
+btab = pt.build_cluster_tables(big)
+bso, bd_f, br2_f, ba_f, bl = (jnp.asarray(inp["big_" + k]) for k in (
+    "shadow_o", "d_f", "r2_f", "a_f", "lights"))
+btpl = bso.shape[0] // 1024
+bo_f = jnp.tile(bso, (bl.shape[0], 1))
+cl, cnt = pt.bin_rays(btab, bo_f, bd_f, 1024, ba_f,
+                      apex=jnp.repeat(bl, btpl, axis=0), apex_slack=SLACK)
+res["big_cnt"] = cnt
+res["big_k5"] = pt._occluded_binned_compact(
+    btab, planes(bso), planes(bd_f), br2_f.reshape(-1, 1, 1024), cl, cnt,
+    1024, True, tile_mod=btpl).reshape(-1)
+res["big_k6"] = pt.occluded_pallas_flat(btab, bo_f, bd_f, br2_f, ba_f,
+                                        interpret=True)
+
+# the member test's boundaries, on the lists given
+bs = scene_from_dict(spec["boundary"], build_accel=False)
+ttab = pt.build_cluster_tables(bs)
+to, td, tr2, tact = (jnp.asarray(inp["bd_" + k]) for k in ("o", "d", "r2",
+                                                            "act"))
+res["bd_k5"] = pt._occluded_binned_compact(
+    ttab, planes(to), planes(td), tr2.reshape(-1, 1, 1024),
+    jnp.asarray(inp["bd_cl"])[:, None, :], jnp.asarray(inp["bd_cnt"]), 1024,
+    True).reshape(-1)
+res["bd_k6"] = pt.occluded_pallas_flat(ttab, to, td, tr2, tact,
+                                       interpret=True)
 
 # the image with the w form off: shadows through trace.shadow_apex (K5)
 orig = renderer.make_trace_fn
@@ -123,8 +245,13 @@ np.savez(out_path, **{k: np.asarray(v) for k, v in res.items()})
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax_occlusion_d_ref")
-    spec = {"scene": SCENE, "image_scene": IMAGE_SCENE, "slack": SLACK}
+    bd = boundary_case()
+    spec = {"scene": SCENE, "image_scene": IMAGE_SCENE, "slack": SLACK,
+            "big": BIG, "boundary": bd.pop("spec")}
     (tmp / "spec.json").write_text(json.dumps(spec))
+    inputs = {"big_" + k: v.numpy() for k, v in big_wavefront().items()}
+    inputs.update({"bd_" + k: v.numpy() for k, v in bd.items()})
+    np.savez(tmp / "inputs.npz", **inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu", CRT_APEX_W="0",
                XLA_FLAGS="--xla_cpu_max_isa=AVX "
                          "--xla_cpu_multi_thread_eigen=false",
@@ -132,12 +259,12 @@ def ref(tmp_path_factory):
                    [str(ROOT), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
         [sys.executable, "-c", _REF_SCRIPT, str(tmp / "ref.npz"),
-         str(tmp / "spec.json")],
+         str(tmp / "spec.json"), str(tmp / "inputs.npz")],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=900,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     with np.load(tmp / "ref.npz") as z:
-        return dict(z)
+        return dict(z, **inputs)
 
 
 def T(a):
@@ -376,3 +503,71 @@ def test_wrapper_checks_inputs(tables):
     with pytest.raises(ValueError):
         ttr.occlusion_d(tables, o, d, r2, cl, cnt, exit=True,
                         active=act.float())
+
+
+def test_k6_every_lane_seeded_and_none(ref, scene, tables):
+    """K6 with every lane seeded (all True, on lists binned for no lane)
+    and with none seeded (the full any-hit answer on every lane)."""
+    w = _wave(ref, scene)
+    for name, act in (("k6_seeded", torch.zeros_like(w["a_f"])),
+                      ("k6_open", torch.ones_like(w["a_f"]))):
+        cl, cnt = tbin.bin_rays(tables, w["o_f"], w["d_f"], 1024, act)
+        occ = ttr.occlusion_d(tables, w["o_f"], w["d_f"], w["r2_f"], cl, cnt,
+                              exit=True, active=act)
+        eq(occ, ref[name])
+    assert ref["k6_seeded"].all() and not ref["k6_open"].all()
+    assert ref["k6_open"].any()
+
+
+def test_lists_longer_than_a_batch_match_pallas(ref):
+    """K5 (shaft lists, tile_mod) and K6 (generic lists, seeded) on
+    make_big_scene(4096) at 64x32: lists of tens to hundreds of clusters,
+    walked by the kernels in many staging batches."""
+    b = {k[4:]: T(v) for k, v in ref.items() if k.startswith("big_")}
+    tables = tct.build_cluster_tables(make_big_scene(*BIG, device="cpu"))
+    Ll, tpl = b["lights"].shape[0], b["shadow_o"].shape[0] // 1024
+    o_f = b["shadow_o"].repeat(Ll, 1)
+    cl, cnt = tbin.bin_rays(tables, o_f, b["d_f"], 1024, b["a_f"],
+                            apex=b["lights"].repeat_interleave(tpl, dim=0),
+                            apex_slack=SLACK)
+    eq(cnt, b["cnt"])
+    assert int(cnt.min()) > 8 * 3  # past a batch and the staging ring
+    k5 = ttr.occlusion_d(tables, b["shadow_o"], b["d_f"], b["r2_f"], cl, cnt,
+                         tile_mod=tpl)
+    eq(k5, b["k5"])
+    gl, gcnt = tbin.bin_rays(tables, o_f, b["d_f"], 1024, b["a_f"])
+    assert int(gcnt.max()) > int(cnt.max())
+    k6 = ttr.occlusion_d(tables, o_f, b["d_f"], b["r2_f"], gl, gcnt,
+                         exit=True, active=b["a_f"])
+    eq(k6, b["k6"])
+    act = b["a_f"]
+    assert k5[act].any() and not k5[act].all()
+    assert torch.equal(k5[act], k6[act])
+
+
+@pytest.mark.parametrize("exit", [False, True])
+def test_member_test_boundaries_match_pallas(ref, exit):
+    """t * t == r2 exactly, t = -0.0 and +0.0 with r2 = 0, and |n.d| at
+    PARALLEL_EPS: K5 on the lists given (boundary_case) and K6 on the
+    generic lists, equal to crt_tpu's kernels and to the expected
+    pattern."""
+    bd = boundary_case()
+    scene = scene_from_dict(bd["spec"], device="cpu")
+    tables = tct.build_cluster_tables(scene)
+    o, d, r2, act = (T(ref["bd_" + k]) for k in ("o", "d", "r2", "act"))
+    if exit:
+        cl, cnt = tbin.bin_rays(tables, o, d, 1024, act)
+        occ = ttr.occlusion_d(tables, o, d, r2, cl, cnt, exit=True,
+                              active=act)
+        eq(occ, ref["bd_k6"])
+        assert occ[~act].all()
+    else:
+        cl, cnt = T(ref["bd_cl"]), T(ref["bd_cnt"])
+        occ = ttr.occlusion_d(tables, o, d, r2, cl, cnt)
+        eq(occ, ref["bd_k5"])
+    lane = torch.arange(4096)
+    even = lane % 2 == 0
+    tile = lane // 1024
+    want = torch.where((tile == 1) | (tile == 2), True, even)
+    mine = act if exit else torch.ones_like(act)
+    assert torch.equal(occ[mine], want[mine])
