@@ -22,9 +22,12 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      closest-hit kernel vs its plain version on 16 sampled tiles (bit-equal)
      and vs the all-pairs backend on 8192 sampled rays; then the closest
      hit (K1), the w-occlusion (K2), the segment sum (K3), the live-tile
-     compacted closest hit (K4) and the direction-form occlusion (K5 on
-     shaft lists, K6 on generic lists seeded with the inactive lanes) at
-     the shapes of their redesign, each line tagged with the phase its
+     compacted closest hit (K4), the direction-form occlusion (K5 on
+     shaft lists, K6 on generic lists seeded with the inactive lanes) and
+     the tile-merged closest hit (K7, at merge 2 and 4 on K1's lists of
+     the opaque primary, the mirror bounce and the 65,536-triangle
+     primary) at the shapes of their redesign, each line tagged with the
+     phase its
      inputs come from ([kernels]: the opaque primary, the masked mirror
      bounce (K1 and K4), the capped depth-0 shadow wavefront (K2, and K5 /
      K6 in the direction form), the depth-1 shadow pass of a real frame
@@ -38,8 +41,10 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      the 65,536-triangle primary, the segment sum over its wide id band,
      and its depth-0 shadow wavefront, capped (K2) and in the direction
      form (K5 / K6)): K1, K2, K4, K5 and K6 bit-equal to the plain version
-     on every lane (on 16 seeded tiles at 65,536 triangles), K4 also to K1
-     and its live-tile list to the plain one, K3 within its tolerances of
+     on every lane (on 16 seeded tiles at 65,536 triangles), K4 and K7
+     also to K1 (K7 to its plain version too, but at 65,536 triangles,
+     where K1 is sampled) and K4's live-tile list to the plain one, K3
+     within its tolerances of
      fp64 and of the plain version; list lengths, the kernel's time (10
      launches back to back between CUDA events, median of 5 after 2
      warm-ups; for K3-K6 also a single launch and the device time a
@@ -48,8 +53,10 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      fixed cost of the tiles and the output stores), for K1 with rows the
      time at kp = 0 (the rows epilogue), for K2, K5 and K6 the member
      tests a walk without any exit would do beside those the answer needs
-     and the rays left after repacking, for K4 K1's times on the same
-     lists and its tile list's device time, for K3 the device time with
+     and the rays left after repacking, for K4 and K7 K1's times on the
+     same lists, K4's tile list's device time, K7's share of sub-tiles
+     that repeat their group's previous list and of groups all empty, for
+     K3 the device time with
      every id -1, the bound and the no-FMA floor;
   5. main path: the CLI renders the benchmark scene from a .crtscene file
      (launch counts reset just before, read just after: 4 and 4 expected);
@@ -103,13 +110,30 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      for the packed rows and one for the ior row), and the backward of
      the mat_ior[tri_material] gather at 65,536 triangles on one material,
      through packed_gather as build_packed reads it and by plain indexing;
- 10. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
+ 10. gi: the GI frame (make_test_scene(1920, 1080, 64, gi_on=True), K = 4
+     GI samples a diffuse hit, depth 3: 64 banks, the pool grown 1 -> 4 ->
+     16 with the leaves shaded inline, in chunks of 2^24 / 16 pixels)
+     through the CLI with --gi-rays 4
+     (launch counts reset just before, read just after, and held to what
+     the grow schedule implies: per chunk of the pool one closest hit and
+     one capped shadow pass a bounce and K more at the leaf bounce), its
+     PPM equal to render_image's; the image vs the all-pairs backend
+     (>= 99.9 % of pixels within rtol 1e-4 / atol 1e-5: one flipped hit on
+     any of a pixel's ~100 paths moves the pixel) and, on a small scene
+     through both wavefronts, vs the CPU (>= 99 %: the card's f32 sin /
+     cos may turn a hemisphere ray by an ulp); frame time, device time
+     and launches of a profiled frame, peak memory; two render_progressive
+     passes (pass 0 == render_image bit for bit, the mean of salts 0 and
+     1); value_and_grad of the image sum with remat_shading (time, peak,
+     launches) and, on a 480x270 GI frame, vs the all-pairs backend's
+     gradients;
+ 11. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
      direction-form occlusion kernel in its two launches, K5 (shaft lists,
      origin tiles stored once) and K6 (generic lists, seeded with the
      inactive lanes), vs the plain version lane for lane, K5 == K6 on the
      active lanes, the lanes on which K5 and the w-occlusion kernel differ
      (|n.d| against |n.w| in the parallel test), times and bounds;
- 11. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
+ 12. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
      clusters in 1,954 superclusters): the streaming closest hit (K8) on
      the primary wavefront and the streaming any-hit (K9) on the depth-0
      shadow wavefront, in one phase and in both phases of the two-phase
@@ -131,7 +155,7 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      the all-pairs backend on 8192 sampled rays; two-phase == single phase
      on the active lanes; at 65,536 triangles streaming hits == the closest-hit
      kernel's on every lane and K9 == K5 on every active shadow lane;
- 12. big, the large-scene main path: render_image of the 1,000,000-triangle
+ 13. big, the large-scene main path: render_image of the 1,000,000-triangle
      frame with default settings (launch counts reset just before, read
      just after: one K8, two K9, no cluster-backend kernel, so "auto" took
      the streaming backend); a second forward frame bit-identical to the
@@ -146,38 +170,39 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
      renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
      every pixel and their gradients held together;
- 13. layouts: render_image of the 1,000,000-triangle frame with
+ 14. layouts: render_image of the 1,000,000-triangle frame with
      CRT_STREAM_LAYOUT=fused, lane and rows (launch counts reset just
      before, read just after: one closest hit and two any-hit launches, all
      of the layout's kernels); the lane and rows frames equal the fused one
      bit for bit; frame times in turns (median of 5, host clock around a
      synchronize);
- 14. direction-form: the opaque bench frame through the CLI in a child
+ 15. direction-form: the opaque bench frame through the CLI in a child
      process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
      --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
      one 8-bit level of the default frame and of the all-pairs backend's
      on all but 0.01 % of pixels; one frame shaded through a trace built
      with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
- 15. a JSON line of the kernels, then the last line
+ 16. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
-     launches of phase 14's frame); K7's launches are those of phase 7's
-     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 13's frames.
+     launches of phase 15's frame); K7's launches are those of phase 7's
+     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 14's frames.
 
-``--profile`` runs, instead of phases 3 to 14, a torch.profiler pass over
+``--profile`` runs, instead of phases 3 to 15, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
-``--large`` runs phases 10 to 14 only.  ``--parent DIR`` builds the
+``--large`` runs phases 11 to 15 only.  ``--parent DIR`` builds the
 kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files)
-beside this one's and runs only phase 4's K1-K6 shapes, K1, K2, K4, K5
-and K6 also held to the other build's kernel on every lane (K3's
+beside this one's and runs only phase 4's K1-K7 shapes, K1, K2, K4-K7
+also held to the other build's kernel on every lane (K3's
 distance from it printed: its atomics add in another order) and every
 time taken in turns (other, this, this, other), then profiles the opaque
 forward and forward+backward frames, the opaque forward frame with the w
-form off (4 K5) and shaded with use_occlusion_kernel=True (4 K6), the
+form off (4 K5), with CRT_TILE_MERGE=2 (4 K7) and shaded with
+use_occlusion_kernel=True (4 K6), the
 glass scan frame and the glass scan frame with compact_bounces with each
 build in the same turns (device time, launches, each redesigned kernel's
 share); no JSON lines.  The
@@ -880,6 +905,69 @@ def k4_shape(tag, name, tables, o, d, k1, rows_table):
         text=f"{k1['text']}; {int(n_live)} live tiles first")
 
 
+RING_CLUSTERS = 24  # csrc/cluster_common.cuh CRT_STAGES * CRT_BATCH
+
+
+def merge_counts(cl, cnt, merge):
+    """What a K7 that reuses a staged list would turn on at ``merge``
+    (measure/closest_hit_persistent.cu): (sub-tiles after the first of
+    their group, those of them with a list, those whose list equals the
+    previous sub-tile's (same count, same ids), those of them that fit the
+    ring, groups, groups whose sub-tiles are all empty)."""
+    c = cnt.reshape(-1, merge).long()
+    on_list = (torch.arange(cl.shape[1], device=cl.device)
+               < cnt[:, None]).reshape(c.shape[0], merge, -1)
+    lists = torch.where(on_list, cl.reshape(c.shape[0], merge, -1), -1)
+    same = (c[:, 1:] == c[:, :-1]) & (lists[:, 1:] == lists[:, :-1]).all(-1)
+    same &= c[:, 1:] > 0
+    return (c[:, 1:].numel(), int((c[:, 1:] > 0).sum()), int(same.sum()),
+            int((same & (c[:, 1:] <= RING_CLUSTERS)).sum()), c.shape[0],
+            int((c == 0).all(dim=1).sum()))
+
+
+def k7_shape(tag, name, tables, o, d, k1, rows_table, merge):
+    """K7 at ``merge`` on the lists of K1's shape ``k1``: bit-equal to K1
+    on every lane and to its plain version (every lane, or K1's sampled
+    tiles where K1 was sampled); timed beside K1 on the same lists."""
+    from crt_tpu_torch.ops import cluster_trace as ct
+
+    cl, cnt = k1["lists"]
+    dead = torch.zeros_like(cnt)
+
+    def run(lib=None, counts=cnt):
+        return on(lib, lambda: ct.closest_hit_merged(
+            tables, o, d, cl, counts, rows_table, merge=merge))
+
+    def k1_run(lib=None):
+        return on(lib, lambda: ct.closest_hit(tables, o, d, cl, cnt,
+                                              rows_table))
+
+    out = run()
+    compare_hits(f"{tag} {name} vs K1", out, k1["out"])
+    if "sampled" in k1["held"]:
+        held = "bit-equal to K1 on every lane (K1 held to the plain version)"
+    else:
+        compare_hits(f"{tag} {name} vs plain", out,
+                     ct.closest_hit_merged_plain(tables, o, d, cl, cnt,
+                                                 rows_table, merge))
+        held = "bit-equal to the plain version and to K1 on every lane"
+    sub, live_sub, same, fits, groups, empty = merge_counts(cl, cnt, merge)
+    return dict(
+        tag=tag, name=name, kernel="K7", out=out, bound=k1["bound"],
+        held=held,
+        calls={"kernel": run, "single": run, "device": run,
+               "dead": lambda lib=None: run(lib, dead),
+               "dead device": lambda lib=None: run(lib, dead),
+               "K1": k1_run, "K1 device": k1_run},
+        timers={"single": cuda_ms, "device": device_ms,
+                "dead device": device_ms, "K1 device": device_ms},
+        text=(f"{k1['text']}, merge {merge}: {same} of {live_sub} live "
+              f"sub-tiles after the first of their group ({sub} in all) "
+              f"repeat the previous sub-tile's list ({fits} of them within "
+              f"the ring's {RING_CLUSTERS} clusters); {empty} of {groups} "
+              "groups all empty"))
+
+
 def k3_shape(tag, name, ids, g, T):
     """K3 on recorded or seeded cotangents: within 4e-6 sum|g| of fp64 and
     5e-4 sum|g| of the plain version."""
@@ -1130,7 +1218,7 @@ def record_direction_frame(scene):
 
 
 def kernel_shapes(device):
-    """K1-K6 at the shapes of PERF.md's redesign tables, in the order
+    """K1-K7 at the shapes of PERF.md's redesign tables, in the order
     [kernels] (opaque bench frame; K5 / K6 also on the depth-1 shadow pass
     of a real frame with the w form off), [glass] (refractive bench frame,
     its bounce-1 pool and backward recorded from a real frame), [scale]
@@ -1156,6 +1244,9 @@ def kernel_shapes(device):
     prim = k1_shape("[kernels]", "K1 opaque primary", tables, o, d, None,
                     rows_table)
     yield prim
+    for merge in (2, 4):
+        yield k7_shape("[kernels]", f"K7 opaque primary, merge {merge}",
+                       tables, o, d, prim, rows_table, merge)
     k = prim["out"]
     refl_o, refl_d, refl_act = mirror_bounce(scene, st, o, d, k)
     bounce = k1_shape("[kernels]", "K1 opaque masked mirror bounce", tables,
@@ -1163,6 +1254,10 @@ def kernel_shapes(device):
     yield bounce
     yield k4_shape("[kernels]", "K4 opaque masked mirror bounce", tables,
                    refl_o, refl_d, bounce, rows_table)
+    for merge in (2, 4):
+        yield k7_shape("[kernels]",
+                       f"K7 opaque masked mirror bounce, merge {merge}",
+                       tables, refl_o, refl_d, bounce, rows_table, merge)
     del bounce
     w = depth0_shadow_wavefront(scene, st, o, d, Hit(t=k[0], tri=k[1]),
                                 kernel_rows=k[2])
@@ -1238,6 +1333,9 @@ def kernel_shapes(device):
     prim = k1_shape("[scale]", "K1 65,536-triangle primary", tables, o, d,
                     None, rows_table, gen=gen)
     yield prim
+    for merge in (2, 4):
+        yield k7_shape("[scale]", f"K7 65,536-triangle primary, merge {merge}",
+                       tables, o, d, prim, rows_table, merge)
     k = prim["out"]
     # the wide band: the primary's slot ranks (K1's last row), seeded
     # cotangents, as [kernels] segsum takes them
@@ -1281,17 +1379,17 @@ def phase_shapes(device, parent=None):
 
 
 def shape_turns(sh, parent=None):
-    """One shape of kernel_shapes: K1, K2, K4, K5 and K6 bit-equal to the
-    plain version (every lane, or sampled tiles at 65,536 triangles), K4
+    """One shape of kernel_shapes: K1, K2, K4-K7 bit-equal to the plain
+    version (every lane, or sampled tiles at 65,536 triangles), K4 and K7
     also to K1; K3 within its tolerances of fp64 and of the plain version
     (held by k3_shape).  Given ``parent`` (a library of another checkout's
-    kernels, bind_parent), K1, K2, K4, K5 and K6 also equal to its kernels
+    kernels, bind_parent), K1, K2, K4-K7 also equal to its kernels
     on every lane, K3 its distance printed.  Times of the shape's calls:
     cuda_ms_many unless the shape names another timer (a single launch,
     cuda_ms; device time, device_ms): the launch, the launch with every
     count zeroed (every tile dead: the fixed cost of the output stores and
-    the tiles), K1 with rows at kp = 0, K4's tile list and K1 on K4's
-    lists, K3 with every id -1; given ``parent``, each in turns: parent,
+    the tiles), K1 with rows at kp = 0, K4's tile list and K1 on K4's and
+    K7's lists, K3 with every id -1; given ``parent``, each in turns: parent,
     new, new, parent.  Bound
     and, where the kernel tests members, no-FMA floor from this run's
     inputs.  -> dict(times, bound_ms)."""
@@ -1299,7 +1397,7 @@ def shape_turns(sh, parent=None):
     held = sh["held"]
     if parent is not None:
         pout = sh["calls"]["kernel"](parent)
-        if sh["kernel"] in ("K1", "K4"):
+        if sh["kernel"] in ("K1", "K4", "K7"):
             compare_hits(f"{tag} {name} vs the parent's kernel",
                          sh["out"], pout)
             held += "; equal to the parent's kernel on every lane"
@@ -1344,7 +1442,8 @@ def shape_turns(sh, parent=None):
 def profile_turns(device, parent):
     """Profiled device time and launches of the opaque forward and
     forward+backward frames, the opaque forward frame with the w form off
-    (K5 shadows) and shaded through a trace built with
+    (K5 shadows), with CRT_TILE_MERGE=2 (K7 closest hits) and shaded
+    through a trace built with
     use_occlusion_kernel=True (K6 shadows), the glass scan frame and the
     glass scan frame with compact_bounces, with the parent's kernels and
     the new ones in turns (parent, new, new, parent), and the redesigned
@@ -1367,6 +1466,14 @@ def profile_turns(device, parent):
         finally:
             cluster_trace._APEX_W = saved
 
+    def merged_frame():
+        saved = cluster_trace._TILE_MERGE  # read when the trace is built
+        cluster_trace._TILE_MERGE = 2
+        try:
+            return render_image(opaque)
+        finally:
+            cluster_trace._TILE_MERGE = saved
+
     def any_hit_frame():
         with torch.no_grad():
             return shade_wavefront(
@@ -1376,6 +1483,7 @@ def profile_turns(device, parent):
     frames = (("opaque forward", lambda: render_image(opaque)),
               ("opaque forward+backward", lambda: image_sum_grads(opaque)),
               ("opaque forward, w form off (K5)", w_form_off),
+              ("opaque forward, CRT_TILE_MERGE=2 (K7)", merged_frame),
               ("opaque frame shaded with use_occlusion_kernel (K6)",
                any_hit_frame),
               ("glass scan forward", lambda: render_image(glass)),
@@ -1383,7 +1491,8 @@ def profile_turns(device, parent):
                lambda: render_image(glass, compact)))
     tags = {"K1": "closest_hit_kernel", "K2": "occlusion_w",
             "K3": "segment_accumulate", "K4": "closest_hit_compact_kernel",
-            "K4 list": "live_tiles_kernel", "K5 / K6": "occlusion_d"}
+            "K4 list": "live_tiles_kernel", "K5 / K6": "occlusion_d",
+            "K7": "closest_hit_merged_kernel"}
     for name, fn in frames:
         fn()
         torch.cuda.synchronize()
@@ -1394,7 +1503,8 @@ def profile_turns(device, parent):
                 fn, tags=tuple(tags.values())))
             kd = cluster_trace.occlusion_d_mode_launches
             print(f"[turns] {name}, {who} kernels: device {dev_ms:.3f} ms in "
-                  f"{n} launches ({kd['compact']} K5, {kd['exit']} K6); "
+                  f"{n} launches ({kd['compact']} K5, {kd['exit']} K6, "
+                  f"{cluster_trace.closest_hit_merged_launches} K7); "
                   + ", ".join(f"{k} {by_tag[v]:.3f} ms "
                               f"({100 * by_tag[v] / dev_ms:.2f} %)"
                               for k, v in tags.items() if by_tag[v] > 0))
@@ -2155,6 +2265,156 @@ def phase_refract(device):
           f"build_packed reads it) {ms_new:.3f} ms, by plain indexing "
           f"{ms_old:.3f} ms")
     return launches, c_launches
+
+
+GI = dict(BENCH, gi_on=True)
+GI_RAYS = 4  # --gi-rays: K, the default
+
+
+def gi_frame_traces(st, R):
+    """(widest pool level, chunks, closest hits) the grow schedule implies
+    for one GI frame without glass: the pool grows K-fold a bounce up to
+    K^(D - 1) banks (the leaves are shaded inline), a chunk holds
+    ITER_POOL_LANES / K^(D - 1) pixels, and each chunk traces once a
+    bounce and K times more for the leaves at bounce D - 1, each trace
+    with one capped shadow pass."""
+    from crt_tpu_torch.renderer import ITER_POOL_LANES, TILE_H, TILE_W
+
+    D, K = st.max_ray_depth, st.diffuse_reflection_ray_count
+    widest = K ** max(D - 1, 0)
+    chunk = max(TILE_H * TILE_W, ITER_POOL_LANES // widest)
+    chunk = chunk // (TILE_H * TILE_W) * (TILE_H * TILE_W)
+    chunks = -(-R // chunk)
+    return widest, chunks, chunks * (D + 1 + (K if D >= 1 else 0))
+
+
+def phase_gi(device):
+    """The GI frame (make_test_scene(1920, 1080, 64, gi_on=True), K = 4,
+    depth 3) through the CLI and render_image, held to the all-pairs
+    backend and to the CPU on a small scene; its launches, time, device
+    time, banks and peak memory; two render_progressive passes; its
+    gradients (remat_shading): time, peak, launches, and on a 480x270 GI
+    frame against the all-pairs backend's."""
+    from crt_tpu_torch import RenderSettings, render_image, render_progressive
+    from crt_tpu_torch.frontend import cli
+    from crt_tpu_torch.io.ppm import write_ppm
+    from crt_tpu_torch.ops.shade_iter import default_banks
+    from crt_tpu_torch.scene.procedural import (
+        make_test_scene, make_test_scene_dict,
+    )
+
+    W, H = GI["width"], GI["height"]
+    phase_t0 = time.perf_counter()
+
+    def at():
+        return f"[{time.perf_counter() - phase_t0:.1f} s into the phase]"
+
+    st = RenderSettings(diffuse_reflection_ray_count=GI_RAYS)
+    scene = make_test_scene(**GI, device=device)
+    R = -(-H // 32) * 32 * (-(-W // 32) * 32)
+    widest, chunks, traces = gi_frame_traces(st, R)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "gi.crtscene")
+        out_path = os.path.join(tmp, "gi.ppm")
+        ref_path = os.path.join(tmp, "gi_in_process.ppm")
+        with open(scene_path, "w") as f:
+            json.dump(make_test_scene_dict(**GI), f)
+        reset_launches()
+        rc = cli.main([scene_path, out_path, "--device", str(device),
+                       "--gi-rays", str(GI_RAYS)])
+        launches = read_glass_launches()
+        check(rc == 0, f"CLI exited {rc}")
+        img = render_image(scene, st)
+        write_ppm(img.cpu().numpy(), ref_path)
+        with open(out_path) as f1, open(ref_path) as f2:
+            same = f1.read() == f2.read()
+    print(f"[gi] CLI wrote the {W}x{H} GI frame (K {GI_RAYS}, depth "
+          f"{st.max_ray_depth}, {default_banks(scene, st)} banks under grow: "
+          f"pool widths 1, {GI_RAYS}, {widest}, leaves inline; {chunks} "
+          f"chunks of {-(-R // chunks)} pixels); launches {launches} {at()}")
+    check(launches["closest_hit"] == traces
+          and launches["occlusion_w"] == traces
+          and launches["closest_hit_compact"] == 0
+          and launches["occlusion_w_glass"] == 0 and launches["segsum"] == 0,
+          f"the GI frame launched {launches}: expected {traces} closest hits "
+          f"and {traces} capped shadow passes ({chunks} chunks)")
+    check(same, "the CLI's GI PPM differs from render_image's")
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all())
+          and float(img.mean()) > 0, "the GI image is not a finite, lit "
+          "[H, W, 3]")
+    ref = render_image(scene, st.replace(backend="bruteforce"))
+    # one flipped hit anywhere on a pixel's ~100 paths moves that pixel
+    image_agreement(f"[gi] cluster vs all-pairs backend on the card {at()}",
+                    img, ref, min_frac=0.999)
+    del ref
+
+    small = make_test_scene(96, 64, num_quads=8, gi_on=True, device="cpu")
+    for kw in (dict(), dict(wavefront="recursive")):
+        sst = st.replace(**kw)
+        cpu_img = render_image(small, sst)
+        gpu_img = render_image(small.to(device), sst).cpu()
+        # the card's f32 sin / cos may differ from the CPU's by an ulp and
+        # turn a hemisphere ray onto another triangle at an edge
+        image_agreement(f"[gi] small GI scene {kw or 'default'}, card vs "
+                        f"CPU {at()}", gpu_img, cpu_img, min_frac=0.99)
+
+    torch.cuda.reset_peak_memory_stats()
+    wall, enq = host_ms(lambda: render_image(scene, st), reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_launches()
+    dev_ms, dev_launches, by_tag = profile_frame(
+        lambda: render_image(scene, st), top=8, tag="[gi]")
+    n = read_glass_launches()
+    print(f"[gi] forward frame: {wall:.3f} ms = {W * H / wall / 1e3:.3f} "
+          f"Mrays/s of primary rays (host enqueue {enq:.3f} ms); profiled "
+          f"frame: device kernels {dev_ms:.3f} ms in {dev_launches} launches; "
+          f"K1 {by_tag['closest_hit']:.3f} ms, K2 {by_tag['occlusion_w']:.3f} "
+          f"ms over {n['closest_hit']} / {n['occlusion_w']} launches; peak "
+          f"{peak:.3f} GiB {at()}")
+
+    means = []
+    t0 = time.perf_counter()
+    prog = render_progressive(scene, st, passes=2,
+                              callback=lambda p, m: means.append(m.clone()))
+    torch.cuda.synchronize()
+    prog_s = time.perf_counter() - t0
+    second = render_image(scene, st, gi_salt=1)
+    check(torch.equal(means[0], img), "progressive pass 0 differs from the "
+          "single-shot render")
+    check(torch.allclose(prog, (img + second) / 2, rtol=0, atol=1e-6)
+          and not torch.equal(second, img),
+          "two progressive passes are not the mean of salts 0 and 1")
+    print(f"[gi] render_progressive, 2 passes: {prog_s:.3f} s; pass 0 == "
+          f"render_image bit for bit; the mean of salts 0 and 1; pass 1 "
+          f"differs on {int((second != img).any(-1).sum())} px {at()}")
+    del prog, second, means
+
+    gst = st.replace(remat_shading=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    value, grads = image_sum_grads(scene, gst)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    g_launches = read_glass_launches()
+    print(f"[gi] value_and_grad of the GI image sum (remat_shading): value "
+          f"{float(value):.6e} in {g_s:.3f} s, peak {g_peak:.3f} GiB; "
+          f"launches {g_launches} {at()}")
+    for k, gk in grads.items():
+        check(bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
+              f"GI d/d{k} is not finite and non-zero")
+    del grads
+    # the gradients held to the all-pairs backend's on a 480x270 GI frame
+    # (the full-width all-pairs gradient takes 90 s)
+    mid = make_test_scene(**dict(GI, width=480, height=270), device=device)
+    _, grads = image_sum_grads(mid, gst)
+    _, ref_grads = image_sum_grads(mid, gst.replace(backend="bruteforce"))
+    assert_grads_close(f"[gi] 480x270 GI frame, cluster vs bruteforce "
+                       f"backend {at()}", grads, ref_grads, rtol=1e-3,
+                       atol_scale=1e-4)
+    return launches
 
 
 BIG = dict(num_triangles=1_000_000, width=1920, height=1080)
@@ -3121,7 +3381,7 @@ def main(argv=None) -> int:
                     help="run only the large-scene, table-layout and "
                     "direction-form phases (no JSON lines)")
     ap.add_argument("--parent", metavar="DIR",
-                    help="time K1-K6 at their redesign "
+                    help="time K1-K7 at their redesign "
                     "shapes and profile the opaque and glass frames in "
                     "turns with the kernels built from "
                     "DIR/crt_tpu_torch/csrc (another checkout's, with this "
@@ -3171,6 +3431,8 @@ def main(argv=None) -> int:
     stats.update(variants)
     stats.update(phase_glass_kernels(device))
     glass, compact = phase_refract(device)
+    torch.cuda.empty_cache()
+    phase_gi(device)
     torch.cuda.empty_cache()
     stats.update(phase_occlusion_d(device))
     stats.update(phase_stream_kernels(device))

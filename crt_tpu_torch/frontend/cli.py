@@ -3,11 +3,14 @@
 Usage:
     python -m crt_tpu_torch.frontend.cli scene.crtscene [out.ppm]
         [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce]
-        [--width W] [--height H] [--repeat N] [--device cpu|cuda]
+        [--width W] [--height H] [--gi-rays K] [--repeat N]
+        [--device cpu|cuda]
 
 Counterpart of ``crt_tpu/frontend/cli.py``: wall-clock time of the render
 (excluding scene load) printed as "Execution time: N seconds.", then an
 ASCII P3 image.  On CUDA the timed region ends in a device synchronize.
+``--gi-rays`` sets the GI samples a diffuse hit
+(``diffuse_reflection_ray_count``) for a scene with GI on.
 ``--device`` defaults to ``cuda``: without a visible card the CLI prints an
 error and returns 2 unless ``--device cpu`` asks for the CPU.
 """
@@ -38,6 +41,8 @@ def main(argv=None) -> int:
                             "pallas_stream", "bruteforce"])
     p.add_argument("--width", type=int, default=None, help="override width")
     p.add_argument("--height", type=int, default=None, help="override height")
+    p.add_argument("--gi-rays", type=int, default=None,
+                   help="GI samples a diffuse hit (scenes with GI on)")
     p.add_argument("--repeat", type=int, default=1,
                    help="re-render N times and report the best time")
     p.add_argument("--device", default="cuda",
@@ -59,6 +64,8 @@ def main(argv=None) -> int:
         scene = scene.replace(width=args.width or scene.width,
                               height=args.height or scene.height)
     settings = RenderSettings(backend=args.backend)
+    if args.gi_rays is not None:
+        settings = settings.replace(diffuse_reflection_ray_count=args.gi_rays)
 
     best = float("inf")
     image = None

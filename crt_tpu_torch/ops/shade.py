@@ -22,8 +22,15 @@ bounce recurses into the next level with an active mask.
 This module holds the unrolled recursion (``wavefront="recursive"``); the
 iterative bank wavefront that refractive scenes take by default is
 ``ops/shade_iter.py``, which shares ``hit_attributes`` and
-``_occlusion_masks``.  GI (ROADMAP A8), bitmap textures (A9) and AOVs (A10)
-raise ``NotImplementedError``.
+``_occlusion_masks``.  Bitmap textures (ROADMAP A9) and AOVs (A10) raise
+``NotImplementedError``.
+
+  - diffuse GI (``scene.gi_on``): K = ``diffuse_reflection_ray_count``
+    hemisphere samples a diffuse hit, each from two uniforms of the
+    pixel's PCG32 stream (``ops/rng.py``, seeded from the raster x / y
+    and forked per progressive pass by ``gi_salt``), drawn with masked
+    advancement in the reference's depth-first order; the diffuse colour
+    is divided by K + 1
 
 Gradient contract: hit ids, material / texture codes and occlusion masks
 are constants (every trace sees detached geometry and rays); everything
@@ -39,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from crt_tpu_torch.ops import rng as rng_mod
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.intersect import Hit
 from crt_tpu_torch.ops.segsum import (
@@ -98,8 +106,6 @@ class HitAttributes(NamedTuple):
 
 def check_supported(scene, settings=None) -> None:
     """Raise NotImplementedError for a scene or setting outside the slice."""
-    if scene.gi_on:
-        raise NotImplementedError("GI is not ported yet (ROADMAP A8)")
     if TEXTURE_BITMAP in scene.texture_types_present:
         raise NotImplementedError(
             "bitmap textures are not ported yet (ROADMAP A9)")
@@ -487,23 +493,38 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
 
 
 def shade_wavefront(scene, settings, trace_fn, origins, dirs,
-                    active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    active: Optional[torch.Tensor] = None, *,
+                    raster_x: Optional[torch.Tensor] = None,
+                    raster_y: Optional[torch.Tensor] = None,
+                    gi_salt=None) -> torch.Tensor:
     """Shade a camera-ray wavefront -> [R, 3] linear colors, by the
     unrolled recursion.
 
     ``trace_fn(origins, dirs, active) -> Hit`` is the intersection backend.
     ``active=False`` lanes (chunk padding) produce arbitrary colors the
-    caller discards; they are dropped from the trace binning.
+    caller discards; they are dropped from the trace binning.  A GI scene
+    needs the rays' raster x / y (uint32 values) to seed each pixel's
+    PCG32 stream; ``gi_salt`` (an int or an integer scalar tensor) forks
+    the streams for a progressive pass, salt 0 bit for bit the unsalted
+    render.
     """
     check_supported(scene)
     if active is None:
         active = torch.ones(origins.shape[:-1], dtype=torch.bool,
                             device=origins.device)
+    rng = None
+    if scene.gi_on:
+        if raster_x is None or raster_y is None:
+            raise ValueError("GI needs raster coordinates to seed the "
+                             "per-pixel PCG32 streams")
+        rng = rng_mod.salt_stream(
+            rng_mod.make_pcg(raster_x.to(origins.device),
+                             raster_y.to(origins.device)), gi_salt)
     march_tab = None
     if scene.has_materials and scene.has_refractive and scene.refractions_on:
         march_tab = march_table(scene)
     return _shade_level(scene, settings, trace_fn, origins, dirs, 0, active,
-                        march_tab)
+                        march_tab, rng)[0]
 
 
 def refraction_geometry(dirs, normal, ior, refraction_bias, point):
@@ -525,13 +546,37 @@ def fresnel_weight(dirs, refr_normal):
     return 0.5 * torch.pow(1.0 + vecmath.dot(dirs, refr_normal), 5.0)
 
 
+def gi_basis(dirs, normal):
+    """The local frame of a diffuse hit's hemisphere samples
+    (crt_renderer.cpp:62-66): rows right = |d x n|, up = n, forward =
+    right x up -> [..., 3, 3]."""
+    right = vecmath.safe_normalize(vecmath.cross(dirs, normal))
+    return vecmath.from_axes(right, normal, vecmath.cross(right, normal))
+
+
+def gi_direction(rng, active, local_m):
+    """One hemisphere sample in the frame ``local_m`` from two uniforms of
+    ``rng`` (advanced where ``active``): (cos, sin, 0) of pi * u1, turned
+    about y by 2 pi * u2, then into the frame -> (dir [..., 3], rng)."""
+    u1, rng = rng_mod.uniform(rng, active)
+    angle_xy = _PI * u1
+    x, y = torch.cos(angle_xy), torch.sin(angle_xy)
+    u2, rng = rng_mod.uniform(rng, active)
+    angle_xz = (2.0 * _PI) * u2
+    c, s = torch.cos(angle_xz), torch.sin(angle_xz)
+    # (x, y, 0) times rotation_y, row-vector convention
+    z = torch.zeros_like(x)
+    d = torch.stack([x * c + z * s, y, -x * s + z * c], dim=-1)
+    return vecmath.rotate_rows(d, local_m), rng
+
+
 def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
-                 march_tab=None):
-    """One unrolled recursion level -> color [R, 3]."""
+                 march_tab=None, rng=None):
+    """One unrolled recursion level -> (color [R, 3], rng)."""
     R = origins.shape[:-1]
     black = torch.zeros(R + (3,), dtype=torch.float32, device=origins.device)
     if depth > settings.max_ray_depth:
-        return black
+        return black, rng
 
     kernel_rows = None
     if hasattr(trace_fn, "with_rows"):
@@ -548,7 +593,7 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         gray = 0.5 + 0.5 * vecmath.dot(attrs.normal, light_dir)
         legacy = gray[..., None].expand(R + (3,))
         return torch.where(attrs.valid[..., None], legacy,
-                           scene.background_color)
+                           scene.background_color), rng
 
     albedo = sample_textures(scene, attrs.albedo_tex, attrs.uv,
                              attrs.bary_u, attrs.bary_v)
@@ -579,19 +624,31 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
             refl_active = refl_active | is_refractive
         refl_dir = vecmath.reflect(dirs, n_eff)
         refl_origin = point + n_eff * settings.reflection_bias
-        refl_color = _shade_level(scene, settings, trace_fn, refl_origin,
-                                  refl_dir, depth + 1, active & refl_active,
-                                  march_tab)
+        refl_color, rng = _shade_level(
+            scene, settings, trace_fn, refl_origin, refl_dir, depth + 1,
+            active & refl_active, march_tab, rng)
     else:
         refl_color = black
 
     if want_refract:
-        refr_color = _shade_level(
+        refr_color, rng = _shade_level(
             scene, settings, trace_fn, refr_origin, refr_dir, depth + 1,
-            active & is_refractive & refr_ok, march_tab)
+            active & is_refractive & refr_ok, march_tab, rng)
 
-    # ---- diffuse
+    # ---- diffuse: the GI samples in order, each child's subtree drawing
+    # from the pixel's stream before the next sample's angles
     diffuse_color = black
+    K = settings.diffuse_reflection_ray_count
+    if scene.gi_on and K > 0:
+        gi_active = active & is_diffuse
+        local_m = gi_basis(dirs, normal)
+        gi_origin = point + normal * settings.diffuse_reflection_bias
+        for _ in range(K):
+            gi_dir, rng = gi_direction(rng, gi_active, local_m)
+            gi_color, rng = _shade_level(
+                scene, settings, trace_fn, gi_origin, gi_dir, depth + 1,
+                gi_active, march_tab, rng)
+            diffuse_color = diffuse_color + gi_color
     if scene.num_lights > 0:
         illuminated, light_dir, r2 = _occlusion_masks(
             scene, trace_fn, point, normal, scene.light_position,
@@ -603,8 +660,8 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         diffuse_color = diffuse_color + albedo * light_sum(
             scene, illuminated, light_dir, r2, normal)[..., None]
 
-    if settings.gi_divide:
-        diffuse_color = diffuse_color / (settings.diffuse_reflection_ray_count + 1)
+    if settings.gi_divide or scene.gi_on:
+        diffuse_color = diffuse_color / (K + 1)
 
     # ---- reflective
     if want_reflect:
@@ -630,4 +687,4 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         color = torch.where(is_refractive[..., None], refractive_color, color)
     if scene.has_constant:
         color = torch.where(is_constant[..., None], albedo, color)
-    return color
+    return color, rng

@@ -7,28 +7,38 @@ a pool of B banks of R lanes, where slot (b, p) always belongs to pixel p:
 
   - path radiance accumulates elementwise into a [B, R, 3] buffer and the
     image is one sum over the banks, with no scatter-add;
-  - spawned children (the refractive Fresnel pair's reflection ray) only
-    move along the small bank axis: a child takes the lowest free bank of
-    its own column, matched by a cumulative count over [B, B, R];
+  - spawned children (the refractive Fresnel pair's reflection ray, the K
+    diffuse-GI samples) only move along the small bank axis: a child takes
+    the lowest free bank of its own column, matched by a cumulative count
+    over [B, B, R];
   - every bank keeps the renderer's pixel-tile ray order, so the trace
     binning sees the same coherent 32x32 blocks as the primary pass.
 
 A lane carries its throughput (the product of per-bounce factors: the
-albedo of a mirror, fresnel and 1 - fresnel of the refractive pair), so the
-tree's bottom-up blend becomes a sum over root-to-leaf paths: the same
-radiance up to the order of f32 additions.
+albedo of a mirror, fresnel and 1 - fresnel of the refractive pair,
+1 / (K + 1) a GI sample), so the tree's bottom-up blend becomes a sum over
+root-to-leaf paths: the same radiance up to the order of f32 additions.
 
 Two schedules (``RenderSettings.wavefront_sched``): "scan" carries all B
 banks through D + 1 identical bounces; "grow" lets the pool grow 1 -> 2 ->
 4 -> B banks, folds the depth-D leaf children in without placing them and
 ends on a spawn-free bounce, so dead banks are never traced.  "auto" is
-scan (crt_tpu's choice for scenes without GI).
+grow under GI, whose cost follows the pool's width, and scan otherwise
+(crt_tpu's choice).
 
 Children that find no free bank in their column are dropped and counted.
-The default of 2^min(D, 3) banks drops none at depth <= 3.
+A GI scene gets the tree's exact width f^D banks (f = max(K, 2 with live
+refraction)), which drops none; other scenes 2^min(D, 3), which drops
+none at depth <= 3.
 
-GI children, their random streams and the sharded pool are not ported
-(ROADMAP A8, A13).
+GI streams.  A GI parent draws its 2K angles from its lane's PCG32 stream
+in order, with masked advancement; each child takes a forked stream
+(``rng.derive(parent, k + 1)``, the Fresnel reflection ``derive(parent,
+97)``), since the reference's depth-first draw order cannot be kept
+breadth-first: a child's stream position would depend on its siblings'
+subtree sizes.  Deterministic, and the same distribution as the recursive
+wavefront (``ops/shade.py``), which keeps the reference's order.  The
+sharded pool is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -38,11 +48,14 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from crt_tpu_torch.ops import rng as rng_mod
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.shade import (
     _occlusion_masks,
     check_supported,
     fresnel_weight,
+    gi_basis,
+    gi_direction,
     hit_attributes,
     light_sum,
     march_table,
@@ -58,15 +71,50 @@ from crt_tpu_torch.scene.types import (
 
 
 def default_banks(scene, settings) -> int:
-    """Pool bank count: ``wavefront_banks`` when set, else 2^min(D, 3) for
-    a scene with live refraction (beyond depth 3 the Fresnel tree is
-    starved of weight and the few drops are below noise) and 2 without."""
+    """Pool bank count: ``wavefront_banks`` when set; under GI the exact
+    tree width f^D (f = max(K, 2 with live refraction)), under which a
+    parent at bounce b lies below bank f^(b+1) and no child is dropped;
+    else 2^min(D, 3) for a scene with live refraction (beyond depth 3 the
+    Fresnel tree is starved of weight and the few drops are below noise)
+    and 2 without."""
     if settings.wavefront_banks:
         return int(settings.wavefront_banks)
+    if scene.gi_on:
+        f = 2 if (scene.has_refractive and scene.refractions_on) else 1
+        f = max(f, settings.diffuse_reflection_ray_count)
+        return max(2, f ** settings.max_ray_depth)
     banks = 2 ** min(settings.max_ray_depth, 3)
     if not (scene.has_refractive and scene.refractions_on):
         banks = min(banks, 2)
     return max(banks, 2)
+
+
+def _grow_factor(scene, settings) -> int:
+    """Slots one bounce leaves per parent lane in its column: the Fresnel
+    pair (the continuation and one child), a GI parent's K children (the
+    parent dies), else 1."""
+    f = 2 if (scene.has_refractive and scene.refractions_on) else 1
+    K = settings.diffuse_reflection_ray_count
+    if scene.gi_on and K > 1:
+        f = max(f, K)
+    return f
+
+
+def _grows(scene, settings) -> bool:
+    """Whether the pool takes the grow schedule ("auto": under GI)."""
+    sched = settings.wavefront_sched
+    return sched == "grow" or (sched == "auto" and scene.gi_on)
+
+
+def pool_width(scene, settings) -> int:
+    """The most banks the pool holds at once: grow_f^(D - 1) capped by the
+    bank count under grow (the leaves are shaded inline and the last bounce
+    spawns nothing), the bank count under scan."""
+    B = default_banks(scene, settings)
+    if not _grows(scene, settings):
+        return B
+    return min(B, _grow_factor(scene, settings)
+               ** max(settings.max_ray_depth - 1, 0))
 
 
 class _Pool(NamedTuple):
@@ -77,6 +125,7 @@ class _Pool(NamedTuple):
     w: torch.Tensor  # [B, R, 3] path throughput
     act: torch.Tensor  # [B, R] bool
     acc: torch.Tensor  # [B, R, 3] accumulated radiance
+    rng: Optional[rng_mod.PCGState]  # [B, R] planes; None without GI
     dropped: torch.Tensor  # [] i32 children lost to pool overflow
 
 
@@ -105,22 +154,34 @@ def _place_children(pool_fields, dead, cand_act, cand_fields, dropped):
     src = match.to(torch.uint8).argmax(dim=0)  # [Bj, R]
     out = []
     for old, cand in zip(pool_fields, cand_fields):
-        g = torch.gather(cand, 0, src[..., None].expand(src.shape + (3,)))
-        out.append(torch.where(has_src[..., None], g, old))
+        if old.dim() == 3:  # [B, R, 3] vectors; else [B, R] rng planes
+            g = torch.gather(cand, 0, src[..., None].expand(src.shape + (3,)))
+            out.append(torch.where(has_src[..., None], g, old))
+        else:
+            out.append(torch.where(has_src, torch.gather(cand, 0, src), old))
     return out, dead & ~has_src, has_src, dropped
 
 
 def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
                          active: Optional[torch.Tensor] = None,
-                         banks: Optional[int] = None) -> torch.Tensor:
-    """Shade a camera wavefront iteratively -> [R, 3] linear colors."""
+                         banks: Optional[int] = None, *,
+                         raster_x: Optional[torch.Tensor] = None,
+                         raster_y: Optional[torch.Tensor] = None,
+                         gi_salt=None) -> torch.Tensor:
+    """Shade a camera wavefront iteratively -> [R, 3] linear colors.  A GI
+    scene needs the rays' raster x / y (uint32 values) to seed each pixel's
+    PCG32 stream; ``gi_salt`` forks the streams for a progressive pass
+    (salt 0: the unsalted render, bit for bit)."""
     color, _ = shade_wavefront_iter_with_stats(
-        scene, settings, trace_fn, origins, dirs, active, banks)
+        scene, settings, trace_fn, origins, dirs, active, banks,
+        raster_x=raster_x, raster_y=raster_y, gi_salt=gi_salt)
     return color
 
 
 def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
-                                    active=None, banks=None):
+                                    active=None, banks=None, *,
+                                    raster_x=None, raster_y=None,
+                                    gi_salt=None):
     """Like ``shade_wavefront_iter``, and the count of dropped children."""
     check_supported(scene)
     R = origins.shape[0]
@@ -129,16 +190,21 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
     D = settings.max_ray_depth
     if active is None:
         active = torch.ones((R,), dtype=torch.bool, device=dev)
+    seed = None
+    if scene.gi_on:
+        if raster_x is None or raster_y is None:
+            raise ValueError("GI needs raster coordinates to seed the "
+                             "per-pixel PCG32 streams")
+        seed = rng_mod.salt_stream(
+            rng_mod.make_pcg(raster_x.to(dev), raster_y.to(dev)), gi_salt)
 
     want_refract = scene.has_refractive and scene.refractions_on
     want_reflect = scene.has_reflective and scene.reflections_on
-    gi_scale = (1.0 / (settings.diffuse_reflection_ray_count + 1)
-                if settings.gi_divide else 1.0)
-    # One bounce leaves at most grow_f slots per parent lane in its column
-    # (the Fresnel pair: the continuation and one child), and the packer
-    # fills the lowest free banks first, so after bounce b every occupied
-    # bank index is below min(B, grow_f^(b+1)).
-    grow_f = 2 if want_refract else 1
+    K = settings.diffuse_reflection_ray_count
+    gi_scale = 1.0 / (K + 1) if (scene.gi_on or settings.gi_divide) else 1.0
+    # The packer fills the lowest free banks first, so after bounce b every
+    # occupied bank index is below min(B, grow_f^(b+1)).
+    grow_f = _grow_factor(scene, settings)
     march_tab = march_table(scene) if want_refract else None
     rank = getattr(trace_fn, "rank", None)
 
@@ -206,7 +272,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
 
         o, d, act, w = flat(pool.o), flat(pool.d), flat(pool.act), flat(pool.w)
         contrib, attrs, albedo, masks = shade_local(o, d, act)
-        _, is_reflective, is_refractive = masks
+        is_diffuse, is_reflective, is_refractive = masks
         normal, point = attrs.normal, attrs.point
         acc = pool.acc + unflat(w * contrib)
         if last:
@@ -249,17 +315,36 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
             new_d = torch.where(m, refl_r_dir, new_d)
             cont = cont | is_refractive
 
+        # ---- the GI samples' directions and forked streams, before any
+        # placement: the parent's stream after its draws is the pool's,
+        # and a child placed over a dying parent's slot brings its own
+        rng = pool.rng
+        gi_children = []
+        if scene.gi_on and K > 0:
+            local_m = gi_basis(d, normal)
+            gi_origin = point + normal * settings.diffuse_reflection_bias
+            r_flat = rng_mod.PCGState(*(flat(p) for p in rng))
+            for k in range(K):
+                gi_dir, r_flat = gi_direction(r_flat, is_diffuse, local_m)
+                gi_children.append((gi_dir, rng_mod.derive(r_flat, k + 1)))
+            rng = rng_mod.PCGState(*(unflat(p) for p in r_flat))
+
         if leaf_children:
             leaf = torch.zeros_like(w)
             if want_refract:
                 c = shade_local(refl_r_origin, refl_r_dir,
                                 is_refractive & refr_ok)[0]
                 leaf = leaf + (w * fresnel) * c
+            for gi_dir, _ in gi_children:
+                c = shade_local(gi_origin, gi_dir, is_diffuse)[0]
+                leaf = leaf + (w * gi_scale) * c
             return _Pool(o=unflat(new_o), d=unflat(new_d), w=unflat(new_w),
-                         act=unflat(cont), acc=acc + unflat(leaf),
+                         act=unflat(cont), acc=acc + unflat(leaf), rng=rng,
                          dropped=pool.dropped)
 
         pool_fields = [unflat(new_o), unflat(new_d), unflat(new_w)]
+        if rng is not None:
+            pool_fields += list(rng)
         dead = ~unflat(cont)
         act2 = unflat(cont)
         dropped = pool.dropped
@@ -280,21 +365,41 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                 pad, R, 3)
             pool_fields[1] = torch.cat([pool_fields[1], d_pad], dim=0)
             pool_fields[2] = padb(pool_fields[2], 0.0)
+            for j in range(3, len(pool_fields)):  # the rng planes
+                pool_fields[j] = padb(pool_fields[j], 0)
             dead = padb(dead, True)
             act2 = padb(act2, False)
             acc_out = padb(acc, 0.0)
 
-        if want_refract:
-            # the Fresnel pair's reflection ray, weight * fresnel
-            cand = [unflat(refl_r_origin), unflat(refl_r_dir),
-                    unflat(w * fresnel)]
+        def spawn(cand_act, co, cd, cw, crng, pool_fields, dead, act2,
+                  dropped):
+            cand = [unflat(co), unflat(cd), unflat(cw)]
+            if crng is not None:
+                cand += [unflat(p) for p in crng]
             pool_fields, dead, placed, dropped = _place_children(
-                pool_fields, dead, unflat(is_refractive & refr_ok), cand,
-                dropped)
-            act2 = act2 | placed
+                pool_fields, dead, unflat(cand_act), cand, dropped)
+            return pool_fields, dead, act2 | placed, dropped
+
+        if want_refract:
+            # the Fresnel pair's reflection ray, weight * fresnel, on a
+            # forked stream so the two subtrees' GI draws decorrelate
+            refl_rng = None
+            if rng is not None:
+                refl_rng = rng_mod.derive(
+                    rng_mod.PCGState(*(flat(p) for p in rng)), 97)
+            pool_fields, dead, act2, dropped = spawn(
+                is_refractive & refr_ok, refl_r_origin, refl_r_dir,
+                w * fresnel, refl_rng, pool_fields, dead, act2, dropped)
+        for gi_dir, child_rng in gi_children:
+            pool_fields, dead, act2, dropped = spawn(
+                is_diffuse, gi_origin, gi_dir, w * gi_scale, child_rng,
+                pool_fields, dead, act2, dropped)
 
         return _Pool(o=pool_fields[0], d=pool_fields[1], w=pool_fields[2],
-                     act=act2, acc=acc_out, dropped=dropped)
+                     act=act2, acc=acc_out,
+                     rng=(rng_mod.PCGState(*pool_fields[3:5])
+                          if rng is not None else None),
+                     dropped=dropped)
 
     def step(pool, **kw):
         """A bounce; under ``remat_shading`` its intermediates are not
@@ -309,16 +414,21 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
     def init_pool(nbanks):
         act = torch.zeros((nbanks, R), dtype=torch.bool, device=dev)
         act[0] = active
+        rng = None
+        if seed is not None:
+            rng = rng_mod.PCGState(*(p[None].expand(nbanks, R).contiguous()
+                                     for p in seed))
         return _Pool(
             o=origins[None].expand(nbanks, R, 3),
             d=dirs[None].expand(nbanks, R, 3),
             w=torch.ones((nbanks, R, 3), dtype=torch.float32, device=dev),
             act=act,
             acc=torch.zeros((nbanks, R, 3), dtype=torch.float32, device=dev),
+            rng=rng,
             dropped=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
-    if settings.wavefront_sched == "grow":
+    if _grows(scene, settings):
         pool = init_pool(1)
         width = 1
         for b in range(D + 1):

@@ -108,3 +108,10 @@ def rotate_rows(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         + v[..., 1:2] * m[..., 1, :]
         + v[..., 2:3] * m[..., 2, :]
     )
+
+
+def from_axes(right: torch.Tensor, up: torch.Tensor,
+              forward: torch.Tensor) -> torch.Tensor:
+    """Matrix rows (right, up, forward), batched (crt_matrix.h:28-34):
+    [..., 3] each -> [..., 3, 3]."""
+    return torch.stack([right, up, forward], dim=-2)

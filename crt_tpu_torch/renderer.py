@@ -5,9 +5,10 @@ renders a [height, width, 3] linear-color image on the device that holds
 the scene's tensors: the pixel wavefront in 32x32 tile order, the closest
 hit through the cluster backend or, for large scenes, the streaming
 backend (their CUDA kernels on a CUDA scene, their plain versions on a CPU
-scene) or the all-pairs backend, and the Whitted shading: the unrolled recursion for linear trees, the iterative bank
-wavefront (``ops/shade_iter.py``) for branching ones (live refraction at
-depth >= 2).  The image is differentiable with respect to the scene's
+scene) or the all-pairs backend, and the Whitted shading: the unrolled
+recursion for linear trees, the iterative bank wavefront
+(``ops/shade_iter.py``) for branching ones (live refraction at depth >= 2,
+and diffuse GI).  The image is differentiable with respect to the scene's
 float tensors; the backward of the packed-row read is the segment-sum
 kernel (``ops/segsum.py``).
 """
@@ -20,7 +21,7 @@ from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops import intersect as intersect_ops
 from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE
 from crt_tpu_torch.ops.shade import check_supported, shade_wavefront
-from crt_tpu_torch.ops.shade_iter import default_banks, shade_wavefront_iter
+from crt_tpu_torch.ops.shade_iter import pool_width, shade_wavefront_iter
 from crt_tpu_torch.scene.types import RenderSettings, Scene, resolve_device
 
 # Wavefront pixel-tile shape: consecutive runs of TILE_H * TILE_W rays are
@@ -46,28 +47,32 @@ _STREAM_BACKENDS = ("stream", "pallas_stream")
 # the size where they tie.
 AUTO_STREAM_MIN_CLUSTERS = 4096
 
-# Pool lanes (banks x pixels) the iterative wavefront shades per chunk when
-# ``chunk_pixels`` is not set and the frame casts shadow rays; four times as
-# many when it casts none.  Sized for an 80 GB card from the peaks that
-# chip_smoke.py reads on an NVIDIA H100 80GB HBM3 (700 W): a 1080p frame at
-# 8 banks (16.7 M lanes) peaks at 7.0 GiB forward and 45.8 GiB
-# forward+backward, and fewer, wider chunks are faster.  So 2^24 lanes keep
-# such a frame in one chunk and leave room for its backward; twice as many
-# would not.  (``remat_shading`` cuts the backward's peak to about a third.)
+# Pool lanes (the widest level's banks x pixels) the iterative wavefront
+# shades per chunk when ``chunk_pixels`` is not set and the frame casts
+# shadow rays; four times as many when it casts none.  Sized for an 80 GB
+# card from the peaks that chip_smoke.py reads on an NVIDIA H100 80GB HBM3
+# (700 W): a 1080p frame at 8 banks (16.7 M lanes) peaks at 7.0 GiB
+# forward and 45.8 GiB forward+backward, and fewer, wider chunks are
+# faster.  So 2^24 lanes keep such a frame in one chunk and leave room for
+# its backward; twice as many would not.  (``remat_shading`` cuts the
+# backward's peak to about a third.)  A 1080p GI frame (K = 4, depth 3:
+# at most 16 banks at once, 2 chunks) peaks at 11.9 GiB forward and 48.7
+# GiB through its ``remat_shading`` gradient (measure/gi_chunks.py).
 ITER_POOL_LANES = 1 << 24
 
 
 def use_iterative_wavefront(scene: Scene, settings: RenderSettings) -> bool:
     """Shading-strategy policy: the iterative bank wavefront for branching
-    Whitted trees (live refraction at depth >= 2), the unrolled recursion
-    for linear ones (diffuse and constant: one level; mirrors: a chain).
-    ``settings.wavefront`` "iter" / "recursive" overrides."""
+    trees (live refraction at depth >= 2, diffuse GI), the unrolled
+    recursion for linear ones (diffuse and constant: one level; mirrors: a
+    chain).  ``settings.wavefront`` "iter" / "recursive" overrides."""
     if settings.wavefront == "iter":
         return True
     if settings.wavefront == "recursive":
         return False
-    return (scene.has_refractive and scene.refractions_on
-            and settings.max_ray_depth >= 2)
+    branching = (scene.has_refractive and scene.refractions_on
+                 and settings.max_ray_depth >= 2)
+    return branching or scene.gi_on
 
 
 def make_trace_fn(scene: Scene, settings: RenderSettings):
@@ -157,7 +162,8 @@ def make_tiler(h: int, w: int, device=None):
     return tile(raster_x), tile(raster_y), untile
 
 
-def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
+def _render_flat(scene: Scene, settings: RenderSettings,
+                 gi_salt=None) -> torch.Tensor:
     h, w = scene.height, scene.width
     rxf, ryf, untile = make_tiler(h, w, device=scene.device)
     origins, dirs = camera_ops.generate_rays(
@@ -165,6 +171,8 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
         w, h, rxf, ryf,
     )
     origins = origins.contiguous()
+    # the raster as uint32 values: the seeds of the GI streams
+    rx, ry = rxf.to(torch.int64), ryf.to(torch.int64)
     trace_fn = make_trace_fn(scene, settings)
     use_iter = use_iterative_wavefront(scene, settings)
     shade_fn = shade_wavefront_iter if use_iter else shade_wavefront
@@ -173,10 +181,10 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
     tile_sz = TILE_H * TILE_W
     chunk = settings.chunk_pixels
     if use_iter and not chunk:
-        # the pool multiplies every per-bounce buffer by its bank count
+        # the pool multiplies every per-bounce buffer by the banks it holds
         shadow_traces = scene.num_lights > 0 and not settings.no_shadows
         budget = ITER_POOL_LANES if shadow_traces else 4 * ITER_POOL_LANES
-        chunk = max(tile_sz, budget // default_banks(scene, settings))
+        chunk = max(tile_sz, budget // pool_width(scene, settings))
     if chunk and chunk < R:
         chunk = max(tile_sz, (chunk // tile_sz) * tile_sz)
         pad = (-R) % chunk
@@ -185,32 +193,39 @@ def _render_flat(scene: Scene, settings: RenderSettings) -> torch.Tensor:
             # Dead-ray padding: masked lanes are dropped from the binning.
             origins = torch.cat([origins, origins[:pad]])
             dirs = torch.cat([dirs, dirs[:pad]])
+            rx, ry = torch.cat([rx, rx[:pad]]), torch.cat([ry, ry[:pad]])
             act = torch.cat([act, act.new_zeros(pad)])
         color = torch.cat([
             shade_fn(scene, settings, trace_fn, origins[s:s + chunk],
-                     dirs[s:s + chunk], act[s:s + chunk])
+                     dirs[s:s + chunk], act[s:s + chunk],
+                     raster_x=rx[s:s + chunk], raster_y=ry[s:s + chunk],
+                     gi_salt=gi_salt)
             for s in range(0, R + pad, chunk)
         ])[:R]
     else:
-        color = shade_fn(scene, settings, trace_fn, origins, dirs)
+        color = shade_fn(scene, settings, trace_fn, origins, dirs,
+                         raster_x=rx, raster_y=ry, gi_salt=gi_salt)
     return untile(color)
 
 
-def render_image_hwc(scene: Scene,
-                     settings: RenderSettings | None = None) -> torch.Tensor:
+def render_image_hwc(scene: Scene, settings: RenderSettings | None = None,
+                     gi_salt=None) -> torch.Tensor:
     """Render to a [height, width, 3] float32 linear-color image on the
     scene's device.  The image differentiates with respect to every scene
-    tensor that requires grad (hit ids and occlusion masks are constants);
-    a scene with none renders without an autograd graph."""
+    tensor that requires grad (hit ids, occlusion masks and GI samples are
+    constants); a scene with none renders without an autograd graph.
+    ``gi_salt`` (an int or an integer scalar tensor) forks the per-pixel
+    GI streams: pass k of a progressive accumulation renders with salt k,
+    and salt 0 is the plain render bit for bit (``progressive.py``)."""
     settings = settings or RenderSettings()
     check_supported(scene, settings)
     if any(t.requires_grad for t in scene.tensors().values()):
-        return _render_flat(scene, settings)
+        return _render_flat(scene, settings, gi_salt)
     with torch.no_grad():
-        return _render_flat(scene, settings)
+        return _render_flat(scene, settings, gi_salt)
 
 
-def render_image(scene: Scene,
-                 settings: RenderSettings | None = None) -> torch.Tensor:
+def render_image(scene: Scene, settings: RenderSettings | None = None,
+                 gi_salt=None) -> torch.Tensor:
     """Alias of render_image_hwc — the ``crt::render_image`` equivalent."""
-    return render_image_hwc(scene, settings)
+    return render_image_hwc(scene, settings, gi_salt)

@@ -192,10 +192,13 @@ class RenderSettings:
     streaming trace's two-phase shadow resolve (0: one phase; the image
     does not depend on it).  ``wavefront``: "auto" takes the
     iterative bank wavefront for a scene with live refraction at depth >= 2
-    and the unrolled recursion otherwise; "iter" / "recursive" force one.
-    ``wavefront_banks`` overrides the pool's bank count (0: 2^min(depth, 3)
-    with glass), ``wavefront_sched`` picks its schedule ("scan", "grow";
-    "auto" is scan).  ``compact_bounces`` sends every masked trace through
+    or with GI and the unrolled recursion otherwise; "iter" / "recursive"
+    force one.  ``wavefront_banks`` overrides the pool's bank count (0:
+    f^depth under GI, f = max(K, 2 with glass); 2^min(depth, 3) with glass
+    otherwise), ``wavefront_sched`` picks its schedule ("scan", "grow";
+    "auto" is grow under GI, scan otherwise).
+    ``diffuse_reflection_ray_count`` is K, the GI samples a diffuse hit of
+    a ``gi_on`` scene.  ``compact_bounces`` sends every masked trace through
     the live-tile compacted closest-hit kernel (the same image, bit for
     bit).  ``remat_shading`` keeps no graph of an iterative bounce and runs
     it again in the backward (the same gradients, less memory).  Fields

@@ -761,6 +761,181 @@ def test_tile_merge_render_on_card(device, monkeypatch):
     assert torch.equal(img, default)
 
 
+RING_CLUSTERS = 24  # csrc/cluster_common.cuh CRT_STAGES * CRT_BATCH
+
+
+def _merged_case(device, long_lists, pattern, merge, kp):
+    """(tables, o, d, cl, cnt, rows_table) of up to 24 tiles whose merge
+    groups hold the list pattern that a K7 reusing staged batches
+    (measure/closest_hit_persistent.cu) would turn on:
+      equal      every sub-tile walks its group's first list;
+      differ     odd sub-tiles walk that list reversed (same count and
+                 ids, another order: no reuse);
+      one_empty  equal lists, sub-tile 1 of each group empty (the list
+                 stays staged across it);
+      all_empty  equal lists, every other group all empty;
+      long       equal lists of more clusters than the ring holds (each
+                 sub-tile restages);
+      origins    equal lists; sub-tile 1's rays start at points of their
+                 own (no shared origin), sub-tile 2's all at one other
+                 point, sub-tile 3's at the camera again (each restages);
+      unshared   equal lists, every ray at a point of its own (the
+                 records are staged without the origin's terms: reuse).
+    The rows table keeps its last kp columns (None at kp = 0)."""
+    if pattern == "long":
+        L = long_lists
+        tables, rows_table = L["tables"], L["rows_table"]
+        tiles = torch.nonzero(L["cnt"] > RING_CLUSTERS)[:, 0][:24]
+        tiles = tiles[:tiles.numel() // 4 * 4]
+        lanes = (tiles[:, None] * 1024
+                 + torch.arange(1024, device=device)).reshape(-1)
+        o, d = L["o"][lanes].contiguous(), L["d"][lanes].contiguous()
+        cl, cnt = L["cl"][tiles], L["cnt"][tiles]
+    else:
+        scene = make_test_scene(192, 128, num_quads=24, device=device)
+        tables = cluster_tables.build_cluster_tables(scene)
+        rows_table = cluster_tables.emit_rows_table(scene, tables)
+        o, d = _wavefront(scene)  # 24 tiles
+        cl, cnt = binning.bin_rays(tables, o, d, 1024)
+    tiles = cnt.shape[0]
+    first = torch.arange(tiles, device=device) // merge * merge
+    sub = torch.arange(tiles, device=device) % merge
+    cl, cnt = cl[first].clone(), cnt[first].clone()
+    if pattern == "differ":
+        for t in range(1, tiles, 2):
+            n = int(cnt[t])
+            cl[t, :n] = cl[t, :n].flip(0)
+    elif pattern == "one_empty":
+        cnt[sub == 1] = 0
+    elif pattern == "all_empty":
+        cnt[(first // merge) % 2 == 1] = 0
+    elif pattern in ("origins", "unshared"):
+        gen = torch.Generator(device="cpu").manual_seed(3)
+        jitter = 1e-3 * torch.rand((tiles, 1024, 3), generator=gen)
+        lanes = o.reshape(tiles, 1024, 3).clone()
+        if pattern == "unshared":
+            lanes += jitter.to(device)
+        else:
+            lanes[sub == 1] += jitter.to(device)[sub == 1]
+            lanes[sub == 2] += torch.tensor([0.01, -0.02, 0.005],
+                                            device=device)
+        o = lanes.reshape(-1, 3).contiguous()
+    rows_table = rows_table[..., -kp:].contiguous() if kp else None
+    return tables, o, d, cl.contiguous(), cnt.contiguous(), rows_table
+
+
+@pytest.mark.parametrize("kp", [0, 1, 7])
+@pytest.mark.parametrize("pattern", ["equal", "differ", "one_empty",
+                                     "all_empty", "long", "origins",
+                                     "unshared"])
+@pytest.mark.parametrize("merge", [2, 4])
+def test_closest_hit_merged_list_patterns(device, long_lists, merge, pattern,
+                                          kp):
+    """K7 on groups whose sub-tiles repeat, reorder, skip or outgrow a
+    staged list, or change their rays' origin under it: bit-equal (t, tri,
+    rows) to its plain version and to K1 on the same lists, every lane."""
+    tables, o, d, cl, cnt, rows_table = _merged_case(device, long_lists,
+                                                     pattern, merge, kp)
+    assert cnt.shape[0] >= 2 * merge and cnt.shape[0] % merge == 0
+    if pattern == "long":
+        assert int(cnt.min()) > RING_CLUSTERS
+    else:
+        assert int(cnt.max()) <= RING_CLUSTERS
+    k = cluster_trace.closest_hit_merged(tables, o, d, cl, cnt, rows_table,
+                                         merge=merge)
+    p = cluster_trace.closest_hit_merged_plain(tables, o, d, cl, cnt,
+                                               rows_table, merge)
+    k1 = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    _hits_equal(k, p)
+    _hits_equal(k, k1)
+    assert (k[1] >= 0).any()
+    if pattern in ("one_empty", "all_empty"):
+        dead = (cnt == 0).repeat_interleave(1024)
+        assert dead.any() and (k[1][dead] == -1).all()
+        assert torch.isinf(k[0][dead]).all()
+        if kp:
+            assert not k[2][:, dead].any()
+
+
+@pytest.mark.parametrize("merge", [2, 4])
+def test_closest_hit_merged_more_groups_than_the_grid(device, merge):
+    """K7 over 2,048 tiles (more merge groups than the card holds resident
+    blocks), tiles dead and live in a pattern: bit-equal to its plain
+    version and to K1 on every lane, misses on dead tiles."""
+    scene = make_test_scene(2048, 1024, num_quads=24, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    rows_table = cluster_tables.emit_rows_table(scene, tables)
+    o, d = _wavefront(scene)
+    tile = torch.arange(o.shape[0], device=device) // 1024
+    keep = (tile % 5 == 1) | (tile % 7 == 3) | (tile % 11 < 4)
+    cl, cnt = binning.bin_rays(tables, o, d, 1024, keep)
+    k = cluster_trace.closest_hit_merged(tables, o, d, cl, cnt, rows_table,
+                                         merge=merge)
+    p = cluster_trace.closest_hit_merged_plain(tables, o, d, cl, cnt,
+                                               rows_table, merge)
+    k1 = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
+    torch.cuda.synchronize()
+    _hits_equal(k, p)
+    _hits_equal(k, k1)
+    groups = (cnt > 0).reshape(-1, merge)
+    assert (~groups.any(1)).any() and groups.all(1).any()
+    dead = (cnt == 0).repeat_interleave(1024)
+    assert (k[1][dead] == -1).all() and not k[2][:, dead].any()
+
+
+def test_rng_on_card_matches_cpu(device):
+    """PCG32 on the card: seeding, masked draws, derive and salted streams
+    equal the CPU's bits."""
+    from crt_tpu_torch.ops import rng
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randint(0, 2**32, (4096,), generator=gen, dtype=torch.int64)
+    y = torch.randint(0, 2**32, (4096,), generator=gen, dtype=torch.int64)
+    act = torch.rand((4096,), generator=gen) < 0.6
+    out = {}
+    for dev in ("cpu", device):
+        st = rng.make_pcg(x.to(dev), y.to(dev))
+        vals = []
+        for i in range(12):
+            v, st = rng.uniform(st, act.to(dev) if i % 2 else None)
+            vals.append(v)
+            if i == 5:
+                st = rng.derive(st, i + 1)
+            if i == 8:
+                st = rng.salt_stream(st, torch.tensor(3, device=dev))
+        out[str(dev)] = (torch.stack(vals).cpu(), *(p.cpu() for p in st))
+    for a, b in zip(out["cpu"], out[str(device)]):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+
+
+@pytest.mark.parametrize("backend", ["cluster", "pallas_stream"])
+@pytest.mark.parametrize("wavefront", ["auto", "recursive"])
+def test_gi_render_on_card_matches_all_pairs(device, backend, wavefront):
+    """A GI frame (K = 2, depth 2) through the cluster and the streaming
+    backends on the card vs the all-pairs backend on the card: the same
+    streams, so the same samples; >= 99 % of pixels within rtol 1e-4 /
+    atol 1e-5 (an edge hit that one backend's member test takes and the
+    other's does not moves its pixel)."""
+    scene = make_test_scene(96, 64, num_quads=8, gi_on=True, device=device)
+    st = RenderSettings(backend=backend, wavefront=wavefront, max_ray_depth=2,
+                        diffuse_reflection_ray_count=2)
+    before = (cluster_trace.closest_hit_launches,
+              stream_trace.closest_hit_stream_launches)
+    img = render_image(scene, st)
+    after = (cluster_trace.closest_hit_launches,
+             stream_trace.closest_hit_stream_launches)
+    ref = render_image(scene, st.replace(backend="bruteforce"))
+    torch.cuda.synchronize()
+    assert after[0 if backend == "cluster" else 1] > before[
+        0 if backend == "cluster" else 1]
+    close = ((img - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all(-1)
+    assert float(close.float().mean()) >= 0.99
+    assert torch.isfinite(img).all() and float(img.mean()) > 0
+
+
 @pytest.mark.parametrize("settings", [
     dict(), dict(wavefront_sched="grow"), dict(wavefront="recursive"),
     dict(compact_bounces=True)])

@@ -125,12 +125,15 @@ def test_import_does_not_load_jax():
 def test_outside_the_slice_raises(case):
     scene = make_test_scene(32, 32, num_quads=4, device="cpu")
     settings = RenderSettings()
+    renders = case in ("refractive", "gi", "grad")  # inside the slice now
     if case == "refractive":
-        # glass is inside the slice; glass under GI is not
+        # glass is inside the slice, and glass under GI
         glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
                                 device="cpu")
         assert torch.isfinite(render_image(glass)).all()
         scene = glass.replace(gi_on=True)
+        settings = RenderSettings(max_ray_depth=2,
+                                  diffuse_reflection_ray_count=2)
     elif case == "iter":
         # the iterative wavefront is inside the slice; its AOVs are not
         assert torch.isfinite(
@@ -140,6 +143,8 @@ def test_outside_the_slice_raises(case):
         scene = scene_from_dict(
             make_test_scene_dict(32, 32, num_quads=4, gi_on=True),
             device="cpu")
+        settings = RenderSettings(max_ray_depth=2,
+                                  diffuse_reflection_ray_count=2)
     elif case == "bitmap":
         scene = scene.replace(texture_types_present=(0, 3))
     elif case == "aov":
@@ -152,8 +157,8 @@ def test_outside_the_slice_raises(case):
             scene, RenderSettings(backend="pallas_stream"))).all()
         settings = RenderSettings(backend="pallas_stream", aov="depth")
     else:
-        # gradients are inside the slice, through glass too; their sharded
-        # step and gradients through GI are not
+        # gradients are inside the slice, through glass and GI too; their
+        # sharded step is not
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             fit_scene(scene, render_image(scene), mesh=object(), steps=1)
         glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
@@ -164,9 +169,18 @@ def test_outside_the_slice_raises(case):
             make_test_scene_dict(32, 32, num_quads=4, gi_on=True,
                                  with_refractive=True), device="cpu")
         scene = scene.replace(vertices=scene.vertices.requires_grad_(True))
-        settings = RenderSettings(wavefront="iter")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        render_image(scene, settings)
+        settings = RenderSettings(wavefront="iter", max_ray_depth=2,
+                                  diffuse_reflection_ray_count=2)
+    if renders:
+        img = render_image(scene, settings)
+        assert torch.isfinite(img).all() and float(img.detach().mean()) > 0
+        if case == "grad":
+            img.sum().backward()
+            assert torch.isfinite(scene.vertices.grad).all()
+            assert scene.vertices.grad.abs().max() > 0
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+            render_image(scene, settings)
     with pytest.raises(ValueError):
         render_image(make_test_scene(32, 32, num_quads=4, device="cpu"),
                      RenderSettings(backend="nope"))
