@@ -125,15 +125,34 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      and launches of a profiled frame, peak memory; two render_progressive
      passes (pass 0 == render_image bit for bit, the mean of salts 0 and
      1); value_and_grad of the image sum with remat_shading (time, peak,
-     launches) and, on a 480x270 GI frame, vs the all-pairs backend's
-     gradients;
- 11. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
+     launches), then with the default settings (each chunk shaded under a
+     checkpoint and again in the backward: time, peak, launches, the
+     gradients vs remat_shading's) and, on a 480x270 GI frame, vs the
+     all-pairs backend's gradients;
+ 11. bitmap: the benchmark scene with its floor textured by
+     docs/previews/12-01-textures.jpg (tiled by the floor's uvs, decoded
+     by the stb_image-exact baseline decoder, loaded through
+     scene_from_dict with asset_root docs/previews): the forward frame
+     (launch counts reset just before, read just after: 4 and 4) vs the
+     all-pairs backend, a small one on the card vs the CPU (>= 99.5 %: an
+     ulp in u * w moves a texel edge); value_and_grad of the image sum
+     with respect to bitmap_data and vertices (finite, non-zero); the
+     segment sum at the texel ids of that backward (T = 230,400) vs its
+     plain version and fp64, its time, device time and bound; frame
+     times;
+ 12. aov: the five AOVs (bary, normal, depth, tri_id, albedo) of the
+     opaque benchmark frame through render_aov on the cluster backend (one
+     K1 launch each), and depth and tri_id of make_big_scene(65536)
+     through backend="stream" (one K8 launch each): each vs the all-pairs
+     backend's AOV on 8,192 sampled pixels (the same hit on >= 99.9 % of
+     them, and bit for bit where the hit is the same); times;
+ 13. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
      direction-form occlusion kernel in its two launches, K5 (shaft lists,
      origin tiles stored once) and K6 (generic lists, seeded with the
      inactive lanes), vs the plain version lane for lane, K5 == K6 on the
      active lanes, the lanes on which K5 and the w-occlusion kernel differ
      (|n.d| against |n.w| in the parallel test), times and bounds;
- 12. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
+ 14. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
      clusters in 1,954 superclusters): the streaming closest hit (K8) on
      the primary wavefront and the streaming any-hit (K9) on the depth-0
      shadow wavefront, in one phase and in both phases of the two-phase
@@ -155,7 +174,7 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      the all-pairs backend on 8192 sampled rays; two-phase == single phase
      on the active lanes; at 65,536 triangles streaming hits == the closest-hit
      kernel's on every lane and K9 == K5 on every active shadow lane;
- 13. big, the large-scene main path: render_image of the 1,000,000-triangle
+ 15. big, the large-scene main path: render_image of the 1,000,000-triangle
      frame with default settings (launch counts reset just before, read
      just after: one K8, two K9, no cluster-backend kernel, so "auto" took
      the streaming backend); a second forward frame bit-identical to the
@@ -170,31 +189,31 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
      renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
      every pixel and their gradients held together;
- 14. layouts: render_image of the 1,000,000-triangle frame with
+ 16. layouts: render_image of the 1,000,000-triangle frame with
      CRT_STREAM_LAYOUT=fused, lane and rows (launch counts reset just
      before, read just after: one closest hit and two any-hit launches, all
      of the layout's kernels); the lane and rows frames equal the fused one
      bit for bit; frame times in turns (median of 5, host clock around a
      synchronize);
- 15. direction-form: the opaque bench frame through the CLI in a child
+ 17. direction-form: the opaque bench frame through the CLI in a child
      process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
      --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
      one 8-bit level of the default frame and of the all-pairs backend's
      on all but 0.01 % of pixels; one frame shaded through a trace built
      with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
- 16. a JSON line of the kernels, then the last line
+ 18. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
-     launches of phase 15's frame); K7's launches are those of phase 7's
-     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 14's frames.
+     launches of phase 17's frame); K7's launches are those of phase 7's
+     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 16's frames.
 
-``--profile`` runs, instead of phases 3 to 15, a torch.profiler pass over
+``--profile`` runs, instead of phases 3 to 17, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
-``--large`` runs phases 11 to 15 only.  ``--parent DIR`` builds the
+``--large`` runs phases 13 to 17 only.  ``--parent DIR`` builds the
 kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files)
 beside this one's and runs only phase 4's K1-K7 shapes, K1, K2, K4-K7
 also held to the other build's kernel on every lane (K3's
@@ -359,16 +378,20 @@ def compare_hits(name, got, want):
     return err
 
 
-def phase_device():
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
     print(f"[device] torch.cuda: {name}; count {torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
-    print(smi)  # name, power limit: as nvidia-smi prints them, on their own
+    print(smi())  # name, power limit: as nvidia-smi prints them, on their own
     return name
 
 
@@ -584,7 +607,7 @@ def hold_segsum(name, ids, g, T, out):
     return float(err.max()), float(vs_plain.max())
 
 
-def check_segsum(name, ids, g, T):
+def check_segsum(name, ids, g, T, tag="[kernels]"):
     """K3 vs plain, vs fp64 and vs itself on (ids [R], g [K, R]); times."""
     from crt_tpu_torch.ops import segsum
 
@@ -595,9 +618,9 @@ def check_segsum(name, ids, g, T):
     rerun = float((out - again).abs().max())
     live = live_rays(ids, T)
     top = int(torch.bincount(ids[ids >= 0].long(), minlength=1).max())
-    print(f"[kernels] segsum {name}: K {K}, R {R}, T {T}, {live} live rays, "
+    print(f"{tag} segsum {name}: K {K}, R {R}, T {T}, {live} live rays, "
           f"largest segment {top} rays; two launches differ by {rerun:.3e}")
-    err, vs_plain = hold_segsum(f"[kernels] segsum {name}", ids, g, T, out)
+    err, vs_plain = hold_segsum(f"{tag} segsum {name}", ids, g, T, out)
 
     col = torch.where((ids >= 0) & (ids < T), ids, T).long()
 
@@ -608,7 +631,7 @@ def check_segsum(name, ids, g, T):
     ms_plain = cuda_ms(lambda: segsum.segment_accumulate_plain(ids, g, T))
     ms_lib = cuda_ms(library)
     b = segsum_bound(ids, g, T)
-    print(f"[kernels] segsum {name}: kernel {ms:.3f} ms, plain {ms_plain:.3f}"
+    print(f"{tag} segsum {name}: kernel {ms:.3f} ms, plain {ms_plain:.3f}"
           f" ms, index_add_ {ms_lib:.3f} ms, bound {b['bound_ms']:.4f} ms "
           f"({b['bound_by']})")
     return dict(max_abs_err=err, max_abs_err_vs_plain=vs_plain, ms=ms,
@@ -2293,8 +2316,9 @@ def phase_gi(device):
     depth 3) through the CLI and render_image, held to the all-pairs
     backend and to the CPU on a small scene; its launches, time, device
     time, banks and peak memory; two render_progressive passes; its
-    gradients (remat_shading): time, peak, launches, and on a 480x270 GI
-    frame against the all-pairs backend's."""
+    gradients with remat_shading and at default settings: time, peak,
+    launches, the two held together, and on a 480x270 GI frame against
+    the all-pairs backend's."""
     from crt_tpu_torch import RenderSettings, render_image, render_progressive
     from crt_tpu_torch.frontend import cli
     from crt_tpu_torch.io.ppm import write_ppm
@@ -2405,7 +2429,27 @@ def phase_gi(device):
     for k, gk in grads.items():
         check(bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
               f"GI d/d{k} is not finite and non-zero")
-    del grads
+    # default settings (no remat_shading): the graph of each chunk is held
+    # in turn, each chunk shaded again in the backward (renderer.py)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    value_plain, plain = image_sum_grads(scene, st)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    p_peak = torch.cuda.max_memory_allocated() / 2**30
+    p_launches = read_glass_launches()
+    print(f"[gi] value_and_grad of the GI image sum (default settings): "
+          f"value {float(value_plain):.6e} in {p_s:.3f} s, peak "
+          f"{p_peak:.3f} GiB; launches {p_launches}; {smi()} {at()}")
+    check(p_launches["closest_hit"] == 2 * traces
+          and p_launches["occlusion_w"] == 2 * traces,
+          f"the default GI gradient launched {p_launches}: expected "
+          f"{2 * traces} closest hits and shadow passes (each chunk twice)")
+    assert_grads_close(f"[gi] default vs remat_shading {at()}", plain, grads,
+                       rtol=1e-3, atol_scale=1e-4)
+    del grads, plain
     # the gradients held to the all-pairs backend's on a 480x270 GI frame
     # (the full-width all-pairs gradient takes 90 s)
     mid = make_test_scene(**dict(GI, width=480, height=270), device=device)
@@ -2415,6 +2459,169 @@ def phase_gi(device):
                        f"backend {at()}", grads, ref_grads, rtol=1e-3,
                        atol_scale=1e-4)
     return launches
+
+
+PREVIEWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                        "previews")
+BITMAP_FILE = "12-01-textures.jpg"  # a baseline JPEG, 640x360
+BITMAP_KEYS = ("bitmap_data", "vertices")
+
+
+def phase_bitmap(device):
+    """The benchmark scene with its floor textured by BITMAP_FILE (tiled
+    4 x 4 by the floor's uvs), loaded through scene_from_dict with
+    asset_root docs/previews: the forward frame (4 K1, 4 K2) held to the
+    all-pairs backend, a small one on the card to the CPU; value_and_grad
+    of the image sum with respect to bitmap_data and vertices (finite,
+    non-zero); K3 at the texel ids of that backward, T = 1 x 360 x 640,
+    against its plain version and fp64, with its times and bound; frame
+    times.  -> K3's numbers at the texel ids."""
+    from crt_tpu_torch import RenderSettings, render_image, scene_from_dict
+    from crt_tpu_torch.ops import segsum
+    from crt_tpu_torch.scene.procedural import make_test_scene_dict
+
+    W, H = BENCH["width"], BENCH["height"]
+    t0 = time.perf_counter()
+    scene = scene_from_dict(make_test_scene_dict(**BENCH,
+                                                 floor_bitmap=BITMAP_FILE),
+                            asset_root=PREVIEWS, device=device)
+    load_s = time.perf_counter() - t0
+    B, Hm, Wm, _ = scene.bitmap_data.shape
+    T = B * Hm * Wm
+    check((B, Hm, Wm) == (1, 360, 640) and 3 in scene.texture_types_present,
+          f"the bitmap scene has bitmap_data {tuple(scene.bitmap_data.shape)}")
+    reset_launches()
+    img = render_image(scene)
+    launches = read_launches()
+    print(f"[bitmap] {BITMAP_FILE} decoded and loaded in {load_s:.3f} s; "
+          f"the {W}x{H} frame's launches {launches}")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0},
+          f"the bitmap frame launched {launches}, expected 4, 4 and 0")
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
+          "the bitmap image is not a finite [H, W, 3]")
+    ref = render_image(scene, RenderSettings(backend="bruteforce"))
+    image_agreement("[bitmap] cluster vs all-pairs backend on the card", img,
+                    ref)
+    del ref
+    small = scene_from_dict(make_test_scene_dict(64, 36, num_quads=12,
+                                                 floor_bitmap=BITMAP_FILE),
+                            asset_root=PREVIEWS, device="cpu")
+    # a texel index is an integer function of one f32 product u * w: an
+    # ulp between the devices moves a pixel at a texel edge
+    image_agreement("[bitmap] small scene, card vs CPU",
+                    render_image(small.to(device)).cpu(), render_image(small),
+                    min_frac=0.995)
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    value, grads = image_sum_grads(scene, keys=BITMAP_KEYS)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    g_launches = read_launches()
+    for k, gk in grads.items():
+        check(bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
+              f"bitmap d/d{k} is not finite and non-zero")
+    texels = int((grads["bitmap_data"].abs().sum(-1) > 0).sum())
+    print(f"[bitmap] value_and_grad of the image sum w.r.t. "
+          f"{', '.join(BITMAP_KEYS)}: value {float(value):.6e} in {g_s:.3f} "
+          f"s, peak {g_peak:.3f} GiB; {texels} of {T} texels have a "
+          f"gradient; launches {g_launches}")
+    del grads
+    calls = [c for c in record_segsums(scene, keys=BITMAP_KEYS) if c[2] == T]
+    check(len(calls) == 4, f"the backward summed over the texel ids "
+          f"{len(calls)} times, expected 4 (one per shading level)")
+    ids, g, _ = most_live(calls)
+    stats = check_segsum("texel ids, the bitmap frame's depth-0 cotangents",
+                         ids, g, T, tag="[bitmap]")
+    stats["device_ms"] = device_ms(
+        lambda: segsum.segment_accumulate(ids, g, T))
+    print(f"[bitmap] segsum at texel ids: device {stats['device_ms']:.4f} ms "
+          f"against the bound {stats['bound_ms']:.4f} ms "
+          f"({stats['bound_by']})")
+    del calls, ids, g
+
+    wall, enq = host_ms(lambda: render_image(scene))
+    gwall, _ = host_ms(lambda: image_sum_grads(scene, keys=BITMAP_KEYS),
+                       reps=3)
+    print(f"[bitmap] forward frame {wall:.3f} ms = {W * H / wall / 1e3:.3f} "
+          f"Mrays/s (host enqueue {enq:.3f} ms), forward+backward {gwall:.3f} "
+          f"ms; {smi()}")
+    return stats
+
+
+def aov_bruteforce_agreement(name, scene, settings, img, aov, gen, n=8192):
+    """An AOV image vs the all-pairs backend's AOV of ``n`` sampled
+    pixels: the backends' hits agree on at least 99.9 % of them, and where
+    they do, every AOV value is the same bit for bit (it is a function of
+    the ray and the hit triangle alone)."""
+    from crt_tpu_torch.ops import camera, intersect
+    from crt_tpu_torch.renderer import aov_values, make_tiler, make_trace_fn
+
+    W, H = scene.width, scene.height
+    rx, ry, _ = make_tiler(H, W, device=img.device)
+    o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
+                                scene.cam_tan_half_fov, W, H, rx, ry)
+    o = o.contiguous()
+    inside = torch.nonzero((rx < W) & (ry < H)).flatten()
+    rays = inside[torch.randperm(inside.numel(), generator=gen)[:n]
+                  .to(img.device)]
+    # the backend's own hits on those rays (one launch, outside any count)
+    tri = make_trace_fn(scene, settings)(o, d, None).tri[rays]
+    td = intersect.build_triangle_data(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    bf = intersect.closest_hit_bruteforce(td, o[rays], d[rays], ray_chunk=256)
+    want = aov_values(scene, o[rays], d[rays], bf, aov)
+    got = img[ry[rays].long(), rx[rays].long()]
+    same = tri == bf.tri
+    equal = (got == want).all(-1)
+    print(f"{name} vs the all-pairs backend on {n} pixels: "
+          f"{int((~same).sum())} hits differ; {int((same & ~equal).sum())} "
+          f"pixels with the same hit differ")
+    check(int((~same).sum()) <= n // 1000,
+          f"{name}: {int((~same).sum())} of {n} hits differ")
+    check(bool(equal[same].all()),
+          f"{name}: pixels with the same hit differ from the all-pairs AOV")
+
+
+def phase_aov(device):
+    """The five AOVs of the opaque benchmark frame on the cluster backend
+    (one K1 launch each) and depth and tri_id of the 65,536-triangle scene
+    through backend="stream" (one K8 launch each), each held to the
+    all-pairs backend on 8,192 sampled pixels and timed."""
+    from crt_tpu_torch import RenderSettings, render_aov
+    from crt_tpu_torch.renderer import AOVS
+    from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
+
+    W, H = BENCH["width"], BENCH["height"]
+    gen = torch.Generator().manual_seed(3)
+    scene = make_test_scene(**BENCH, device=device)
+    big = make_big_scene(**MID, device=device)
+    for sc, st, names, what in (
+            (scene, RenderSettings(), AOVS, "opaque, cluster"),
+            (big, RenderSettings(backend="stream"), ("depth", "tri_id"),
+             "65,536 triangles, stream")):
+        for aov in names:
+            reset_launches()
+            img = render_aov(sc, st, aov)
+            n = read_stream_launches()
+            check(tuple(img.shape) == (H, W, 3)
+                  and bool(torch.isfinite(img).all()),
+                  f"the {aov} AOV is not a finite [H, W, 3]")
+            want = ({"closest_hit_stream": 1, "closest_hit": 0}
+                    if st.backend == "stream"
+                    else {"closest_hit_stream": 0, "closest_hit": 1})
+            check(all(n[k] == v for k, v in want.items())
+                  and n["occlusion_w"] == 0 and n["occlusion_stream"] == 0,
+                  f"the {aov} AOV ({what}) launched {n}, expected {want}")
+            aov_bruteforce_agreement(f"[aov] {aov} ({what})", sc, st, img,
+                                     aov, gen)
+            ms = cuda_ms(lambda: render_aov(sc, st, aov))
+            print(f"[aov] {aov} ({what}): {ms:.3f} ms a {W}x{H} frame; "
+                  f"launches {want}")
+    print(f"[aov] {smi()}")
 
 
 BIG = dict(num_triangles=1_000_000, width=1920, height=1080)
@@ -3433,6 +3640,10 @@ def main(argv=None) -> int:
     glass, compact = phase_refract(device)
     torch.cuda.empty_cache()
     phase_gi(device)
+    torch.cuda.empty_cache()
+    stats["segsum"]["texel_ids"] = phase_bitmap(device)
+    torch.cuda.empty_cache()
+    phase_aov(device)
     torch.cuda.empty_cache()
     stats.update(phase_occlusion_d(device))
     stats.update(phase_stream_kernels(device))

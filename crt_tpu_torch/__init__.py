@@ -6,19 +6,22 @@ renders the Whitted image and differentiates it: ``.crtscene`` loading,
 raygen in 32x32 pixel tiles, the binned cluster trace through
 hand-written CUDA kernels (closest hit with emitted rows, the same over
 the live tiles only, w-form shadow occlusion with its glass-router modes),
-diffuse / reflective / refractive / constant shading with point-light
+all four texture types (bitmaps through the stb_image-exact JPEG
+decoder), diffuse / reflective / refractive / constant shading with point-light
 shadows that bend through glass, diffuse GI on per-pixel PCG32 streams
 (and its progressive accumulation, ``render_progressive``), the iterative
 bank wavefront for branching trees, gradients with respect to the scene's
 float tensors (the backward of the packed-row read is another CUDA kernel,
-the segment sum), and ``fit_scene``, the inverse-rendering loop.  Scenes are built on the card
+the segment sum), the AOV passes (``render_aov``: bary, normal, depth,
+tri_id, albedo), the ``_crt``-style API (``frontend/api.py``), and
+``fit_scene``, the inverse-rendering loop.  Scenes are built on the card
 unless the caller passes ``device="cpu"``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from crt_tpu_torch.optim import fit_scene
 from crt_tpu_torch.progressive import render_progressive
-from crt_tpu_torch.renderer import render_image, render_image_hwc
+from crt_tpu_torch.renderer import render_aov, render_image, render_image_hwc
 from crt_tpu_torch.scene.json_loader import (
     load_scene,
     scene_from_dict,
@@ -33,6 +36,7 @@ __all__ = [
     "load_scene",
     "scene_from_dict",
     "scene_from_json",
+    "render_aov",
     "render_image",
     "render_image_hwc",
     "render_progressive",

@@ -3,12 +3,16 @@
 Usage:
     python -m crt_tpu_torch.frontend.cli scene.crtscene [out.ppm]
         [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce]
-        [--width W] [--height H] [--gi-rays K] [--repeat N]
-        [--device cpu|cuda]
+        [--aov bary|normal|depth|tri_id|albedo] [--max-ray-depth D]
+        [--head-compat] [--width W] [--height H] [--gi-rays K]
+        [--repeat N] [--device cpu|cuda]
 
 Counterpart of ``crt_tpu/frontend/cli.py``: wall-clock time of the render
 (excluding scene load) printed as "Execution time: N seconds.", then an
 ASCII P3 image.  On CUDA the timed region ends in a device synchronize.
+``--aov`` renders an auxiliary pass instead of the beauty image,
+``--max-ray-depth`` overrides the depth, ``--head-compat`` switches on the
+reference HEAD's quirks (no shadows, the unconditional GI divide), and
 ``--gi-rays`` sets the GI samples a diffuse hit
 (``diffuse_reflection_ray_count``) for a scene with GI on.
 ``--device`` defaults to ``cuda``: without a visible card the CLI prints an
@@ -24,7 +28,7 @@ import time
 import torch
 
 from crt_tpu_torch.io.ppm import write_ppm
-from crt_tpu_torch.renderer import render_image_hwc
+from crt_tpu_torch.renderer import AOVS, render_image_hwc
 from crt_tpu_torch.scene.json_loader import SceneFormatError, load_scene
 from crt_tpu_torch.scene.types import RenderSettings, resolve_device
 
@@ -39,6 +43,12 @@ def main(argv=None) -> int:
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cluster", "pallas", "stream",
                             "pallas_stream", "bruteforce"])
+    p.add_argument("--aov", default="", choices=["", *AOVS],
+                   help="render an auxiliary pass instead of beauty")
+    p.add_argument("--max-ray-depth", type=int, default=None)
+    p.add_argument("--head-compat", action="store_true",
+                   help="replicate reference-HEAD quirks (no shadows, "
+                        "unconditional GI divide)")
     p.add_argument("--width", type=int, default=None, help="override width")
     p.add_argument("--height", type=int, default=None, help="override height")
     p.add_argument("--gi-rays", type=int, default=None,
@@ -63,7 +73,10 @@ def main(argv=None) -> int:
     if args.width or args.height:
         scene = scene.replace(width=args.width or scene.width,
                               height=args.height or scene.height)
-    settings = RenderSettings(backend=args.backend)
+    settings = RenderSettings(backend=args.backend,
+                              head_compat=args.head_compat, aov=args.aov)
+    if args.max_ray_depth is not None:
+        settings = settings.replace(max_ray_depth=args.max_ray_depth)
     if args.gi_rays is not None:
         settings = settings.replace(diffuse_reflection_ray_count=args.gi_rays)
 

@@ -147,7 +147,7 @@ class _PackedGather(torch.autograd.Function):
     def forward(ctx, packed, tri):
         ctx.save_for_backward(tri)
         ctx.num_segments = packed.shape[1]
-        return packed[:, tri.long()]
+        return packed[:, tri.clamp(min=0).long()]
 
     @staticmethod
     def backward(ctx, g):
@@ -158,9 +158,10 @@ class _PackedGather(torch.autograd.Function):
 
 
 def packed_gather(packed, tri):
-    """``packed[:, tri]`` whose backward is the segment sum.
+    """``packed[:, max(tri, 0)]`` whose backward is the segment sum.
 
-    packed: [K, T]; tri: [R] i32 (callers pass clamped-to-valid ids).
+    packed: [K, T]; tri: [R] i32 ids below T.  A lane with id -1 reads
+    column 0 and the backward skips it (its output must be discarded).
     """
     _require(tri.dim() == 1, "packed_gather takes tri [R]")
     return _PackedGather.apply(packed, tri.to(torch.int32).contiguous())

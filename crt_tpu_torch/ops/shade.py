@@ -22,8 +22,8 @@ bounce recurses into the next level with an active mask.
 This module holds the unrolled recursion (``wavefront="recursive"``); the
 iterative bank wavefront that refractive scenes take by default is
 ``ops/shade_iter.py``, which shares ``hit_attributes`` and
-``_occlusion_masks``.  Bitmap textures (ROADMAP A9) and AOVs (A10) raise
-``NotImplementedError``.
+``_occlusion_masks``.  The AOV passes (``renderer.render_aov``) read
+``hit_attributes(..., force_all=True)`` of the primary hits.
 
   - diffuse GI (``scene.gi_on``): K = ``diffuse_reflection_ray_count``
     hemisphere samples a diffuse hit, each from two uniforms of the
@@ -104,17 +104,6 @@ class HitAttributes(NamedTuple):
     ior: torch.Tensor  # [R] f32
 
 
-def check_supported(scene, settings=None) -> None:
-    """Raise NotImplementedError for a scene or setting outside the slice."""
-    if TEXTURE_BITMAP in scene.texture_types_present:
-        raise NotImplementedError(
-            "bitmap textures are not ported yet (ROADMAP A9)")
-    if settings is None:
-        return
-    if settings.aov:
-        raise NotImplementedError("AOV passes are not ported yet (ROADMAP A10)")
-
-
 def _needs_uv(scene) -> bool:
     """uv interpolation feeds only checker and bitmap sampling."""
     return (
@@ -132,21 +121,22 @@ def _needs_bary(scene) -> bool:
     )
 
 
-def build_packed(scene) -> torch.Tensor:
+def build_packed(scene, force_all: bool = False) -> torch.Tensor:
     """The per-triangle shading-constant table, transposed [K, T].
 
     Layout: v0|v1|v2 (+n0|n1|n2 if smooth needed) (+uv0|uv1|uv2 if uv
-    needed) | mat_type|mat_albedo_tex|mat_smooth|mat_ior — the four
-    material rows are always the last four.  Small ints are exact in f32.
+    needed; both with ``force_all``) | mat_type|mat_albedo_tex|mat_smooth|
+    mat_ior — the four material rows are always the last four.  Small
+    ints are exact in f32.
     The discrete material rows are detached; the ior row stays
     differentiable and is read through ``segsum.packed_gather``.
     """
     idx = scene.tri_vidx.long()
     cols = [scene.vertices[idx[:, 0]], scene.vertices[idx[:, 1]],
             scene.vertices[idx[:, 2]]]
-    if scene.any_smooth:
+    if scene.any_smooth or force_all:
         cols += [scene.vertex_normals[idx[:, k]] for k in range(3)]
-    if _needs_uv(scene):
+    if _needs_uv(scene) or force_all:
         cols += [scene.vertex_uvs[idx[:, k]] for k in range(3)]
     if scene.has_materials:
         mt = scene.tri_material.long()
@@ -164,7 +154,7 @@ def build_packed(scene) -> torch.Tensor:
 
 
 def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
-                   rank=None) -> HitAttributes:
+                   rank=None, force_all: bool = False) -> HitAttributes:
     """Recompute intersection attributes from the hit triangle ids.
 
     ``hit.tri`` is a constant (a discrete choice); everything else
@@ -182,11 +172,11 @@ def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
     valid = tri_raw >= 0
     tri_flat = tri_raw.reshape(-1)  # the adapters take one ray axis
 
-    need_uv = _needs_uv(scene)
-    need_bary = _needs_bary(scene)
-    any_smooth = scene.any_smooth
+    need_uv = _needs_uv(scene) or force_all
+    need_bary = _needs_bary(scene) or force_all
+    any_smooth = scene.any_smooth or force_all
 
-    packed = build_packed(scene)
+    packed = build_packed(scene, force_all)
     want_grad = packed.requires_grad and torch.is_grad_enabled()
     if kernel_rows is not None:
         rows = kernel_rows[:-1].detach()
@@ -508,7 +498,6 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
     the streams for a progressive pass, salt 0 bit for bit the unsalted
     render.
     """
-    check_supported(scene)
     if active is None:
         active = torch.ones(origins.shape[:-1], dtype=torch.bool,
                             device=origins.device)
@@ -596,7 +585,8 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
                            scene.background_color), rng
 
     albedo = sample_textures(scene, attrs.albedo_tex, attrs.uv,
-                             attrs.bary_u, attrs.bary_v)
+                             attrs.bary_u, attrs.bary_v,
+                             live=attrs.valid)
 
     is_diffuse = attrs.valid & (attrs.mat_type == MATERIAL_DIFFUSE)
     is_reflective = attrs.valid & (attrs.mat_type == MATERIAL_REFLECTIVE)

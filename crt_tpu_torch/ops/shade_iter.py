@@ -52,7 +52,6 @@ from crt_tpu_torch.ops import rng as rng_mod
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.shade import (
     _occlusion_masks,
-    check_supported,
     fresnel_weight,
     gi_basis,
     gi_direction,
@@ -183,7 +182,6 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                                     raster_x=None, raster_y=None,
                                     gi_salt=None):
     """Like ``shade_wavefront_iter``, and the count of dropped children."""
-    check_supported(scene)
     R = origins.shape[0]
     dev = origins.device
     B = int(banks) if banks else default_banks(scene, settings)
@@ -222,7 +220,8 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         miss = act & ~attrs.valid
 
         albedo = sample_textures(scene, attrs.albedo_tex, attrs.uv,
-                                 attrs.bary_u, attrs.bary_v)
+                                 attrs.bary_u, attrs.bary_v,
+                                 live=attrs.valid)
         is_diffuse = valid & (attrs.mat_type == MATERIAL_DIFFUSE)
         is_reflective = valid & (attrs.mat_type == MATERIAL_REFLECTIVE)
         is_refractive = valid & (attrs.mat_type == MATERIAL_REFRACTIVE)

@@ -17,7 +17,6 @@ from typing import Callable, Optional
 
 import torch
 
-from crt_tpu_torch.ops.shade import check_supported
 from crt_tpu_torch.renderer import _render_flat
 from crt_tpu_torch.scene.types import RenderSettings, Scene
 
@@ -39,7 +38,6 @@ def default_trainable_params(scene: Scene) -> dict:
 def make_loss_fn(scene: Scene, settings: RenderSettings,
                  target: torch.Tensor):
     """L2 image loss as a function of a trainable-parameter dict."""
-    check_supported(scene, settings)
 
     def loss_fn(params: dict) -> torch.Tensor:
         img = _render_flat(scene.replace(**params), settings)

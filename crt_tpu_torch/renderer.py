@@ -10,24 +10,33 @@ recursion for linear trees, the iterative bank wavefront
 (``ops/shade_iter.py``) for branching ones (live refraction at depth >= 2,
 and diffuse GI).  The image is differentiable with respect to the scene's
 float tensors; the backward of the packed-row read is the segment-sum
-kernel (``ops/segsum.py``).
+kernel (``ops/segsum.py``).  Without ``remat_shading``, a frame of the
+iterative wavefront that builds a graph in several chunks shades each
+chunk under a checkpoint, so its backward holds one chunk's graph at a
+time.  ``render_aov`` renders an auxiliary pass (bary, normal, depth,
+tri_id, albedo) from the primary hits on any backend.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops import intersect as intersect_ops
 from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE
-from crt_tpu_torch.ops.shade import check_supported, shade_wavefront
+from crt_tpu_torch.ops.shade import hit_attributes, shade_wavefront
 from crt_tpu_torch.ops.shade_iter import pool_width, shade_wavefront_iter
+from crt_tpu_torch.ops.texture import sample_textures
 from crt_tpu_torch.scene.types import RenderSettings, Scene, resolve_device
 
 # Wavefront pixel-tile shape: consecutive runs of TILE_H * TILE_W rays are
 # one spatially coherent 32x32 block, the binning tile of the cluster trace.
 TILE_H = 32
 TILE_W = 32
+
+# The auxiliary passes of render_aov, as crt_tpu names them.
+AOVS = ("bary", "normal", "depth", "tri_id", "albedo")
 
 _CLUSTER_BACKENDS = ("cluster", "pallas")
 _STREAM_BACKENDS = ("stream", "pallas_stream")
@@ -185,6 +194,20 @@ def _render_flat(scene: Scene, settings: RenderSettings,
         shadow_traces = scene.num_lights > 0 and not settings.no_shadows
         budget = ITER_POOL_LANES if shadow_traces else 4 * ITER_POOL_LANES
         chunk = max(tile_sz, budget // pool_width(scene, settings))
+    # Without remat_shading, the graph of a frame in several chunks is held
+    # one chunk at a time: each chunk is shaded under a checkpoint and
+    # shaded again in the backward.  The 1080p GI frame's graph is ~55 KB
+    # a pixel: held whole it ran out of an 80 GB card (a 78.1 GiB peak),
+    # a chunk at a time it peaks at 53.8 GiB in 2.3-2.4 s (measure/
+    # gi_grad.py on an NVIDIA H100 80GB HBM3, 700 W).
+    remat_chunks = (use_iter and not settings.remat_shading
+                    and torch.is_grad_enabled()
+                    and any(t.requires_grad for t in scene.tensors().values()))
+
+    def shade(o, d, a, x, y):
+        return shade_fn(scene, settings, trace_fn, o, d, a, raster_x=x,
+                        raster_y=y, gi_salt=gi_salt)
+
     if chunk and chunk < R:
         chunk = max(tile_sz, (chunk // tile_sz) * tile_sz)
         pad = (-R) % chunk
@@ -195,37 +218,107 @@ def _render_flat(scene: Scene, settings: RenderSettings,
             dirs = torch.cat([dirs, dirs[:pad]])
             rx, ry = torch.cat([rx, rx[:pad]]), torch.cat([ry, ry[:pad]])
             act = torch.cat([act, act.new_zeros(pad)])
-        color = torch.cat([
-            shade_fn(scene, settings, trace_fn, origins[s:s + chunk],
-                     dirs[s:s + chunk], act[s:s + chunk],
-                     raster_x=rx[s:s + chunk], raster_y=ry[s:s + chunk],
-                     gi_salt=gi_salt)
-            for s in range(0, R + pad, chunk)
-        ])[:R]
+        parts = []
+        for s in range(0, R + pad, chunk):
+            args = (origins[s:s + chunk], dirs[s:s + chunk],
+                    act[s:s + chunk], rx[s:s + chunk], ry[s:s + chunk])
+            parts.append(checkpoint(shade, *args, use_reentrant=False)
+                         if remat_chunks else shade(*args))
+        color = torch.cat(parts)[:R]
     else:
-        color = shade_fn(scene, settings, trace_fn, origins, dirs,
-                         raster_x=rx, raster_y=ry, gi_salt=gi_salt)
+        color = shade(origins, dirs, None, rx, ry)
     return untile(color)
+
+
+def _graph_if_needed(scene: Scene, fn, *args) -> torch.Tensor:
+    """``fn(*args)`` with an autograd graph only when a scene tensor
+    requires grad."""
+    if any(t.requires_grad for t in scene.tensors().values()):
+        return fn(*args)
+    with torch.no_grad():
+        return fn(*args)
 
 
 def render_image_hwc(scene: Scene, settings: RenderSettings | None = None,
                      gi_salt=None) -> torch.Tensor:
     """Render to a [height, width, 3] float32 linear-color image on the
-    scene's device.  The image differentiates with respect to every scene
-    tensor that requires grad (hit ids, occlusion masks and GI samples are
-    constants); a scene with none renders without an autograd graph.
-    ``gi_salt`` (an int or an integer scalar tensor) forks the per-pixel
-    GI streams: pass k of a progressive accumulation renders with salt k,
-    and salt 0 is the plain render bit for bit (``progressive.py``)."""
+    scene's device, or the AOV ``settings.aov`` names (``render_aov``).
+    The image differentiates with respect to every scene tensor that
+    requires grad (hit ids, occlusion masks and GI samples are constants);
+    a scene with none renders without an autograd graph.  ``gi_salt`` (an
+    int or an integer scalar tensor) forks the per-pixel GI streams: pass k
+    of a progressive accumulation renders with salt k, and salt 0 is the
+    plain render bit for bit (``progressive.py``)."""
     settings = settings or RenderSettings()
-    check_supported(scene, settings)
-    if any(t.requires_grad for t in scene.tensors().values()):
-        return _render_flat(scene, settings, gi_salt)
-    with torch.no_grad():
-        return _render_flat(scene, settings, gi_salt)
+    if settings.aov:
+        return render_aov(scene, settings, aov=settings.aov)
+    return _graph_if_needed(scene, _render_flat, scene, settings, gi_salt)
 
 
 def render_image(scene: Scene, settings: RenderSettings | None = None,
                  gi_salt=None) -> torch.Tensor:
     """Alias of render_image_hwc — the ``crt::render_image`` equivalent."""
     return render_image_hwc(scene, settings, gi_salt)
+
+
+def aov_values(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
+               hit, aov: str, rank=None) -> torch.Tensor:
+    """The AOV ``aov`` of rays [R, 3] whose closest hits are ``hit`` ->
+    [R, 3]; a miss takes the background colour.  ``rank`` is the trace's
+    triangle id -> Morton rank map, where it has one."""
+    if aov not in AOVS:
+        raise ValueError(f"unknown aov {aov!r}")
+    attrs = hit_attributes(scene, origins, dirs, hit, rank=rank,
+                           force_all=True)
+    if aov == "bary":
+        # the 09-01 course visualization: (bary_u, bary_v, 0)
+        out = torch.stack([attrs.bary_u, attrs.bary_v,
+                           torch.zeros_like(attrs.bary_u)], -1)
+    elif aov == "normal":
+        out = attrs.normal * 0.5 + 0.5
+    elif aov == "depth":
+        out = attrs.t[..., None].expand(-1, 3)
+    elif aov == "tri_id":
+        # the original triangle id, a constant
+        tid = hit.tri.detach().to(torch.float32)
+        out = torch.stack([tid % 256.0 / 255.0,
+                           (tid // 256.0) % 256.0 / 255.0,
+                           torch.zeros_like(tid)], -1)
+    else:
+        out = sample_textures(scene, attrs.albedo_tex, attrs.uv,
+                              attrs.bary_u, attrs.bary_v,
+                              live=attrs.valid)
+    return torch.where(attrs.valid[..., None], out, scene.background_color)
+
+
+def _render_aov_flat(scene: Scene, settings: RenderSettings,
+                     aov: str) -> torch.Tensor:
+    h, w = scene.height, scene.width
+    # the beauty pass's pixel-tile ray order: the binning's tiles
+    rxf, ryf, untile = make_tiler(h, w, device=scene.device)
+    origins, dirs = camera_ops.generate_rays(
+        scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
+        w, h, rxf, ryf,
+    )
+    origins = origins.contiguous()
+    trace_fn = make_trace_fn(scene, settings)
+    hit = trace_fn(origins, dirs, None)
+    return untile(aov_values(scene, origins, dirs, hit, aov,
+                             rank=getattr(trace_fn, "rank", None)))
+
+
+def render_aov(scene: Scene, settings: RenderSettings | None = None,
+               aov: str = "") -> torch.Tensor:
+    """Render an auxiliary output from the primary hits -> [height, width,
+    3] float32 on the scene's device; miss pixels take the background.
+
+    ``aov`` (default ``settings.aov``, then "bary"): "bary" (the 09-01
+    course visualization), "normal" (the shading normal * 0.5 + 0.5),
+    "depth" (the hit distance), "tri_id" (the original triangle id, its
+    low and high bytes / 255) or "albedo" (the sampled texture); another
+    name raises ValueError.  Any backend, whatever ``settings.wavefront``
+    says: only primary rays are traced.  The image differentiates with
+    respect to the scene tensors that require grad, as render_image's."""
+    settings = settings or RenderSettings()
+    aov = aov or settings.aov or "bary"
+    return _graph_if_needed(scene, _render_aov_flat, scene, settings, aov)

@@ -3,8 +3,9 @@
 A copy of the parsing in ``crt_tpu/scene/json_loader.py``, kept here
 because importing any ``crt_tpu`` module imports JAX.  Same rules, same
 errors, same legacy 07-/08-era handling; the arrays it builds are
-bit-identical to crt_tpu's.  Not carried: the KD acceleration tree (ROADMAP
-A12).  Bitmap textures raise ``NotImplementedError`` (ROADMAP A9).
+bit-identical to crt_tpu's, bitmap textures included (decoded by the
+stb_image-exact baseline JPEG decoder copied into ``io/jpeg_stb.py``, PIL
+for other files).  Not carried: the KD acceleration tree (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -91,13 +92,38 @@ def accumulate_vertex_normals(pos: np.ndarray, idx: np.ndarray) -> np.ndarray:
     return (out / np.where(n > 0, n, 1.0)).astype(np.float32)
 
 
-def _parse_textures(tex_list: Any):
-    """Parse the textures array -> (tables, name->index map)."""
+def _load_bitmap(path: str) -> np.ndarray:
+    """Decode an image file to float32 [H, W, 3] RGB / 255, as crt_tpu
+    does: baseline JPEGs through the stb_image-exact decoder (the
+    reference's ``stbi_load`` texels byte for byte), PIL for every other
+    file and for JPEG features outside the baseline path.  PIL is imported
+    only then; where it is missing, the ImportError names the file."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        from crt_tpu_torch.io import jpeg_stb
+
+        try:
+            return jpeg_stb.decode_file(path).astype(np.float32) / 255.0
+        except jpeg_stb.UnsupportedJPEG:
+            pass
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:
+        raise ImportError(
+            f"decoding the bitmap texture {path!r} needs PIL, which is not "
+            "installed (only baseline JPEGs decode without it)") from e
+
+    with PILImage.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+
+
+def _parse_textures(tex_list: Any, asset_root: str):
+    """Parse the textures array -> (tables, bitmaps, name->index map)."""
     tables = {"type": [], "color_a": [], "color_b": [], "scalar": [],
               "bitmap": []}
+    bitmaps: list[np.ndarray] = []
     name_map: dict[str, int] = {}
     if tex_list is None:
-        return tables, name_map
+        return tables, bitmaps, name_map
 
     _require(isinstance(tex_list, list), "textures must be an array")
     for i, tv in enumerate(tex_list):
@@ -112,6 +138,7 @@ def _parse_textures(tex_list: Any):
         color_a = np.zeros(3, np.float32)
         color_b = np.zeros(3, np.float32)
         scalar = 0.0
+        bitmap_idx = -1
         if ttype == "albedo":
             color_a = _vec3(tv.get("albedo"), "albedo texture albedo")
         elif ttype == "edges":
@@ -125,16 +152,19 @@ def _parse_textures(tex_list: Any):
             _require("square_size" in tv, "checker texture needs square_size")
             scalar = float(tv["square_size"])
         elif ttype == "bitmap":
-            raise NotImplementedError(
-                "bitmap textures are not ported yet (ROADMAP A9)"
-            )
+            fp = tv.get("file_path")
+            _require(isinstance(fp, str), "bitmap texture needs file_path")
+            # asset_root / relative(file_path), as the reference joins them
+            full = os.path.join(asset_root, fp.lstrip("/\\"))
+            bitmap_idx = len(bitmaps)
+            bitmaps.append(_load_bitmap(full))
 
         tables["type"].append(code)
         tables["color_a"].append(color_a)
         tables["color_b"].append(color_b)
         tables["scalar"].append(scalar)
-        tables["bitmap"].append(-1)
-    return tables, name_map
+        tables["bitmap"].append(bitmap_idx)
+    return tables, bitmaps, name_map
 
 
 def _parse_materials(mat_list: Any, tex_tables, name_map):
@@ -245,9 +275,8 @@ def scene_from_dict(data: dict, asset_root: str = "/",
                     strict: bool = False, device=None) -> Scene:
     """Build a render-ready Scene from a .crtscene dict on ``device``
     (None: the card; it raises where there is none, ``"cpu"`` asks for the
-    CPU).  ``asset_root`` is where bitmap textures would be read from; it
-    is accepted for parity."""
-    del asset_root
+    CPU).  Bitmap textures are read from ``asset_root`` joined with their
+    ``file_path``."""
     device = resolve_device(device)
     _require(isinstance(data, dict), "scene root must be an object")
 
@@ -273,7 +302,8 @@ def scene_from_dict(data: dict, asset_root: str = "/",
              "fov_degrees must be a number")
     tan_half_fov = math.tan(math.radians(float(fov_degrees)) * 0.5)
 
-    tex_tables, name_map = _parse_textures(data.get("textures"))
+    tex_tables, bitmaps, name_map = _parse_textures(data.get("textures"),
+                                                    asset_root)
 
     legacy = False
     era08 = False
@@ -330,6 +360,19 @@ def scene_from_dict(data: dict, asset_root: str = "/",
     reflections_on = _flag("reflections_on", True)
     refractions_on = _flag("refractions_on", True)
 
+    # the bitmaps packed into one array padded to the largest
+    if bitmaps:
+        hmax = max(b.shape[0] for b in bitmaps)
+        wmax = max(b.shape[1] for b in bitmaps)
+        bitmap_data = np.zeros((len(bitmaps), hmax, wmax, 3), np.float32)
+        bitmap_size = np.zeros((len(bitmaps), 2), np.int32)
+        for i, b in enumerate(bitmaps):
+            bitmap_data[i, :b.shape[0], :b.shape[1]] = b
+            bitmap_size[i] = (b.shape[0], b.shape[1])
+    else:
+        bitmap_data = np.zeros((0, 1, 1, 3), np.float32)
+        bitmap_size = np.zeros((0, 2), np.int32)
+
     mat_type = np.asarray(mats["type"], np.int32)
     present = set(int(t) for t in np.unique(mat_type[np.unique(tri_material)])) \
         if len(tri_material) else set()
@@ -361,8 +404,8 @@ def scene_from_dict(data: dict, asset_root: str = "/",
         tex_color_b=t(np.stack(tex_tables["color_b"]), np.float32),
         tex_scalar=t(tex_tables["scalar"], np.float32),
         tex_bitmap=t(tex_tables["bitmap"], np.int32),
-        bitmap_data=torch.zeros((0, 1, 1, 3), dtype=torch.float32),
-        bitmap_size=torch.zeros((0, 2), dtype=torch.int32),
+        bitmap_data=t(bitmap_data),
+        bitmap_size=t(bitmap_size),
         light_position=t(light_position),
         light_intensity=t(light_intensity),
         cam_position=t(cam_pos),

@@ -23,9 +23,13 @@ def make_test_scene_dict(
     with_refractive: bool = False,
     with_edges: bool = False,
     gi_on: bool = False,
+    floor_bitmap: str | None = None,
 ) -> dict:
     """The .crtscene dict behind ``make_test_scene``: a floor, random
-    triangles, two point lights and up to four materials."""
+    triangles, two point lights and up to four materials.
+    ``floor_bitmap`` (a ``file_path``, read from the loader's
+    ``asset_root``) textures the floor with that bitmap, tiled 4 x 4 by
+    its uvs."""
     rng = np.random.default_rng(seed)
 
     objects = [
@@ -37,6 +41,16 @@ def make_test_scene_dict(
         }
     ]
     floor_albedo = "floor_edges" if with_edges else [0.7, 0.7, 0.7]
+    textures = []
+    if with_edges:
+        textures.append({"name": "floor_edges", "type": "edges",
+                         "edge_color": [0.2, 0.8, 0.3],
+                         "inner_color": [0.7, 0.7, 0.7], "edge_width": 0.3})
+    if floor_bitmap is not None:
+        floor_albedo = "floor_bitmap"
+        textures.append({"name": "floor_bitmap", "type": "bitmap",
+                         "file_path": floor_bitmap})
+        objects[0]["uvs"] = [0, 0, 0, 4, 0, 0, 0, 4, 0, 4, 4, 0]
     mats = [
         {"type": "diffuse", "albedo": floor_albedo, "smooth_shading": False},
         {"type": "diffuse", "albedo": [0.9, 0.2, 0.2], "smooth_shading": True},
@@ -80,16 +94,8 @@ def make_test_scene_dict(
         "materials": mats,
         "objects": objects,
     }
-    if with_edges:
-        data["textures"] = [
-            {
-                "name": "floor_edges",
-                "type": "edges",
-                "edge_color": [0.2, 0.8, 0.3],
-                "inner_color": [0.7, 0.7, 0.7],
-                "edge_width": 0.3,
-            }
-        ]
+    if textures:
+        data["textures"] = textures
     return data
 
 

@@ -201,7 +201,9 @@ class RenderSettings:
     a ``gi_on`` scene.  ``compact_bounces`` sends every masked trace through
     the live-tile compacted closest-hit kernel (the same image, bit for
     bit).  ``remat_shading`` keeps no graph of an iterative bounce and runs
-    it again in the backward (the same gradients, less memory).  Fields
+    it again in the backward (the same gradients, less memory).  ``aov``
+    names an auxiliary pass (``renderer.AOVS``) that ``render_image``
+    renders instead of the beauty image.  Fields
     that only tune the TPU package (``shadow_tile_rays``,
     ``fused_light_vjp``) change no output and are
     accepted as no-ops.

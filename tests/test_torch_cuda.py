@@ -21,10 +21,13 @@ same sum, four times the plain version's own distance from fp64 (1.3e-4
 read there: one f32 atomic per term).
 """
 
+import pathlib
+
 import pytest
 import torch
 
-from crt_tpu_torch import RenderSettings, render_image
+from crt_tpu_torch import RenderSettings, render_aov, render_image
+from crt_tpu_torch import scene_from_dict
 from crt_tpu_torch.ops import (
     binning,
     camera,
@@ -35,8 +38,12 @@ from crt_tpu_torch.ops import (
     stream_trace,
     vecmath,
 )
-from crt_tpu_torch.renderer import make_tiler
-from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
+from crt_tpu_torch.renderer import AOVS, make_tiler, make_trace_fn
+from crt_tpu_torch.scene.procedural import (
+    make_big_scene,
+    make_test_scene,
+    make_test_scene_dict,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1502,3 +1509,101 @@ def test_segsum_wrapper_rejects(device, fault):
     with pytest.raises(ValueError):
         segsum.segment_accumulate(ids, g, 66)
     assert segsum.segsum_launches == before
+
+
+PREVIEWS = pathlib.Path(__file__).resolve().parents[1] / "docs" / "previews"
+
+
+def _bitmap_scene(device):
+    """make_test_scene_dict's scene with its floor textured by the 640x360
+    docs/previews/12-01-textures.jpg (a baseline JPEG: no PIL needed)."""
+    return scene_from_dict(
+        make_test_scene_dict(192, 128, num_quads=24,
+                             floor_bitmap="12-01-textures.jpg"),
+        asset_root=str(PREVIEWS), device=device)
+
+
+def test_segsum_at_texel_ids(device, monkeypatch):
+    """K3 over the flattened texel ids of a real backward into bitmap_data
+    (T = 1 x 360 x 640), within 4e-6 sum|g| of fp64 and 5e-4 sum|g| of the
+    plain version, one launch a shading level.  The texel gradient on the
+    card vs the CPU is held by its sum over the texels (rtol 1e-5): a
+    texel index is an integer function of one f32 product u * w, so an
+    ulp between the devices moves a ray to the next texel at an edge, and
+    a hit on the floor's shared diagonal to the other triangle, but every
+    ray lands in some texel on both."""
+    calls, real = [], segsum.segment_accumulate
+
+    def recording(ids, g, num_segments):
+        out = real(ids, g, num_segments)
+        calls.append((ids, g, num_segments, out))
+        return out
+
+    monkeypatch.setattr(segsum, "segment_accumulate", recording)
+    grads = []
+    for dev in (device, "cpu"):
+        scene = _bitmap_scene(dev)
+        data = scene.bitmap_data.detach().clone().requires_grad_(True)
+        before = segsum.segsum_launches
+        render_image(scene.replace(bitmap_data=data)).sum().backward()
+        grads.append(data.grad.cpu())
+    texel = [c for c in calls if c[2] == 360 * 640]
+    assert len(texel) == 8  # four shading levels, on each device
+    assert segsum.segsum_launches == before  # the CPU run launches none
+    for ids, g, T, out in texel[:4]:
+        assert ids.is_cuda
+        plain = segsum.segment_accumulate_plain(ids, g, T)
+        exact = segsum.segment_accumulate_plain(ids, g.double(), T)
+        mass = segsum.segment_accumulate_plain(ids, g.double().abs(), T)
+        assert bool(((out.double() - exact).abs() <= 4e-6 * mass).all())
+        assert bool(((out - plain).abs().double() <= 5e-4 * mass).all())
+    assert int((texel[3][0] >= 0).sum()) > 5_000  # the primary's floor
+    assert bool(torch.isfinite(grads[0]).all()) and grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0].double().sum((0, 1, 2)),
+                               grads[1].double().sum((0, 1, 2)),
+                               rtol=1e-5, atol=0)
+
+
+def _frame_tris(scene, st):
+    """The primary hits' triangle ids as an [H, W] image."""
+    rx, ry, untile = make_tiler(scene.height, scene.width,
+                                device=scene.device)
+    o, d = camera.generate_rays(scene.cam_position, scene.cam_rotation,
+                                scene.cam_tan_half_fov, scene.width,
+                                scene.height, rx, ry)
+    tri = make_trace_fn(scene, st)(o.contiguous(), d, None).tri
+    return untile(tri[:, None])[..., 0].cpu()
+
+
+@pytest.mark.parametrize("aov", AOVS)
+def test_aov_on_card_matches_cpu(device, aov):
+    """An AOV on the card (one K1 launch; depth also through the streaming
+    backend, one K8 launch) vs the CPU's, on the pixels whose hit is the
+    same triangle on both devices: at least 99.5 % of them, since a ray
+    through the floor's shared diagonal may take the other of its two
+    coplanar triangles.  PyTorch's CUDA division by a scalar multiplies by
+    its reciprocal, so the rays (and tri_id's bytes / 255) differ from the
+    CPU's by an ulp: tri_id within rtol 1e-6 (its ids equal), bary within
+    atol 1e-5 (the hit point moves by t x an ulp, ~2e-6 scene units, and a
+    barycentric by that over an edge of the ~1-unit quads), the rest at
+    the render's rtol 1e-5 / atol 1e-6."""
+    scene = _bitmap_scene("cpu")
+    cases = [("cluster", lambda: cluster_trace.closest_hit_launches)]
+    if aov == "depth":
+        cases.append(("stream",
+                      lambda: stream_trace.closest_hit_stream_launches))
+    rtol, atol = {"tri_id": (1e-6, 0.0), "bary": (0.0, 1e-5)}.get(
+        aov, (1e-5, 1e-6))
+    for backend, launches in cases:
+        st = RenderSettings(backend=backend)
+        cpu = render_aov(scene, st, aov)
+        before = launches()
+        gpu = render_aov(scene.to(device), st, aov).cpu()
+        assert launches() == before + 1
+        same = _frame_tris(scene, st) == _frame_tris(scene.to(device), st)
+        assert float(same.float().mean()) >= 0.995
+        if aov == "tri_id":
+            ids = [(x[same] * 255).round() for x in (gpu, cpu)]
+            assert torch.equal(*ids)
+        torch.testing.assert_close(gpu[same], cpu[same], rtol=rtol,
+                                   atol=atol)

@@ -8,6 +8,7 @@ and the "pallas" alias change nothing (exact).
 """
 
 import json
+import pathlib
 import subprocess
 import sys
 
@@ -28,6 +29,8 @@ from crt_tpu_torch.io.ppm import read_ppm
 from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_test_scene, make_test_scene_dict
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
+
+PREVIEWS = pathlib.Path(__file__).resolve().parents[1] / "docs" / "previews"
 
 
 @pytest.mark.parametrize("era", ["era07", "era08"])
@@ -111,7 +114,8 @@ def test_import_does_not_load_jax():
     code = ("import sys, crt_tpu_torch, crt_tpu_torch.frontend.cli, "
             "crt_tpu_torch.ops.cluster_trace, crt_tpu_torch.ops.cuda_lib, "
             "crt_tpu_torch.ops.segsum, crt_tpu_torch.ops.shade_iter, "
-            "crt_tpu_torch.optim; "
+            "crt_tpu_torch.optim, crt_tpu_torch.io.jpeg_stb, "
+            "crt_tpu_torch.frontend.api; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'crt_tpu.')) or m == 'crt_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -125,7 +129,8 @@ def test_import_does_not_load_jax():
 def test_outside_the_slice_raises(case):
     scene = make_test_scene(32, 32, num_quads=4, device="cpu")
     settings = RenderSettings()
-    renders = case in ("refractive", "gi", "grad")  # inside the slice now
+    # inside the slice now: every case but the tree backend
+    renders = case != "tree"
     if case == "refractive":
         # glass is inside the slice, and glass under GI
         glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
@@ -135,7 +140,7 @@ def test_outside_the_slice_raises(case):
         settings = RenderSettings(max_ray_depth=2,
                                   diffuse_reflection_ray_count=2)
     elif case == "iter":
-        # the iterative wavefront is inside the slice; its AOVs are not
+        # the iterative wavefront is inside the slice, and its AOVs
         assert torch.isfinite(
             render_image(scene, RenderSettings(wavefront="iter"))).all()
         settings = RenderSettings(wavefront="iter", aov="depth")
@@ -146,13 +151,17 @@ def test_outside_the_slice_raises(case):
         settings = RenderSettings(max_ray_depth=2,
                                   diffuse_reflection_ray_count=2)
     elif case == "bitmap":
-        scene = scene.replace(texture_types_present=(0, 3))
+        scene = scene_from_dict(
+            make_test_scene_dict(32, 32, num_quads=4,
+                                 floor_bitmap="12-01-textures.jpg"),
+            asset_root=str(PREVIEWS), device="cpu")
+        assert scene.bitmap_data.shape == (1, 360, 640, 3)
     elif case == "aov":
         settings = RenderSettings(aov="normal")
     elif case == "tree":
         settings = RenderSettings(backend="tree")
     elif case == "stream":
-        # the streaming backend is inside the slice; its AOVs are not
+        # the streaming backend is inside the slice, and its AOVs
         assert torch.isfinite(render_image(
             scene, RenderSettings(backend="pallas_stream"))).all()
         settings = RenderSettings(backend="pallas_stream", aov="depth")

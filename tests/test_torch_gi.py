@@ -177,6 +177,58 @@ def test_chunks_follow_the_widest_pool_level(monkeypatch, case):
     assert chunks[0] == 2
 
 
+@pytest.mark.parametrize("case", ["gi", "glass"])
+def test_backward_chunks_are_checkpointed(monkeypatch, case):
+    """Without remat_shading, a frame that builds a graph in several chunks
+    shades each chunk under a checkpoint and again in the backward: the
+    same chunks as the frame without a graph (its image bit for bit), and
+    gradients equal to the one-chunk gradients within rtol 1e-3 / atol
+    1e-4 of the group's largest entry, chip_smoke.py's [gi] tolerance
+    (the chunks add the per-pixel terms in another order)."""
+    from crt_tpu_torch import renderer
+
+    scene_kw, st = {
+        "gi": (dict(gi_on=True), RenderSettings(
+            max_ray_depth=2, diffuse_reflection_ray_count=2)),
+        "glass": (dict(with_refractive=True), RenderSettings()),
+    }[case]
+    scene = make_test_scene(64, 64, num_quads=4, device="cpu", **scene_kw)
+    keys = ("vertices", "light_intensity", "cam_position")
+
+    def grads(settings):
+        params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+                  for k in keys}
+        img = render_image(scene.replace(**params), settings)
+        img.sum().backward()
+        return img.detach(), {k: p.grad for k, p in params.items()}
+
+    whole_img, whole = grads(st.replace(chunk_pixels=1 << 20))
+    calls, shade = [0], renderer.shade_wavefront_iter
+
+    def counted_shade(*args, **kwargs):
+        calls[0] += 1
+        return shade(*args, **kwargs)
+
+    monkeypatch.setattr(renderer, "shade_wavefront_iter", counted_shade)
+    # 4,096 rays: four chunks of 1,024 pixels
+    monkeypatch.setattr(renderer, "ITER_POOL_LANES",
+                        1024 * shade_iter.pool_width(scene, st))
+    img = render_image(scene, st)
+    assert calls[0] == 4
+    calls[0] = 0
+    graph_img, chunked = grads(st)
+    assert calls[0] == 8  # four in the forward, four again in the backward
+    assert torch.equal(graph_img, img) and torch.equal(img, whole_img)
+    for k in keys:
+        scale = float(whole[k].abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(chunked[k], whole[k], rtol=1e-3,
+                                   atol=1e-4 * scale, msg=k)
+    calls[0] = 0
+    grads(st.replace(remat_shading=True))  # its bounces are checkpointed
+    assert calls[0] == 4
+
+
 def test_place_children_moves_rng_planes_as_crt_tpu():
     """Children with their forked streams land where crt_tpu puts them."""
     bi, bj, R = 4, 16, 131

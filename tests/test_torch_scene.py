@@ -8,6 +8,7 @@ contracted into an FMA).
 """
 
 import json
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,14 +140,23 @@ def test_malformed_scenes_raise_like_crt_tpu(bad):
 
 
 def test_scene_from_json_and_bitmap_not_implemented():
+    """Bitmap textures are ported (ROADMAP A9): a missing file raises as
+    in crt_tpu, and one under ``asset_root`` loads."""
     text = json.dumps(make_test_scene_dict())
     assert scene_from_json(text, device="cpu").num_triangles == 10
     data = make_test_scene_dict()
     data["textures"] = [{"name": "img", "type": "bitmap",
                          "file_path": "tex.png"}]
     data["materials"][0]["albedo"] = "img"
-    with pytest.raises(NotImplementedError, match="A9"):
-        scene_from_dict(data, device="cpu")
+    for load in (lambda: scene_from_dict(data, device="cpu"),
+                 lambda: jscene_from_dict(data, build_accel=False)):
+        with pytest.raises(FileNotFoundError, match="tex.png"):
+            load()
+    data["textures"][0]["file_path"] = "12-01-textures.jpg"
+    previews = pathlib.Path(__file__).resolve().parents[1] / "docs/previews"
+    scene = scene_from_dict(data, asset_root=str(previews), device="cpu")
+    assert scene.bitmap_data.shape == (1, 360, 640, 3)
+    assert scene.texture_types_present == (0, 3)
 
 
 @pytest.mark.parametrize("hw", [(36, 64), (64, 96), (40, 30)])
