@@ -146,13 +146,32 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      through backend="stream" (one K8 launch each): each vs the all-pairs
      backend's AOV on 8,192 sampled pixels (the same hit on >= 99.9 % of
      them, and bit for bit where the hit is the same); times;
- 13. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
+ 13. tree: the KD-tree backend (plain torch, no hand kernel of its own) on
+     the benchmark scene: its tree (nodes, leaves, leaf_size, the native
+     builder, build time), the forward frame (each walk's lanes, loop
+     iterations and host reads; wall, device time, launches, peak memory;
+     no hand-kernel launch) vs the cluster backend's image (>= 99.99 % of
+     pixels within rtol 1e-4 / atol 1e-5) and 8,192 sampled primary hits
+     vs the all-pairs backend, value_and_grad of the image sum (time, peak,
+     K3 launches) vs the cluster backend's gradients (rtol 1e-3 / atol
+     1e-4 of the largest entry), one primary trace of
+     make_big_scene(65536) with its tree (time, device time, iterations)
+     and 8,192 sampled hits vs K1's, and the CLI with --backend tree in a
+     child process (a P3 image, no hand-kernel launch);
+ 14. utils: on the benchmark scene, render_with_stats (its trace count
+     equal to the cluster kernels' launches of the same frame: its
+     counting wrapper sends every pass, shadows too, through K1),
+     binning_stats, trace_pixel of a mirror pixel vs the CPU's log of it
+     (rtol 1e-5), check_finite, check_deterministic and
+     check_grads_finite, and profile_render's Chrome trace (holding device
+     kernels) in a temporary directory;
+ 15. occlusion-d: on the opaque bench frame's depth-0 shadow wavefront the
      direction-form occlusion kernel in its two launches, K5 (shaft lists,
      origin tiles stored once) and K6 (generic lists, seeded with the
      inactive lanes), vs the plain version lane for lane, K5 == K6 on the
      active lanes, the lanes on which K5 and the w-occlusion kernel differ
      (|n.d| against |n.w| in the parallel test), times and bounds;
- 14. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
+ 16. stream-kernels: make_big_scene(1,000,000) at 1920x1080 (62,500
      clusters in 1,954 superclusters): the streaming closest hit (K8) on
      the primary wavefront and the streaming any-hit (K9) on the depth-0
      shadow wavefront, in one phase and in both phases of the two-phase
@@ -174,7 +193,7 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      the all-pairs backend on 8192 sampled rays; two-phase == single phase
      on the active lanes; at 65,536 triangles streaming hits == the closest-hit
      kernel's on every lane and K9 == K5 on every active shadow lane;
- 15. big, the large-scene main path: render_image of the 1,000,000-triangle
+ 17. big, the large-scene main path: render_image of the 1,000,000-triangle
      frame with default settings (launch counts reset just before, read
      just after: one K8, two K9, no cluster-backend kernel, so "auto" took
      the streaming backend); a second forward frame bit-identical to the
@@ -189,31 +208,31 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
      renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
      every pixel and their gradients held together;
- 16. layouts: render_image of the 1,000,000-triangle frame with
+ 18. layouts: render_image of the 1,000,000-triangle frame with
      CRT_STREAM_LAYOUT=fused, lane and rows (launch counts reset just
      before, read just after: one closest hit and two any-hit launches, all
      of the layout's kernels); the lane and rows frames equal the fused one
      bit for bit; frame times in turns (median of 5, host clock around a
      synchronize);
- 17. direction-form: the opaque bench frame through the CLI in a child
+ 19. direction-form: the opaque bench frame through the CLI in a child
      process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
      --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
      one 8-bit level of the default frame and of the all-pairs backend's
      on all but 0.01 % of pixels; one frame shaded through a trace built
      with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
- 18. a JSON line of the kernels, then the last line
+ 20. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
-     launches of phase 17's frame); K7's launches are those of phase 7's
-     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 16's frames.
+     launches of phase 19's frame); K7's launches are those of phase 7's
+     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 18's frames.
 
-``--profile`` runs, instead of phases 3 to 17, a torch.profiler pass over
+``--profile`` runs, instead of phases 3 to 19, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
 the top device kernels, the segment-sum kernel's share and peak memory.
-``--large`` runs phases 13 to 17 only.  ``--parent DIR`` builds the
+``--large`` runs phases 15 to 19 only.  ``--parent DIR`` builds the
 kernels of another checkout (DIR/crt_tpu_torch/csrc, the same files)
 beside this one's and runs only phase 4's K1-K7 shapes, K1, K2, K4-K7
 also held to the other build's kernel on every lane (K3's
@@ -654,7 +673,8 @@ def phase_segsum(device):
     # the big scene's primary wavefront: ids from the closest-hit kernel's
     # slot-rank row, seeded cotangents
     big = make_big_scene(num_triangles=65536, width=BENCH["width"],
-                         height=BENCH["height"], seed=0, device=device)
+                         height=BENCH["height"], seed=0, build_accel=False,
+                         device=device)
     tables = build_cluster_tables(big)
     o, d = primary_wavefront(big)
     cl, cnt = bin_rays(tables, o, d, TILE,
@@ -679,7 +699,8 @@ def phase_scale(device, num_triangles=65536, width=1920, height=1080):
     from crt_tpu_torch.scene.procedural import make_big_scene
 
     scene = make_big_scene(num_triangles=num_triangles, width=width,
-                           height=height, seed=0, device=device)
+                           height=height, seed=0, build_accel=False,
+                           device=device)
     tables = build_cluster_tables(scene)
     rows_table = emit_rows_table(scene, tables)
     o, d = primary_wavefront(scene)
@@ -1349,7 +1370,8 @@ def kernel_shapes(device):
     del calls
 
     # 65,536 triangles: the largest scene `auto` sends to this backend
-    scene = make_big_scene(**MID, seed=0, device=device)
+    scene = make_big_scene(**MID, seed=0, build_accel=False,
+                           device=device)
     tables = build_cluster_tables(scene)
     rows_table = emit_rows_table(scene, tables)
     o, d = primary_wavefront(scene)
@@ -2598,7 +2620,7 @@ def phase_aov(device):
     W, H = BENCH["width"], BENCH["height"]
     gen = torch.Generator().manual_seed(3)
     scene = make_test_scene(**BENCH, device=device)
-    big = make_big_scene(**MID, device=device)
+    big = make_big_scene(**MID, build_accel=False, device=device)
     for sc, st, names, what in (
             (scene, RenderSettings(), AOVS, "opaque, cluster"),
             (big, RenderSettings(backend="stream"), ("depth", "tri_id"),
@@ -2622,6 +2644,276 @@ def phase_aov(device):
             print(f"[aov] {aov} ({what}): {ms:.3f} ms a {W}x{H} frame; "
                   f"launches {want}")
     print(f"[aov] {smi()}")
+
+
+def record_walks():
+    """Wrap traverse.closest_hit_tree so that each call appends (lanes,
+    loop iterations, host reads) to the returned list; the caller restores
+    the function with ``restore()``."""
+    from crt_tpu_torch.ops import traverse
+
+    walks, real = [], traverse.closest_hit_tree
+
+    def logged(accel, tri, origins, dirs, active=None):
+        its, reads = traverse.tree_iterations, traverse.tree_host_reads
+        hit = real(accel, tri, origins, dirs, active)
+        lanes = (origins[..., 0].numel() if active is None
+                 else int(active.sum()))
+        walks.append((lanes, traverse.tree_iterations - its,
+                      traverse.tree_host_reads - reads))
+        return hit
+
+    traverse.closest_hit_tree = logged
+
+    def restore():
+        traverse.closest_hit_tree = real
+
+    return walks, restore
+
+
+def phase_tree(device):
+    """The KD-tree backend (plain torch; no hand kernel of its own): the
+    opaque benchmark scene's tree (native builder), its forward frame
+    (wall, device, each walk's iterations and host reads, launches, peak)
+    held to the cluster backend's image and to the all-pairs backend's
+    hits, its gradient (K3 launches) held to the cluster backend's, one
+    primary trace of the 65,536-triangle scene held to K1's hits, and a
+    --backend tree CLI child."""
+    from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch.ops import segsum, traverse
+    from crt_tpu_torch.renderer import make_trace_fn
+    from crt_tpu_torch.scene import accel as accel_mod
+    from crt_tpu_torch.scene.procedural import (
+        make_big_scene, make_test_scene, make_test_scene_dict,
+    )
+
+    W, H = BENCH["width"], BENCH["height"]
+    tree = RenderSettings(backend="tree")
+    gen = torch.Generator().manual_seed(5)
+    scene = make_test_scene(**BENCH, device=device)
+    verts = scene.vertices.cpu().numpy()
+    idx = scene.tri_vidx.cpu().numpy()
+    t0 = time.perf_counter()
+    acc = accel_mod.build_accel_tree(verts, idx, device=device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[tree] opaque scene ({scene.num_triangles} triangles): "
+          f"{acc.num_nodes} nodes, {acc.num_leaves} leaves, leaf_size "
+          f"{acc.leaf_size}, builder {accel_mod.last_builder}, build "
+          f"{build_ms:.3f} ms")
+    check(accel_mod.last_builder == "native",
+          "the native tree builder did not build or load")
+    check(acc.num_nodes == scene.accel.num_nodes
+          and torch.equal(acc.leaf_tris, scene.accel.leaf_tris),
+          "the loader's tree differs from a fresh build")
+
+    # the forward frame
+    walks, restore = record_walks()
+    reset_launches()
+    try:
+        img = render_image(scene, tree)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    kernels = read_launches()
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
+          "the tree frame is not a finite [H, W, 3]")
+    check(all(v == 0 for v in kernels.values()),
+          f"the tree frame launched a hand kernel: {kernels}")
+    print(f"[tree] forward frame: {len(walks)} walks (lanes, iterations, "
+          f"host reads): {walks}; {sum(w[1] for w in walks)} iterations, "
+          f"{sum(w[2] for w in walks)} host reads; hand-kernel launches "
+          f"{kernels}")
+    wall, enq = host_ms(lambda: render_image(scene, tree), reps=3)
+    dev_ms, launches, _ = profile_frame(lambda: render_image(scene, tree),
+                                        tag="[tree]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    render_image(scene, tree)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[tree] forward frame {wall:.3f} ms wall (enqueue {enq:.3f}) = "
+          f"{W * H / wall / 1e3:.3f} Mrays/s; device {dev_ms:.3f} ms in "
+          f"{launches} launches; peak {peak:.3f} GiB; CHECK_EVERY "
+          f"{traverse.CHECK_EVERY}")
+
+    ref = render_image(scene)
+    image_agreement("[tree] tree vs cluster backend", img, ref)
+    o, d = primary_wavefront(scene)
+    hit = make_trace_fn(scene, tree)(o, d)
+    bruteforce_agreement("[tree] primary hits", scene, o, d, hit.t, hit.tri,
+                         gen, device)
+
+    # the gradient: the backward of the packed-row reads is K3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    g0 = time.perf_counter()
+    value, grads = image_sum_grads(scene, tree)
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - g0) * 1e3
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    k3 = segsum.segsum_launches
+    print(f"[tree] value_and_grad of the image sum: value "
+          f"{float(value):.6e}, {g_ms:.3f} ms (first call), peak "
+          f"{g_peak:.3f} GiB, K3 launches {k3}")
+    check(k3 > 0, "the tree backward launched no segment sum")
+    _, ref_g = image_sum_grads(scene)
+    assert_grads_close("[tree] tree vs cluster backend", grads, ref_g,
+                       rtol=1e-3, atol_scale=1e-4)
+    g_wall, _ = host_ms(lambda: image_sum_grads(scene, tree), reps=3)
+    print(f"[tree] value_and_grad {g_wall:.3f} ms wall (median of 3)")
+    del grads, ref_g
+    torch.cuda.empty_cache()
+
+    # one primary trace at 65,536 triangles, held to K1's hits
+    t0 = time.perf_counter()
+    big = make_big_scene(**MID, device=device)
+    torch.cuda.synchronize()
+    mk_s = time.perf_counter() - t0
+    print(f"[tree] 65,536 triangles: {big.accel.num_nodes} nodes, "
+          f"{big.accel.num_leaves} leaves, leaf_size {big.accel.leaf_size}, "
+          f"builder {accel_mod.last_builder}, scene and tree built in "
+          f"{mk_s:.3f} s")
+    o, d = primary_wavefront(big)
+    trace = make_trace_fn(big, tree)
+    walks, restore = record_walks()
+    try:
+        hit = trace(o, d)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    wall, enq = host_ms(lambda: trace(o, d), reps=3)
+    dev_ms, launches, _ = profile_frame(lambda: trace(o, d), tag="[tree]")
+    print(f"[tree] 65,536-triangle primary trace: {wall:.3f} ms wall "
+          f"(enqueue {enq:.3f}), device {dev_ms:.3f} ms in {launches} "
+          f"launches; (lanes, iterations, host reads) {walks}")
+    reset_launches()
+    k1 = make_trace_fn(big, RenderSettings(backend="cluster"))(o, d)
+    check(read_launches()["closest_hit"] == 1,
+          "the cluster backend did not take K1 at 65,536 triangles")
+    rays = torch.randperm(o.shape[0], generator=gen)[:8192].to(device)
+    hits_agreement("[tree] 65,536-triangle primary", hit.t[rays],
+                   hit.tri[rays], k1.t[rays], k1.tri[rays], "K1")
+    del big, trace, hit, k1
+    torch.cuda.empty_cache()
+
+    # the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_path = os.path.join(tmp, "bench.crtscene")
+        out_path = os.path.join(tmp, "tree.ppm")
+        with open(scene_path, "w") as f:
+            json.dump(make_test_scene_dict(**BENCH), f)
+        counts = cli_child([scene_path, out_path, "--backend", "tree",
+                            "--device", str(device)], {})
+        with open(out_path) as f:
+            tokens = f.read().split()
+    check(tokens[:4] == ["P3", str(W), str(H), "255"]
+          and len(tokens) == 4 + W * H * 3,
+          f"the --backend tree CLI wrote a bad PPM {tokens[:4]}")
+    check(all(v == 0 for v in counts.values()),
+          f"the --backend tree CLI launched a hand kernel: {counts}")
+    print(f"[tree] the --backend tree CLI wrote a {W}x{H} P3 image; hand "
+          f"kernel launches {counts}")
+    print(f"[tree] {smi()}")
+    return k3
+
+
+def phase_utils(device):
+    """The utilities on the opaque benchmark scene on the card:
+    render_with_stats (its trace count equal to the cluster launches of
+    the same frame), binning_stats, trace_pixel of one mirror pixel vs the
+    CPU's log of it, the three numerical checks, and profile_render's
+    Chrome trace."""
+    import shutil
+
+    import numpy as np
+
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.renderer import make_tiler, make_trace_fn
+    from crt_tpu_torch.scene.procedural import make_test_scene
+    from crt_tpu_torch.scene.types import MATERIAL_REFLECTIVE
+    from crt_tpu_torch.utils import checks, debug, metrics
+
+    scene = make_test_scene(**BENCH, device=device)
+    metrics.render_with_stats(scene)  # the kernels' first use
+    reset_launches()
+    img, stats = metrics.render_with_stats(scene)
+    n = read_launches()
+    print(f"[utils] render_with_stats: {stats.as_dict()}; launches {n}")
+    check(bool(torch.isfinite(img).all()), "render_with_stats: not finite")
+    check(stats.num_traces == n["closest_hit"] + n["occlusion_w"],
+          f"render_with_stats counted {stats.num_traces} traces, the "
+          f"cluster kernels launched {n}")
+    bins = metrics.binning_stats(scene)
+    print(f"[utils] binning_stats: {bins}")
+    check(0 < bins["mean_clusters_per_tile"] <= bins["clusters"]
+          and 0.0 <= bins["cull_ratio"] < 1.0
+          and bins["tiles"] == (-(-BENCH["width"] // 32))
+          * (-(-BENCH["height"] // 32)), f"binning_stats: {bins}")
+
+    # a pixel whose primary hit is a mirror, so its log has bounces
+    o, d = primary_wavefront(scene)
+    tri = make_trace_fn(scene, RenderSettings())(o, d).tri
+    mat = scene.mat_type[scene.tri_material[tri.clamp(min=0).long()]]
+    rx, ry, _ = make_tiler(scene.height, scene.width, device=device)
+    mirror = ((tri >= 0) & (mat == MATERIAL_REFLECTIVE)
+              & (rx < scene.width) & (ry < scene.height)).nonzero()[:, 0]
+    check(mirror.numel() > 0, "no primary ray hits a mirror")
+    lane = int(mirror[mirror.numel() // 2])
+    x, y = int(rx[lane]), int(ry[lane])
+    got = debug.trace_pixel(scene, x, y)
+    want = debug.trace_pixel(scene.to("cpu"), x, y)
+    check(len(got.entries) == len(want.entries) >= 3,
+          f"trace_pixel: {len(got.entries)} rays on the card, "
+          f"{len(want.entries)} on the CPU")
+    worst = 0.0
+    for g, w in zip(got.entries, want.entries):
+        check(g.order == w.order and np.isfinite(g.length)
+              == np.isfinite(w.length), "trace_pixel: the logs differ")
+        for a, b in ((g.origin, w.origin), (g.direction, w.direction),
+                     (np.array([g.length]), np.array([w.length]))):
+            fin = np.isfinite(b)
+            check(np.allclose(a[fin], b[fin], rtol=1e-5, atol=1e-6),
+                  f"trace_pixel: card {a} vs CPU {b}")
+            if fin.any():
+                worst = max(worst, float(np.max(
+                    np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]),
+                                                         1e-30))))
+    check(np.allclose(got.color, want.color, rtol=1e-5, atol=1e-7),
+          f"trace_pixel: colour {got.color} on the card, {want.color} on "
+          "the CPU")
+    print(f"[utils] trace_pixel({x}, {y}): {len(got.entries)} rays, the "
+          f"card's log within {worst:.3e} (relative) of the CPU's; colour "
+          f"{got.color} (CPU {want.color}); first replay line "
+          f"{got.to_blender_script().splitlines()[0][:80]}...")
+
+    t0 = time.perf_counter()
+    checks.check_finite(scene)
+    t1 = time.perf_counter()
+    checks.check_deterministic(scene)
+    t2 = time.perf_counter()
+    grads = checks.check_grads_finite(scene)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"[utils] check_finite {t1 - t0:.3f} s, check_deterministic "
+          f"{t2 - t1:.3f} s, check_grads_finite {t3 - t2:.3f} s "
+          f"({sorted(grads)}): all pass")
+
+    logdir = tempfile.mkdtemp(prefix="crt_tpu_torch_profile_")
+    try:
+        _, pstats, _ = metrics.profile_render(scene, logdir=logdir)
+        path = os.path.join(logdir, "trace.json")
+        check(os.path.getsize(path) > 0, "profile_render wrote no trace")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"[utils] profile_render wrote {path} "
+              f"({os.path.getsize(path)} bytes, {len(events)} events, "
+              f"{kernels} device kernels); {pstats.num_traces} traces")
+        check(kernels > 0, "profile_render's trace holds no device kernel")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
 
 
 BIG = dict(num_triangles=1_000_000, width=1920, height=1080)
@@ -2780,16 +3072,24 @@ def bruteforce_agreement(name, scene, o, d, t, tri, gen, device, n=8192):
         scene.vertices, scene.tri_vidx,
         scene.mat_backface[scene.tri_material.long()])
     bf = intersect.closest_hit_bruteforce(td, o[rays], d[rays], ray_chunk=256)
-    same = tri[rays] == bf.tri
+    hits_agreement(name, t[rays], tri[rays], bf.t, bf.tri, "bruteforce")
+
+
+def hits_agreement(name, t, tri, t_ref, tri_ref, ref_name):
+    """Sampled hits (t, tri) vs a reference backend's on the same rays: at
+    most one in 1,024 ids differ (exact-t ties), and t within rtol 1e-5
+    where they agree."""
+    n = tri.numel()
+    same = tri == tri_ref
     n_dis = int((~same).sum())
-    both = same & (bf.tri >= 0)
-    rel = ((t[rays][both] - bf.t[both]).abs()
-           / bf.t[both].abs().clamp(min=1e-30))
+    both = same & (tri_ref >= 0)
+    rel = (t[both] - t_ref[both]).abs() / t_ref[both].abs().clamp(min=1e-30)
     max_rel = float(rel.max()) if bool(both.any()) else 0.0
-    print(f"{name} vs bruteforce on {n} rays: {n_dis} tri disagreements, max "
-          f"rel t diff {max_rel:.3e} where tri agree ({int(both.sum())} hits)")
-    check(n_dis <= n // 1024, f"{n_dis} of {n} rays disagree with bruteforce")
-    check(max_rel <= 1e-5, f"t differs from bruteforce by {max_rel:.3e}")
+    print(f"{name} vs {ref_name} on {n} rays: {n_dis} tri disagreements, "
+          f"max rel t diff {max_rel:.3e} where tri agree ({int(both.sum())} "
+          "hits)")
+    check(n_dis <= n // 1024, f"{n_dis} of {n} rays disagree with {ref_name}")
+    check(max_rel <= 1e-5, f"t differs from {ref_name} by {max_rel:.3e}")
 
 
 PLAIN_TILES = 32
@@ -2866,7 +3166,8 @@ def phase_stream_kernels(device):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scene = make_big_scene(**BIG, seed=0, device=device)
+    scene = make_big_scene(**BIG, seed=0, build_accel=False,
+                           device=device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tables = build_cluster_tables(scene)
@@ -3101,7 +3402,8 @@ def phase_stream_kernels(device):
     del calls, w, o_f, d_f, r2_f, a_f, hull, extra, single, two
 
     # ---- a scene both backends hold: K8 == K1, K9 == K5
-    mid = make_big_scene(**MID, seed=0, device=device)
+    mid = make_big_scene(**MID, seed=0, build_accel=False,
+                           device=device)
     mtab = build_cluster_tables(mid)
     mst = stt.build_stream_tables(mtab)
     mo, md = primary_wavefront(mid)
@@ -3196,7 +3498,8 @@ def phase_big(device):
     from crt_tpu_torch.scene.procedural import make_big_scene
 
     W, H = BIG["width"], BIG["height"]
-    scene = make_big_scene(**BIG, seed=0, device=device)
+    scene = make_big_scene(**BIG, seed=0, build_accel=False,
+                           device=device)
     reset_launches()
     img = render_image(scene)
     torch.cuda.synchronize()
@@ -3244,7 +3547,7 @@ def phase_big(device):
     # render_image through the all-pairs backend at this size, at 64x36: its
     # default ray chunk is sized from T so that the [chunk, 4 T] product fits
     small = make_big_scene(**dict(BIG, width=64, height=36), seed=0,
-                           device=device)
+                           build_accel=False, device=device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bf_img, bf_ms = timed_once(
@@ -3309,7 +3612,7 @@ def phase_big(device):
     cluster_st = RenderSettings(backend="cluster")
     for n in (16384, 65536, 262144, BIG["num_triangles"]):
         sized = make_big_scene(**dict(BIG, num_triangles=n), seed=0,
-                               device=device)
+                               build_accel=False, device=device)
         clusters = -(-n // 16)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3644,6 +3947,10 @@ def main(argv=None) -> int:
     stats["segsum"]["texel_ids"] = phase_bitmap(device)
     torch.cuda.empty_cache()
     phase_aov(device)
+    torch.cuda.empty_cache()
+    phase_tree(device)
+    torch.cuda.empty_cache()
+    phase_utils(device)
     torch.cuda.empty_cache()
     stats.update(phase_occlusion_d(device))
     stats.update(phase_stream_kernels(device))

@@ -13,9 +13,13 @@ shadows that bend through glass, diffuse GI on per-pixel PCG32 streams
 bank wavefront for branching trees, gradients with respect to the scene's
 float tensors (the backward of the packed-row read is another CUDA kernel,
 the segment sum), the AOV passes (``render_aov``: bary, normal, depth,
-tri_id, albedo), the ``_crt``-style API (``frontend/api.py``), and
-``fit_scene``, the inverse-rendering loop.  Scenes are built on the card
-unless the caller passes ``device="cpu"``.  What is not ported yet raises
+tri_id, albedo), the ``_crt``-style API (``frontend/api.py``), the KD-tree
+backend (``backend="tree"``, the tree built at load by ``scene/accel.py``
+and its native builder), the utilities (``utils/``: camera rig, one-pixel
+ray log, render statistics and profile, numerical checks, golden
+comparison, the early-era images), and ``fit_scene``, the
+inverse-rendering loop.  Scenes are built on the card unless the caller
+passes ``device="cpu"``.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -27,9 +31,10 @@ from crt_tpu_torch.scene.json_loader import (
     scene_from_dict,
     scene_from_json,
 )
-from crt_tpu_torch.scene.types import RenderSettings, Scene
+from crt_tpu_torch.scene.types import AccelTree, RenderSettings, Scene
 
 __all__ = [
+    "AccelTree",
     "RenderSettings",
     "Scene",
     "fit_scene",

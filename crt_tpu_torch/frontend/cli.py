@@ -2,7 +2,7 @@
 
 Usage:
     python -m crt_tpu_torch.frontend.cli scene.crtscene [out.ppm]
-        [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce]
+        [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce|tree]
         [--aov bary|normal|depth|tri_id|albedo] [--max-ray-depth D]
         [--head-compat] [--width W] [--height H] [--gi-rays K]
         [--repeat N] [--device cpu|cuda]
@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     p.add_argument("output", nargs="?", default="output.ppm")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cluster", "pallas", "stream",
-                            "pallas_stream", "bruteforce"])
+                            "pallas_stream", "bruteforce", "tree"])
     p.add_argument("--aov", default="", choices=["", *AOVS],
                    help="render an auxiliary pass instead of beauty")
     p.add_argument("--max-ray-depth", type=int, default=None)

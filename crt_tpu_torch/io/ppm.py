@@ -8,6 +8,8 @@ toward zero, no gamma.
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 
 
@@ -21,8 +23,26 @@ def quantize(image: np.ndarray, max_color_component: int = 255) -> np.ndarray:
 
 
 def format_ppm(image, max_color_component: int = 255) -> str:
-    """Format a [H,W,3] float image as an ASCII P3 string."""
+    """Format a [H,W,3] float image as an ASCII P3 string.
+
+    Routes through the native formatter (``io/native_ppm.py``: the Python
+    string loop takes about a second for a 1080p frame) and falls back to
+    the Python one, byte for byte the same, where the native library will
+    not build.
+    """
     arr = quantize(np.asarray(image), max_color_component)
+    h, w, _ = arr.shape
+    try:
+        from crt_tpu_torch.io.native_ppm import format_ppm_native
+
+        return format_ppm_native(arr, max_color_component)
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        pass
+    return format_ppm_python(arr, max_color_component)
+
+
+def format_ppm_python(arr: np.ndarray, max_color_component: int) -> str:
+    """The Python formatter of a quantized [H,W,3] int image."""
     h, w, _ = arr.shape
     lines = [f"P3\n{w} {h}\n{max_color_component}\n"]
     for row in arr.reshape(h, w * 3):

@@ -115,3 +115,32 @@ def from_axes(right: torch.Tensor, up: torch.Tensor,
     """Matrix rows (right, up, forward), batched (crt_matrix.h:28-34):
     [..., 3] each -> [..., 3, 3]."""
     return torch.stack([right, up, forward], dim=-2)
+
+
+def _cos_sin(angle):
+    """(cos, sin, 0, 1) of a float32 angle, as 0-d tensors."""
+    a = torch.as_tensor(angle, dtype=torch.float32)
+    c = torch.cos(a)
+    return c, torch.sin(a), torch.zeros_like(c), torch.ones_like(c)
+
+
+def _matrix(rows) -> torch.Tensor:
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def rotation_x(angle) -> torch.Tensor:
+    """Row-major rotation about X (crt_matrix.cpp:7-13)."""
+    c, s, z, o = _cos_sin(angle)
+    return _matrix(((o, z, z), (z, c, s), (z, -s, c)))
+
+
+def rotation_y(angle) -> torch.Tensor:
+    """Row-major rotation about Y (crt_matrix.cpp:15-21)."""
+    c, s, z, o = _cos_sin(angle)
+    return _matrix(((c, z, -s), (z, o, z), (s, z, c)))
+
+
+def rotation_z(angle) -> torch.Tensor:
+    """Row-major rotation about Z (crt_matrix.cpp:23-29)."""
+    c, s, z, o = _cos_sin(angle)
+    return _matrix(((c, s, z), (-s, c, z), (z, z, o)))

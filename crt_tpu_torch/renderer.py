@@ -89,7 +89,8 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
 
     "cluster" and "pallas" (the crt_tpu name) are the binned cluster trace;
     "stream" and "pallas_stream" the two-level streaming trace for large
-    scenes; "bruteforce" is the all-pairs backend.  "auto" is the cluster
+    scenes; "bruteforce" is the all-pairs backend; "tree" walks the scene's
+    KD tree (``ops/traverse.py``).  "auto" is the cluster
     trace, and on the card the streaming trace for a scene of more than
     ``AUTO_STREAM_MIN_CLUSTERS`` clusters.
     """
@@ -132,8 +133,9 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
         trace.rank = triangle_rank(scene)
         return trace
     if backend == "tree":
-        raise NotImplementedError(
-            "the tree backend is not ported yet (ROADMAP A12)")
+        from crt_tpu_torch.ops.traverse import make_tree_trace_fn
+
+        return make_tree_trace_fn(scene)
     if backend in _STREAM_BACKENDS:
         from crt_tpu_torch.ops.stream_trace import make_stream_trace_fn
 

@@ -5,7 +5,8 @@ because importing any ``crt_tpu`` module imports JAX.  Same rules, same
 errors, same legacy 07-/08-era handling; the arrays it builds are
 bit-identical to crt_tpu's, bitmap textures included (decoded by the
 stb_image-exact baseline JPEG decoder copied into ``io/jpeg_stb.py``, PIL
-for other files).  Not carried: the KD acceleration tree (ROADMAP A12).
+for other files).  The KD acceleration tree of the tree backend is built
+at load (``scene/accel.py``), as crt_tpu builds it.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from crt_tpu_torch.scene.accel import build_accel_tree
 from crt_tpu_torch.scene.types import (
     DEFAULT_SCENE_BUCKET_SIZE,
     MATERIAL_REFRACTIVE,
@@ -272,11 +274,13 @@ def _parse_objects(obj_list: Any, num_materials: int, legacy: bool,
 
 
 def scene_from_dict(data: dict, asset_root: str = "/",
-                    strict: bool = False, device=None) -> Scene:
+                    strict: bool = False, build_accel: bool = True,
+                    device=None) -> Scene:
     """Build a render-ready Scene from a .crtscene dict on ``device``
     (None: the card; it raises where there is none, ``"cpu"`` asks for the
     CPU).  Bitmap textures are read from ``asset_root`` joined with their
-    ``file_path``."""
+    ``file_path``; ``build_accel`` builds the KD tree (``Scene.accel``) of
+    a scene with triangles."""
     device = resolve_device(device)
     _require(isinstance(data, dict), "scene root must be an object")
 
@@ -385,6 +389,10 @@ def scene_from_dict(data: dict, asset_root: str = "/",
         tex_tables["scalar"].append(0.0)
         tex_tables["bitmap"].append(-1)
 
+    accel = None
+    if build_accel and len(tri_vidx) > 0:
+        accel = build_accel_tree(vertices, tri_vidx, device="cpu")
+
     def t(a, dtype=None):
         return torch.from_numpy(np.array(a, dtype=dtype, order="C"))
 
@@ -412,6 +420,7 @@ def scene_from_dict(data: dict, asset_root: str = "/",
         cam_rotation=t(cam_mat),
         cam_tan_half_fov=torch.tensor(tan_half_fov, dtype=torch.float32),
         background_color=t(bg),
+        accel=accel,
         width=width,
         height=height,
         bucket_size=bucket_size,

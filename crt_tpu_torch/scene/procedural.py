@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from crt_tpu_torch.scene.accel import build_accel_tree
 from crt_tpu_torch.scene.json_loader import scene_from_dict
 from crt_tpu_torch.scene.types import Scene, resolve_device
 
@@ -112,11 +113,13 @@ def make_big_scene(
     width: int = 1920,
     height: int = 1080,
     seed: int = 0,
+    build_accel: bool = True,
     device=None,
 ) -> Scene:
     """A large random triangle soup in a slab in front of the camera, built
     directly as arrays (one diffuse material, one light), on ``device``
-    (None: the card)."""
+    (None: the card).  ``build_accel`` builds its KD tree (the native
+    builder where it builds)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     T = num_triangles
@@ -155,6 +158,8 @@ def make_big_scene(
         cam_rotation=torch.eye(3, dtype=f32),
         cam_tan_half_fov=torch.tensor(1.0, dtype=f32),
         background_color=torch.tensor([0.05, 0.08, 0.12], dtype=f32),
+        accel=(build_accel_tree(verts, tri_vidx, device="cpu")
+               if build_accel else None),
         width=width,
         height=height,
         has_reflective=False,

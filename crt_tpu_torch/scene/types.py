@@ -6,10 +6,8 @@ properties.  Where the JAX package registers pytrees with static meta
 fields, the port keeps plain frozen dataclasses whose tensors move together
 with ``.to(device)``; the device a render runs on is the device of the
 scene's tensors.  Every function that builds a scene takes ``device=None``,
-which ``resolve_device`` reads as the card.
-
-The JAX ``Scene.accel`` KD tree is not carried: the tree backend is ROADMAP
-A12.
+which ``resolve_device`` reads as the card.  ``Scene.accel`` is the KD
+tree of the tree backend (``AccelTree``), built at load.
 """
 
 from __future__ import annotations
@@ -42,6 +40,9 @@ DEFAULT_REFLECTION_BIAS = 1e-2
 DEFAULT_DIFFUSE_REFLECTION_BIAS = 1e-2
 DEFAULT_REFRACTION_BIAS = 1e-2
 
+# Acceleration-tree constants (the reference's crt_acceleration_tree.h).
+MAX_ACCELERATION_TREE_DEPTH = 39
+MAX_BOX_TRIANGLE_COUNT = 16
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,6 +103,40 @@ SCENE_META_FIELDS = (
 )
 
 
+# Tensor and static fields of AccelTree, in declaration order.
+ACCEL_TENSOR_FIELDS = (
+    "node_min",
+    "node_max",
+    "node_children",
+    "node_leaf_id",
+    "leaf_tris",
+    "leaf_node",
+)
+ACCEL_META_FIELDS = ("leaf_size", "num_nodes", "num_leaves")
+
+
+@dataclasses.dataclass(frozen=True)
+class AccelTree:
+    """Flattened midpoint-split KD/AABB tree: node boxes, child ids, and a
+    padded ``[num_leaves, leaf_size]`` triangle-id table (``-1`` pads), so
+    a leaf is one row of one gather."""
+
+    node_min: torch.Tensor  # [N, 3] f32 AABB lower corner
+    node_max: torch.Tensor  # [N, 3] f32 AABB upper corner
+    node_children: torch.Tensor  # [N, 2] i32, -1 = absent child
+    node_leaf_id: torch.Tensor  # [N] i32 row into leaf_tris, -1 = internal
+    leaf_tris: torch.Tensor  # [num_leaves, leaf_size] i32, -1 pad
+    leaf_node: torch.Tensor  # [num_leaves] i32 owning node id
+    leaf_size: int = MAX_BOX_TRIANGLE_COUNT
+    num_nodes: int = 0
+    num_leaves: int = 0
+
+    def to(self, device) -> "AccelTree":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).to(device)
+                     for f in ACCEL_TENSOR_FIELDS})
+
+
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Render-ready scene as one struct of tensors."""
@@ -135,6 +170,8 @@ class Scene:
     cam_tan_half_fov: torch.Tensor  # [] f32
     # Misc
     background_color: torch.Tensor  # [3] f32
+    # Acceleration structure (the tree backend); None when not built
+    accel: AccelTree | None = None
     # Static metadata
     width: int = 0
     height: int = 0
@@ -170,7 +207,9 @@ class Scene:
         return {f: getattr(self, f) for f in SCENE_TENSOR_FIELDS}
 
     def to(self, device) -> "Scene":
-        return self.replace(**{k: v.to(device) for k, v in self.tensors().items()})
+        accel = None if self.accel is None else self.accel.to(device)
+        return self.replace(accel=accel, **{k: v.to(device) for k, v in
+                                            self.tensors().items()})
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
@@ -188,7 +227,8 @@ class RenderSettings:
     two-level streaming trace for large scenes and "pallas_stream" its
     alias; "auto" is the cluster trace, and on the card the streaming trace
     above ``renderer.AUTO_STREAM_MIN_CLUSTERS`` clusters; "bruteforce" is
-    the all-pairs backend.  ``stream_shadow_k`` is the phase-1 depth of the
+    the all-pairs backend; "tree" walks ``Scene.accel``, the KD tree
+    (plain torch; "auto" never takes it).  ``stream_shadow_k`` is the phase-1 depth of the
     streaming trace's two-phase shadow resolve (0: one phase; the image
     does not depend on it).  ``wavefront``: "auto" takes the
     iterative bank wavefront for a scene with live refraction at depth >= 2

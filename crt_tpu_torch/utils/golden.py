@@ -1,0 +1,126 @@
+"""Golden-image comparison utilities.
+
+A copy of ``crt_tpu/utils/golden.py``.  The reference repository's
+regression corpus is its committed course renders (results/png/*.png,
+8-bit, no gamma).  Comparison rule: quantize the float render with the PPM
+writer's clamp (crt_image_ppm.cpp:16-19) and count pixels within a small
+per-channel tolerance.  The corpus is not part of this repository: its
+root (the reference checkout, holding ``results/png`` and ``scenes``) is
+read from the ``CRT_REFERENCE`` environment variable.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+
+import numpy as np
+
+from crt_tpu_torch.io.ppm import quantize
+
+
+def reference_root() -> pathlib.Path:
+    """The reference checkout named by ``CRT_REFERENCE``; FileNotFoundError
+    when it is not set or not there."""
+    root = os.environ.get("CRT_REFERENCE")
+    if not root or not pathlib.Path(root).is_dir():
+        raise FileNotFoundError(
+            "the reference corpus is not available: set CRT_REFERENCE to "
+            "the reference repository's checkout (results/png, scenes)"
+            + (f"; {root!r} is not a directory" if root else ""))
+    return pathlib.Path(root)
+
+
+# (scene relpath, golden name, settings overrides) for every scene loadable
+# at reference HEAD.  The overrides replicate the bug subset empirically
+# present in each golden (the course tags accumulated quirks over time —
+# e.g. shadow occlusion broke between the 12-01 and 13-01 tags; verified by
+# float64 oracle at disputed pixels: the 14-01 golden equals the unshadowed
+# shading value exactly).
+HEAD_GOLDEN_CASES = [
+    # The 09-01 golden is the course's barycentric visualization pass:
+    # color = (bary_u, bary_v, 0) — rendered via the "bary" AOV.
+    ("09-01-barycentric-coordinates/scene1.crtscene", "09-01-barycentric-coordinates-scene1", {"aov": "bary"}),
+    ("09-02-diffuse-smooth-shading/scene2.crtscene", "09-02-diffuse-smooth-shading-scene2", {}),
+    ("09-02-diffuse-smooth-shading/scene3.crtscene", "09-02-diffuse-smooth-shading-scene3", {}),
+    ("09-03-reflective/scene4.crtscene", "09-03-reflective-scene4", {"compat_hadamard_y": True}),
+    ("09-03-reflective/scene5.crtscene", "09-03-reflective-scene5", {"compat_hadamard_y": True}),
+    ("11-01-refractive/scene0.crtscene", "11-01-refractive-scene0", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene1.crtscene", "11-01-refractive-scene1", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene2.crtscene", "11-01-refractive-scene2", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene3.crtscene", "11-01-refractive-scene3", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene4.crtscene", "11-01-refractive-scene4", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene5.crtscene", "11-01-refractive-scene5", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene6.crtscene", "11-01-refractive-scene6", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene7.crtscene", "11-01-refractive-scene7", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("11-01-refractive/scene8.crtscene", "11-01-refractive-scene8", {"compat_no_shadows": True, "max_ray_depth": 5}),
+    ("12-01-textures/scene0.crtscene", "12-01-textures-scene0", {}),
+    ("12-01-textures/scene1.crtscene", "12-01-textures-scene1", {}),
+    ("12-01-textures/scene2.crtscene", "12-01-textures-scene2", {}),
+    # scene3's residual (~0.4% of pixels, all on the dragon JPEG) is texel
+    # SELECTION, not texel values: io/jpeg_stb.py decodes bit-exact vs the
+    # reference's stbi_load, and tools/oracle_ref_f32.py (this decode + the
+    # reference's exact f32 expression order) reproduces the golden with
+    # ZERO mismatched pixels.  The remaining flips are our renderer's f32
+    # op-order noise in the uv chain, amplified by the quad's ~1
+    # texel-per-pixel mapping putting boundary pixels on texel edges.
+    ("12-01-textures/scene3.crtscene", "12-01-textures-scene3", {}),
+    ("12-01-textures/scene4.crtscene", "12-01-textures-scene4", {}),
+    ("13-01-optimizations/scene0.crtscene", "13-01-optimizations", {"compat_no_shadows": True}),
+    ("14-01-acceleration-tree/scene0.crtscene", "14-01-acceleration-tree-scene0", {"compat_no_shadows": True}),
+    ("14-01-acceleration-tree/scene1.crtscene", "14-01-acceleration-tree-scene1", {"compat_no_shadows": True}),
+]
+
+# Scenes with no committed golden — rendered as smoke tests only.
+# 15-01 scene2: the GI showcase.  With scan-based GI sampling it renders
+# whole-frame on one v5e chip (Cornell-box color bleeding verified
+# visually); the reference repo has no 15-01 PNG to compare against.
+SMOKE_CASES = [
+    ("15-01-conclusion/scene0.crtscene", None, {}),
+    ("15-01-conclusion/scene1.crtscene", None, {"compat_hadamard_y": True}),
+    ("15-01-conclusion/scene2.crtscene", None,
+     {"compat_no_shadows": True, "compat_hadamard_y": True}),
+]
+
+# Legacy scenes that HEAD's loader rejects but we load in lenient mode.
+# 07-01 era: gray half-lambert on the face normal with a fixed light
+# direction reconstructed exactly from the committed renders
+# (ops/shade.ERA07_LIGHT_DIR, derivation in tools/era07_fit.py).
+# 08-01 era: per-object palette albedos reconstructed from the committed
+# renders (json_loader.ERA08_PALETTE); the era had working shadows and the
+# inverse-square falloff.
+# 09-01 scene0 has materials but no lights, so HEAD rejects it too
+# (crt_json.cpp:608-610); its golden is the bary AOV like scene1.
+LEGACY_GOLDEN_CASES = [
+    ("07-01-scene/scene0.crtscene", "07-01-scene-scene0", {}),
+    ("07-01-scene/scene1.crtscene", "07-01-scene-scene1", {}),
+    ("07-01-scene/scene2.crtscene", "07-01-scene-scene2", {}),
+    ("07-01-scene/scene3.crtscene", "07-01-scene-scene3", {}),
+    ("07-01-scene/scene4.crtscene", "07-01-scene-scene4", {}),
+    ("09-01-barycentric-coordinates/scene0.crtscene",
+     "09-01-barycentric-coordinates-scene0", {"aov": "bary"}),
+    ("08-01-light/scene0.crtscene", "08-01-light-scene0", {}),
+    ("08-01-light/scene1.crtscene", "08-01-light-scene1", {}),
+    ("08-01-light/scene2.crtscene", "08-01-light-scene2", {}),
+    ("08-01-light/scene3.crtscene", "08-01-light-scene3", {}),
+]
+
+
+def load_golden(name: str) -> np.ndarray:
+    """The golden PNG ``name`` as float32 [H, W, 3] in [0, 1]
+    (FileNotFoundError, naming the file, where it is absent)."""
+    path = reference_root() / "results" / "png" / f"{name}.png"
+    if not path.exists():
+        raise FileNotFoundError(f"no golden image {path}")
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+
+
+def match_stats(render: np.ndarray, golden: np.ndarray, tol=2.5 / 255.0):
+    """(fraction of pixels within tol on all channels, mean abs error)."""
+    render = quantize(np.asarray(render, np.float32)) / 255.0
+    diff = np.abs(render - golden)
+    frac = float(np.mean(np.all(diff <= tol, axis=-1)))
+    return frac, float(diff.mean())
