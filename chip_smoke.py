@@ -220,9 +220,37 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      one 8-bit level of the default frame and of the all-pairs backend's
      on all but 0.01 % of pixels; one frame shaded through a trace built
      with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
- 20. a JSON line of the kernels, then the last line
+ 20. blender: the port's Blender add-on registered under the bpy stand-in
+     of tests/mock_bpy.py; the opaque bench scene's dict imported through
+     its importer (meshes, lights, camera), exported from the depsgraph and
+     rendered by its engine on the card (launch counts reset just before,
+     read just after: 4 K1 and 4 K2); the Combined pass equal, bit for
+     bit, to render_scene_from_dict_array of the exported dict;
+ 21. parallel: two gloo ranks on this card (this script again, with
+     --parallel-rank; NCCL takes one rank a card), joined through a file
+     store, each driving, with a warm-up call first, every count zeroed
+     just before the counted call and read just after, and a plain call
+     for the wall time and peak memory: the row-sharded
+     bench frame (render_image_sharded: 4 K1 + 4 K2 a rank), its
+     gradient (sharded_value_and_grad with respect to vertices, light
+     intensities and camera position: 4 K3 a rank), the scene-partitioned
+     bench frame on a 1 x 2 (rays x scene) mesh (the cluster backend on
+     each rank's half of the clusters, min-combined: 8 K1 a rank, no K2)
+     and the scene-partitioned make_big_scene(1,000,000) frame (the
+     streaming backend on each half: 1 K8 + 2 K9 a rank); rank 0 holds
+     the frames to render_image on the card (>= 99.99 % of pixels within
+     rtol 1e-4 / atol 1e-5), the gradient to the one-process gradient
+     (rtol 1e-3 / atol 1e-4 of the largest entry), and each rank holds
+     the first K1 launch of its shard on the partitioned path, and the K8
+     launch and both K9 launches of its shard on the 1M path (on
+     PLAIN_TILES seeded tiles), to their plain versions bit for bit; each
+     path's wall time, peak memory and all-reduce time (host seconds
+     around gloo's host-staged collectives) per rank; a rank that fails
+     stops both;
+ 22. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
-     paths; the uncapped member-masked mode of the w-occlusion kernel is on
+     paths, and ``parallel_launches`` / ``blender_launches`` each rank's
+     on phase 21's paths / the engine's frame; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
@@ -273,6 +301,7 @@ Needs one CUDA card; exits with an error when there is none.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -550,23 +579,43 @@ def image_sum_grads(scene, settings=None, keys=TRAINED):
     return value.detach(), {k: p.grad for k, p in params.items()}
 
 
+@contextlib.contextmanager
+def patched(owner, name, around):
+    """Within the block, ``owner.name(*args, **kw)`` calls
+    ``around(real, *args, **kw)``, ``real`` being the function replaced."""
+    real = getattr(owner, name)
+    setattr(owner, name, lambda *args, **kw: around(real, *args, **kw))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def keep_args(calls, keep=1):
+    """An ``around`` for ``patched`` that appends the (args, kw) of the
+    first ``keep`` calls to ``calls`` and calls through."""
+
+    def around(real, *args, **kw):
+        if len(calls) < keep:
+            calls.append((args, kw))
+        return real(*args, **kw)
+
+    return around
+
+
 def record_segsums(scene, keys=TRAINED):
     """(ids, g, T) of every segment sum that one real backward of the
     frame (value_and_grad of the image sum w.r.t. ``keys``) makes."""
     from crt_tpu_torch.ops import segsum
 
     calls = []
-    real = segsum.segment_accumulate
 
-    def recording(ids, g, num_segments, *args, **kw):
+    def recording(real, ids, g, num_segments, *args, **kw):
         calls.append((ids, g, num_segments))
         return real(ids, g, num_segments, *args, **kw)
 
-    segsum.segment_accumulate = recording
-    try:
+    with patched(segsum, "segment_accumulate", recording):
         image_sum_grads(scene, keys=keys)
-    finally:
-        segsum.segment_accumulate = real
     return calls
 
 
@@ -1782,13 +1831,13 @@ def phase_variants(device):
     return {"closest_hit_merged": stats}, counts["closest_hit_merged"]
 
 
-def assert_grads_close(name, got, want, rtol, atol_scale):
+def assert_grads_close(name, got, want, rtol, atol_scale, tag="[train]"):
     for k in want:
         check(bool(torch.isfinite(got[k]).all()), f"{name}: {k} not finite")
         a, b = got[k].detach().cpu().double(), want[k].detach().cpu().double()
         scale = float(b.abs().max())
         diff = (a - b).abs()
-        print(f"[train] {name}: d/d{k} max |diff| {float(diff.max()):.3e} "
+        print(f"{tag} {name}: d/d{k} max |diff| {float(diff.max()):.3e} "
               f"(largest entry {scale:.3e})")
         check(bool((diff <= atol_scale * scale + rtol * b.abs()).all()),
               f"{name}: d/d{k} differs beyond rtol {rtol} / atol "
@@ -2646,15 +2695,15 @@ def phase_aov(device):
     print(f"[aov] {smi()}")
 
 
+@contextlib.contextmanager
 def record_walks():
-    """Wrap traverse.closest_hit_tree so that each call appends (lanes,
-    loop iterations, host reads) to the returned list; the caller restores
-    the function with ``restore()``."""
+    """Within the block, each call of traverse.closest_hit_tree appends
+    (lanes, loop iterations, host reads) to the list yielded."""
     from crt_tpu_torch.ops import traverse
 
-    walks, real = [], traverse.closest_hit_tree
+    walks = []
 
-    def logged(accel, tri, origins, dirs, active=None):
+    def logged(real, accel, tri, origins, dirs, active=None):
         its, reads = traverse.tree_iterations, traverse.tree_host_reads
         hit = real(accel, tri, origins, dirs, active)
         lanes = (origins[..., 0].numel() if active is None
@@ -2663,12 +2712,8 @@ def record_walks():
                       traverse.tree_host_reads - reads))
         return hit
 
-    traverse.closest_hit_tree = logged
-
-    def restore():
-        traverse.closest_hit_tree = real
-
-    return walks, restore
+    with patched(traverse, "closest_hit_tree", logged):
+        yield walks
 
 
 def phase_tree(device):
@@ -2708,13 +2753,10 @@ def phase_tree(device):
           "the loader's tree differs from a fresh build")
 
     # the forward frame
-    walks, restore = record_walks()
     reset_launches()
-    try:
+    with record_walks() as walks:
         img = render_image(scene, tree)
         torch.cuda.synchronize()
-    finally:
-        restore()
     kernels = read_launches()
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
           "the tree frame is not a finite [H, W, 3]")
@@ -2777,12 +2819,9 @@ def phase_tree(device):
           f"{mk_s:.3f} s")
     o, d = primary_wavefront(big)
     trace = make_trace_fn(big, tree)
-    walks, restore = record_walks()
-    try:
+    with record_walks() as walks:
         hit = trace(o, d)
         torch.cuda.synchronize()
-    finally:
-        restore()
     wall, enq = host_ms(lambda: trace(o, d), reps=3)
     dev_ms, launches, _ = profile_frame(lambda: trace(o, d), tag="[tree]")
     print(f"[tree] 65,536-triangle primary trace: {wall:.3f} ms wall "
@@ -3882,6 +3921,380 @@ def phase_profile(device, frames=3):
               f"({100 * us / total:.2f} % of device time)")
 
 
+PARALLEL_RANKS = 2  # gloo ranks on the one card (NCCL takes one a card)
+PARALLEL_TIMEOUT = 600  # seconds for both ranks, all four paths
+PARALLEL_KERNELS = ("closest_hit", "occlusion_w", "segsum",
+                    "closest_hit_stream", "occlusion_stream")
+
+
+def parallel_path(rank, name, fn, out):
+    """One parallel path on this rank: a warm-up call; the counted one
+    (every count zeroed just before, read just after: kernel launches,
+    and the all-reduces' calls, bytes and host ms, each timed between two
+    synchronizations of the card); then a plain call for the wall ms and
+    peak memory, whose result is returned."""
+    import torch.distributed as dist
+
+    fn()
+    coll = {"calls": 0, "bytes": 0, "s": 0.0}
+
+    def timed(real, t, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = real(t, *args, **kw)
+        torch.cuda.synchronize()
+        coll["s"] += time.perf_counter() - t0
+        coll["calls"] += 1
+        coll["bytes"] += t.numel() * t.element_size()
+        return work
+
+    reset_launches()
+    with patched(dist, "all_reduce", timed):
+        fn()
+        torch.cuda.synchronize()
+    launches = read_stream_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rec = {"wall_ms": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches,
+           "collectives": coll["calls"],
+           "collective_mib": coll["bytes"] / 2**20,
+           "collective_ms": coll["s"] * 1e3}
+    out[name] = rec
+    print(f"[parallel] rank {rank} {name}: wall {wall:.3f} ms, peak "
+          f"{rec['peak_gib']:.3f} GiB, launches {rec['launches']}, "
+          f"{rec['collectives']} all-reduces of {rec['collective_mib']:.1f} "
+          f"MiB in {rec['collective_ms']:.3f} ms", flush=True)
+    return result
+
+
+def hold_k1_plain(tag, call):
+    """K1 on a recorded call's inputs vs its plain version, bit for bit."""
+    from crt_tpu_torch.ops import cluster_trace as ct
+
+    args, kw = call
+    got = ct.closest_hit(*args, **kw)
+    want = ct.closest_hit_plain(*args, **kw)
+    err = compare_hits(f"{tag} K1", got, want)
+    print(f"[parallel] {tag}: K1 on a shard's recorded launch ({args[1].shape[0]} "
+          f"rays, {args[0].n.shape[0]} clusters) bit-equal to the plain "
+          "version on every lane", flush=True)
+    return err
+
+
+def hold_stream_plain(tag, k8_call, k9_calls, gen):
+    """K8 and each K9 launch on a shard's recorded inputs vs the plain
+    versions on PLAIN_TILES seeded tiles that own pairs, bit for bit, and
+    vs the launch itself on those tiles."""
+    from crt_tpu_torch.ops import stream_trace as stt
+
+    # closest_hit_stream(table, tri_id, o, d, pair_sc, bits, start, ...)
+    args, kw = k8_call
+    t, tri = stt.closest_hit_stream(*args, **kw)
+    pick = pick_live_tiles(args[6], gen)
+    sub, lane_args, lanes = tile_subset(pick, *args[4:7], *args[2:4])
+    sub_args = (*args[:2], *lane_args, *sub, *args[7:])
+    kt, ktri = stt.closest_hit_stream(*sub_args, **kw)
+    pt, ptri = stt.closest_hit_stream_plain(*sub_args, **kw)
+    compare_hits(f"{tag} K8", (kt, ktri, None), (pt, ptri, None))
+    compare_hits(f"{tag} K8, full launch vs sampled tiles",
+                 (t[lanes], tri[lanes], None), (kt, ktri, None))
+    # occlusion_stream(table, o, d, r2, seed, pair_sc, bits, start, ...)
+    for phase, (args, kw) in enumerate(k9_calls, 1):
+        occ = stt.occlusion_stream(*args, **kw)
+        pick = pick_live_tiles(args[7], gen)
+        sub, lane_args, lanes = tile_subset(pick, *args[5:8], *args[1:5])
+        sub_args = (args[0], *lane_args, *sub, *args[8:])
+        kocc = stt.occlusion_stream(*sub_args, **kw)
+        pocc = stt.occlusion_stream_plain(*sub_args, **kw)
+        check(torch.equal(kocc, pocc),
+              f"{tag} K9 launch {phase}: the kernel differs from the plain "
+              "version")
+        check(torch.equal(occ[lanes], kocc),
+              f"{tag} K9 launch {phase}: the full launch differs on the "
+              "sampled tiles")
+    print(f"[parallel] {tag}: K8 and the {len(k9_calls)} K9 launches of a "
+          f"shard, on {PLAIN_TILES} seeded tiles each, bit-equal to the plain "
+          "versions and to the full launches", flush=True)
+
+
+def parallel_rank(rank: int, out_dir: str) -> int:
+    """One of the PARALLEL_RANKS gloo ranks of [parallel], on card 0."""
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.ops import cluster_trace as ct
+    from crt_tpu_torch.ops import cuda_lib
+    from crt_tpu_torch.ops import stream_trace as stt
+    from crt_tpu_torch.parallel import multihost
+    from crt_tpu_torch.parallel.scene_sharded import (
+        render_image_scene_sharded,
+    )
+    from crt_tpu_torch.parallel.sharded import (
+        make_mesh,
+        render_image_sharded,
+        sharded_value_and_grad,
+    )
+    from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
+
+    import datetime
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    check(multihost.initialize(
+        init_method=f"file://{out_dir}/store", world_size=PARALLEL_RANKS,
+        rank=rank, backend="gloo",
+        timeout=datetime.timedelta(seconds=PARALLEL_TIMEOUT)),
+        "the gloo group did not form")
+    cuda_lib.load()
+    out = {}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    W, H = BENCH["width"], BENCH["height"]
+    scene = make_test_scene(**BENCH, device=device)
+    rows_mesh = make_mesh()
+    scene_mesh = make_mesh((1, PARALLEL_RANKS), ("rays", "scene"))
+
+    # 1. the row-sharded opaque frame
+    img = parallel_path(rank, "row-sharded frame", lambda: render_image_sharded(
+        scene, mesh=rows_mesh), out)
+    check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
+          "the row-sharded frame is not a finite [H, W, 3]")
+    ref = None
+    if rank == 0:
+        ref, ms = timed_once(lambda: render_image(scene))
+        ref, ms = timed_once(lambda: render_image(scene))
+        out["one-process frame"] = {"wall_ms": ms}
+        image_agreement("[parallel] row-sharded frame vs render_image", img,
+                        ref)
+    # rank 1 waits off the card while rank 0 times its one-process frames
+    torch.distributed.barrier()
+
+    # 2. its gradient
+    target = torch.full_like(img, 0.25)
+    params = {k: getattr(scene, k) for k in TRAINED}
+    loss, grads = parallel_path(
+        rank, "row-sharded gradient", lambda: sharded_value_and_grad(
+            scene, target, params, mesh=rows_mesh), out)
+    if rank == 0:
+        def one_process():
+            leaves = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in params.items()}
+            loss = torch.mean((render_image(scene.replace(**leaves))
+                               - target) ** 2)
+            loss.backward()
+            return loss, {k: p.grad for k, p in leaves.items()}
+
+        one_process()
+        (loss1, grads1), ms = timed_once(one_process)
+        out["one-process gradient"] = {"wall_ms": ms}
+        loss1 = float(loss1.detach())
+        print(f"[parallel] loss {float(loss):.9e} sharded, "
+              f"{loss1:.9e} one process", flush=True)
+        check(abs(float(loss) - loss1) <= 1e-5 * abs(loss1),
+              "the sharded loss differs from the one-process loss")
+        assert_grads_close("row-sharded vs one process", grads, grads1,
+                           rtol=1e-3, atol_scale=1e-4, tag="[parallel]")
+    torch.distributed.barrier()
+
+    # 3. the scene-partitioned opaque frame, cluster backend
+    k1 = []
+    with patched(ct, "closest_hit", keep_args(k1)):
+        img = parallel_path(
+            rank, "scene-partitioned frame", lambda: render_image_scene_sharded(
+                scene, mesh=scene_mesh), out)
+    check(out["scene-partitioned frame"]["launches"]["occlusion_w"] == 0,
+          "the partitioned cluster path launched the w-occlusion kernel")
+    if rank == 0:
+        image_agreement("[parallel] scene-partitioned frame vs render_image",
+                        img, ref)
+    out["k1_err"] = hold_k1_plain("scene-partitioned frame", k1[0])
+    del scene, img, ref, grads
+
+    # 4. the scene-partitioned streaming frame at 1,000,000 triangles
+    torch.cuda.empty_cache()
+    big = make_big_scene(**BIG, seed=0, build_accel=False, device=device)
+    k8, k9 = [], []
+    with patched(stt, "closest_hit_stream", keep_args(k8)), \
+            patched(stt, "occlusion_stream", keep_args(k9, keep=2)):
+        img = parallel_path(
+            rank, "scene-partitioned 1M frame",
+            lambda: render_image_scene_sharded(big, mesh=scene_mesh), out)
+    launches = out["scene-partitioned 1M frame"]["launches"]
+    check(launches["closest_hit_stream"] == 1
+          and launches["occlusion_stream"] == 2
+          and launches["closest_hit"] == 0,
+          f"the partitioned 1M frame launched {launches}, expected one K8, "
+          "two K9 and no K1 on each rank")
+    if rank == 0:
+        render_image(big)
+        ref, ms = timed_once(lambda: render_image(big))
+        out["one-process 1M frame"] = {"wall_ms": ms}
+        image_agreement("[parallel] scene-partitioned 1M frame vs "
+                        "render_image", img, ref)
+    torch.distributed.barrier()
+    hold_stream_plain("scene-partitioned 1M frame", k8[0], k9, gen)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(device):
+    """[parallel]: PARALLEL_RANKS gloo ranks on this card drive the
+    row-sharded and scene-partitioned paths; rank 0 holds each to the
+    one-process render.  Returns each path's launches per rank."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(PARALLEL_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), tmp], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(PARALLEL_RANKS)]
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        failed = None
+        try:
+            while any(p.poll() is None for p in procs):
+                failed = next((r for r, p in enumerate(procs)
+                               if p.poll() not in (None, 0)), None)
+                if failed is not None or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, log in enumerate(logs):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(line if line.startswith("[parallel]")
+                      else f"[parallel] rank {r}: {line}")
+            log.close()
+        rcs = [p.returncode for p in procs]
+        check(failed is None and rcs == [0] * PARALLEL_RANKS,
+              f"the gloo ranks exited {rcs}"
+              + (" (time limit)" if failed is None and any(rcs) else ""))
+        ranks = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    paths = [k for k, v in ranks[0].items()
+             if isinstance(v, dict) and "launches" in v]
+    for path in paths:
+        per_rank = [rk[path] for rk in ranks]
+        print(f"[parallel] {path}: wall " + " / ".join(
+            f"{x['wall_ms']:.3f}" for x in per_rank) + " ms, peak " + " / ".join(
+            f"{x['peak_gib']:.3f}" for x in per_rank) + " GiB, collectives "
+            + " / ".join(f"{x['collective_ms']:.3f}" for x in per_rank)
+            + " ms (rank 0 / rank 1)")
+        # each shard lists its own pairs; the kernels launched must agree
+        kernels = [{k: x["launches"][k] for k in PARALLEL_KERNELS}
+                   for x in per_rank]
+        check(all(k == kernels[0] for k in kernels),
+              f"{path}: the ranks launched {kernels}")
+    for k in ("one-process frame", "one-process gradient",
+              "one-process 1M frame"):
+        print(f"[parallel] {k} on rank 0: {ranks[0][k]['wall_ms']:.3f} ms")
+    expect = {"row-sharded frame": ("closest_hit", "occlusion_w"),
+              "row-sharded gradient": ("closest_hit", "occlusion_w",
+                                       "segsum"),
+              "scene-partitioned frame": ("closest_hit",),
+              "scene-partitioned 1M frame": ("closest_hit_stream",
+                                             "occlusion_stream")}
+    for path, kernels in expect.items():
+        got = ranks[0][path]["launches"]
+        check(all(got[k] > 0 for k in kernels),
+              f"{path}: a kernel of the path was never launched: {got}")
+    return {name: {path: [rk[path]["launches"][name] for rk in ranks]
+                   for path in paths} for name in PARALLEL_KERNELS}
+
+
+def phase_blender(device):
+    """[blender]: the port's add-on registered under tests/mock_bpy.py's
+    stand-in; the opaque bench scene imported through its importer,
+    exported from the depsgraph and rendered by its engine on the card,
+    held to render_scene_from_dict_array of the same dict."""
+    import importlib
+    import types
+
+    import numpy as np
+
+    from crt_tpu_torch.frontend import api
+    from crt_tpu_torch.scene.procedural import make_test_scene_dict
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import mock_bpy
+
+    mods = mock_bpy._build_modules()
+    sys.modules.update(mods)
+    try:
+        from crt_tpu_torch.frontend import blender as addon
+
+        names = [f"crt_tpu_torch.frontend.blender.{m}" for m in (
+            "scene_bridge", "properties", "engine", "ui", "ops")]
+        for name in names:
+            if name in sys.modules:
+                importlib.reload(sys.modules[name])
+            else:
+                importlib.import_module(name)
+        from crt_tpu_torch.frontend.blender import engine, scene_bridge
+
+        bpy = mods["bpy"]
+        addon.register()
+        W, H = BENCH["width"], BENCH["height"]
+        d = make_test_scene_dict(**BENCH)
+        scene_bridge.import_scene_dict(d, collection=bpy.context.collection)
+        for ob in bpy.data.objects:
+            if ob.type == "LIGHT":  # the importer sets the energy only
+                ob.data.crt.intensity = ob.data.energy
+        bscene = bpy.types.Scene()
+        bscene.camera = bpy.context.scene.camera
+        bscene.render = types.SimpleNamespace(
+            resolution_x=W, resolution_y=H, resolution_percentage=100)
+        bscene.world = types.SimpleNamespace(
+            color=tuple(d["settings"]["background_color"]))
+        dg = types.SimpleNamespace(scene=bscene, object_instances=[
+            types.SimpleNamespace(object=ob, matrix_world=ob.matrix_world)
+            for ob in bpy.data.objects])
+        exported = scene_bridge.build_scene_dict(dg)
+        eng = engine.CRTTorchRenderEngine()
+        eng.render(dg)  # warm-up
+        reset_launches()
+        eng = engine.CRTTorchRenderEngine()
+        _, ms = timed_once(lambda: eng.render(dg))
+        launches = read_launches()
+        rect = np.asarray(eng.result.layers[0].passes["Combined"].rect)
+        crt = bscene.crt
+        settings = api.RendererSettings(
+            crt.max_ray_depth, crt.diffuse_reflection_ray_count,
+            crt.shadow_bias, crt.reflection_bias, crt.diffuse_reflection_bias,
+            crt.refraction_bias)
+        ref = api.render_scene_from_dict_array(exported, "/", settings)
+        addon.unregister()
+    finally:
+        for name in mods:
+            sys.modules.pop(name, None)
+    tris = sum(len(o["triangles"]) // 3 for o in exported["objects"])
+    print(f"[blender] the add-on's engine ({engine.ENGINE_ID}) rendered the "
+          f"{W}x{H} bench scene imported into the mock Blender ({tris} "
+          f"triangles, {len(exported['lights'])} lights exported) in "
+          f"{ms:.3f} ms; kernel launches {launches}")
+    check(rect.shape == (W * H, 4) and bool(np.isfinite(rect).all())
+          and bool((rect[:, 3] == 1.0).all()),
+          "the Combined pass is not a finite [W * H, 4] RGBA")
+    check(np.array_equal(rect, ref.reshape(-1, 4)),
+          "the Combined pass differs from render_scene_from_dict_array")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0},
+          f"the engine launched {launches}, expected 4 K1 and 4 K2")
+    print("[blender] the Combined pass equals render_scene_from_dict_array "
+          "of the exported dict on the card, bit for bit")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3896,11 +4309,16 @@ def main(argv=None) -> int:
                     "turns with the kernels built from "
                     "DIR/crt_tpu_torch/csrc (another checkout's, with this "
                     "one's interface), and nothing else (no JSON lines)")
+    ap.add_argument("--parallel-rank", nargs=2, metavar=("RANK", "DIR"),
+                    help=argparse.SUPPRESS)  # one rank of [parallel]
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path cannot run",
               file=sys.stderr)
         return 2
+    if args.parallel_rank:
+        return parallel_rank(int(args.parallel_rank[0]),
+                             args.parallel_rank[1])
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     name = phase_device()
@@ -3961,6 +4379,10 @@ def main(argv=None) -> int:
     del big_scene
     torch.cuda.empty_cache()
     direction = phase_direction_form(device)
+    torch.cuda.empty_cache()
+    blender = phase_blender(device)
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(device)
     # the glass frame's own paths: the CLI render (glass-flag passes) and
     # the render with compact_bounces (compacted launches).  No render path
     # takes the uncapped member-masked mode: its one caller is
@@ -4018,6 +4440,13 @@ def main(argv=None) -> int:
                 "launches": launches[n], "on_a_render_path": n not in off_path,
                 **stats[n]}
                for n, src, rep in described]
+    # the launches of each rank on the parallel paths, and of the Blender
+    # engine's frame
+    for k in kernels:
+        if k["name"] in parallel:
+            k["parallel_launches"] = parallel[k["name"]]
+        if k["name"] in blender:
+            k["blender_launches"] = blender[k["name"]]
     check(all(k["launches"] > 0 for k in kernels
               if k["on_a_render_path"] or k["name"] == "occlusion_d_exit"),
           f"a kernel was never launched on its path: {launches}")

@@ -17,10 +17,11 @@ tri_id, albedo), the ``_crt``-style API (``frontend/api.py``), the KD-tree
 backend (``backend="tree"``, the tree built at load by ``scene/accel.py``
 and its native builder), the utilities (``utils/``: camera rig, one-pixel
 ray log, render statistics and profile, numerical checks, golden
-comparison, the early-era images), and ``fit_scene``, the
-inverse-rendering loop.  Scenes are built on the card unless the caller
-passes ``device="cpu"``.  What is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+comparison, the early-era images), ``fit_scene``, the inverse-rendering
+loop, the Blender add-on (``frontend/blender``) and the parallel paths
+(``parallel``: rows sharded over ``torch.distributed`` ranks, the scene
+partitioned over them, the multi-process runtime; ``fit_scene(mesh=)``).
+Scenes are built on the card unless the caller passes ``device="cpu"``.
 """
 
 from crt_tpu_torch.optim import fit_scene

@@ -82,8 +82,14 @@ def triangle_rank(scene) -> torch.Tensor:
         _centroids(scene.vertices.detach(), scene.tri_vidx)))
 
 
-def build_cluster_tables(scene) -> ClusterTables:
-    """Morton-cluster the scene's triangles and precompute test constants."""
+def build_cluster_tables(scene, clusters: slice | None = None
+                         ) -> ClusterTables:
+    """Morton-cluster the scene's triangles and precompute test constants.
+
+    ``clusters`` builds those clusters only (a rank's shard of a
+    partitioned scene, ``parallel/scene_sharded.py``): the Morton order is
+    the whole scene's, and ``rank`` maps each triangle of the shard to its
+    slot in it and every other triangle to -1."""
     vertices = scene.vertices.detach()
     tvi = scene.tri_vidx.long()
     backface = scene.mat_backface[scene.tri_material.long()]
@@ -99,6 +105,11 @@ def build_cluster_tables(scene) -> ClusterTables:
             [order, torch.full((pad,), -1, dtype=torch.int32, device=dev)]
         )
     cl = order.reshape(L, CLUSTER_SIZE)  # [L, 16] tri ids, -1 pad
+    if clusters is not None:
+        cl = cl[clusters]
+        slot = rank - clusters.indices(L)[0] * CLUSTER_SIZE
+        rank = torch.where((slot >= 0) & (slot < cl.numel()), slot,
+                           torch.full_like(slot, -1))
     padm = cl < 0
     ids = torch.clamp(cl, min=0).long()
 

@@ -22,7 +22,9 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
     with ``exit=True``, ``_occlusion_kernel`` as launched by
     ``occluded_pallas_flat`` (the same test seeded with the inactive
     lanes, leaving a tile once all its lanes are blocked);
-  - ``make_cluster_trace_fn`` replaces ``make_pallas_trace_fn``.
+  - ``make_cluster_trace_fn`` replaces ``make_pallas_trace_fn``;
+    ``make_cluster_trace_fn_from_tables`` builds the same trace over given
+    tables (a rank's shard of them, ``parallel/scene_sharded.py``).
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version, in this module, only for CPU tensors.
@@ -852,7 +854,20 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False,
     ``trace.refr_ray_hit_w -> glass`` (the same flag from a separate
     uncapped pass over the refractive members alone).
     """
-    tables = build_cluster_tables(scene)
+    return make_cluster_trace_fn_from_tables(
+        build_cluster_tables(scene), scene, compact_masked=compact_masked,
+        use_occlusion_kernel=use_occlusion_kernel, apex_w=apex_w,
+        tile_merge=tile_merge)
+
+
+def make_cluster_trace_fn_from_tables(tables: ClusterTables, scene=None,
+                                      compact_masked: bool = False,
+                                      use_occlusion_kernel: bool = False,
+                                      apex_w: bool | None = None,
+                                      tile_merge: int | None = None):
+    """``make_cluster_trace_fn`` over ``tables`` as given.  Without the
+    ``scene`` they were built from, the trace has no ``with_rows`` and no
+    glass router (both read the scene's shading tables)."""
     rows_table_cache = []
     glass_cache = []
     if apex_w is None:
@@ -982,11 +997,13 @@ def make_cluster_trace_fn(scene, compact_masked: bool = False,
                           exit=True, active=a)
         return occ[:R].reshape(batch_shape)
 
-    trace.with_rows = trace_with_rows
+    if scene is not None:
+        trace.with_rows = trace_with_rows
     trace.shadow_apex = shadow_apex
     if apex_w:
         trace.shadow_apex_w = shadow_apex_w
-        if scene.has_materials and scene.has_refractive:
+        if scene is not None and scene.has_materials \
+                and scene.has_refractive:
             trace.shadow_apex_w_glass = shadow_apex_w_glass
             trace.refr_ray_hit_w = refr_ray_hit_w
     if use_occlusion_kernel:

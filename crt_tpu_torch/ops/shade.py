@@ -154,7 +154,8 @@ def build_packed(scene, force_all: bool = False) -> torch.Tensor:
 
 
 def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
-                   rank=None, force_all: bool = False) -> HitAttributes:
+                   rank=None, force_all: bool = False,
+                   rows_fn=None) -> HitAttributes:
     """Recompute intersection attributes from the hit triangle ids.
 
     ``hit.tri`` is a constant (a discrete choice); everything else
@@ -166,7 +167,11 @@ def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
     ``packed_gather_ranked`` (``packed_gather`` when the trace has no
     ``rank``, the [T] triangle id -> Morton rank map).  A table that needs
     a gradient is always read through an adapter, whatever the shape of
-    the ray batch; one that needs none is read without.
+    the ray batch; one that needs none is read without.  ``rows_fn(tri)
+    -> [K, R]`` replaces every read of the packed table (a
+    scene-partitioned render: each rank holds a shard of the table and
+    the rows come back through an exchange, ``parallel/scene_sharded.py``);
+    the trace's emitted rows are then not used.
     """
     tri_raw = hit.tri.detach()
     valid = tri_raw >= 0
@@ -176,9 +181,12 @@ def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
     need_bary = _needs_bary(scene) or force_all
     any_smooth = scene.any_smooth or force_all
 
-    packed = build_packed(scene, force_all)
-    want_grad = packed.requires_grad and torch.is_grad_enabled()
-    if kernel_rows is not None:
+    packed = None if rows_fn is not None else build_packed(scene, force_all)
+    want_grad = (packed is not None and packed.requires_grad
+                 and torch.is_grad_enabled())
+    if rows_fn is not None:
+        rows = rows_fn(tri_flat.clamp(min=0))
+    elif kernel_rows is not None:
         rows = kernel_rows[:-1].detach()
         if want_grad:
             if rank is None:
@@ -290,10 +298,15 @@ def light_sum(scene, illuminated, light_dir, r2, normal):
     return lum
 
 
-def march_table(scene) -> torch.Tensor:
+def march_table(scene, rows_fn=None):
     """[5, T] constants of the transmissive march, one column gather per
     step: the face normal (rows 0-2), "is refractive" (row 3), the ior
-    (row 4).  Constants: the march decides visibility only."""
+    (row 4).  Constants: the march decides visibility only.  With
+    ``rows_fn`` (a scene-partitioned render, where no rank holds the
+    vertices) a function of the ids to those columns instead
+    (``_march_rows``)."""
+    if rows_fn is not None:
+        return _march_rows(scene, rows_fn)
     verts = scene.vertices.detach()
     tv = scene.tri_vidx.long()
     v0, v1, v2 = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
@@ -306,10 +319,28 @@ def march_table(scene) -> torch.Tensor:
     ], dim=0)
 
 
+def _march_rows(scene, rows_fn):
+    """``march_table``'s columns at triangle ids, read through ``rows_fn``:
+    tri [N] -> [5, N], the face normal from the packed rows' v0 | v1 | v2,
+    the material rows from the replicated material tables."""
+    mat_refr = (scene.mat_type == MATERIAL_REFRACTIVE).to(torch.float32)
+
+    def rows(tri):
+        r = rows_fn(tri).detach()
+        v0, v1, v2 = (r[o:o + 3].movedim(0, -1) for o in (0, 3, 6))
+        face_n = vecmath.safe_normalize(vecmath.cross(v1 - v0, v2 - v0))
+        mat = scene.tri_material.long()[tri]
+        return torch.cat([face_n.T, mat_refr[mat][None],
+                          scene.mat_ior.detach()[mat][None]], dim=0)
+
+    return rows
+
+
 def _march_step(trace_fn, march_tab, refraction_bias, carry):
     """One segment of the bend-walk: trace the marching lanes, record the
     hit, and bend the lanes that hit glass (total internal reflection
-    stops a lane: the glass surface occludes)."""
+    stops a lane: the glass surface occludes).  ``march_tab`` is
+    ``march_table``'s [5, T] or a function of the ids to its columns."""
     global march_traces
     o, d, alive, last_valid, last_t = carry
     march_traces += 1
@@ -321,7 +352,7 @@ def _march_step(trace_fn, march_tab, refraction_bias, carry):
     last_t = torch.where(
         alive, torch.where(sh.valid, sh.t, torch.zeros_like(sh.t)), last_t)
 
-    mrows = march_tab[:, tri]  # [5, N]
+    mrows = march_tab(tri) if callable(march_tab) else march_tab[:, tri]
     face_n = mrows[0:3].movedim(0, -1)
     is_refr = hit_valid & (mrows[3] > 0.5)
     ior = mrows[4]
@@ -390,7 +421,8 @@ def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
 
 def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
                      shadow_bias, no_shadows, shadow_active,
-                     max_ray_depth=3, refraction_bias=1e-2, march_tab=None):
+                     max_ray_depth=3, refraction_bias=1e-2, march_tab=None,
+                     rows_fn=None):
     """is_illuminated per (light, ray), all lights in one batched pass.
 
     Returns (illuminated [Ll, R] bool, light_dir [Ll, R, 3], r2 [Ll, R]).
@@ -413,7 +445,8 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     ``shadow_apex_w_glass`` first splits the lanes in one kernel pass:
     lanes whose whole ray meets no glass (and whose light is farther than
     1) take the kernel's occlusion bits, the rest march, over the live
-    1024-lane blocks only.
+    1024-lane blocks only.  Without ``march_tab``, the march reads its
+    constants from ``march_table(scene, rows_fn)``.
     """
     light_vec = light_positions[:, None, :] - point[None]  # [Ll, R, 3]
     r2 = vecmath.length_squared(light_vec)
@@ -469,7 +502,7 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
             act = march_lr.reshape(-1)
 
     if march_tab is None:
-        march_tab = march_table(scene)
+        march_tab = march_table(scene, rows_fn)
     with torch.no_grad():
         last_valid, last_t = _transmissive_march(
             trace_fn, march_tab, refraction_bias, max_ray_depth, shadow_o,
@@ -486,7 +519,7 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
                     active: Optional[torch.Tensor] = None, *,
                     raster_x: Optional[torch.Tensor] = None,
                     raster_y: Optional[torch.Tensor] = None,
-                    gi_salt=None) -> torch.Tensor:
+                    gi_salt=None, rows_fn=None) -> torch.Tensor:
     """Shade a camera-ray wavefront -> [R, 3] linear colors, by the
     unrolled recursion.
 
@@ -496,7 +529,8 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
     needs the rays' raster x / y (uint32 values) to seed each pixel's
     PCG32 stream; ``gi_salt`` (an int or an integer scalar tensor) forks
     the streams for a progressive pass, salt 0 bit for bit the unsalted
-    render.
+    render.  ``rows_fn`` replaces the reads of the packed table
+    (``hit_attributes``) and of the march's constants.
     """
     if active is None:
         active = torch.ones(origins.shape[:-1], dtype=torch.bool,
@@ -511,9 +545,9 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
                              raster_y.to(origins.device)), gi_salt)
     march_tab = None
     if scene.has_materials and scene.has_refractive and scene.refractions_on:
-        march_tab = march_table(scene)
+        march_tab = march_table(scene, rows_fn)
     return _shade_level(scene, settings, trace_fn, origins, dirs, 0, active,
-                        march_tab, rng)[0]
+                        march_tab, rng, rows_fn)[0]
 
 
 def refraction_geometry(dirs, normal, ior, refraction_bias, point):
@@ -560,7 +594,7 @@ def gi_direction(rng, active, local_m):
 
 
 def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
-                 march_tab=None, rng=None):
+                 march_tab=None, rng=None, rows_fn=None):
     """One unrolled recursion level -> (color [R, 3], rng)."""
     R = origins.shape[:-1]
     black = torch.zeros(R + (3,), dtype=torch.float32, device=origins.device)
@@ -568,12 +602,13 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         return black, rng
 
     kernel_rows = None
-    if hasattr(trace_fn, "with_rows"):
+    if rows_fn is None and hasattr(trace_fn, "with_rows"):
         hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
     else:
         hit = trace_fn(origins, dirs, active)
     attrs = hit_attributes(scene, origins, dirs, hit, kernel_rows=kernel_rows,
-                           rank=getattr(trace_fn, "rank", None))
+                           rank=getattr(trace_fn, "rank", None),
+                           rows_fn=rows_fn)
 
     if not scene.has_materials:
         # 07-era material-less scenes: gray half-lambert on the face normal.
@@ -616,14 +651,14 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         refl_origin = point + n_eff * settings.reflection_bias
         refl_color, rng = _shade_level(
             scene, settings, trace_fn, refl_origin, refl_dir, depth + 1,
-            active & refl_active, march_tab, rng)
+            active & refl_active, march_tab, rng, rows_fn)
     else:
         refl_color = black
 
     if want_refract:
         refr_color, rng = _shade_level(
             scene, settings, trace_fn, refr_origin, refr_dir, depth + 1,
-            active & is_refractive & refr_ok, march_tab, rng)
+            active & is_refractive & refr_ok, march_tab, rng, rows_fn)
 
     # ---- diffuse: the GI samples in order, each child's subtree drawing
     # from the pixel's stream before the next sample's angles
@@ -637,7 +672,7 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
             gi_dir, rng = gi_direction(rng, gi_active, local_m)
             gi_color, rng = _shade_level(
                 scene, settings, trace_fn, gi_origin, gi_dir, depth + 1,
-                gi_active, march_tab, rng)
+                gi_active, march_tab, rng, rows_fn)
             diffuse_color = diffuse_color + gi_color
     if scene.num_lights > 0:
         illuminated, light_dir, r2 = _occlusion_masks(

@@ -37,8 +37,11 @@ in order, with masked advancement; each child takes a forked stream
 97)``), since the reference's depth-first draw order cannot be kept
 breadth-first: a child's stream position would depend on its siblings'
 subtree sizes.  Deterministic, and the same distribution as the recursive
-wavefront (``ops/shade.py``), which keeps the reference's order.  The
-sharded pool is not ported (ROADMAP A13).
+wavefront (``ops/shade.py``), which keeps the reference's order.
+
+A scene-partitioned render (``parallel/scene_sharded.py``) passes
+``rows_fn``, which replaces the reads of the packed table and of the
+march's constants.
 """
 
 from __future__ import annotations
@@ -166,21 +169,23 @@ def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
                          banks: Optional[int] = None, *,
                          raster_x: Optional[torch.Tensor] = None,
                          raster_y: Optional[torch.Tensor] = None,
-                         gi_salt=None) -> torch.Tensor:
+                         gi_salt=None, rows_fn=None) -> torch.Tensor:
     """Shade a camera wavefront iteratively -> [R, 3] linear colors.  A GI
     scene needs the rays' raster x / y (uint32 values) to seed each pixel's
     PCG32 stream; ``gi_salt`` forks the streams for a progressive pass
-    (salt 0: the unsalted render, bit for bit)."""
+    (salt 0: the unsalted render, bit for bit).  ``rows_fn`` replaces the
+    packed-table reads (``shade.hit_attributes``)."""
     color, _ = shade_wavefront_iter_with_stats(
         scene, settings, trace_fn, origins, dirs, active, banks,
-        raster_x=raster_x, raster_y=raster_y, gi_salt=gi_salt)
+        raster_x=raster_x, raster_y=raster_y, gi_salt=gi_salt,
+        rows_fn=rows_fn)
     return color
 
 
 def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                                     active=None, banks=None, *,
                                     raster_x=None, raster_y=None,
-                                    gi_salt=None):
+                                    gi_salt=None, rows_fn=None):
     """Like ``shade_wavefront_iter``, and the count of dropped children."""
     R = origins.shape[0]
     dev = origins.device
@@ -203,7 +208,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
     # The packer fills the lowest free banks first, so after bounce b every
     # occupied bank index is below min(B, grow_f^(b+1)).
     grow_f = _grow_factor(scene, settings)
-    march_tab = march_table(scene) if want_refract else None
+    march_tab = march_table(scene, rows_fn) if want_refract else None
     rank = getattr(trace_fn, "rank", None)
 
     def shade_local(o, d, act):
@@ -215,7 +220,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
 
         Returns (contrib [C, 3], attrs, albedo, masks)."""
         hit = trace_fn(o, d, act)
-        attrs = hit_attributes(scene, o, d, hit, rank=rank)
+        attrs = hit_attributes(scene, o, d, hit, rank=rank, rows_fn=rows_fn)
         valid = attrs.valid & act
         miss = act & ~attrs.valid
 

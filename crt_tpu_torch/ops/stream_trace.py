@@ -11,7 +11,10 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_stream.py``:
     (K9, K10 with ``lane_sc``) and ``_stream_occl_kernel`` (K11);
   - ``closest_hit_stream_flat``, ``occluded_stream_flat``,
     ``occluded_stream_twophase``, ``make_stream_trace_fn`` and
-    ``stream_layout`` replace the functions of those names.
+    ``stream_layout`` replace the functions of those names;
+    ``make_stream_trace_fn_from_tables`` builds the trace over given tables
+    and combines each launch's answer across the ranks that hold the other
+    shards of a scene (``parallel/scene_sharded.py``).
 
 The cluster backend tests every tile against every cluster; at a million
 triangles that mask and its intermediates are GBs per trace.  Here Phase A
@@ -500,7 +503,7 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
                              light_positions, active, origin_slack,
                              tile_rays: int = TILE_RAYS, phase1_k: int = 8,
                              lane_exact: bool = True,
-                             layout: str | None = None):
+                             layout: str | None = None, combine=None):
     """Two-phase streaming shadow occlusion -> [Ll, R] bool.
 
     Phase 1 walks only each tile's ``phase1_k`` nearest superclusters.
@@ -513,6 +516,9 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
     shadow_o [R, 3] per-pixel origins shared by the lights; light_dirs
     [Ll, R, 3]; r2, active [Ll, R]; light_positions [Ll, 3].  Both phases
     read the table in ``layout`` (None: ``stream_layout()``).
+    ``combine`` ([Ll, R] bool -> [Ll, R] bool) merges each phase's bits
+    with the other shards' before they are used: phase 1's before the
+    compaction, so every shard walks the same survivors in phase 2.
     """
     layout = _check_layout(layout)
     Ll, R = r2.shape
@@ -523,6 +529,8 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
         light_dirs.reshape(-1, 3).contiguous(), r2.reshape(-1).contiguous(),
         active.reshape(-1), apex, origin_slack, tile_rays,
         per_tile_cap=phase1_k, layout=layout).reshape(Ll, R)
+    if combine is not None:
+        occ1 = combine(occ1)
 
     surv = active & ~occ1
     perm = torch.argsort((~surv).to(torch.uint8), dim=1, stable=True)
@@ -533,6 +541,8 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
         torch.gather(r2, 1, perm).reshape(-1),
         torch.gather(surv, 1, perm).reshape(-1), apex, origin_slack,
         tile_rays, lane_exact=lane_exact, layout=layout).reshape(Ll, R)
+    if combine is not None:
+        occ2 = combine(occ2)
     occ2_back = torch.empty_like(occ2).scatter_(1, perm, occ2)
     return occ1 | (occ2_back & surv)
 
@@ -555,9 +565,24 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
     (None: ``stream_layout()``, read here, as crt_tpu reads it when it
     builds the trace); only the lane layout builds its slab.
     """
+    return make_stream_trace_fn_from_tables(
+        build_cluster_tables(scene), tile_rays, sc_clusters, shadow_k,
+        layout)
+
+
+def make_stream_trace_fn_from_tables(tables: ClusterTables,
+                                     tile_rays: int | None = None,
+                                     sc_clusters: int = sb.SC_CLUSTERS,
+                                     shadow_k: int = 2,
+                                     layout: str | None = None,
+                                     combine_hits=None, combine_bits=None):
+    """``make_stream_trace_fn`` over ``tables`` as given.
+    ``combine_hits`` (Hit -> Hit) and ``combine_bits`` (occlusion bits ->
+    bits) merge each launch's answer with those of the other shards of a
+    partitioned scene; the shadow pass's two phases are merged one by
+    one (``occluded_stream_twophase``)."""
     tile_rays = tile_rays or TILE_RAYS
     layout = _check_layout(layout)
-    tables = build_cluster_tables(scene)
     st = build_stream_tables(tables, sc_clusters, layout)
 
     def trace(origins, dirs, active=None):
@@ -568,8 +593,9 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
                            pad_all_active=True)
         hit, _ = closest_hit_stream_flat(st, o, d, a, tile_rays,
                                          layout=layout)
-        return Hit(t=hit.t[:R].reshape(batch_shape),
-                   tri=hit.tri[:R].reshape(batch_shape))
+        hit = Hit(t=hit.t[:R].reshape(batch_shape),
+                  tri=hit.tri[:R].reshape(batch_shape))
+        return hit if combine_hits is None else combine_hits(hit)
 
     def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
                     origin_slack):
@@ -584,14 +610,15 @@ def make_stream_trace_fn(scene, tile_rays: int | None = None,
         if shadow_k > 0:
             return occluded_stream_twophase(
                 st, shadow_o, light_dirs, r2, light_positions, active,
-                origin_slack, tile_rays, phase1_k=shadow_k, layout=layout)
+                origin_slack, tile_rays, phase1_k=shadow_k, layout=layout,
+                combine=combine_bits)
         apex = light_positions.repeat_interleave(R // tile_rays, dim=0)
         occ = occluded_stream_flat(
             st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
             light_dirs.reshape(-1, 3).contiguous(),
             r2.reshape(-1).contiguous(), active.reshape(-1), apex,
-            origin_slack, tile_rays, layout=layout)
-        return occ.reshape(Ll, R)
+            origin_slack, tile_rays, layout=layout).reshape(Ll, R)
+        return occ if combine_bits is None else combine_bits(occ)
 
     trace.shadow_apex = shadow_apex
     trace.rank = tables.rank

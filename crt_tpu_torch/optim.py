@@ -1,12 +1,16 @@
 """Inverse rendering: optimize scene parameters against a target image.
 
-Counterpart of the single-device branch of ``crt_tpu/optim.py``: fit
+Counterpart of ``crt_tpu/optim.py``: fit
 vertices, texture colors, light intensities or the camera to a target
 render by gradient descent on an L2 image loss.  ``torch.optim.Adam`` with
 lr 1e-2 stands in for ``optax.adam(1e-2)`` (the same update rule, eps
 1e-8); checkpoints are ``torch.save`` files, at most two kept, and an
-interrupted fit resumes from the latest.  The sharded step (``mesh=``) is
-ROADMAP A13.
+interrupted fit resumes from the latest.  Each step takes the row-sharded
+gradient of ``parallel/sharded.py``: on the rows of ``mesh=``, all-reduced
+once, the single-device gradient on every rank; without a mesh, the
+single-device gradient itself.  (crt_tpu's sharded step sums
+gradients that AD has already all-reduced, so its step is the mesh size
+times the single-device one; the port does not carry that.)
 """
 
 from __future__ import annotations
@@ -16,23 +20,18 @@ import re
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
+from crt_tpu_torch.parallel.sharded import (
+    OneDeviceMesh,
+    default_trainable_params,
+    sharded_backward,
+)
 from crt_tpu_torch.renderer import _render_flat
 from crt_tpu_torch.scene.types import RenderSettings, Scene
 
 _CKPT_RE = re.compile(r"^step_(\d+)\.pt$")
 _CKPT_KEEP = 2
-
-
-def default_trainable_params(scene: Scene) -> dict:
-    """The differentiable scene-parameter dict used by inverse rendering."""
-    return {
-        "vertices": scene.vertices,
-        "tex_color_a": scene.tex_color_a,
-        "tex_color_b": scene.tex_color_b,
-        "light_intensity": scene.light_intensity,
-        "cam_position": scene.cam_position,
-    }
 
 
 def make_loss_fn(scene: Scene, settings: RenderSettings,
@@ -86,11 +85,11 @@ def fit_scene(
     ``default_trainable_params``); ``optimizer`` is a callable from the
     list of parameter tensors to a ``torch.optim.Optimizer`` (default:
     Adam, lr 1e-2).  ``checkpoint_dir`` enables save / restore: an
-    interrupted fit resumes from the latest saved step.
+    interrupted fit resumes from the latest saved step.  ``mesh`` (a
+    ``parallel.sharded.make_mesh`` mesh) splits each step's rows over its
+    first axis: every rank runs this call with the same arguments and
+    takes the same steps; only global rank 0 writes checkpoints.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded fit (mesh=) is not ported yet (ROADMAP A13)")
     settings = settings or RenderSettings()
     device = scene.device
     start = params if params is not None else default_trainable_params(scene)
@@ -116,20 +115,20 @@ def fit_scene(
             opt.load_state_dict(state["opt_state"])
             start_step = state["step"] + 1
 
-    loss_fn = make_loss_fn(scene, settings,
-                           torch.as_tensor(target, device=device))
+    target = torch.as_tensor(target, device=device)
+    mesh = mesh if mesh is not None else OneDeviceMesh()
+    writer = not dist.is_initialized() or dist.get_rank() == 0
     losses = []
     for i in range(start_step, steps):
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params)
-        loss.backward()
+        loss = sharded_backward(scene, target, params, settings, mesh)
         opt.step()
         losses.append(float(loss.detach()))
         if callback:
             callback(i, losses[-1])
-        if checkpoint_dir and checkpoint_every \
+        if checkpoint_dir and writer and checkpoint_every \
                 and (i + 1) % checkpoint_every == 0:
             _save_checkpoint(checkpoint_dir, i, params, opt)
-    if checkpoint_dir:
+    if checkpoint_dir and writer:
         _save_checkpoint(checkpoint_dir, steps - 1, params, opt)
     return {k: p.detach() for k, p in params.items()}, losses

@@ -144,18 +144,20 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
     raise ValueError(f"unknown intersection backend: {backend!r}")
 
 
-def make_tiler(h: int, w: int, device=None):
+def make_tiler(h: int, w: int, row_offset: int = 0, device=None):
     """Pixel-tile reordering helpers for an h x w region.
 
     Returns (raster_x [R], raster_y [R], untile(colors [R, 3]) -> [h, w, 3])
     with rays ordered in TILE_H x TILE_W blocks, the rasters on ``device``
-    (None: the card; RuntimeError where there is none).
+    (None: the card; RuntimeError where there is none).  ``row_offset``
+    shifts raster_y for a row block of a sharded frame, so the rays and
+    the GI streams' seeds are the whole frame's.
     """
     device = resolve_device(device)
     hp = -(-h // TILE_H) * TILE_H
     wp = -(-w // TILE_W) * TILE_W
     raster_y, raster_x = torch.meshgrid(
-        torch.arange(hp, dtype=torch.float32, device=device),
+        torch.arange(hp, dtype=torch.float32, device=device) + row_offset,
         torch.arange(wp, dtype=torch.float32, device=device),
         indexing="ij",
     )
@@ -173,10 +175,17 @@ def make_tiler(h: int, w: int, device=None):
     return tile(raster_x), tile(raster_y), untile
 
 
-def _render_flat(scene: Scene, settings: RenderSettings,
-                 gi_salt=None) -> torch.Tensor:
+def _render_flat(scene: Scene, settings: RenderSettings, gi_salt=None, *,
+                 row_offset: int = 0, num_rows: int | None = None,
+                 trace_fn=None, rows_fn=None) -> torch.Tensor:
+    """The frame, or the ``num_rows`` rows from ``row_offset`` on (the row
+    block of a sharded frame) -> [rows, width, 3].  ``trace_fn`` replaces
+    the scene's backend and ``rows_fn`` the packed-row read of shading
+    (the scene-partitioned path, ``parallel/scene_sharded.py``)."""
     h, w = scene.height, scene.width
-    rxf, ryf, untile = make_tiler(h, w, device=scene.device)
+    rows = h if num_rows is None else num_rows
+    rxf, ryf, untile = make_tiler(rows, w, row_offset=row_offset,
+                                  device=scene.device)
     origins, dirs = camera_ops.generate_rays(
         scene.cam_position, scene.cam_rotation, scene.cam_tan_half_fov,
         w, h, rxf, ryf,
@@ -184,7 +193,8 @@ def _render_flat(scene: Scene, settings: RenderSettings,
     origins = origins.contiguous()
     # the raster as uint32 values: the seeds of the GI streams
     rx, ry = rxf.to(torch.int64), ryf.to(torch.int64)
-    trace_fn = make_trace_fn(scene, settings)
+    if trace_fn is None:
+        trace_fn = make_trace_fn(scene, settings)
     use_iter = use_iterative_wavefront(scene, settings)
     shade_fn = shade_wavefront_iter if use_iter else shade_wavefront
 
@@ -208,7 +218,7 @@ def _render_flat(scene: Scene, settings: RenderSettings,
 
     def shade(o, d, a, x, y):
         return shade_fn(scene, settings, trace_fn, o, d, a, raster_x=x,
-                        raster_y=y, gi_salt=gi_salt)
+                        raster_y=y, gi_salt=gi_salt, rows_fn=rows_fn)
 
     if chunk and chunk < R:
         chunk = max(tile_sz, (chunk // tile_sz) * tile_sz)

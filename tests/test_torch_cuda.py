@@ -1607,3 +1607,21 @@ def test_aov_on_card_matches_cpu(device, aov):
             assert torch.equal(*ids)
         torch.testing.assert_close(gpu[same], cpu[same], rtol=rtol,
                                    atol=atol)
+
+
+def test_gloo_ranks_render_on_card(device, tmp_path):
+    """Two gloo ranks on this card (NCCL takes one rank a card) render a
+    frame whose 31 rows do not divide between them: the row-sharded frame,
+    assembled on both, equals the card's render_image (rtol 1e-5 / atol
+    1e-6: the same rays, hits and shading, in other tiles)."""
+    from test_torch_parallel import launch_ranks
+
+    ranks = launch_ranks(tmp_path, ["rows_card"], 2, device="cuda")
+    for r in ranks:
+        got = r["rows_card"]
+        assert torch.isfinite(got["sharded"]).all()
+        torch.testing.assert_close(got["sharded"], got["single"], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(got["sharded"],
+                                   ranks[0]["rows_card"]["sharded"], rtol=0,
+                                   atol=0)

@@ -120,7 +120,16 @@ def test_import_does_not_load_jax():
             "crt_tpu_torch.io.native_ppm, crt_tpu_torch.utils.camera_rig, "
             "crt_tpu_torch.utils.debug, crt_tpu_torch.utils.metrics, "
             "crt_tpu_torch.utils.checks, crt_tpu_torch.utils.golden, "
-            "crt_tpu_torch.utils.era; "
+            "crt_tpu_torch.utils.era, crt_tpu_torch.parallel, "
+            "crt_tpu_torch.parallel.sharded, "
+            "crt_tpu_torch.parallel.scene_sharded, "
+            "crt_tpu_torch.parallel.multihost, "
+            "crt_tpu_torch.frontend.blender, "
+            "crt_tpu_torch.frontend.blender.engine, "
+            "crt_tpu_torch.frontend.blender.ops, "
+            "crt_tpu_torch.frontend.blender.properties, "
+            "crt_tpu_torch.frontend.blender.scene_bridge, "
+            "crt_tpu_torch.frontend.blender.ui; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'jaxlib', 'crt_tpu.')) or m == 'crt_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -134,8 +143,7 @@ def test_import_does_not_load_jax():
 def test_outside_the_slice_raises(case):
     scene = make_test_scene(32, 32, num_quads=4, device="cpu")
     settings = RenderSettings()
-    # inside the slice now: every case (only the mesh= half of grad
-    # still raises)
+    # inside the slice now: every case
     if case == "refractive":
         # glass is inside the slice, and glass under GI
         glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
@@ -174,10 +182,22 @@ def test_outside_the_slice_raises(case):
             scene, RenderSettings(backend="pallas_stream"))).all()
         settings = RenderSettings(backend="pallas_stream", aov="depth")
     else:
-        # gradients are inside the slice, through glass and GI too; their
-        # sharded step is not
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            fit_scene(scene, render_image(scene), mesh=object(), steps=1)
+        # gradients are inside the slice, through glass and GI too, and
+        # their sharded step: without a process group the mesh is one
+        # device, and the step is the single-device one
+        from crt_tpu_torch.parallel.sharded import make_mesh
+
+        target = render_image(scene) * 1.1
+
+        def sgd(ps):
+            return torch.optim.SGD(ps, lr=1.0)
+
+        meshed, _ = fit_scene(scene, target, optimizer=sgd, steps=1,
+                              mesh=make_mesh())
+        single, _ = fit_scene(scene, target, optimizer=sgd, steps=1)
+        assert float((single["vertices"] - scene.vertices).abs().max()) > 0
+        for key, value in single.items():
+            torch.testing.assert_close(meshed[key], value, rtol=0, atol=0)
         glass = make_test_scene(32, 32, num_quads=4, with_refractive=True,
                                 device="cpu")
         glass = glass.replace(vertices=glass.vertices.requires_grad_(True))

@@ -118,5 +118,13 @@ def test_defaults_optimizer_argument_and_mesh():
     loss = make_loss_fn(scene, RenderSettings(), target)(
         default_trainable_params(scene))
     assert float(loss) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        fit_scene(scene, target, mesh=object())
+    # mesh= takes the row-sharded step; without a process group the mesh
+    # is one device and the fit is the single-device one
+    from crt_tpu_torch.parallel.sharded import make_mesh
+
+    meshed, mesh_losses = fit_scene(
+        dim, target, steps=3, mesh=make_mesh(),
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=1e-3))
+    assert mesh_losses == pytest.approx(losses, rel=1e-6)
+    for key, value in params.items():
+        torch.testing.assert_close(meshed[key], value, rtol=0, atol=0)
