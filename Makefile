@@ -3,7 +3,7 @@
 
 PYTHON ?= python
 
-.PHONY: all native test bench golden verify blender-zip clean
+.PHONY: all native test bench golden verify blender-zip blender-zip-torch clean
 
 all: native
 
@@ -28,6 +28,11 @@ verify: native
 # stage the Blender add-on as an installable zip (bundles crt_tpu)
 blender-zip:
 	$(PYTHON) tools/stage_blender_addon.py
+
+# the PyTorch / CUDA port's add-on (bundles crt_tpu_torch, its kernel
+# sources and native/*.cpp): crt_tpu_torch_blender.zip
+blender-zip-torch:
+	$(PYTHON) -m crt_tpu_torch.tools.stage_blender_addon
 
 clean:
 	rm -f native/libcrt_accel.so crt_tpu_blender.zip

@@ -226,7 +226,27 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      rendered by its engine on the card (launch counts reset just before,
      read just after: 4 K1 and 4 K2); the Combined pass equal, bit for
      bit, to render_scene_from_dict_array of the exported dict;
- 21. parallel: two gloo ranks on this card (this script again, with
+ 21. tools: the repo's entry points outside the package
+     (crt_tpu_torch/tools/): the Blender add-on staged as its zip,
+     unpacked and registered under the bpy stand-in in a child process
+     whose sys.path holds only the unpacked directory, tests/ and
+     site-packages (crt_tpu_torch.__file__ must lie in the zip), the bench
+     scene's dict imported and rendered (F12) by its engine on the card
+     with the kernels built by nvcc from the zip's own sources into its
+     own build/ (build and frame times, KD builder; 4 K1 + 4 K2), the
+     Combined pass equal, bit for bit, to render_scene_from_dict_array
+     here; render_turntable of the bench scene as a .crtscene, 4 frames
+     (launch counts reset just before, read just after: 16 K1 + 16 K2;
+     render and PNG ms per frame), each PNG decoded by io/png.py equal to
+     quantize of its rig's render on every pixel; golden_check (>= 0.999 of
+     the pixels on both cases) and render_all (2 PPM, 2 PNG, 2 rows) on a
+     corpus built here under a temporary CRT_REFERENCE: the opaque and the
+     mirror variants of the test scene at 192x108 under two
+     HEAD_GOLDEN_CASES names, their goldens rendered on the CPU;
+     export_mesh_header of the bench scene (counts, header size); the
+     float64 oracle on 4,096 seeded pixels of the mirror scene (>= 0.999
+     within 2.5/255 of the render on the card);
+ 22. parallel: two gloo ranks on this card (this script again, with
      --parallel-rank; NCCL takes one rank a card), joined through a file
      store, each driving, with a warm-up call first, every count zeroed
      just before the counted call and read just after, and a plain call
@@ -247,10 +267,11 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      path's wall time, peak memory and all-reduce time (host seconds
      around gloo's host-staged collectives) per rank; a rank that fails
      stops both;
- 22. a JSON line of the kernels, then the last line
+ 23. a JSON line of the kernels, then the last line
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths, and ``parallel_launches`` / ``blender_launches`` each rank's
-     on phase 21's paths / the engine's frame; the uncapped member-masked mode of the w-occlusion kernel is on
+     on phase 22's paths / the engine's frame, ``tools_launches`` (K1 and
+     K2) those of phase 21's add-on frame and turntable; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
@@ -313,6 +334,7 @@ import time
 import torch
 
 BENCH = dict(width=1920, height=1080, num_quads=64)
+TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 TILE = 1024
 TRAINED = ("vertices", "light_intensity", "cam_position")
 
@@ -4218,16 +4240,15 @@ def phase_blender(device):
     exported from the depsgraph and rendered by its engine on the card,
     held to render_scene_from_dict_array of the same dict."""
     import importlib
-    import types
 
     import numpy as np
 
     from crt_tpu_torch.frontend import api
     from crt_tpu_torch.scene.procedural import make_test_scene_dict
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
+    sys.path.insert(0, TESTS)
     import mock_bpy
+    from blender_addon_child import bench_depsgraph
 
     mods = mock_bpy._build_modules()
     sys.modules.update(mods)
@@ -4243,23 +4264,11 @@ def phase_blender(device):
                 importlib.import_module(name)
         from crt_tpu_torch.frontend.blender import engine, scene_bridge
 
-        bpy = mods["bpy"]
         addon.register()
         W, H = BENCH["width"], BENCH["height"]
         d = make_test_scene_dict(**BENCH)
-        scene_bridge.import_scene_dict(d, collection=bpy.context.collection)
-        for ob in bpy.data.objects:
-            if ob.type == "LIGHT":  # the importer sets the energy only
-                ob.data.crt.intensity = ob.data.energy
-        bscene = bpy.types.Scene()
-        bscene.camera = bpy.context.scene.camera
-        bscene.render = types.SimpleNamespace(
-            resolution_x=W, resolution_y=H, resolution_percentage=100)
-        bscene.world = types.SimpleNamespace(
-            color=tuple(d["settings"]["background_color"]))
-        dg = types.SimpleNamespace(scene=bscene, object_instances=[
-            types.SimpleNamespace(object=ob, matrix_world=ob.matrix_world)
-            for ob in bpy.data.objects])
+        dg = bench_depsgraph(mods["bpy"], scene_bridge, d)
+        bscene = dg.scene
         exported = scene_bridge.build_scene_dict(dg)
         eng = engine.CRTTorchRenderEngine()
         eng.render(dg)  # warm-up
@@ -4292,6 +4301,221 @@ def phase_blender(device):
           f"the engine launched {launches}, expected 4 K1 and 4 K2")
     print("[blender] the Combined pass equals render_scene_from_dict_array "
           "of the exported dict on the card, bit for bit")
+    return launches
+
+
+def tool_main(tool, argv, tag):
+    """Run a tool's main with its output captured and printed under
+    ``tag``; returns (exit code, its output lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.strip():
+            print(f"{tag} {line}")
+    return rc, lines
+
+
+# The two golden cases of [tools]' corpus: the opaque and the mirror
+# variants of the test scene, under the names and profiles of two
+# HEAD_GOLDEN_CASES.
+TOOLS_CORPUS = {
+    "09-02-diffuse-smooth-shading-scene2": {"with_reflective": False},
+    "09-03-reflective-scene4": {},
+}
+
+
+def phase_tools(device):
+    """[tools]: the repo's entry points outside the package on the card.
+    The staged Blender add-on rendering F12 in a child process that finds
+    crt_tpu_torch only in the unpacked zip (kernels built from its own
+    sources), bit-equal to render_scene_from_dict_array here; the turntable
+    of the bench scene (4 frames, each PNG decoded back equal to quantize
+    of the same rig's render); golden_check and render_all on a corpus
+    built here (goldens rendered on the CPU); export_mesh_header of the
+    bench scene; the float64 oracle on 4,096 seeded pixels of the mirror
+    scene against the card's render.  Returns the K1 / K2 launches of the
+    add-on's frame and of the turntable."""
+    import pathlib
+
+    import numpy as np
+
+    from crt_tpu_torch import RenderSettings, load_scene, render_image
+    from crt_tpu_torch.frontend import api
+    from crt_tpu_torch.io import png
+    from crt_tpu_torch.io.ppm import quantize
+    from crt_tpu_torch.scene.procedural import make_test_scene_dict
+    from crt_tpu_torch.tools import (
+        export_mesh_header, golden_check, oracle_f64, render_all,
+        render_turntable,
+    )
+    from crt_tpu_torch.utils import golden
+
+    sys.path.insert(0, TESTS)
+    from blender_addon_child import run_staged_addon
+    from png_raw import raw_png
+
+    phase_start = time.perf_counter()
+    W, H = BENCH["width"], BENCH["height"]
+    d = make_test_scene_dict(**BENCH)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+
+        # the staged add-on, in a child process
+        (tmp / "addon").mkdir()
+        start = time.perf_counter()
+        info, rect, exported = run_staged_addon(tmp / "addon", d, "cuda")
+        child_s = time.perf_counter() - start
+        root = str(tmp / "addon" / "unpacked" / "crt_tpu_torch_renderer")
+        build = info["build"]
+        print(f"[tools] staged add-on: crt_tpu_torch.__file__ = "
+              f"{info['package']}; kernels built by nvcc in "
+              f"{build['seconds']:.2f} s into {build['path']} (cache hit "
+              f"{build['cache_hit']}); KD builder {info['kd_builder']} "
+              f"({info['native_library']}); first F12 (build included) "
+              f"{info['first_render_ms']:.3f} ms, F12 {W}x{H} "
+              f"{info['frame_ms']:.3f} ms; launches {info['launches']}; "
+              f"child process {child_s:.1f} s")
+        check(info["package"].startswith(root + os.sep),
+              "the child imported crt_tpu_torch from outside the zip")
+        check(build["path"].startswith(
+            os.path.join(root, "build", "crt_tpu_torch") + os.sep)
+            and not build["cache_hit"],
+            "the child did not build the kernels in its own directory")
+        check(info["launches"] == {"closest_hit": 4, "occlusion_w": 4,
+                                   "segsum": 0},
+              f"the add-on's F12 launched {info['launches']}, expected 4 K1 "
+              "and 4 K2")
+        ref = api.render_scene_from_dict_array(exported, "/",
+                                               info["settings"],
+                                               device=device)
+        check(rect.shape == (W * H, 4)
+              and np.array_equal(rect, ref.reshape(-1, 4)),
+              "the add-on's Combined pass differs from "
+              "render_scene_from_dict_array here")
+        print("[tools] the add-on's Combined pass equals "
+              "render_scene_from_dict_array here, bit for bit")
+        launches["blender_addon"] = info["launches"]
+
+        # the turntable of the bench scene
+        bench_path = tmp / "bench.crtscene"
+        bench_path.write_text(json.dumps(d))
+        frames = 4
+        reset_launches()
+        rc, lines = tool_main(render_turntable, [
+            str(bench_path), str(tmp / "turntable"), "--frames",
+            str(frames)], "[tools] turntable:")
+        turn = read_launches()
+        check(rc == 0, f"render_turntable returned {rc}")
+        scene = load_scene(str(bench_path), device=device)
+        for f, rig in enumerate(render_turntable.orbit_rigs(scene, frames)):
+            img = render_image(rig.apply(scene)).cpu().numpy()
+            t0 = time.perf_counter()
+            got = png.read_png(tmp / "turntable" / f"frame_{f:03d}.png")
+            dec_ms = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(got, quantize(img)),
+                  f"turntable frame {f} differs from quantize(render)")
+            print(f"[tools] turntable frame {f}: equal to quantize(render) "
+                  f"of its rig on every pixel; PNG decode {dec_ms:.3f} ms")
+        check(turn == {"closest_hit": 4 * frames, "occlusion_w": 4 * frames,
+                       "segsum": 0},
+              f"the turntable launched {turn}, expected {frames} x (4 K1 + "
+              "4 K2)")
+        launches["turntable"] = turn
+        # the decode of a file with every row filter (filters 0-4 in turn,
+        # 64 KiB IDAT chunks), as adaptive writers (PIL, stb) produce:
+        # the port's encoder writes filter 0 only
+        mixed = raw_png(got, 2, 8, "mixed", 0, idat_size=1 << 16)
+        t0 = time.perf_counter()
+        back = png.decode(mixed)
+        mixed_ms = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(back, got),
+              "the file with every row filter decodes to other pixels")
+        print(f"[tools] PNG decode of a {W}x{H} RGB file with row filters "
+              f"0-4 in turn ({len(mixed)} bytes): {mixed_ms:.3f} ms")
+
+        # golden_check and render_all on a corpus built here
+        reference = tmp / "reference"
+        filters = []
+        for rel, name, overrides in golden.HEAD_GOLDEN_CASES:
+            if name not in TOOLS_CORPUS:
+                continue
+            path = reference / "scenes" / rel
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(make_test_scene_dict(
+                192, 108, **TOOLS_CORPUS[name])))
+            img = render_image(load_scene(str(path), device="cpu"),
+                               RenderSettings(**overrides)).numpy()
+            (reference / "results" / "png").mkdir(parents=True,
+                                                  exist_ok=True)
+            png.write_png(quantize(img).astype(np.uint8),
+                          reference / "results" / "png" / f"{name}.png")
+            filters.append(rel.removesuffix(".crtscene"))
+        saved = os.environ.get("CRT_REFERENCE")
+        os.environ["CRT_REFERENCE"] = str(reference)
+        try:
+            rc, _ = tool_main(golden_check, [
+                *filters, "--json", str(tmp / "golden.json")],
+                "[tools] golden_check:")
+            check(rc == 0, f"golden_check returned {rc}")
+            stats = json.loads((tmp / "golden.json").read_text())
+            check(len(stats) == 2 and all(c["frac"] >= 0.999
+                                          for c in stats),
+                  f"golden_check on the corpus built here: {stats}")
+            rc, _ = tool_main(render_all, [
+                str(tmp / "results_torch"), *filters],
+                "[tools] render_all:")
+            check(rc == 0, f"render_all returned {rc}")
+        finally:
+            if saved is None:
+                os.environ.pop("CRT_REFERENCE")
+            else:
+                os.environ["CRT_REFERENCE"] = saved
+        out = tmp / "results_torch"
+        rows = [line for line in (out / "README.md").read_text()
+                .splitlines() if line.startswith("| 09-")]
+        n_ppm = len(list((out / "ppm").glob("*.ppm")))
+        n_png = len(list((out / "png").glob("*.png")))
+        check(n_ppm == 2 and n_png == 2 and len(rows) == 2,
+              f"render_all wrote {n_ppm} PPM, {n_png} PNG, {len(rows)} rows")
+        print(f"[tools] render_all wrote {n_ppm} PPM, {n_png} PNG and a "
+              f"README table of {len(rows)} rows")
+
+        # export_mesh_header of the bench scene
+        header = tmp / "bench.h"
+        rc, lines = tool_main(export_mesh_header,
+                              [str(bench_path), str(header), "bench"],
+                              "[tools] export_mesh_header:")
+        check(rc == 0 and "wrote" in lines[-1], "export_mesh_header failed")
+        print(f"[tools] the header is {header.stat().st_size} bytes")
+
+        # the float64 oracle on seeded pixels of the mirror scene
+        mirror = next(reference / "scenes" / rel
+                      for rel, name, _ in golden.HEAD_GOLDEN_CASES
+                      if name == "09-03-reflective-scene4")
+        scene = load_scene(str(mirror), device=device)
+        img = render_image(scene).cpu().numpy()
+        idx = np.random.default_rng(0).choice(scene.width * scene.height,
+                                              4096, replace=False)
+        ys, xs = np.divmod(idx, scene.width)
+        t0 = time.perf_counter()
+        orc = oracle_f64.oracle_pixels(scene, RenderSettings(), xs, ys)
+        orc_ms = (time.perf_counter() - t0) * 1e3
+
+        def q(x):
+            return np.clip((x * 255).astype(int), 0, 255) / 255.0
+
+        share = float((np.abs(q(orc) - q(img[ys, xs])).max(axis=-1)
+                       <= 2.5 / 255).mean())
+        print(f"[tools] oracle_f64 on 4,096 seeded pixels of the "
+              f"{scene.width}x{scene.height} mirror scene: {share:.6f} "
+              f"within 2.5/255 of the render here; oracle {orc_ms:.1f} ms")
+        check(share >= 0.999, f"the oracle agrees on {share} of the pixels")
+    print(f"[tools] the phase took {time.perf_counter() - phase_start:.1f} s")
     return launches
 
 
@@ -4382,6 +4606,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     blender = phase_blender(device)
     torch.cuda.empty_cache()
+    tools = phase_tools(device)
+    torch.cuda.empty_cache()
     parallel = phase_parallel(device)
     # the glass frame's own paths: the CLI render (glass-flag passes) and
     # the render with compact_bounces (compacted launches).  No render path
@@ -4447,6 +4673,9 @@ def main(argv=None) -> int:
             k["parallel_launches"] = parallel[k["name"]]
         if k["name"] in blender:
             k["blender_launches"] = blender[k["name"]]
+        if k["name"] in ("closest_hit", "occlusion_w"):
+            k["tools_launches"] = {path: tools[path][k["name"]]
+                                   for path in tools}
     check(all(k["launches"] > 0 for k in kernels
               if k["on_a_render_path"] or k["name"] == "occlusion_d_exit"),
           f"a kernel was never launched on its path: {launches}")

@@ -97,9 +97,14 @@ def accumulate_vertex_normals(pos: np.ndarray, idx: np.ndarray) -> np.ndarray:
 def _load_bitmap(path: str) -> np.ndarray:
     """Decode an image file to float32 [H, W, 3] RGB / 255, as crt_tpu
     does: baseline JPEGs through the stb_image-exact decoder (the
-    reference's ``stbi_load`` texels byte for byte), PIL for every other
-    file and for JPEG features outside the baseline path.  PIL is imported
-    only then; where it is missing, the ImportError names the file."""
+    reference's ``stbi_load`` texels byte for byte), PNGs through
+    ``io/png.py`` (PIL's RGB bytes), PIL for every other file and for JPEG
+    features outside the baseline path.  PIL is imported only then; where
+    it is missing, the ImportError names the file."""
+    if path.lower().endswith(".png"):
+        from crt_tpu_torch.io import png
+
+        return png.read_png(path).astype(np.float32) / 255.0
     if path.lower().endswith((".jpg", ".jpeg")):
         from crt_tpu_torch.io import jpeg_stb
 

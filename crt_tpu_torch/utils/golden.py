@@ -16,6 +16,7 @@ import pathlib
 
 import numpy as np
 
+from crt_tpu_torch.io import png
 from crt_tpu_torch.io.ppm import quantize
 
 
@@ -107,15 +108,13 @@ LEGACY_GOLDEN_CASES = [
 
 
 def load_golden(name: str) -> np.ndarray:
-    """The golden PNG ``name`` as float32 [H, W, 3] in [0, 1]
-    (FileNotFoundError, naming the file, where it is absent)."""
+    """The golden PNG ``name`` as float32 [H, W, 3] in [0, 1], decoded by
+    ``io/png.py`` to PIL's RGB bytes (FileNotFoundError, naming the file,
+    where it is absent)."""
     path = reference_root() / "results" / "png" / f"{name}.png"
     if not path.exists():
         raise FileNotFoundError(f"no golden image {path}")
-    from PIL import Image
-
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+    return png.read_png(path).astype(np.float32) / 255.0
 
 
 def match_stats(render: np.ndarray, golden: np.ndarray, tol=2.5 / 255.0):

@@ -110,23 +110,27 @@ def test_truncated_jpeg_as_crt_tpu(tmp_path):
 
 
 def test_missing_pil_names_the_file(tmp_path, monkeypatch):
-    """PIL is imported only for a file the baseline decoder does not take;
-    where it is missing, the ImportError names that file, and a baseline
-    JPEG still loads."""
+    """PIL is imported only for a file that neither the baseline JPEG
+    decoder nor io/png.py takes; where it is missing, the ImportError names
+    that file, and a baseline JPEG and a PNG still load."""
     from PIL import Image
 
-    png = tmp_path / "t.png"
-    Image.fromarray(np.zeros((2, 2, 3), np.uint8)).save(png)
+    img = np.arange(2 * 3 * 3, dtype=np.uint8).reshape(2, 3, 3) * 9
+    bmp, png = tmp_path / "t.bmp", tmp_path / "t.png"
+    Image.fromarray(img).save(bmp)
+    Image.fromarray(img).save(png)
     assert "PIL" not in vars(tloader)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="t.png"):
-        tloader._load_bitmap(str(png))
+    with pytest.raises(ImportError, match="t.bmp"):
+        tloader._load_bitmap(str(bmp))
     assert tloader._load_bitmap(str(PREVIEWS / BITMAP)).shape == (360, 640, 3)
+    np.testing.assert_array_equal(tloader._load_bitmap(str(png)),
+                                  img.astype(np.float32) / 255.0)
 
 
 def test_loader_packs_bitmaps_as_crt_tpu(tmp_path):
-    """Two bitmaps of different sizes (a PNG through PIL, a JPEG through
-    the decoder, its file_path with a leading "/"), packed into [B, Hmax,
+    """Two bitmaps of different sizes (a PNG through io/png.py, a JPEG
+    through the decoder, its file_path with a leading "/"), packed into [B, Hmax,
     Wmax, 3] with their sizes, the texture table pointing at them."""
     from PIL import Image
 

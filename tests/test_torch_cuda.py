@@ -1625,3 +1625,25 @@ def test_gloo_ranks_render_on_card(device, tmp_path):
         torch.testing.assert_close(got["sharded"],
                                    ranks[0]["rows_card"]["sharded"], rtol=0,
                                    atol=0)
+
+
+def test_staged_addon_renders_on_card(device, tmp_path):
+    """The staged Blender add-on, unpacked and imported in a child process
+    that finds crt_tpu_torch only in the zip, renders on cuda:0 with
+    kernels built from the zip's own sources into its own directory: the
+    Combined pass bit-equal to render_image of the exported dict here."""
+    import numpy as np
+    from blender_addon_child import run_staged_addon
+
+    from crt_tpu_torch.frontend import api
+
+    d = make_test_scene_dict(160, 90, num_quads=12)
+    info, rect, exported = run_staged_addon(tmp_path, d, "cuda")
+    root = str(tmp_path / "unpacked" / "crt_tpu_torch_renderer") + "/"
+    assert info["package"].startswith(root)
+    assert info["build"]["path"].startswith(root + "build/crt_tpu_torch/")
+    assert info["launches"] == {"closest_hit": 4, "occlusion_w": 4,
+                                "segsum": 0}
+    ref = api.render_scene_from_dict_array(exported, "/", info["settings"],
+                                           device=device)
+    assert np.array_equal(rect, ref.reshape(-1, 4))

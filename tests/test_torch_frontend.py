@@ -129,9 +129,16 @@ def test_import_does_not_load_jax():
             "crt_tpu_torch.frontend.blender.ops, "
             "crt_tpu_torch.frontend.blender.properties, "
             "crt_tpu_torch.frontend.blender.scene_bridge, "
-            "crt_tpu_torch.frontend.blender.ui; "
+            "crt_tpu_torch.frontend.blender.ui, crt_tpu_torch.io.png, "
+            "crt_tpu_torch.tools, crt_tpu_torch.tools.golden_check, "
+            "crt_tpu_torch.tools.render_all, "
+            "crt_tpu_torch.tools.render_turntable, "
+            "crt_tpu_torch.tools.export_mesh_header, "
+            "crt_tpu_torch.tools.oracle_f64, "
+            "crt_tpu_torch.tools.stage_blender_addon; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'jaxlib', 'crt_tpu.')) or m == 'crt_tpu']; "
+            "('jax.', 'jaxlib', 'crt_tpu.', 'PIL.')) or m in ('crt_tpu', "
+            "'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
