@@ -69,7 +69,14 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      on a small scene, vs the CPU's; forward+backward time, Mrays/s and
      peak memory; then three Adam steps of fit_scene on the same frame
      from perturbed texture colours, light intensities and vertices (the
-     loss must fall at every step);
+     loss must fall at every step); then precision: with TF32 switched on
+     for the whole process (cuBLAS, cuDNN, matmul precision "medium"), the
+     benchmark frame on the cluster and all-pairs backends and the 1080p
+     GI frame bit-equal to the frames rendered with it off, the gradient
+     within K3's tolerance of the one with it off (launch counts reset
+     just before each render, read just after), the caller's settings
+     read back unchanged after every render, and a product outside the
+     renderer that shows the switch took effect;
   7. variants: on the forward benchmark frame's primary and masked
      mirror-bounce wavefronts (2,040 tiles) the tile-merged closest hit
      (K7) at merge 2 and 4 vs its plain version and vs the closest-hit
@@ -238,11 +245,19 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      here; render_turntable of the bench scene as a .crtscene, 4 frames
      (launch counts reset just before, read just after: 16 K1 + 16 K2;
      render and PNG ms per frame), each PNG decoded by io/png.py equal to
-     quantize of its rig's render on every pixel; golden_check (>= 0.999 of
+     quantize of its rig's render on every pixel; a 1080p file with row
+     filters 0-4 in turn decoded with the C++ row filters (which decode
+     must take by default) and with the NumPy ones, equal bytes, times
+     beside the filter-0 decodes; golden_check (>= 0.999 of
      the pixels on both cases) and render_all (2 PPM, 2 PNG, 2 rows) on a
      corpus built here under a temporary CRT_REFERENCE: the opaque and the
      mirror variants of the test scene at 192x108 under two
-     HEAD_GOLDEN_CASES names, their goldens rendered on the CPU;
+     HEAD_GOLDEN_CASES names, their goldens rendered on the CPU; the CLI
+     with no argument, which renders the reference CLI's default scene
+     under that CRT_REFERENCE (the 1080p GI bench scene placed there: 16
+     K1 + 16 K2, launch counts reset just before, read just after) to
+     output.ppm, equal to the CLI given the file by path, and returns 1
+     without CRT_REFERENCE;
      export_mesh_header of the bench scene (counts, header size); the
      float64 oracle on 4,096 seeded pixels of the mirror scene (>= 0.999
      within 2.5/255 of the render on the card);
@@ -271,7 +286,10 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      {"ok": true, "device": {...}}.  ``launches`` are those of the render
      paths, and ``parallel_launches`` / ``blender_launches`` each rank's
      on phase 22's paths / the engine's frame, ``tools_launches`` (K1 and
-     K2) those of phase 21's add-on frame and turntable; the uncapped member-masked mode of the w-occlusion kernel is on
+     K2) those of phase 21's add-on frame, turntable and default-scene
+     CLI frame,
+     ``precision_launches`` (K1, K2, K3) those of phase 6's renders under
+     each fp32 setting; the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
@@ -4328,6 +4346,50 @@ TOOLS_CORPUS = {
 }
 
 
+def cli_default_scene(reference, tmp):
+    """The CLI with no argument (C2): the reference CLI's default scene
+    under $CRT_REFERENCE (here ``reference``, holding the 1080p GI bench
+    scene there), on the default device, written to output.ppm in the
+    working directory; equal to the CLI given the file by path.  Without
+    $CRT_REFERENCE it returns 1.  Returns the launches of the first
+    run."""
+    import pathlib
+
+    from crt_tpu_torch.frontend import cli
+    from crt_tpu_torch.scene.procedural import make_test_scene_dict
+
+    path = reference / cli.DEFAULT_SCENE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(make_test_scene_dict(**BENCH, gi_on=True)))
+    work = pathlib.Path(tmp) / "cli_default"
+    work.mkdir()
+    with contextlib.chdir(work):
+        reset_launches()
+        rc = cli.main([])
+        launches = read_launches()
+        check(rc == 0, f"the CLI with no scene returned {rc}")
+        rc = cli.main([str(path), "by_path.ppm"])
+        check(rc == 0, f"the CLI given the default scene returned {rc}")
+        check((work / "output.ppm").read_bytes()
+              == (work / "by_path.ppm").read_bytes(),
+              "the no-argument PPM differs from the one given the path")
+        saved = os.environ.pop("CRT_REFERENCE")
+        try:
+            with contextlib.redirect_stderr(sys.stdout):
+                rc = cli.main([])
+        finally:
+            os.environ["CRT_REFERENCE"] = saved
+        check(rc == 1, f"the CLI without $CRT_REFERENCE returned {rc}")
+    check(launches == {"closest_hit": 16, "occlusion_w": 16, "segsum": 0},
+          f"the default scene's frame launched {launches}, expected 16 K1 "
+          "+ 16 K2")
+    print(f"[tools] the CLI with no scene: the 1920x1080 GI scene under "
+          f"$CRT_REFERENCE/{cli.DEFAULT_SCENE} on the card, output.ppm equal "
+          f"to the PPM of the same file given by path; launches {launches}; "
+          "without $CRT_REFERENCE it returns 1")
+    return launches
+
+
 def phase_tools(device):
     """[tools]: the repo's entry points outside the package on the card.
     The staged Blender add-on rendering F12 in a child process that finds
@@ -4337,8 +4399,9 @@ def phase_tools(device):
     of the same rig's render); golden_check and render_all on a corpus
     built here (goldens rendered on the CPU); export_mesh_header of the
     bench scene; the float64 oracle on 4,096 seeded pixels of the mirror
-    scene against the card's render.  Returns the K1 / K2 launches of the
-    add-on's frame and of the turntable."""
+    scene against the card's render; the CLI with no scene
+    (``cli_default_scene``).  Returns the K1 / K2 launches of the add-on's
+    frame, of the turntable and of the default scene's CLI frame."""
     import pathlib
 
     import numpy as np
@@ -4412,15 +4475,19 @@ def phase_tools(device):
         turn = read_launches()
         check(rc == 0, f"render_turntable returned {rc}")
         scene = load_scene(str(bench_path), device=device)
+        check(png.unfilter_backend() == "native",
+              "the PNG decoder did not take the native row filters")
+        filter0_ms = []
         for f, rig in enumerate(render_turntable.orbit_rigs(scene, frames)):
             img = render_image(rig.apply(scene)).cpu().numpy()
             t0 = time.perf_counter()
             got = png.read_png(tmp / "turntable" / f"frame_{f:03d}.png")
-            dec_ms = (time.perf_counter() - t0) * 1e3
+            filter0_ms.append((time.perf_counter() - t0) * 1e3)
             check(np.array_equal(got, quantize(img)),
                   f"turntable frame {f} differs from quantize(render)")
             print(f"[tools] turntable frame {f}: equal to quantize(render) "
-                  f"of its rig on every pixel; PNG decode {dec_ms:.3f} ms")
+                  f"of its rig on every pixel; PNG decode "
+                  f"{filter0_ms[-1]:.3f} ms")
         check(turn == {"closest_hit": 4 * frames, "occlusion_w": 4 * frames,
                        "segsum": 0},
               f"the turntable launched {turn}, expected {frames} x (4 K1 + "
@@ -4429,14 +4496,26 @@ def phase_tools(device):
         # the decode of a file with every row filter (filters 0-4 in turn,
         # 64 KiB IDAT chunks), as adaptive writers (PIL, stb) produce:
         # the port's encoder writes filter 0 only
+        # (filters undone in C++ and by the NumPy plain version: the same
+        # bytes; the native decode 5 times, the median kept)
         mixed = raw_png(got, 2, 8, "mixed", 0, idat_size=1 << 16)
-        t0 = time.perf_counter()
-        back = png.decode(mixed)
-        mixed_ms = (time.perf_counter() - t0) * 1e3
-        check(np.array_equal(back, got),
-              "the file with every row filter decodes to other pixels")
+        mixed_ms = {"native": [], "numpy": []}
+        for backend in ("native", "numpy", "native", "native", "native",
+                        "native"):
+            t0 = time.perf_counter()
+            back = png.decode(mixed, backend=backend)
+            mixed_ms[backend].append((time.perf_counter() - t0) * 1e3)
+            check(np.array_equal(back, got),
+                  f"the file with every row filter decodes ({backend}) to "
+                  "other pixels")
+        native_ms = sorted(mixed_ms["native"])[2]
         print(f"[tools] PNG decode of a {W}x{H} RGB file with row filters "
-              f"0-4 in turn ({len(mixed)} bytes): {mixed_ms:.3f} ms")
+              f"0-4 in turn ({len(mixed)} bytes), equal bytes both ways: "
+              f"native row filters {native_ms:.3f} ms (median of 5; "
+              f"{', '.join(f'{t:.3f}' for t in mixed_ms['native'])}), NumPy "
+              f"row filters {mixed_ms['numpy'][0]:.3f} ms; the filter-0 "
+              f"files above {min(filter0_ms):.3f}-{max(filter0_ms):.3f} ms; "
+              f"{smi()}")
 
         # golden_check and render_all on a corpus built here
         reference = tmp / "reference"
@@ -4470,6 +4549,8 @@ def phase_tools(device):
                 str(tmp / "results_torch"), *filters],
                 "[tools] render_all:")
             check(rc == 0, f"render_all returned {rc}")
+            launches["cli_default_scene"] = cli_default_scene(reference,
+                                                              tmp)
         finally:
             if saved is None:
                 os.environ.pop("CRT_REFERENCE")
@@ -4516,6 +4597,72 @@ def phase_tools(device):
               f"within 2.5/255 of the render here; oracle {orc_ms:.1f} ms")
         check(share >= 0.999, f"the oracle agrees on {share} of the pixels")
     print(f"[tools] the phase took {time.perf_counter() - phase_start:.1f} s")
+    return launches
+
+
+def phase_precision(device):
+    """[precision]: the render path ignores the caller's TF32 switches.
+    With TF32 on for the whole process (cuBLAS, cuDNN and the matmul
+    precision "medium", as tests/fp32_settings.py sets them), the bench
+    frame on the cluster and all-pairs backends and the 1080p GI frame
+    equal the frames rendered with it off bit for bit, the bench frame's
+    gradient is within K3's tolerance (4e-6 of the fp64 sum of |g|) of the
+    one with it off, and every render leaves the settings as they were
+    set.  A product outside the renderer shows that the switch was on.
+    Returns the launches of each render."""
+    from crt_tpu_torch import RenderSettings, render_image
+    from crt_tpu_torch.scene.procedural import make_test_scene
+
+    sys.path.insert(0, TESTS)
+    from fp32_settings import under
+
+    start = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(512, 64, device=device, generator=gen)
+    b = torch.randn(64, 512, device=device, generator=gen)
+    exact = a.double() @ b.double()
+    err = {mode: float((under(mode, lambda: a @ b).double() - exact)
+                       .abs().max()) for mode in ("ieee", "tf32")}
+    print(f"[precision] a [512, 64] x [64, 512] product outside the "
+          f"renderer, max |err| vs fp64: {err['tf32']:.3e} under TF32, "
+          f"{err['ieee']:.3e} under IEEE")
+    check(err["tf32"] > 10 * err["ieee"],
+          "TF32 did not take effect outside the renderer")
+
+    scene = make_test_scene(**BENCH, device=device)
+    gi = make_test_scene(**BENCH, gi_on=True, device=device)
+    frames = {"cluster": (scene, RenderSettings()),
+              "bruteforce": (scene, RenderSettings(backend="bruteforce")),
+              "gi": (gi, RenderSettings())}
+    launches = {}
+    for name, (s, st) in frames.items():
+        out = {}
+        for mode in ("ieee", "tf32"):
+            reset_launches()
+            out[mode] = under(mode, lambda: render_image(s, st))
+            launches[f"{name}_{mode}"] = read_launches()
+        check(torch.equal(out["tf32"].view(torch.int32),
+                          out["ieee"].view(torch.int32)),
+              f"the {name} frame under TF32 differs from the IEEE frame")
+        print(f"[precision] {name} frame {s.width}x{s.height}: under TF32 "
+              f"== under IEEE bit for bit, the settings read back as set; "
+              f"launches {launches[f'{name}_tf32']} "
+              f"[{time.perf_counter() - start:.1f} s into the phase]")
+    grads = {}
+    for mode in ("ieee", "tf32"):
+        reset_launches()
+        grads[mode] = under(mode, lambda: image_sum_grads(scene))[1]
+        launches[f"grad_{mode}"] = read_launches()
+    for k in TRAINED:
+        got, want = grads["tf32"][k].double(), grads["ieee"][k].double()
+        limit = 4e-6 * float(want.abs().sum())
+        diff = float((got - want).abs().max())
+        print(f"[precision] d/d{k} under TF32 vs IEEE: max |diff| "
+              f"{diff:.3e}, limit {limit:.3e}")
+        check(bool(torch.isfinite(got).all()) and diff <= limit,
+              f"d/d{k} under TF32 is {diff} from the IEEE gradient")
+    print(f"[precision] gradient launches {launches['grad_tf32']}; {smi()}; "
+          f"the phase took {time.perf_counter() - start:.1f} s")
     return launches
 
 
@@ -4579,6 +4726,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches = phase_main_path(device)
     launches["segsum"] = phase_train(device)["segsum"]
+    precision = phase_precision(device)
+    torch.cuda.empty_cache()
     variants, launches["closest_hit_merged"] = phase_variants(device)
     stats.update(variants)
     stats.update(phase_glass_kernels(device))
@@ -4676,6 +4825,9 @@ def main(argv=None) -> int:
         if k["name"] in ("closest_hit", "occlusion_w"):
             k["tools_launches"] = {path: tools[path][k["name"]]
                                    for path in tools}
+        if k["name"] in ("closest_hit", "occlusion_w", "segsum"):
+            k["precision_launches"] = {run: precision[run][k["name"]]
+                                       for run in precision}
     check(all(k["launches"] > 0 for k in kernels
               if k["on_a_render_path"] or k["name"] == "occlusion_d_exit"),
           f"a kernel was never launched on its path: {launches}")

@@ -1,7 +1,7 @@
 """Standalone CLI — the ``crt_renderer`` equivalent, on PyTorch.
 
 Usage:
-    python -m crt_tpu_torch.frontend.cli scene.crtscene [out.ppm]
+    python -m crt_tpu_torch.frontend.cli [scene.crtscene] [out.ppm]
         [--backend auto|cluster|pallas|stream|pallas_stream|bruteforce|tree]
         [--aov bary|normal|depth|tri_id|albedo] [--max-ray-depth D]
         [--head-compat] [--width W] [--height H] [--gi-rays K]
@@ -10,6 +10,10 @@ Usage:
 Counterpart of ``crt_tpu/frontend/cli.py``: wall-clock time of the render
 (excluding scene load) printed as "Execution time: N seconds.", then an
 ASCII P3 image.  On CUDA the timed region ends in a device synchronize.
+Without a scene the CLI renders the reference CLI's default,
+``scenes/15-01-conclusion/scene2.crtscene`` of the reference checkout that
+``$CRT_REFERENCE`` names (``utils/golden.reference_root``); where it is not
+set, that is the error of a scene that will not load (rc 1).
 ``--aov`` renders an auxiliary pass instead of the beauty image,
 ``--max-ray-depth`` overrides the depth, ``--head-compat`` switches on the
 reference HEAD's quirks (no shadows, the unconditional GI divide), and
@@ -31,6 +35,10 @@ from crt_tpu_torch.io.ppm import write_ppm
 from crt_tpu_torch.renderer import AOVS, render_image_hwc
 from crt_tpu_torch.scene.json_loader import SceneFormatError, load_scene
 from crt_tpu_torch.scene.types import RenderSettings, resolve_device
+from crt_tpu_torch.utils.golden import reference_root
+
+# the reference CLI's default scene, under the reference checkout
+DEFAULT_SCENE = "scenes/15-01-conclusion/scene2.crtscene"
 
 
 def main(argv=None) -> int:
@@ -38,7 +46,9 @@ def main(argv=None) -> int:
         prog="crt-render-torch",
         description="CRT ray tracer (PyTorch / CUDA port)",
     )
-    p.add_argument("scene", help="input .crtscene")
+    p.add_argument("scene", nargs="?", default=None,
+                   help="input .crtscene (default: the reference CLI's, "
+                        f"$CRT_REFERENCE/{DEFAULT_SCENE})")
     p.add_argument("output", nargs="?", default="output.ppm")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cluster", "pallas", "stream",
@@ -64,11 +74,14 @@ def main(argv=None) -> int:
         print(f"Error: {e}", file=sys.stderr)
         return 2
 
+    path = args.scene
     try:
-        scene = load_scene(args.scene, device=device)
+        if path is None:
+            path = str(reference_root() / DEFAULT_SCENE)
+        scene = load_scene(path, device=device)
     except (OSError, SceneFormatError, ValueError) as e:
-        print(f"Error: Could not parse scene file: {args.scene}: {e}",
-              file=sys.stderr)
+        print(f"Error: Could not parse scene file: {path or DEFAULT_SCENE}: "
+              f"{e}", file=sys.stderr)
         return 1
     if args.width or args.height:
         scene = scene.replace(width=args.width or scene.width,

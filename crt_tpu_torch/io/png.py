@@ -14,6 +14,12 @@ number of ``IDAT`` chunks, and checks every chunk's CRC.  Alpha and
 - a palette index past the end of ``PLTE`` reads black (PIL pads the
   palette with zeros).
 
+The row filters are undone in C++ (``png_unfilter.cpp``, in the library
+``scene/native_accel.py`` builds with g++ at first use).  Where that
+library will not build, a NumPy version gives the same bytes, and the
+first decode says so with a warning that carries g++'s message;
+``unfilter_backend()`` tells which one runs.
+
 ``encode`` writes ``uint8 [H, W, 3]`` as 8-bit RGB, filter 0, one
 ``IDAT``.
 """
@@ -21,11 +27,14 @@ number of ``IDAT`` chunks, and checks every chunk's CRC.  Alpha and
 from __future__ import annotations
 
 import struct
+import subprocess
+import warnings
 import zlib
 
 import numpy as np
 
-__all__ = ["PNGError", "decode", "read_png", "encode", "write_png"]
+__all__ = ["PNGError", "decode", "read_png", "encode", "write_png",
+           "unfilter_backend"]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -76,10 +85,54 @@ def _paeth(a, b, c):
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+# the native row filters: None before the first decode, the C entry point
+# once loaded, False where the library will not build
+_native = None
+
+
+def _native_unfilter():
+    """The C entry point ``crt_png_unfilter``, or None (warned once) where
+    the native library will not build."""
+    global _native
+    if _native is None:
+        from crt_tpu_torch.scene import native_accel
+
+        try:
+            _native = native_accel.library().crt_png_unfilter
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            warnings.warn(f"PNG row filters fall back to NumPy: the native "
+                          f"library will not build: {e}", RuntimeWarning,
+                          stacklevel=3)
+            _native = False
+    return _native or None
+
+
+def unfilter_backend() -> str:
+    """``"native"`` where the C++ row filters load (building them at first
+    use), else ``"numpy"``."""
+    return "native" if _native_unfilter() else "numpy"
+
+
+def _unfilter(raw: np.ndarray, bpp: int, backend: str) -> np.ndarray:
     """Undo the row filters of one (sub-)image: ``raw`` is uint8 [H, 1 +
     L], each row its filter byte and L filtered bytes; ``bpp`` the bytes a
-    complete pixel (1 below 8 bits).  Returns uint8 [H, L].
+    complete pixel (1 below 8 bits).  Returns uint8 [H, L]."""
+    if backend == "numpy":
+        return _unfilter_numpy(raw, bpp)
+    fn = _native_unfilter()
+    if fn is None:
+        raise RuntimeError("the native PNG row filters will not build")
+    raw = np.ascontiguousarray(raw)
+    h, l1 = raw.shape
+    out = np.empty((h, l1 - 1), np.uint8)
+    bad = fn(raw.ctypes.data, h, l1 - 1, bpp, out.ctypes.data)
+    if bad:
+        raise PNGError(f"unknown row filter {bad}")
+    return out
+
+
+def _unfilter_numpy(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """The plain version of ``_unfilter``, the same bytes.
 
     A byte depends on its left, upper and upper-left neighbours, so the
     pixels of an anti-diagonal (row + column constant) are independent:
@@ -149,9 +202,15 @@ def _to_rgb(s: np.ndarray, colour: int, depth: int,
     return np.ascontiguousarray(s[..., :3])
 
 
-def decode(data: bytes) -> np.ndarray:
+def decode(data: bytes, *, backend: str | None = None) -> np.ndarray:
     """A PNG file's bytes -> uint8 [H, W, 3] RGB, as PIL's
-    ``convert("RGB")``.  Raises ``PNGError`` on a malformed file."""
+    ``convert("RGB")``.  Raises ``PNGError`` on a malformed file.
+    ``backend`` undoes the row filters: ``"native"``, ``"numpy"`` or None
+    (``unfilter_backend()``'s)."""
+    if backend is None:
+        backend = unfilter_backend()
+    elif backend not in ("native", "numpy"):
+        raise ValueError(f"unknown backend {backend!r}")
     header = None
     palette = None
     idat = []
@@ -200,8 +259,8 @@ def decode(data: bytes) -> np.ndarray:
             raise PNGError("image data too short")
         raw = np.frombuffer(stream, np.uint8, size, pos).reshape(ph, row)
         pos += size
-        samples[y0::dy, x0::dx] = _samples(_unfilter(raw, bpp), pw, depth,
-                                           channels)
+        rows = _unfilter(raw, bpp, backend)
+        samples[y0::dy, x0::dx] = _samples(rows, pw, depth, channels)
     return _to_rgb(samples, colour, depth, palette)
 
 

@@ -14,7 +14,8 @@ products plus an elementwise chain:
 
 It is independent of the cluster kernels (no binning, no per-cluster walk,
 dot products by matmul) and serves as their card-side oracle.  The matrix
-product is the only one in the render path; it runs in full fp32.
+product is the only one in the render path; it runs in full fp32 whatever
+TF32 setting the caller chose, which it leaves as it was.
 """
 
 from __future__ import annotations
@@ -72,12 +73,23 @@ class Hit(NamedTuple):
 
 
 def _fp32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.is_cuda:
-        # TF32 would keep ~10 mantissa bits; the render path is fp32 only.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("TF32 matmul could not be disabled")
-    return a @ b
+    """``a @ b`` in IEEE fp32: TF32 would keep ~10 mantissa bits, and the
+    render path is fp32 only.  cuBLAS is set to IEEE for this product
+    and then to the caller's setting again.  Only ``fp32_precision`` is
+    read and written: torch refuses to mix it with the legacy
+    ``allow_tf32`` flag.  The scope covers the forward product only.  No
+    caller differentiates it today (the bruteforce trace gets detached
+    vertices, origins and directions); one that does must scope the
+    backward's products too."""
+    if not a.is_cuda:
+        return a @ b
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        return a @ b
+    finally:
+        matmul.fp32_precision = before
 
 
 def _intersect_chunk(tri: TriangleData, origins, dirs) -> Hit:

@@ -1,17 +1,19 @@
-"""ctypes bridge to the native helpers in ``native/``: the KD builder
-(``crt_accel.cpp``) here, the P3 formatter (``crt_ppm.cpp``) through
-``io/native_ppm.py``.
+"""ctypes bridge to the native helpers: the KD builder
+(``native/crt_accel.cpp``) here, the P3 formatter (``native/crt_ppm.cpp``)
+through ``io/native_ppm.py`` and the PNG row filters
+(``crt_tpu_torch/io/png_unfilter.cpp``) through ``io/png.py``.
 
 The calling convention is crt_tpu's (``crt_tpu/scene/native_accel.py``).
 The library is built differently: ``native/build.py`` writes
 ``native/libcrt_accel.so``, a file of the repository, so this module never
-calls it.  ``library()`` compiles both sources with g++ at first use into
-``build/crt_tpu_torch/native-<hash>/`` beside the package (gitignored),
-keyed by the sources, the flags and the compiler's ``-march=native``
-target (its predefined macros), so a build made on another host is not
-loaded here.  Later processes reuse it.  Callers catch the errors and fall
-back to the NumPy builder and the Python formatter, which give the same
-result.  Nothing here runs at import time.
+calls it.  ``library()`` compiles the three sources with g++ at first use
+into ``build/crt_tpu_torch/native-<hash>/`` beside the package
+(gitignored), keyed by the sources, the flags and the compiler's
+``-march=native`` target (its predefined macros), so a build made on
+another host is not loaded here.  Later processes reuse it.  Callers catch
+the errors and fall back to the NumPy builder, the Python formatter and
+the NumPy row filters, which give the same result.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ import tempfile
 
 import numpy as np
 
-NATIVE = pathlib.Path(__file__).resolve().parents[2] / "native"
-BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
-SOURCES = ("crt_accel.cpp", "crt_ppm.cpp")
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+NATIVE = ROOT / "native"
+BUILD_ROOT = ROOT / "build" / "crt_tpu_torch"
+SOURCES = (NATIVE / "crt_accel.cpp", NATIVE / "crt_ppm.cpp",
+           ROOT / "crt_tpu_torch" / "io" / "png_unfilter.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 LIB_NAME = "libcrt_native.so"
 
@@ -46,9 +50,9 @@ def build() -> str:
     """Compile the native helpers unless an identical build exists; return
     the library's path.  Raises when g++ is missing or fails."""
     h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((NATIVE / name).read_bytes())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_target_digest())
     out_dir = BUILD_ROOT / f"native-{h.hexdigest()[:16]}"
@@ -62,7 +66,7 @@ def build() -> str:
     os.close(fd)
     try:
         proc = subprocess.run(
-            ["g++", *CXX_FLAGS, *(str(NATIVE / s) for s in SOURCES),
+            ["g++", *CXX_FLAGS, *(str(s) for s in SOURCES),
              "-o", tmp], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
@@ -94,6 +98,10 @@ def library() -> ctypes.CDLL:
     lib.crt_accel_free.argtypes = [p]
     lib.crt_ppm_format.restype = ctypes.c_longlong
     lib.crt_ppm_format.argtypes = [p, i32, i32, i32, p, ctypes.c_longlong]
+    lib.crt_png_unfilter.restype = i32
+    # (raw [h, 1 + l], h, l, bpp, out [h, l])
+    lib.crt_png_unfilter.argtypes = [p, ctypes.c_int64, ctypes.c_int64, i32,
+                                     p]
     return lib
 
 

@@ -7,8 +7,9 @@ The zip holds one directory, the add-on ``crt_tpu_torch_renderer/``:
 - the add-on's ``__init__.py`` and ``blender_manifest.toml`` at its top
   level (the ``__init__`` imports its engine, operators, properties and
   panels from the vendored package, so no other copy of them goes in);
-- ``crt_tpu_torch/`` vendored beside them: its ``.py`` files and the
-  kernel sources ``csrc/*.cu`` / ``*.cuh``;
+- ``crt_tpu_torch/`` vendored beside them: its ``.py`` files, the
+  kernel sources ``csrc/*.cu`` / ``*.cuh`` and the host source
+  ``io/png_unfilter.cpp``;
 - ``native/crt_accel.cpp`` and ``native/crt_ppm.cpp``.
 
 No build output goes in (no ``build/``, ``__pycache__`` or ``.so``).  The
@@ -44,8 +45,8 @@ def staged_files() -> list[tuple[pathlib.Path, str]]:
         rel = f.relative_to(REPO)
         if "__pycache__" in rel.parts or not f.is_file():
             continue
-        if f.suffix == ".py" or (f.parent == pkg / "csrc"
-                                 and f.suffix in (".cu", ".cuh")):
+        if f.suffix in (".py", ".cpp") or (f.parent == pkg / "csrc"
+                                           and f.suffix in (".cu", ".cuh")):
             files.append((f, f"{ADDON_ID}/{rel.as_posix()}"))
     files += [(REPO / "native" / n, f"{ADDON_ID}/native/{n}")
               for n in NATIVE_SOURCES]

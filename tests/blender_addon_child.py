@@ -14,7 +14,8 @@ add-on's own sources).  It writes ``OUT_DIR/combined.npy`` (the second
 render's Combined pass), ``OUT_DIR/exported.json`` (the exported dict)
 and prints one JSON line: where the package and the kernel build came
 from, build and frame times, the kernel launches of the second render,
-the KD builder that ran and the engine's settings.
+the KD builder that ran, the PNG row filters' backend and the engine's
+settings.
 
 ``run_staged_addon`` stages, unpacks and runs it (the tests and
 ``chip_smoke.py``'s ``[tools]``); ``bench_depsgraph`` is shared with
@@ -100,6 +101,7 @@ def main(argv) -> int:
     addon.register()
     import crt_tpu_torch
     from crt_tpu_torch.frontend.blender import engine, scene_bridge
+    from crt_tpu_torch.io import png
     from crt_tpu_torch.ops import cluster_trace, cuda_lib, segsum
     from crt_tpu_torch.scene import accel, native_accel
 
@@ -143,7 +145,8 @@ def main(argv) -> int:
         "package": crt_tpu_torch.__file__, "addon": addon.__file__,
         "build": build, "first_render_ms": first_ms, "frame_ms": frame_ms,
         "launches": launches, "kd_builder": accel.last_builder,
-        "native_library": native, "settings": settings}))
+        "native_library": native, "png_unfilter": png.unfilter_backend(),
+        "settings": settings}))
     return 0
 
 

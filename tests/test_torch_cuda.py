@@ -1647,3 +1647,40 @@ def test_staged_addon_renders_on_card(device, tmp_path):
     ref = api.render_scene_from_dict_array(exported, "/", info["settings"],
                                            device=device)
     assert np.array_equal(rect, ref.reshape(-1, 4))
+
+
+def test_render_ignores_the_callers_tf32(device):
+    """With TF32 switched on for the whole process (cuBLAS, cuDNN, matmul
+    precision "medium"), the opaque frame on the cluster and all-pairs
+    backends and a GI frame equal the frames rendered with it off, bit for
+    bit, and the gradient of the opaque frame is within K3's tolerance of
+    the one with it off (4e-6 of the fp64 sum of |g| over the group; K3's
+    atomics make gradients differ in the last bits from run to run).
+    After every render the caller's settings read back as set."""
+    from fp32_settings import under
+
+    opaque = make_test_scene(192, 128, num_quads=24, device=device)
+    gi = make_test_scene(96, 64, num_quads=8, gi_on=True, device=device)
+    frames = {
+        "cluster": lambda: render_image(opaque),
+        "bruteforce": lambda: render_image(
+            opaque, RenderSettings(backend="bruteforce")),
+        "gi": lambda: render_image(gi),
+    }
+    keys = ("vertices", "light_intensity", "cam_position")
+
+    def grads():
+        params = {k: getattr(opaque, k).clone().requires_grad_(True)
+                  for k in keys}
+        render_image(opaque.replace(**params)).sum().backward()
+        return {k: p.grad for k, p in params.items()}
+
+    for name, fn in frames.items():
+        ieee, tf32 = under("ieee", fn), under("tf32", fn)
+        assert torch.equal(tf32.view(torch.int32), ieee.view(torch.int32)), \
+            name
+    g_ieee, g_tf32 = under("ieee", grads), under("tf32", grads)
+    for k in keys:
+        a, b = g_tf32[k].double(), g_ieee[k].double()
+        assert bool(torch.isfinite(a).all()), k
+        assert float((a - b).abs().max()) <= 4e-6 * float(b.abs().sum()), k

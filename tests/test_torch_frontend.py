@@ -8,6 +8,7 @@ and the "pallas" alias change nothing (exact).
 """
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -30,7 +31,8 @@ from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_test_scene, make_test_scene_dict
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
-PREVIEWS = pathlib.Path(__file__).resolve().parents[1] / "docs" / "previews"
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PREVIEWS = REPO / "docs" / "previews"
 
 
 @pytest.mark.parametrize("era", ["era07", "era08"])
@@ -86,6 +88,47 @@ def test_cli_writes_p3_ppm(tmp_path, capsys):
         img, np.clip(np.trunc(expected * np.float32(255)), 0, 255) / 255)
     assert cli.main([str(tmp_path / "missing.crtscene"), str(out),
                      "--device", "cpu"]) == 1
+
+
+def test_cli_default_scene_is_the_reference_clis(tmp_path, monkeypatch,
+                                                capsys):
+    """No scene argument: the reference CLI's default scene under
+    $CRT_REFERENCE, written to output.ppm in the working directory, equal
+    to crt_tpu's CLI given the same file by path."""
+    scene_path = tmp_path / "ref" / cli.DEFAULT_SCENE
+    scene_path.parent.mkdir(parents=True)
+    scene_path.write_text(json.dumps(make_test_scene_dict(40, 24)))
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.setenv("CRT_REFERENCE", str(tmp_path / "ref"))
+    monkeypatch.chdir(work)
+    assert cli.main(["--device", "cpu"]) == 0
+    assert "Execution time:" in capsys.readouterr().out
+    ref_out = tmp_path / "crt_tpu.ppm"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", CRT_TPU_FORCE_CPU="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "crt_tpu.frontend.cli", str(scene_path),
+         str(ref_out)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert (work / "output.ppm").read_text() == ref_out.read_text()
+
+
+def test_cli_default_scene_without_the_corpus(tmp_path, monkeypatch,
+                                             capsys):
+    """Without $CRT_REFERENCE the default scene is a scene that will not
+    load (rc 1, crt_tpu's error line); the no-card check still comes
+    first (rc 2)."""
+    monkeypatch.delenv("CRT_REFERENCE", raising=False)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("Error: Could not parse scene file: ")
+    assert cli.DEFAULT_SCENE in err and "CRT_REFERENCE" in err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([]) == 2
+    assert "cpu" in capsys.readouterr().err
+    assert not (tmp_path / "output.ppm").exists()
 
 
 def test_no_card_is_an_error_not_a_cpu_run(tmp_path, capsys, monkeypatch):

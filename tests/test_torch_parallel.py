@@ -181,16 +181,19 @@ CASES = {
 }
 
 
-def _rank_main(cases, rank, world, out_dir, device):
+def _rank_main(cases, rank, world, out_dir, device, table=None):
+    """One rank: run ``cases`` of ``table`` (default ``CASES``) and save
+    what they return."""
     import torch.distributed as dist
 
     from crt_tpu_torch.parallel import multihost
 
+    table = CASES if table is None else table
     torch.set_num_threads(1)
     assert multihost.initialize(
         init_method=f"file://{out_dir}/store", world_size=world, rank=rank,
         backend="gloo", timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
-    results = {case: CASES[case](device) for case in cases}
+    results = {case: table[case](device) for case in cases}
     torch.save(_to_cpu(results), os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -208,14 +211,16 @@ def _to_cpu(x):
     return x
 
 
-def launch_ranks(out_dir, cases, world, device="cpu", timeout=RANK_TIMEOUT):
+def launch_ranks(out_dir, cases, world, device="cpu", timeout=RANK_TIMEOUT,
+                 script=__file__):
     """Run ``cases`` on ``world`` gloo ranks -> each rank's results.  The
     ranks are killed, and the calling test fails, past ``timeout``
-    seconds."""
+    seconds.  ``script`` is the ranks' script (this file, or another whose
+    main passes its own case table to ``_rank_main``)."""
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), ",".join(cases),
+        [sys.executable, os.path.abspath(script), ",".join(cases),
          str(rank), str(world), str(out_dir), device],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]

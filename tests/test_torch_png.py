@@ -8,13 +8,17 @@ writers: the raw writer of ``png_raw.py`` (every colour type x bit depth
 x row filter x interlace, each IDAT split into several chunks, ``tRNS``
 on the interlaced files of types 0, 2 and 3, and a short ``PLTE`` that
 some indices run past) and PIL itself (every mode it writes, with the
-filters it chooses).
+filters it chooses).  Every decode case runs through both ways of
+undoing the row filters: the C++ pass (``native``, built by g++) and the
+NumPy one (``numpy``).
 """
 
 import io
 import json
+import shutil
 import struct
 import sys
+import warnings
 import zlib
 
 import numpy as np
@@ -35,6 +39,7 @@ DEPTHS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
 CASES = [(c, b) for c, (_, depths) in DEPTHS.items() for b in depths]
 FILTERS = [0, 1, 2, 3, 4, "mixed"]
 W, H = 13, 11  # odd sizes: partial Adam7 passes, sub-byte row padding
+BACKENDS = ["native", "numpy"]
 
 
 def _pil_rgb(data):
@@ -42,10 +47,11 @@ def _pil_rgb(data):
         return np.asarray(im.convert("RGB"))
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("interlace", [0, 1])
 @pytest.mark.parametrize("filt", FILTERS)
 @pytest.mark.parametrize("colour,depth", CASES)
-def test_decode_matches_pil(colour, depth, filt, interlace):
+def test_decode_matches_pil(colour, depth, filt, interlace, backend):
     ch = DEPTHS[colour][0]
     rng = np.random.default_rng(colour * 100 + depth)
     top = (1 << depth) - 1
@@ -64,7 +70,7 @@ def test_decode_matches_pil(colour, depth, filt, interlace):
     elif colour in (0, 2) and interlace:
         trns = struct.pack(f">{ch}H", *samples[3, 3, :ch].tolist())
     data = raw_png(samples, colour, depth, filt, interlace, palette, trns)
-    got = png.decode(data)
+    got = png.decode(data, backend=backend)
     assert got.dtype == np.uint8 and got.shape == (H, W, 3)
     np.testing.assert_array_equal(got, _pil_rgb(data))
 
@@ -74,9 +80,10 @@ PIL_MODES = [("1", {}), ("L", {}), ("LA", {}), ("RGB", {}), ("RGBA", {}),
              ("P", {"bits": 4}), ("P", {}), ("RGB", {"optimize": True})]
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
 @pytest.mark.parametrize("mode,opts", PIL_MODES,
                          ids=[f"{m}{o}" for m, o in PIL_MODES])
-def test_decode_pil_written(mode, opts):
+def test_decode_pil_written(mode, opts, backend):
     """PIL's own files: it picks the row filters (adaptively for 8-bit
     images), the palette size and the 16-bit grey layout."""
     rng = np.random.default_rng(7)
@@ -100,7 +107,68 @@ def test_decode_pil_written(mode, opts):
     buf = io.BytesIO()
     im.save(buf, "PNG", **opts)
     data = buf.getvalue()
-    np.testing.assert_array_equal(png.decode(data), _pil_rgb(data))
+    np.testing.assert_array_equal(png.decode(data, backend=backend),
+                                  _pil_rgb(data))
+
+
+def test_decode_1080p_wide_mixed_filters():
+    """A 1920-wide RGB file with filters 0-4 in turn, as an adaptive
+    writer's 1080p golden: both backends give PIL's bytes."""
+    rng = np.random.default_rng(19)
+    img = (np.cumsum(rng.integers(0, 9, (40, 1920, 3)), axis=1)
+           % 256).astype(np.uint16)
+    data = raw_png(img, 2, 8, "mixed", 0, idat_size=1 << 16)
+    want = _pil_rgb(data)
+    np.testing.assert_array_equal(want, img)
+    for backend in BACKENDS:
+        np.testing.assert_array_equal(png.decode(data, backend=backend),
+                                      want)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_decode_rejects_a_bad_filter_byte(backend):
+    """A filter byte of 7 on the fourth row, after rows that decode."""
+    rows = np.zeros((6, 1 + 3 * 4), np.uint8)
+    rows[:, 0] = [1, 2, 3, 7, 4, 0]
+    data = (png.SIGNATURE + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 4, 6, 8, 2, 0, 0, 0)) + chunk(
+        b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+    with pytest.raises(png.PNGError, match="unknown row filter 7"):
+        png.decode(data, backend=backend)
+
+
+def test_native_backend_where_gxx_exists():
+    """Where g++ builds the native library, as here, decode takes the C++
+    row filters by default."""
+    assert shutil.which("g++"), "this test needs g++, which builds the " \
+        "native helpers"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert png.unfilter_backend() == "native"
+    with pytest.raises(ValueError):
+        png.decode(png.encode(np.zeros((2, 2, 3), np.uint8)), backend="c")
+
+
+def test_numpy_fallback_warns_once(monkeypatch):
+    """Where the library will not build, decode falls back to NumPy and
+    says so once, with the compiler's message."""
+    from crt_tpu_torch.scene import native_accel
+
+    def fail():
+        raise RuntimeError("g++ failed (1):\nno compiler here")
+
+    monkeypatch.setattr(native_accel, "library", fail)
+    monkeypatch.setattr(png, "_native", None)
+    img = np.arange(6 * 5 * 3, dtype=np.uint8).reshape(6, 5, 3)
+    data = raw_png(img.astype(np.uint16), 2, 8, "mixed", 0)
+    with pytest.warns(RuntimeWarning, match="no compiler here"):
+        np.testing.assert_array_equal(png.decode(data), img)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert png.unfilter_backend() == "numpy"
+        np.testing.assert_array_equal(png.decode(data), img)
+    with pytest.raises(RuntimeError):
+        png.decode(data, backend="native")
 
 
 def test_encode_round_trip_and_pil_reads_it(tmp_path):

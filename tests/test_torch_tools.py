@@ -266,6 +266,7 @@ def test_staged_zip_files(tmp_path):
               "crt_tpu_torch/ops/cuda_lib.py",
               "crt_tpu_torch/frontend/blender/engine.py",
               "native/crt_accel.cpp", "native/crt_ppm.cpp",
+              "crt_tpu_torch/io/png_unfilter.cpp",
               *(f"crt_tpu_torch/csrc/{s}"
                 for s in cuda_lib.SOURCES + cuda_lib.HEADERS)):
         assert f in rel, f
@@ -291,6 +292,8 @@ def test_staged_addon_renders_from_the_zip(tmp_path):
     assert info["package"].startswith(root + os.sep)
     assert info["addon"] == os.path.join(root, "__init__.py")
     assert info["kd_builder"] in ("native", "numpy")
+    # the zip's own sources build the native library, PNG filters included
+    assert info["png_unfilter"] == info["kd_builder"]
     if info["native_library"]:
         assert info["native_library"].startswith(
             os.path.join(root, "build", "crt_tpu_torch") + os.sep)
