@@ -340,6 +340,7 @@ Needs one CUDA card; exits with an error when there is none.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
@@ -1635,86 +1636,85 @@ def profile_turns(device, parent):
             reset_launches()
             dev_ms, n, by_tag = on(lib, lambda: profile_frame(
                 fn, tags=tuple(tags.values())))
-            kd = cluster_trace.occlusion_d_mode_launches
+            c = counted()
             print(f"[turns] {name}, {who} kernels: device {dev_ms:.3f} ms in "
-                  f"{n} launches ({kd['compact']} K5, {kd['exit']} K6, "
-                  f"{cluster_trace.closest_hit_merged_launches} K7); "
+                  f"{n} launches ({c['crt.launches.occlusion_d.compact']} K5, "
+                  f"{c['crt.launches.occlusion_d.exit']} K6, "
+                  f"{c['crt.launches.closest_hit_merged']} K7); "
                   + ", ".join(f"{k} {by_tag[v]:.3f} ms "
                               f"({100 * by_tag[v] / dev_ms:.2f} %)"
                               for k, v in tags.items() if by_tag[v] > 0))
 
 
-def reset_launches():
-    from crt_tpu_torch.ops import (
-        cluster_trace, segsum, shade, stream_binning, stream_trace,
-    )
+_RECORDING = []  # the process-long recording block of the port's registry
 
-    cluster_trace.closest_hit_launches = 0
-    cluster_trace.closest_hit_compact_launches = 0
-    cluster_trace.live_tiles_launches = 0
-    cluster_trace.closest_hit_merged_launches = 0
-    cluster_trace.occlusion_w_launches = 0
-    for mode in cluster_trace.occlusion_w_mode_launches:
-        cluster_trace.occlusion_w_mode_launches[mode] = 0
-    cluster_trace.occlusion_d_launches = 0
-    for mode in cluster_trace.occlusion_d_mode_launches:
-        cluster_trace.occlusion_d_mode_launches[mode] = 0
-    stream_trace.closest_hit_stream_launches = 0
-    stream_trace.occlusion_stream_launches = 0
-    for counts in (stream_trace.closest_hit_stream_layout_launches,
-                   stream_trace.occlusion_stream_layout_launches):
-        for layout in counts:
-            counts[layout] = 0
-    stream_binning.stream_host_syncs = 0
-    stream_binning.stream_pairs = 0
-    segsum.segsum_launches = 0
-    shade.march_host_syncs = 0
-    shade.march_traces = 0
+
+def reset_launches():
+    """Zero the port's counters (``crt_tpu_torch/utils/trace.py``) and
+    count from here: the first call opens a recording block that lasts
+    the process, so every later frame is counted."""
+    from crt_tpu_torch.utils import trace as tracing
+
+    if not _RECORDING:
+        block = tracing.recording()
+        block.__enter__()
+        _RECORDING.append(block)
+        atexit.register(block.__exit__, None, None, None)
+    tracing.reset()
+
+
+def counted() -> dict:
+    """The port's counters since the last ``reset_launches``."""
+    from crt_tpu_torch.utils import trace as tracing
+
+    return tracing.counters()
+
+
+def _launches(c, kernel: str) -> int:
+    from crt_tpu_torch.utils import trace as tracing
+
+    return tracing.total(c, "crt.launches." + kernel)
 
 
 def read_launches() -> dict:
     """Launch counts of the three kernels of the opaque frame."""
-    from crt_tpu_torch.ops import cluster_trace, segsum
-
-    return {"closest_hit": cluster_trace.closest_hit_launches,
-            "occlusion_w": cluster_trace.occlusion_w_launches,
-            "segsum": segsum.segsum_launches}
+    c = counted()
+    return {"closest_hit": _launches(c, "closest_hit"),
+            "occlusion_w": _launches(c, "occlusion_w"),
+            "segsum": _launches(c, "segsum")}
 
 
 def read_stream_launches() -> dict:
     """Launch counts of every trace kernel and the segment sum, with the
     streaming Phase A's own counts (pairs listed, device-to-host reads)."""
-    from crt_tpu_torch.ops import (
-        cluster_trace, segsum, stream_binning, stream_trace,
-    )
-
-    return {"closest_hit": cluster_trace.closest_hit_launches,
-            "closest_hit_compact": cluster_trace.closest_hit_compact_launches,
-            "occlusion_w": cluster_trace.occlusion_w_launches,
-            "occlusion_d": cluster_trace.occlusion_d_mode_launches["compact"],
-            "occlusion_d_exit": cluster_trace.occlusion_d_mode_launches["exit"],
-            "closest_hit_stream": stream_trace.closest_hit_stream_launches,
-            "occlusion_stream": stream_trace.occlusion_stream_launches,
-            "segsum": segsum.segsum_launches,
-            "stream_pairs": stream_binning.stream_pairs,
-            "stream_host_syncs": stream_binning.stream_host_syncs}
+    c = counted()
+    return {"closest_hit": _launches(c, "closest_hit"),
+            "closest_hit_compact": _launches(c, "closest_hit_compact"),
+            "occlusion_w": _launches(c, "occlusion_w"),
+            "occlusion_d": c["crt.launches.occlusion_d.compact"],
+            "occlusion_d_exit": c["crt.launches.occlusion_d.exit"],
+            "closest_hit_stream": _launches(c, "closest_hit_stream"),
+            "occlusion_stream": _launches(c, "occlusion_stream"),
+            "segsum": _launches(c, "segsum"),
+            "stream_pairs": c["crt.binning.pairs.supercluster"],
+            "stream_host_syncs": c["crt.host_reads.stream_nonzero"]}
 
 
 def read_glass_launches() -> dict:
     """Launch counts of the refractive frame's kernels, K2 by mode, and
     the march's own counts (closest-hit segments, device-to-host reads)."""
-    from crt_tpu_torch.ops import cluster_trace, segsum, shade
+    from crt_tpu_torch.utils import trace as tracing
 
-    modes = cluster_trace.occlusion_w_mode_launches
-    return {"closest_hit": cluster_trace.closest_hit_launches,
-            "closest_hit_compact": cluster_trace.closest_hit_compact_launches,
-            "live_tiles": cluster_trace.live_tiles_launches,
-            "occlusion_w": modes["capped"],
-            "occlusion_w_glass": modes["glass"],
-            "occlusion_w_uncapped": modes["uncapped"],
-            "segsum": segsum.segsum_launches,
-            "march_traces": shade.march_traces,
-            "march_host_syncs": shade.march_host_syncs}
+    c = counted()
+    return {"closest_hit": _launches(c, "closest_hit"),
+            "closest_hit_compact": _launches(c, "closest_hit_compact"),
+            "live_tiles": _launches(c, "live_tiles"),
+            "occlusion_w": c["crt.launches.occlusion_w.capped"],
+            "occlusion_w_glass": c["crt.launches.occlusion_w.glass"],
+            "occlusion_w_uncapped": c["crt.launches.occlusion_w.uncapped"],
+            "segsum": _launches(c, "segsum"),
+            "march_traces": c["crt.march.traces"],
+            "march_host_syncs": tracing.total(c, "crt.host_reads.march")}
 
 
 def phase_main_path(device):
@@ -2740,16 +2740,17 @@ def record_walks():
     """Within the block, each call of traverse.closest_hit_tree appends
     (lanes, loop iterations, host reads) to the list yielded."""
     from crt_tpu_torch.ops import traverse
+    from crt_tpu_torch.utils import trace as tracing
 
     walks = []
 
     def logged(real, accel, tri, origins, dirs, active=None):
-        its, reads = traverse.tree_iterations, traverse.tree_host_reads
-        hit = real(accel, tri, origins, dirs, active)
+        with tracing.recording() as c:
+            hit = real(accel, tri, origins, dirs, active)
         lanes = (origins[..., 0].numel() if active is None
                  else int(active.sum()))
-        walks.append((lanes, traverse.tree_iterations - its,
-                      traverse.tree_host_reads - reads))
+        walks.append((lanes, c["crt.tree.iterations"],
+                      c["crt.host_reads.tree_walk"]))
         return hit
 
     with patched(traverse, "closest_hit_tree", logged):
@@ -2765,7 +2766,7 @@ def phase_tree(device):
     primary trace of the 65,536-triangle scene held to K1's hits, and a
     --backend tree CLI child."""
     from crt_tpu_torch import RenderSettings, render_image
-    from crt_tpu_torch.ops import segsum, traverse
+    from crt_tpu_torch.ops import traverse
     from crt_tpu_torch.renderer import make_trace_fn
     from crt_tpu_torch.scene import accel as accel_mod
     from crt_tpu_torch.scene.procedural import (
@@ -2835,7 +2836,7 @@ def phase_tree(device):
     torch.cuda.synchronize()
     g_ms = (time.perf_counter() - g0) * 1e3
     g_peak = torch.cuda.max_memory_allocated() / 2**30
-    k3 = segsum.segsum_launches
+    k3 = read_launches()["segsum"]
     print(f"[tree] value_and_grad of the image sum: value "
           f"{float(value):.6e}, {g_ms:.3f} ms (first call), peak "
           f"{g_peak:.3f} GiB, K3 launches {k3}")
@@ -3738,7 +3739,6 @@ def phase_layouts(device, scene):
     render_image of the 1,000,000-triangle frame with CRT_STREAM_LAYOUT set
     (the port reads it when render_image builds the trace)."""
     from crt_tpu_torch import render_image
-    from crt_tpu_torch.ops import cluster_trace, stream_trace
 
     layouts = ("fused", "lane", "rows")
     images, launches, ms = {}, {}, {}
@@ -3749,10 +3749,11 @@ def phase_layouts(device, scene):
             reset_launches()
             images[layout] = render_image(scene)
             torch.cuda.synchronize()
-            launches[layout] = (
-                dict(stream_trace.closest_hit_stream_layout_launches),
-                dict(stream_trace.occlusion_stream_layout_launches),
-                cluster_trace.closest_hit_launches)
+            c = counted()
+            launches[layout] = tuple(
+                {k: c[f"crt.launches.{kind}.{k}"] for k in layouts}
+                for kind in ("closest_hit_stream", "occlusion_stream")) \
+                + (c["crt.launches.closest_hit"],)
             print(f"[layouts] CRT_STREAM_LAYOUT={layout}: closest-hit "
                   f"launches {launches[layout][0]}, any-hit launches "
                   f"{launches[layout][1]}")
@@ -3791,15 +3792,16 @@ def phase_layouts(device, scene):
 _CHILD = r"""
 import json, sys
 from crt_tpu_torch.frontend import cli
-from crt_tpu_torch.ops import cluster_trace, stream_trace
-rc = cli.main(sys.argv[1:])
+from crt_tpu_torch.utils import trace as tracing
+with tracing.recording() as c:
+    rc = cli.main(sys.argv[1:])
 print(json.dumps({"rc": rc,
-    "closest_hit": cluster_trace.closest_hit_launches,
-    "closest_hit_merged": cluster_trace.closest_hit_merged_launches,
-    "occlusion_w": cluster_trace.occlusion_w_launches,
-    "occlusion_d": cluster_trace.occlusion_d_mode_launches["compact"],
-    "closest_hit_stream": stream_trace.closest_hit_stream_launches,
-    "occlusion_stream": stream_trace.occlusion_stream_launches}))
+    "closest_hit": c["crt.launches.closest_hit"],
+    "closest_hit_merged": c["crt.launches.closest_hit_merged"],
+    "occlusion_w": tracing.total(c, "crt.launches.occlusion_w"),
+    "occlusion_d": c["crt.launches.occlusion_d.compact"],
+    "closest_hit_stream": tracing.total(c, "crt.launches.closest_hit_stream"),
+    "occlusion_stream": tracing.total(c, "crt.launches.occlusion_stream")}))
 """
 
 

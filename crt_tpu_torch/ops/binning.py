@@ -20,6 +20,7 @@ import torch
 
 from crt_tpu_torch.ops.cluster_tables import TILE_RAYS, ClusterTables
 from crt_tpu_torch.ops.vecmath import sqrt
+from crt_tpu_torch.utils import trace as tracing
 
 _INF = 3.4e38  # the finite "infinity" the JAX binning uses
 
@@ -42,6 +43,12 @@ def _compact(mask: torch.Tensor):
     order = torch.argsort(key, dim=1, stable=True).to(torch.int32)
     counts = mask.sum(dim=1).to(torch.int32)
     return order.contiguous(), counts
+
+
+def _counted(lists):
+    """``_compact``'s lists, their (tile, cluster) pairs counted."""
+    tracing.count("crt.binning.pairs.cluster", lists[1])
+    return lists
 
 
 def _frustum_box_mask(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_cap=None,
@@ -198,6 +205,7 @@ def tile_bounds(origins, dirs, tile_rays: int, active=None):
             a[..., 0].any(dim=1))
 
 
+@tracing.spanned("crt.binning")
 def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
              active=None, apex=None, apex_slack: float = 0.0):
     """Generic frustum binning.  origins/dirs: [R, 3], R % tile_rays == 0.
@@ -223,9 +231,10 @@ def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
                                  tables.cl_max)
     if tile_any is not None:
         mask = mask & tile_any[:, None]
-    return _compact(mask)
+    return _counted(_compact(mask))
 
 
+@tracing.spanned("crt.binning")
 def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
                     tile_rays: int = TILE_RAYS, origin_slack: float = 0.0,
                     boxes=None, capped: bool = True, glass_boxes=None):
@@ -285,4 +294,4 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
             t_cap=cap, t_lo_clamp=False,
         )
     mask = mask & tile_any[:, None]
-    return _compact(mask)
+    return _counted(_compact(mask))

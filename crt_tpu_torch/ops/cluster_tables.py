@@ -18,6 +18,7 @@ import torch
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.shade import build_packed
 from crt_tpu_torch.scene.types import MATERIAL_REFRACTIVE
+from crt_tpu_torch.utils import trace as tracing
 
 TILE_RAYS = 1024  # rays per binned tile (32x32 pixels)
 CLUSTER_SIZE = 16  # triangles per cluster
@@ -75,6 +76,7 @@ def rank_of_order(order: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+@tracing.spanned("crt.tables.rank")
 def triangle_rank(scene) -> torch.Tensor:
     """``build_cluster_tables(scene).rank`` without the tables, for a
     backend that walks none."""
@@ -82,6 +84,7 @@ def triangle_rank(scene) -> torch.Tensor:
         _centroids(scene.vertices.detach(), scene.tri_vidx)))
 
 
+@tracing.spanned("crt.tables.cluster")
 def build_cluster_tables(scene, clusters: slice | None = None
                          ) -> ClusterTables:
     """Morton-cluster the scene's triangles and precompute test constants.
@@ -151,6 +154,7 @@ def build_cluster_tables(scene, clusters: slice | None = None
     )
 
 
+@tracing.spanned("crt.tables.glass")
 def glass_subset(scene, tables: ClusterTables):
     """The refractive members of the tables -> (member mask [L, S] f32,
     gmin [L, 3], gmax [L, 3]): 1.0 on slots that hold a refractive
@@ -169,6 +173,7 @@ def glass_subset(scene, tables: ClusterTables):
     return is_glass.to(torch.float32).contiguous(), gmin, gmax
 
 
+@tracing.spanned("crt.tables.rows")
 def emit_rows_table(scene, tables: ClusterTables) -> torch.Tensor:
     """Per-slot packed attribute rows for the row-emitting closest-hit
     kernel -> [L, S, K+1] f32: the shader's packed rows (build_packed

@@ -30,12 +30,11 @@ Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version, in this module, only for CPU tensors.
 The plain versions walk the same lists in the same order with the same
 arithmetic, so on the card the kernels must match them bit for bit.
-``closest_hit_launches`` / ``closest_hit_compact_launches`` /
-``closest_hit_merged_launches`` / ``occlusion_w_launches`` /
-``occlusion_d_launches`` / ``live_tiles_launches`` count kernel launches
-(CUDA launches only; the plain versions do not count);
-``occlusion_w_mode_launches`` and ``occlusion_d_mode_launches`` split the
-last two by mode.
+Each CUDA launch is counted in ``utils/trace.py``'s registry as
+``crt.launches.closest_hit`` / ``closest_hit_compact`` /
+``closest_hit_merged`` / ``live_tiles``, ``crt.launches.occlusion_w.<mode>``
+(``occlusion_mode``) and ``crt.launches.occlusion_d.<compact|exit>``; the
+plain versions count nothing.
 
 ``CRT_APEX_W=0`` in the environment (read at import, as crt_tpu reads it)
 takes ``shadow_apex_w`` off the traces built here, so shadows go through
@@ -61,17 +60,9 @@ from crt_tpu_torch.ops.cluster_tables import (
     glass_subset,
 )
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
+from crt_tpu_torch.utils import trace as tracing
 
 _BIGID = 2**30
-# Launch counts of the kernels (plain module-level integers).
-closest_hit_launches = 0
-closest_hit_compact_launches = 0
-live_tiles_launches = 0  # K4's live-list kernel, by either wrapper
-closest_hit_merged_launches = 0
-occlusion_w_launches = 0  # every mode
-occlusion_w_mode_launches = {"capped": 0, "uncapped": 0, "glass": 0}
-occlusion_d_launches = 0  # both modes
-occlusion_d_mode_launches = {"compact": 0, "exit": 0}
 
 # In-kernel shadow directions (the w form) on by default; "0" leaves the
 # direction form as the shadow path of the traces built here.
@@ -475,8 +466,7 @@ def closest_hit(tables: ClusterTables, origins, dirs, cluster_list, counts,
                 _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit")
-        global closest_hit_launches
-        closest_hit_launches += 1
+        tracing.count("crt.launches.closest_hit")
     return best_t, best_tri, rows
 
 
@@ -505,8 +495,7 @@ def live_tiles(counts):
         err = lib.crt_live_tiles(counts.data_ptr(), tiles, lst.data_ptr(),
                                  _cuda_stream(dev))
     _raise_on(err, "live_tiles")
-    global live_tiles_launches
-    live_tiles_launches += 1
+    tracing.count("crt.launches.live_tiles")
     return lst[:tiles], lst[tiles:]
 
 
@@ -571,9 +560,8 @@ def closest_hit_compact(tables: ClusterTables, origins, dirs, cluster_list,
                 _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_compact")
-        global closest_hit_compact_launches, live_tiles_launches
-        closest_hit_compact_launches += 1
-        live_tiles_launches += 1
+        tracing.count("crt.launches.closest_hit_compact")
+        tracing.count("crt.launches.live_tiles")  # K4's list, same launch
     return best_t, best_tri, rows
 
 
@@ -620,13 +608,12 @@ def closest_hit_merged(tables: ClusterTables, origins, dirs, cluster_list,
                 _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_merged")
-        global closest_hit_merged_launches
-        closest_hit_merged_launches += 1
+        tracing.count("crt.launches.closest_hit_merged")
     return best_t, best_tri, rows
 
 
 def occlusion_mode(capped: bool, glass_flag: bool) -> str:
-    """The name ``occlusion_w_mode_launches`` counts a launch under."""
+    """The suffix of ``crt.launches.occlusion_w`` a launch counts under."""
     if glass_flag:
         return "glass"
     return "capped" if capped else "uncapped"
@@ -699,9 +686,8 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
                 _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_w")
-        global occlusion_w_launches
-        occlusion_w_launches += 1
-        occlusion_w_mode_launches[occlusion_mode(capped, glass_flag)] += 1
+        tracing.count("crt.launches.occlusion_w."
+                    + occlusion_mode(capped, glass_flag))
     return (occ, glass) if glass_flag else occ
 
 
@@ -775,9 +761,8 @@ def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
                 occ.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_d")
-        global occlusion_d_launches
-        occlusion_d_launches += 1
-        occlusion_d_mode_launches["exit" if exit else "compact"] += 1
+        tracing.count("crt.launches.occlusion_d."
+                    + ("exit" if exit else "compact"))
     return occ
 
 
@@ -796,6 +781,7 @@ def pad_rays(o, d, active, tile_rays, pad_all_active: bool = False):
     a = None if active is None else active.reshape(-1)
     if pad:
         o = torch.cat([o, o.new_zeros((pad, 3))])
+        tracing.count("crt.host_reads.pad_rays")  # a copy to the card
         d = torch.cat([d, d.new_tensor([[0.0, 0.0, -1.0]]).expand(pad, 3)])
         if a is None and pad_all_active:
             a = torch.ones((R,), dtype=torch.bool, device=o.device)

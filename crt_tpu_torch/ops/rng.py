@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from crt_tpu_torch.utils import trace as tracing
+
 # PCG multiplier 6364136223846793005 (< 2^63, so an int64 constant)
 _MUL = 0x5851F42D4C957F2D
 _U32 = 0xFFFFFFFF
@@ -51,6 +53,15 @@ def _as_u32(x) -> torch.Tensor:
     return torch.as_tensor(x).to(torch.int64) & _U32
 
 
+def _salt_on(salt, device) -> torch.Tensor:
+    """``salt`` as uint32 values on ``device``.  A host value is copied
+    there, which on the card waits for the stream: counted as
+    ``crt.host_reads.rng_salt``."""
+    if not (isinstance(salt, torch.Tensor) and salt.device == device):
+        tracing.count("crt.host_reads.rng_salt")
+    return _as_u32(salt).to(device)
+
+
 def make_pcg(raster_x, raster_y) -> PCGState:
     """Per-pixel seeding (crt_random.h:30-43): seed = (x << 32) | y,
     state 0, inc = (seed << 1) | 1, a step, state += seed, a step."""
@@ -82,7 +93,7 @@ def derive(state: PCGState, salt) -> PCGState:
     gives each GI child derive(parent, k + 1) and the Fresnel pair's
     reflection derive(parent, 97); ``salt`` is an int or an integer
     tensor (uint32 values)."""
-    salt = _as_u32(salt).to(state.inc.device)
+    salt = _salt_on(salt, state.inc.device)
     _, st = _next(PCGState(state.state, state.inc ^ (salt << 1)))
     return st
 
@@ -93,7 +104,7 @@ def salt_stream(state: PCGState, salt) -> PCGState:
     single-shot render; salt k > 0 forks with ``derive``."""
     if salt is None:
         return state
-    salt = _as_u32(salt).to(state.inc.device)
+    salt = _salt_on(salt, state.inc.device)
     forked = derive(state, salt)
     keep = salt == 0
     return PCGState(*(torch.where(keep, a, b)

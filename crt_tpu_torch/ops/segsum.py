@@ -9,8 +9,8 @@ adds [K, R] cotangents into [K, T]:
   - ``segment_accumulate`` (K3, ``csrc/segsum.cu``) replaces ``_kernel`` as
     launched by ``segment_accumulate_matmul``.  It launches the CUDA kernel
     for CUDA tensors (or raises) and takes ``segment_accumulate_plain``
-    only for CPU tensors.  ``segsum_launches`` counts kernel launches (the
-    plain version does not count).
+    only for CPU tensors.  ``utils/trace.py``'s registry counts each
+    launch as ``crt.launches.segsum`` (the plain version does not count).
   - ``segment_accumulate_banded`` remaps triangle ids to Morton ranks first,
     so that the rays of one pixel tile fall into a narrow id band, and
     returns the sums in original ids.
@@ -28,8 +28,7 @@ from __future__ import annotations
 
 import torch
 
-# Launch count of the kernel (a plain module-level integer).
-segsum_launches = 0
+from crt_tpu_torch.utils import trace as tracing
 
 
 def _require(cond: bool, msg: str):
@@ -84,8 +83,7 @@ def segment_accumulate(ids: torch.Tensor, g: torch.Tensor,
             )
         _raise_on(err, "segment_accumulate")
         if R:
-            global segsum_launches
-            segsum_launches += 1
+            tracing.count("crt.launches.segsum")
     return out
 
 

@@ -64,6 +64,7 @@ from crt_tpu_torch.scene.types import (
     TEXTURE_CHECKER,
     TEXTURE_EDGES,
 )
+from crt_tpu_torch.utils import trace as tracing
 
 _PI = math.pi
 
@@ -79,13 +80,6 @@ ERA07_LIGHT_DIR = (0.3809265, 0.7244545, 0.5750355)
 _MARCH_SPLIT = True
 _MARCH_NARROW = True
 _MARCH_BLOCK = 1024  # the pixel-tile quantum (renderer.TILE_H * TILE_W)
-
-# Device-to-host reads made by the march (the live-block gather and the
-# "any lane still marching" test of each step) and the closest-hit traces it
-# ran (one per segment): plain counters, reset and read by whoever wants
-# them per frame.
-march_host_syncs = 0
-march_traces = 0
 
 
 class HitAttributes(NamedTuple):
@@ -341,10 +335,10 @@ def _march_step(trace_fn, march_tab, refraction_bias, carry):
     hit, and bend the lanes that hit glass (total internal reflection
     stops a lane: the glass surface occludes).  ``march_tab`` is
     ``march_table``'s [5, T] or a function of the ids to its columns."""
-    global march_traces
     o, d, alive, last_valid, last_t = carry
-    march_traces += 1
-    sh = trace_fn(o, d, alive)
+    tracing.count("crt.march.traces")
+    with tracing.span("crt.trace"):
+        sh = trace_fn(o, d, alive)
     tri = torch.clamp(sh.tri, min=0).long()
     hit_valid = sh.valid & alive
 
@@ -375,13 +369,13 @@ def _run_march(trace_fn, march_tab, refraction_bias, max_ray_depth, o, d,
     """The bend-walk at any wavefront width -> (last_valid, last_t): the
     last hit of each lane, its distance along the last bent segment.  A
     step past the first runs only while some lane still marches (the
-    marching set only shrinks), which is one device-to-host read each."""
-    global march_host_syncs
+    marching set only shrinks), which is one device-to-host read each
+    (``crt.host_reads.march.any``)."""
     carry = (o, d, alive, torch.zeros_like(alive),
              torch.zeros(alive.shape, dtype=torch.float32, device=o.device))
     carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
     for _ in range(max_ray_depth):
-        march_host_syncs += 1
+        tracing.count("crt.host_reads.march.any")
         if not bool(carry[2].any()):
             break
         carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
@@ -394,15 +388,15 @@ def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
     gathers the 1024-lane blocks that hold a marching lane, walks those
     and scatters back: every survivor of a step is a lane of ``act``, and
     a block is a binning tile, so the narrow walk equals the full-width
-    one bit for bit."""
-    global march_host_syncs
+    one bit for bit.  The gather's size is a host read
+    (``crt.host_reads.march.blocks``)."""
     N = act.shape[0]
     if not narrow or N % _MARCH_BLOCK:
         return _run_march(trace_fn, march_tab, refraction_bias,
                           max_ray_depth, shadow_o, d, act)
     n_blk = N // _MARCH_BLOCK
     blk_live = act.reshape(n_blk, _MARCH_BLOCK).any(dim=1)
-    march_host_syncs += 1
+    tracing.count("crt.host_reads.march.blocks")
     idx = torch.nonzero(blk_live)[:, 0]  # sized by the data: a host read
     last_valid = torch.zeros((n_blk, _MARCH_BLOCK), dtype=torch.bool,
                              device=act.device)
@@ -464,9 +458,10 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
 
     apex_w_fn = getattr(trace_fn, "shadow_apex_w", None)
     if apex_w_fn is not None and point.dim() == 2 and not transmissive:
-        occluded = apex_w_fn(point.detach(), shadow_o_px.detach(),
-                             light_positions.detach(), act_lr,
-                             2.0 * shadow_bias)
+        with tracing.span("crt.trace"):
+            occluded = apex_w_fn(point.detach(), shadow_o_px.detach(),
+                                 light_positions.detach(), act_lr,
+                                 2.0 * shadow_bias)
         if occluded is not None:
             return ~occluded.reshape(r2.shape), light_dir, r2
 
@@ -476,14 +471,18 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     if not transmissive:
         occluded_fn = getattr(trace_fn, "occluded", None)
         apex_fn = getattr(trace_fn, "shadow_apex", None)
-        if occluded_fn is not None:
-            occluded = occluded_fn(shadow_o, d, r2_flat, act_lr.reshape(-1))
-        elif apex_fn is not None and point.dim() == 2:
-            occluded = apex_fn(shadow_o_px.detach(), light_dir.detach(),
-                               r2.detach(), light_positions.detach(), act_lr,
-                               2.0 * shadow_bias)
-        else:
-            sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
+        with tracing.span("crt.trace"):
+            if occluded_fn is not None:
+                occluded = occluded_fn(shadow_o, d, r2_flat,
+                                       act_lr.reshape(-1))
+            elif apex_fn is not None and point.dim() == 2:
+                occluded = apex_fn(shadow_o_px.detach(), light_dir.detach(),
+                                   r2.detach(), light_positions.detach(),
+                                   act_lr, 2.0 * shadow_bias)
+            else:
+                occluded = None
+                sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
+        if occluded is None:
             occluded = sh.valid & (sh.t * sh.t <= r2_flat)
         return ~occluded.reshape(r2.shape), light_dir, r2
 
@@ -491,8 +490,10 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     occ_opaque = opaque_act = None
     glass_fn = getattr(trace_fn, "shadow_apex_w_glass", None)
     if _MARCH_SPLIT and point.dim() == 2 and glass_fn is not None:
-        res = glass_fn(point.detach(), shadow_o_px.detach(),
-                       light_positions.detach(), act_lr, 2.0 * shadow_bias)
+        with tracing.span("crt.trace"):
+            res = glass_fn(point.detach(), shadow_o_px.detach(),
+                           light_positions.detach(), act_lr,
+                           2.0 * shadow_bias)
         if res is not None:
             occ_opaque, glass = res
             # |w| < 1 is where the kernel's |n.w| parallel test is weaker
@@ -515,6 +516,7 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     return ~occluded, light_dir, r2
 
 
+@tracing.spanned("crt.shade")
 def shade_wavefront(scene, settings, trace_fn, origins, dirs,
                     active: Optional[torch.Tensor] = None, *,
                     raster_x: Optional[torch.Tensor] = None,
@@ -602,16 +604,18 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         return black, rng
 
     kernel_rows = None
-    if rows_fn is None and hasattr(trace_fn, "with_rows"):
-        hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
-    else:
-        hit = trace_fn(origins, dirs, active)
+    with tracing.span("crt.trace.primary" if depth == 0 else "crt.trace"):
+        if rows_fn is None and hasattr(trace_fn, "with_rows"):
+            hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
+        else:
+            hit = trace_fn(origins, dirs, active)
     attrs = hit_attributes(scene, origins, dirs, hit, kernel_rows=kernel_rows,
                            rank=getattr(trace_fn, "rank", None),
                            rows_fn=rows_fn)
 
     if not scene.has_materials:
         # 07-era material-less scenes: gray half-lambert on the face normal.
+        tracing.count("crt.host_reads.era07_light")  # a copy to the card
         light_dir = torch.tensor(ERA07_LIGHT_DIR, dtype=torch.float32,
                                  device=origins.device)
         gray = 0.5 + 0.5 * vecmath.dot(attrs.normal, light_dir)

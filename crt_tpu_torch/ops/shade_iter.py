@@ -70,6 +70,7 @@ from crt_tpu_torch.scene.types import (
     MATERIAL_REFLECTIVE,
     MATERIAL_REFRACTIVE,
 )
+from crt_tpu_torch.utils import trace as tracing
 
 
 def default_banks(scene, settings) -> int:
@@ -182,6 +183,7 @@ def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
     return color
 
 
+@tracing.spanned("crt.shade")
 def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                                     active=None, banks=None, *,
                                     raster_x=None, raster_y=None,
@@ -211,15 +213,19 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
     march_tab = march_table(scene, rows_fn) if want_refract else None
     rank = getattr(trace_fn, "rank", None)
 
-    def shade_local(o, d, act):
+    def shade_local(o, d, act, primary=False):
         """Trace and the local (terminal) radiance of a flat wavefront:
         what a ray at the depth limit contributes.  Background on a miss,
         the albedo of a constant material (and of a mirror when
         reflections are off), direct light on diffuse; mirrors and glass
-        otherwise add nothing here (their children would).
+        otherwise add nothing here (their children would).  ``primary``:
+        the wavefront is the camera rays'.
 
         Returns (contrib [C, 3], attrs, albedo, masks)."""
-        hit = trace_fn(o, d, act)
+        tracing.count("crt.shade.lanes", act.numel())
+        tracing.count("crt.shade.live_lanes", act)
+        with tracing.span("crt.trace.primary" if primary else "crt.trace"):
+            hit = trace_fn(o, d, act)
         attrs = hit_attributes(scene, o, d, hit, rank=rank, rows_fn=rows_fn)
         valid = attrs.valid & act
         miss = act & ~attrs.valid
@@ -255,7 +261,8 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         return contrib, attrs, albedo, (is_diffuse, is_reflective,
                                         is_refractive)
 
-    def bounce(pool, grow_to=None, last=False, leaf_children=False):
+    def bounce(pool, grow_to=None, last=False, leaf_children=False,
+               primary=False):
         """One wavefront bounce.
 
         ``grow_to``: pad the pool to this many banks between shading and
@@ -265,6 +272,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         max_ray_depth): their radiance is folded in by one masked trace
         and local shade each instead of placing them, so the pool never
         holds the widest tree level and starvation cannot drop them.
+        ``primary``: the pool holds the camera rays.
         """
         Bc = pool.o.shape[0]
 
@@ -275,7 +283,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
             return x.reshape((Bc, R) + x.shape[1:])
 
         o, d, act, w = flat(pool.o), flat(pool.d), flat(pool.act), flat(pool.w)
-        contrib, attrs, albedo, masks = shade_local(o, d, act)
+        contrib, attrs, albedo, masks = shade_local(o, d, act, primary)
         is_diffuse, is_reflective, is_refractive = masks
         normal, point = attrs.normal, attrs.point
         acc = pool.acc + unflat(w * contrib)
@@ -365,6 +373,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                 return torch.cat([x, p], dim=0)
 
             pool_fields[0] = padb(pool_fields[0], 0.0)
+            tracing.count("crt.host_reads.pool_pad")  # a copy to the card
             d_pad = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(
                 pad, R, 3)
             pool_fields[1] = torch.cat([pool_fields[1], d_pad], dim=0)
@@ -439,12 +448,15 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
             is_last = b == D
             leaf = b == D - 1  # this bounce's children are depth-D leaves
             g = width if (is_last or leaf) else min(B, width * grow_f)
-            pool = step(pool, grow_to=g, last=is_last, leaf_children=leaf)
+            with tracing.span(f"crt.shade.bounce.{b}"):
+                pool = step(pool, grow_to=g, last=is_last,
+                            leaf_children=leaf, primary=b == 0)
             width = max(width, g)
     else:
         pool = init_pool(B)
-        for _ in range(D + 1):
-            pool = step(pool)
+        for b in range(D + 1):
+            with tracing.span(f"crt.shade.bounce.{b}"):
+                pool = step(pool, primary=b == 0)
 
     acc = pool.acc[0]
     for b in range(1, pool.acc.shape[0]):

@@ -22,8 +22,9 @@ live-first permutation (a stable sort of the live members to the front is
 their ascending order).
 
 ``nonzero`` sizes its result by the data, which is one device-to-host read
-on the card: ``stream_host_syncs`` counts them and ``stream_pairs`` adds up
-the pairs listed, for whoever resets and reads them per frame.
+on the card: ``utils/trace.py``'s registry counts each as
+``crt.host_reads.stream_nonzero`` and adds up the pairs listed as
+``crt.binning.pairs.supercluster``.
 """
 
 from __future__ import annotations
@@ -38,11 +39,9 @@ from crt_tpu_torch.ops.binning import (
 )
 from crt_tpu_torch.ops.cluster_tables import ClusterTables
 from crt_tpu_torch.ops.vecmath import sqrt
+from crt_tpu_torch.utils import trace as tracing
 
 SC_CLUSTERS = 32  # default clusters per supercluster (32 x 16 = 512 tris)
-
-stream_host_syncs = 0
-stream_pairs = 0
 
 # Pairs per step of the member test and of the per-lane test: bounds their
 # [pairs, 32, 3] and [pairs, tile_rays, 3] temporaries.
@@ -52,8 +51,7 @@ _LANE_PAIR_CHUNK = 1 << 13
 
 def _nonzero(mask: torch.Tensor) -> torch.Tensor:
     """``torch.nonzero``, counted as the host read it is on the card."""
-    global stream_host_syncs
-    stream_host_syncs += 1
+    tracing.count("crt.host_reads.stream_nonzero")
     return torch.nonzero(mask)
 
 
@@ -225,7 +223,6 @@ def bin_pairs(sc_min, sc_max, bounds, apex=None, apex_slack: float = 0.0,
     Returns (pair_tile [P] i64, pair_sc [P] i64, tile_start [tiles + 1]
     i32): tile i owns pairs tile_start[i] .. tile_start[i + 1] - 1.
     """
-    global stream_pairs
     mask = pair_mask(sc_min, sc_max, bounds, apex, apex_slack)
     if extra_mask is not None:
         mask = mask & extra_mask
@@ -248,5 +245,5 @@ def bin_pairs(sc_min, sc_max, bounds, apex=None, apex_slack: float = 0.0,
                             per_tile.cumsum(dim=0)]).to(torch.int32)
     pair_tile, rank = _nonzero(mask).unbind(dim=1)
     pair_sc = ord_d[pair_tile, rank] if near_first else rank
-    stream_pairs += int(pair_tile.shape[0])
+    tracing.count("crt.binning.pairs.supercluster", pair_tile.shape[0])
     return pair_tile, pair_sc, tile_start

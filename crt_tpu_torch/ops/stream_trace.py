@@ -35,10 +35,10 @@ takes its plain PyTorch version only for CPU tensors.  The plain versions
 expand the pair list to per-tile cluster lists (``pair_lists``) and walk
 them with ``cluster_trace``'s plain walkers, so on a scene both backends
 hold, streaming hits equal the cluster backend's bit for bit.
-``closest_hit_stream_launches`` and ``occlusion_stream_launches`` count
-kernel launches (CUDA launches only) in every layout;
-``closest_hit_stream_layout_launches`` and
-``occlusion_stream_layout_launches`` split them by layout.
+Each CUDA launch is counted in ``utils/trace.py``'s registry as
+``crt.launches.closest_hit_stream.<layout>`` or
+``crt.launches.occlusion_stream.<layout>``; the plain versions count
+nothing.
 """
 
 from __future__ import annotations
@@ -68,17 +68,13 @@ from crt_tpu_torch.ops.cluster_trace import (
     pad_rays,
 )
 from crt_tpu_torch.ops.intersect import Hit
+from crt_tpu_torch.utils import trace as tracing
 
 LAYOUTS = ("fused", "lane", "rows")
 _LAYOUT_CODE = {name: i for i, name in enumerate(LAYOUTS)}  # stream_trace.cu
 # Live members of a tile's walk in one work item of the kernels (the
 # wrappers' ``chunk=None``); chip_smoke.py sweeps it on the 1 M frame.
 CHUNK_MEMBERS = 64
-
-closest_hit_stream_launches = 0
-occlusion_stream_launches = 0
-closest_hit_stream_layout_launches = dict.fromkeys(LAYOUTS, 0)
-occlusion_stream_layout_launches = dict.fromkeys(LAYOUTS, 0)
 
 
 def stream_layout() -> str:
@@ -115,6 +111,7 @@ def lane_slab(fused, sc: int):
         1, 2).contiguous()
 
 
+@tracing.spanned("crt.tables.stream")
 def build_stream_tables(tables: ClusterTables,
                         sc_clusters: int = sb.SC_CLUSTERS,
                         layout: str | None = None) -> StreamTables:
@@ -369,9 +366,7 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
                 best_t.data_ptr(), best_tri.data_ptr(), _cuda_stream(dev),
             )
         _raise_on(err, "closest_hit_stream")
-        global closest_hit_stream_launches
-        closest_hit_stream_launches += 1
-        closest_hit_stream_layout_launches[layout] += 1
+        tracing.count("crt.launches.closest_hit_stream." + layout)
     return best_t, best_tri
 
 
@@ -431,9 +426,7 @@ def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
                 _cuda_stream(dev),
             )
         _raise_on(err, "occlusion_stream")
-        global occlusion_stream_launches
-        occlusion_stream_launches += 1
-        occlusion_stream_layout_launches[layout] += 1
+        tracing.count("crt.launches.occlusion_stream." + layout)
     return occ
 
 
@@ -460,8 +453,10 @@ def closest_hit_stream_flat(st: StreamTables, origins, dirs, active=None,
     the table in ``layout`` (None: ``stream_layout()``).
     Returns (Hit, number of pairs)."""
     layout = _check_layout(layout)
-    bounds = tile_bounds(origins, dirs, tile_rays, active)
-    pair_sc, bits, tile_start = bin_stream_pairs(st, bounds, apex, apex_slack)
+    with tracing.span("crt.binning"):
+        bounds = tile_bounds(origins, dirs, tile_rays, active)
+        pair_sc, bits, tile_start = bin_stream_pairs(st, bounds, apex,
+                                                     apex_slack)
     t, tri = closest_hit_stream(layout_table(st, layout), st.tables.tri_id,
                                 origins, dirs, pair_sc, bits, tile_start,
                                 st.sc, tile_rays, layout)
@@ -482,16 +477,18 @@ def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
     one skips that test, its list being short anyway.  Lanes outside
     ``active`` return True."""
     layout = _check_layout(layout)
-    bounds = tile_bounds(origins, dirs, tile_rays, active)
-    extra = None
-    if per_tile_cap is None and lane_exact:
-        hull = sb.pair_mask(st.sc_min, st.sc_max, bounds, apex, apex_slack)
-        extra = sb.lane_exact_sc_mask(origins, dirs, r2, active, apex_slack,
-                                      st.sc_min, st.sc_max, tile_rays,
-                                      where=hull)
-    pair_sc, bits, tile_start = bin_stream_pairs(
-        st, bounds, apex, apex_slack, near_first=True,
-        per_tile_cap=per_tile_cap, extra_mask=extra)
+    with tracing.span("crt.binning"):
+        bounds = tile_bounds(origins, dirs, tile_rays, active)
+        extra = None
+        if per_tile_cap is None and lane_exact:
+            hull = sb.pair_mask(st.sc_min, st.sc_max, bounds, apex,
+                                apex_slack)
+            extra = sb.lane_exact_sc_mask(origins, dirs, r2, active,
+                                          apex_slack, st.sc_min, st.sc_max,
+                                          tile_rays, where=hull)
+        pair_sc, bits, tile_start = bin_stream_pairs(
+            st, bounds, apex, apex_slack, near_first=True,
+            per_tile_cap=per_tile_cap, extra_mask=extra)
     seed = (torch.zeros(r2.shape, dtype=torch.bool, device=r2.device)
             if active is None else ~active)
     return occlusion_stream(layout_table(st, layout), origins, dirs, r2, seed,

@@ -38,6 +38,7 @@ import torch
 
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
+from crt_tpu_torch.utils import trace as tracing
 
 STACK_SIZE = 48
 # Loop iterations between two reads of the loop condition.
@@ -45,12 +46,6 @@ CHECK_EVERY = 4
 # Bytes of the gathered leaf rows ([17, rays, leaf_size] f32) one leaf test
 # may take.
 GATHER_BYTES = 1 << 30
-
-# Walks (closest_hit_tree calls), their loop iterations and their
-# device-to-host reads, counted for chip_smoke.py.
-tree_walks = 0
-tree_iterations = 0
-tree_host_reads = 0
 
 
 def build_triangle_gather(vertices, tri_vidx, tri_backface) -> torch.Tensor:
@@ -185,9 +180,11 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
     """Wavefront KD traversal -> Hit for any leading batch shape.
 
     ``active=False`` lanes are not walked: they miss (t = inf, tri = -1),
-    as crt_tpu's lanes that start with an empty stack do.
+    as crt_tpu's lanes that start with an empty stack do.  Counted in
+    ``utils/trace.py``'s registry: ``crt.tree.walks``,
+    ``crt.tree.iterations`` and the walk's host reads,
+    ``crt.host_reads.tree_walk``.
     """
-    global tree_walks, tree_iterations, tree_host_reads
     batch_shape = origins.shape[:-1]
     with torch.no_grad():
         o = origins.detach().reshape(-1, 3)
@@ -214,9 +211,9 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
                 t, hit_tri = wt, wtri
             else:
                 t[lanes], hit_tri[lanes] = wt, wtri
-        tree_walks += 1
-        tree_iterations += iterations
-        tree_host_reads += reads
+        tracing.count("crt.tree.walks")
+        tracing.count("crt.tree.iterations", iterations)
+        tracing.count("crt.host_reads.tree_walk", reads)
     return Hit(t=t.reshape(batch_shape), tri=hit_tri.reshape(batch_shape))
 
 
@@ -226,10 +223,11 @@ def make_tree_trace_fn(scene):
     crt_tpu)."""
     if scene.accel is None:
         raise ValueError("scene has no acceleration tree")
-    tri = build_triangle_gather(
-        scene.vertices.detach(), scene.tri_vidx,
-        scene.mat_backface[scene.tri_material.long()],
-    )
+    with tracing.span("crt.tables.triangles"):
+        tri = build_triangle_gather(
+            scene.vertices.detach(), scene.tri_vidx,
+            scene.mat_backface[scene.tri_material.long()],
+        )
 
     def trace(o, d, active=None):
         return closest_hit_tree(scene.accel, tri, o, d, active)

@@ -29,6 +29,7 @@ from crt_tpu_torch.parallel.sharded import (
 )
 from crt_tpu_torch.renderer import _render_flat
 from crt_tpu_torch.scene.types import RenderSettings, Scene
+from crt_tpu_torch.utils import trace as tracing
 
 _CKPT_RE = re.compile(r"^step_(\d+)\.pt$")
 _CKPT_KEEP = 2
@@ -122,7 +123,9 @@ def fit_scene(
     for i in range(start_step, steps):
         opt.zero_grad(set_to_none=True)
         loss = sharded_backward(scene, target, params, settings, mesh)
-        opt.step()
+        with tracing.span("crt.fit.optimizer"):
+            opt.step()
+        tracing.count("crt.host_reads.fit_loss")
         losses.append(float(loss.detach()))
         if callback:
             callback(i, losses[-1])

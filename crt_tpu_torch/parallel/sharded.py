@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from crt_tpu_torch.renderer import _render_flat
 from crt_tpu_torch.scene.types import RenderSettings, Scene
+from crt_tpu_torch.utils import trace as tracing
 
 __all__ = [
     "default_trainable_params",
@@ -200,11 +201,13 @@ def sharded_backward(scene: Scene, target: torch.Tensor, params: dict,
     group, n, k = mesh_axis(mesh, mesh.mesh_dim_names[0])
     h, w = scene.height, scene.width
     rows_per = -(-h // n)
-    img = _render_rows(scene.replace(**params), settings, k * rows_per,
-                       rows_per)
-    loss = _rows_loss(img, target, k * rows_per, h, w)
-    loss.backward()
-    return reduce_loss_and_grads(loss, params, group)
+    with tracing.span("crt.fit.forward"):
+        img = _render_rows(scene.replace(**params), settings, k * rows_per,
+                           rows_per)
+        loss = _rows_loss(img, target, k * rows_per, h, w)
+    with tracing.span("crt.fit.backward"):
+        loss.backward()
+        return reduce_loss_and_grads(loss, params, group)
 
 
 def _grads(leaves: dict) -> dict:

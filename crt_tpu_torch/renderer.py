@@ -29,6 +29,7 @@ from crt_tpu_torch.ops.shade import hit_attributes, shade_wavefront
 from crt_tpu_torch.ops.shade_iter import pool_width, shade_wavefront_iter
 from crt_tpu_torch.ops.texture import sample_textures
 from crt_tpu_torch.scene.types import RenderSettings, Scene, resolve_device
+from crt_tpu_torch.utils import trace as tracing
 
 # Wavefront pixel-tile shape: consecutive runs of TILE_H * TILE_W rays are
 # one spatially coherent 32x32 block, the binning tile of the cluster trace.
@@ -117,10 +118,11 @@ def make_trace_fn(scene: Scene, settings: RenderSettings):
         return make_cluster_trace_fn(
             scene, compact_masked=settings.compact_bounces)
     if backend == "bruteforce":
-        tri = intersect_ops.build_triangle_data(
-            scene.vertices.detach(), scene.tri_vidx,
-            scene.mat_backface[scene.tri_material.long()],
-        )
+        with tracing.span("crt.tables.triangles"):
+            tri = intersect_ops.build_triangle_data(
+                scene.vertices.detach(), scene.tri_vidx,
+                scene.mat_backface[scene.tri_material.long()],
+            )
 
         def trace(origins, dirs, active=None):
             del active  # dense all-pairs compute; masking cannot skip work
@@ -175,6 +177,7 @@ def make_tiler(h: int, w: int, row_offset: int = 0, device=None):
     return tile(raster_x), tile(raster_y), untile
 
 
+@tracing.spanned("crt.frame")
 def _render_flat(scene: Scene, settings: RenderSettings, gi_salt=None, *,
                  row_offset: int = 0, num_rows: int | None = None,
                  trace_fn=None, rows_fn=None) -> torch.Tensor:
@@ -303,6 +306,7 @@ def aov_values(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
     return torch.where(attrs.valid[..., None], out, scene.background_color)
 
 
+@tracing.spanned("crt.frame")
 def _render_aov_flat(scene: Scene, settings: RenderSettings,
                      aov: str) -> torch.Tensor:
     h, w = scene.height, scene.width
@@ -314,7 +318,8 @@ def _render_aov_flat(scene: Scene, settings: RenderSettings,
     )
     origins = origins.contiguous()
     trace_fn = make_trace_fn(scene, settings)
-    hit = trace_fn(origins, dirs, None)
+    with tracing.span("crt.trace.primary"):
+        hit = trace_fn(origins, dirs, None)
     return untile(aov_values(scene, origins, dirs, hit, aov,
                              rank=getattr(trace_fn, "rank", None)))
 

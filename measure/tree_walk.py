@@ -34,6 +34,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from crt_tpu_torch.ops import traverse  # noqa: E402
+from crt_tpu_torch.utils import trace as tracing  # noqa: E402
 from crt_tpu_torch.ops.intersect import Hit  # noqa: E402
 
 KS = (1, 2, 4, 8)
@@ -171,10 +172,10 @@ def sweep(device):
         stats = {}
         for k in KS + KS[::-1]:
             traverse.CHECK_EVERY = k
-            its, reads = traverse.tree_iterations, traverse.tree_host_reads
-            hit = traverse.closest_hit_tree(accel, tri, o, d, act)
-            stats[k] = (traverse.tree_iterations - its,
-                        traverse.tree_host_reads - reads)
+            with tracing.recording() as c:
+                hit = traverse.closest_hit_tree(accel, tri, o, d, act)
+            stats[k] = (c["crt.tree.iterations"],
+                        c["crt.host_reads.tree_walk"])
             cs.check(torch.equal(hit.tri, base.tri)
                      and torch.equal(hit.t, base.t),
                      f"{name}: CHECK_EVERY={k} changed a hit")

@@ -102,8 +102,9 @@ def main(argv) -> int:
     import crt_tpu_torch
     from crt_tpu_torch.frontend.blender import engine, scene_bridge
     from crt_tpu_torch.io import png
-    from crt_tpu_torch.ops import cluster_trace, cuda_lib, segsum
+    from crt_tpu_torch.ops import cuda_lib
     from crt_tpu_torch.scene import accel, native_accel
+    from crt_tpu_torch.utils import trace as tracing
 
     engine.DEVICE = device
     with open(scene_json) as f:
@@ -114,16 +115,13 @@ def main(argv) -> int:
     start = time.perf_counter()
     engine.CRTTorchRenderEngine().render(dg)  # builds the kernels on cuda
     first_ms = (time.perf_counter() - start) * 1e3
-    cluster_trace.closest_hit_launches = 0
-    cluster_trace.occlusion_w_launches = 0
-    segsum.segsum_launches = 0
     eng = engine.CRTTorchRenderEngine()
-    start = time.perf_counter()
-    eng.render(dg)
-    frame_ms = (time.perf_counter() - start) * 1e3
-    launches = {"closest_hit": cluster_trace.closest_hit_launches,
-                "occlusion_w": cluster_trace.occlusion_w_launches,
-                "segsum": segsum.segsum_launches}
+    with tracing.recording() as counted:
+        start = time.perf_counter()
+        eng.render(dg)
+        frame_ms = (time.perf_counter() - start) * 1e3
+    launches = {k: tracing.total(counted, "crt.launches." + k)
+                for k in ("closest_hit", "occlusion_w", "segsum")}
     rect = np.asarray(eng.result.layers[0].passes["Combined"].rect)
     crt = dg.scene.crt
     settings = [crt.max_ray_depth, crt.diffuse_reflection_ray_count,

@@ -34,7 +34,6 @@ from crt_tpu_torch.ops import (
     cluster_tables,
     cluster_trace,
     segsum,
-    stream_binning,
     stream_trace,
     vecmath,
 )
@@ -44,6 +43,7 @@ from crt_tpu_torch.scene.procedural import (
     make_test_scene,
     make_test_scene_dict,
 )
+from crt_tpu_torch.utils import trace as tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +53,24 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def _counting():
+    """Every test counts in the port's registry (``utils/trace.py``)."""
+    with tracing.recording():
+        yield
+
+
+def launched(kernel: str) -> int:
+    """Launches of ``kernel``, every mode and layout, counted so far."""
+    return tracing.total(tracing.counters(), "crt.launches." + kernel)
+
+
+def modes(kernel: str, names) -> dict:
+    """Launches of ``kernel`` by mode (or layout) -> {name: count}."""
+    c = tracing.counters()
+    return {m: c[f"crt.launches.{kernel}.{m}"] for m in names}
 
 
 def _wavefront(scene):
@@ -72,9 +90,9 @@ def test_closest_hit_kernel_matches_plain(device, big):
     o, d = _wavefront(scene)
     act = torch.arange(o.shape[0], device=device) % 3 != 0
     cl, cnt = binning.bin_rays(tables, o, d, 1024, act)
-    before = cluster_trace.closest_hit_launches
+    before = launched("closest_hit")
     k = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
-    assert cluster_trace.closest_hit_launches == before + 1
+    assert launched("closest_hit") == before + 1
     p = cluster_trace.closest_hit_plain(tables, o, d, cl, cnt, rows_table)
     torch.cuda.synchronize()
     assert torch.equal(k[1], p[1])
@@ -97,9 +115,9 @@ def test_occlusion_w_kernel_matches_plain(device):
     act = torch.stack([valid, valid & (point[:, 0] > 0)])
     cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
                                       0.02)
-    before = cluster_trace.occlusion_w_launches
+    before = launched("occlusion_w")
     k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt)
-    assert cluster_trace.occlusion_w_launches == before + 1
+    assert launched("occlusion_w") == before + 1
     p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
                                         cnt)
     torch.cuda.synchronize()
@@ -151,10 +169,10 @@ def test_occlusion_w_modes_match_plain(device, mode, sparse):
                                       0.02, **bin_kw)
     name = cluster_trace.occlusion_mode(kw.get("capped", True),
                                         kw.get("glass_flag", False))
-    before = dict(cluster_trace.occlusion_w_mode_launches)
+    before = modes("occlusion_w", ("capped", "uncapped", "glass"))
     k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt,
                                   **kw)
-    after = cluster_trace.occlusion_w_mode_launches
+    after = modes("occlusion_w", ("capped", "uncapped", "glass"))
     assert after[name] == before[name] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
@@ -609,12 +627,12 @@ def test_closest_hit_compact_matches_plain_and_k1(device, case):
     elif case == "all_dead":
         act = torch.zeros_like(act)
     cl, cnt = binning.bin_rays(tables, o_full, d, 1024, act)
-    before = (cluster_trace.closest_hit_compact_launches,
-              cluster_trace.closest_hit_launches)
+    before = (launched("closest_hit_compact"),
+              launched("closest_hit"))
     k = cluster_trace.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
                                           tile_mod=tile_mod)
-    assert (cluster_trace.closest_hit_compact_launches,
-            cluster_trace.closest_hit_launches) == (before[0] + 1, before[1])
+    assert (launched("closest_hit_compact"),
+            launched("closest_hit")) == (before[0] + 1, before[1])
     p = cluster_trace.closest_hit_compact_plain(tables, o, d, cl, cnt,
                                                 rows_table, tile_mod)
     k1 = cluster_trace.closest_hit(tables, o_full, d, cl, cnt, rows_table)
@@ -663,12 +681,12 @@ def test_closest_hit_compact_live_tile_layouts(device, wide_wavefront,
         act = torch.cat([act.flip(0), act])
         o_full = torch.cat([o, o]).contiguous()
     cl, cnt = binning.bin_rays(tables, o_full, d, 1024, act)
-    before = (cluster_trace.closest_hit_compact_launches,
-              cluster_trace.live_tiles_launches)
+    before = (launched("closest_hit_compact"),
+              launched("live_tiles"))
     k = cluster_trace.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
                                           tile_mod=mod)
-    assert (cluster_trace.closest_hit_compact_launches,
-            cluster_trace.live_tiles_launches) == (before[0] + 1,
+    assert (launched("closest_hit_compact"),
+            launched("live_tiles")) == (before[0] + 1,
                                                    before[1] + 1)
     p = cluster_trace.closest_hit_compact_plain(tables, o, d, cl, cnt,
                                                 rows_table, mod)
@@ -702,9 +720,9 @@ def test_live_tiles_matches_plain(device, tiles, pattern):
                   first=torch.where(pos < tiles // 3 + 1, counts + 1, 0),
                   last=torch.where(pos >= tiles // 2, counts + 1, 0)
                   )[pattern].to(torch.int32).to(device)
-    before = cluster_trace.live_tiles_launches
+    before = launched("live_tiles")
     ids, n_live = cluster_trace.live_tiles(counts)
-    assert cluster_trace.live_tiles_launches == before + 1
+    assert launched("live_tiles") == before + 1
     want_ids, want_n = cluster_trace.live_tiles_plain(counts)
     torch.cuda.synchronize()
     assert ids.dtype == torch.int32 and n_live.dtype == torch.int32
@@ -727,12 +745,12 @@ def test_closest_hit_merged_matches_plain_and_k1(device, merge):
     lane = torch.arange(o.shape[0], device=device)
     act = (lane % 3 != 0) & ((lane // 1024) % 3 != 1)
     cl, cnt = binning.bin_rays(tables, o, d, 1024, act)
-    before = (cluster_trace.closest_hit_merged_launches,
-              cluster_trace.closest_hit_launches)
+    before = (launched("closest_hit_merged"),
+              launched("closest_hit"))
     k = cluster_trace.closest_hit_merged(tables, o, d, cl, cnt, rows_table,
                                          merge=merge)
-    assert (cluster_trace.closest_hit_merged_launches,
-            cluster_trace.closest_hit_launches) == (before[0] + 1, before[1])
+    assert (launched("closest_hit_merged"),
+            launched("closest_hit")) == (before[0] + 1, before[1])
     p = cluster_trace.closest_hit_merged_plain(tables, o, d, cl, cnt,
                                                rows_table, merge)
     k1 = cluster_trace.closest_hit(tables, o, d, cl, cnt, rows_table)
@@ -760,11 +778,11 @@ def test_tile_merge_render_on_card(device, monkeypatch):
                             device=device)
     default = render_image(scene)
     monkeypatch.setattr(cluster_trace, "_TILE_MERGE", 2)
-    before = (cluster_trace.closest_hit_merged_launches,
-              cluster_trace.closest_hit_launches)
+    before = (launched("closest_hit_merged"),
+              launched("closest_hit"))
     img = render_image(scene)
-    assert (cluster_trace.closest_hit_merged_launches,
-            cluster_trace.closest_hit_launches) == (before[0] + 4, before[1])
+    assert (launched("closest_hit_merged"),
+            launched("closest_hit")) == (before[0] + 4, before[1])
     assert torch.equal(img, default)
 
 
@@ -929,11 +947,11 @@ def test_gi_render_on_card_matches_all_pairs(device, backend, wavefront):
     scene = make_test_scene(96, 64, num_quads=8, gi_on=True, device=device)
     st = RenderSettings(backend=backend, wavefront=wavefront, max_ray_depth=2,
                         diffuse_reflection_ray_count=2)
-    before = (cluster_trace.closest_hit_launches,
-              stream_trace.closest_hit_stream_launches)
+    before = (launched("closest_hit"),
+              launched("closest_hit_stream"))
     img = render_image(scene, st)
-    after = (cluster_trace.closest_hit_launches,
-             stream_trace.closest_hit_stream_launches)
+    after = (launched("closest_hit"),
+             launched("closest_hit_stream"))
     ref = render_image(scene, st.replace(backend="bruteforce"))
     torch.cuda.synchronize()
     assert after[0 if backend == "cluster" else 1] > before[
@@ -953,13 +971,13 @@ def test_refractive_render_on_card_matches_cpu(device, settings):
                             device="cpu")
     st = RenderSettings(**settings)
     cpu = render_image(scene, st)
-    before = (dict(cluster_trace.occlusion_w_mode_launches),
-              cluster_trace.closest_hit_compact_launches)
+    before = (modes("occlusion_w", ("capped", "uncapped", "glass")),
+              launched("closest_hit_compact"))
     gpu = render_image(scene.to(device), st).cpu()
-    after = cluster_trace.occlusion_w_mode_launches
+    after = modes("occlusion_w", ("capped", "uncapped", "glass"))
     assert after["glass"] > before[0]["glass"]
     assert after["capped"] == before[0]["capped"]
-    assert ((cluster_trace.closest_hit_compact_launches > before[1])
+    assert ((launched("closest_hit_compact") > before[1])
             == bool(settings.get("compact_bounces")))
     torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
 
@@ -971,11 +989,11 @@ def test_render_on_card_matches_cpu(device):
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device="cpu")
     cpu = render_image(scene)
-    before = (cluster_trace.closest_hit_launches,
-              cluster_trace.occlusion_w_launches)
+    before = (launched("closest_hit"),
+              launched("occlusion_w"))
     gpu = render_image(scene.to(device), RenderSettings()).cpu()
-    after = (cluster_trace.closest_hit_launches,
-             cluster_trace.occlusion_w_launches)
+    after = (launched("closest_hit"),
+             launched("occlusion_w"))
     assert after == (before[0] + 4, before[1] + 4)
     torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
 
@@ -1030,7 +1048,7 @@ def test_occlusion_d_kernels_match_plain(device, big, tile_rays):
     tpl = shadow_o.shape[0] // tile_rays
     cl, cnt = binning.bin_rays(tables, o_f, d_f, tile_rays, a_f, apex=apex,
                                apex_slack=0.02)
-    before = dict(cluster_trace.occlusion_d_mode_launches)
+    before = modes("occlusion_d", ("compact", "exit"))
     k5 = cluster_trace.occlusion_d(tables, shadow_o, d_f, r2_f, cl, cnt,
                                    tile_rays, tile_mod=tpl)
     p5 = cluster_trace.occlusion_d_plain(tables, shadow_o, d_f, r2_f, cl, cnt,
@@ -1046,7 +1064,7 @@ def test_occlusion_d_kernels_match_plain(device, big, tile_rays):
     p6_all = cluster_trace.occlusion_d_plain(tables, o_f, d_f, r2_f, fl, fcnt,
                                              tile_rays)
     torch.cuda.synchronize()
-    after = cluster_trace.occlusion_d_mode_launches
+    after = modes("occlusion_d", ("compact", "exit"))
     assert after["compact"] == before["compact"] + 1
     assert after["exit"] == before["exit"] + 2
     assert torch.equal(k5, p5) and torch.equal(k6, p6)
@@ -1074,11 +1092,11 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
     for a in (None, act):
         bounds = binning.tile_bounds(o, d, tile_rays, a)
         pair_sc, bits, start = stream_trace.bin_stream_pairs(st, bounds)
-        before = stream_trace.closest_hit_stream_launches
+        before = launched("closest_hit_stream")
         k = stream_trace.closest_hit_stream(
             st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, sc,
             tile_rays)
-        assert stream_trace.closest_hit_stream_launches == before + 1
+        assert launched("closest_hit_stream") == before + 1
         p = stream_trace.closest_hit_stream_plain(
             st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, sc,
             tile_rays)
@@ -1103,11 +1121,11 @@ def test_stream_kernels_match_plain(device, big, tile_rays, sc):
     for kw in (dict(near_first=True), dict(near_first=True, per_tile_cap=2)):
         pair_sc, bits, start = stream_trace.bin_stream_pairs(
             st, bounds, apex, 0.02, **kw)
-        before = stream_trace.occlusion_stream_launches
+        before = launched("occlusion_stream")
         k9 = stream_trace.occlusion_stream(st.fused, o_f, d_f, r2_f, ~a_f,
                                            pair_sc, bits, start, sc,
                                            tile_rays)
-        assert stream_trace.occlusion_stream_launches == before + 1
+        assert launched("occlusion_stream") == before + 1
         p9 = stream_trace.occlusion_stream_plain(st.fused, o_f, d_f, r2_f,
                                                  ~a_f, pair_sc, bits, start,
                                                  sc, tile_rays)
@@ -1142,8 +1160,8 @@ def _same_as_small_chunks(default, small, bits, start, long_walks):
 
 
 def _layout_counts():
-    return (dict(stream_trace.closest_hit_stream_layout_launches),
-            dict(stream_trace.occlusion_stream_layout_launches))
+    return (modes("closest_hit_stream", stream_trace.LAYOUTS),
+            modes("occlusion_stream", stream_trace.LAYOUTS))
 
 
 def _added(before, after):
@@ -1282,16 +1300,17 @@ def test_stream_render_on_card_matches_cpu(device):
                             device="cpu")
     st = RenderSettings(backend="pallas_stream")
     cpu = render_image(scene, st)
-    before = (stream_trace.closest_hit_stream_launches,
-              stream_trace.occlusion_stream_launches,
-              cluster_trace.closest_hit_launches)
-    stream_binning.stream_host_syncs = 0
+    before = (launched("closest_hit_stream"),
+              launched("occlusion_stream"),
+              launched("closest_hit"))
+    syncs = tracing.counters()["crt.host_reads.stream_nonzero"]
     gpu = render_image(scene.to(device), st)
-    after = (stream_trace.closest_hit_stream_launches,
-             stream_trace.occlusion_stream_launches,
-             cluster_trace.closest_hit_launches)
+    after = (launched("closest_hit_stream"),
+             launched("occlusion_stream"),
+             launched("closest_hit"))
     assert after == (before[0] + 4, before[1] + 8, before[2])
-    assert stream_binning.stream_host_syncs == 16
+    assert tracing.counters()["crt.host_reads.stream_nonzero"] \
+        == syncs + 16
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-6)
     for kw in (dict(backend="cluster"), dict(backend="stream",
                                              stream_shadow_k=0)):
@@ -1330,12 +1349,12 @@ def test_direction_form_render_on_card(device, monkeypatch):
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device=device)
     monkeypatch.setattr(cluster_trace, "_APEX_W", False)
-    before = (dict(cluster_trace.occlusion_d_mode_launches),
-              cluster_trace.occlusion_w_launches)
+    before = (modes("occlusion_d", ("compact", "exit")),
+              launched("occlusion_w"))
     img = render_image(scene, RenderSettings(backend="cluster"))
-    assert cluster_trace.occlusion_d_mode_launches["compact"] \
+    assert modes("occlusion_d", ("compact", "exit"))["compact"] \
         == before[0]["compact"] + 4
-    assert cluster_trace.occlusion_w_launches == before[1]
+    assert launched("occlusion_w") == before[1]
     assert torch.equal(
         img, render_image(scene, RenderSettings(backend="stream")))
 
@@ -1385,9 +1404,9 @@ def test_segsum_kernel_matches_plain_and_fp64(device, name, K):
     ids = _segsum_case(name, R, T, device)
     gen = torch.Generator().manual_seed(K)
     g = torch.randn((K, R), generator=gen).to(device)
-    before = segsum.segsum_launches
+    before = launched("segsum")
     out = segsum.segment_accumulate(ids, g, T)
-    assert segsum.segsum_launches == before + 1
+    assert launched("segsum") == before + 1
     torch.cuda.synchronize()
     assert out.shape == (K, T) and out.dtype == torch.float32
     plain = segsum.segment_accumulate_plain(ids, g, T)
@@ -1423,9 +1442,9 @@ def test_segsum_kernel_shapes(device, K, r_mod, case):
     ids = _segsum_case("random" if case == "wide" else case, R, T, device)
     g = torch.randn((K, R), generator=torch.Generator().manual_seed(K)
                     ).to(device)
-    before = segsum.segsum_launches
+    before = launched("segsum")
     out = segsum.segment_accumulate(ids, g, T)
-    assert segsum.segsum_launches == before + 1
+    assert launched("segsum") == before + 1
     torch.cuda.synchronize()
     assert out.shape == (K, T) and out.dtype == torch.float32
     plain = segsum.segment_accumulate_plain(ids, g, T)
@@ -1450,9 +1469,9 @@ def test_segsum_kernel_few_rays(device, K, T, R, case):
                     ).to(device)
     poison = torch.full((K, T), float("nan"), device=device)
     del poison  # the caching allocator hands its block to the output
-    before = segsum.segsum_launches
+    before = launched("segsum")
     out = segsum.segment_accumulate(ids, g, T)
-    assert segsum.segsum_launches == before + 1
+    assert launched("segsum") == before + 1
     torch.cuda.synchronize()
     assert out.shape == (K, T) and bool(torch.isfinite(out).all())
     plain = segsum.segment_accumulate_plain(ids, g, T)
@@ -1479,12 +1498,12 @@ def test_grads_on_card_match_cpu(device):
                                 device=dev)
         params = {k: getattr(scene, k).clone().requires_grad_(True)
                   for k in groups}
-        before = segsum.segsum_launches
+        before = launched("segsum")
         img = render_image(scene.replace(**params))
         (img * img).sum().backward()
-        launched = segsum.segsum_launches - before
+        k3 = launched("segsum") - before
         # per shading level: the packed rows and the tex_color_a rows
-        assert launched == (0 if dev == "cpu" else 8)
+        assert k3 == (0 if dev == "cpu" else 8)
         grads[str(dev)] = {k: p.grad.cpu() for k, p in params.items()}
     for k in groups:
         want = grads["cpu"][k]
@@ -1505,10 +1524,10 @@ def test_segsum_wrapper_rejects(device, fault):
         ids = ids.cpu()
     else:
         g = torch.zeros((2048, 13), device=device).T
-    before = segsum.segsum_launches
+    before = launched("segsum")
     with pytest.raises(ValueError):
         segsum.segment_accumulate(ids, g, 66)
-    assert segsum.segsum_launches == before
+    assert launched("segsum") == before
 
 
 PREVIEWS = pathlib.Path(__file__).resolve().parents[1] / "docs" / "previews"
@@ -1544,12 +1563,12 @@ def test_segsum_at_texel_ids(device, monkeypatch):
     for dev in (device, "cpu"):
         scene = _bitmap_scene(dev)
         data = scene.bitmap_data.detach().clone().requires_grad_(True)
-        before = segsum.segsum_launches
+        before = launched("segsum")
         render_image(scene.replace(bitmap_data=data)).sum().backward()
         grads.append(data.grad.cpu())
     texel = [c for c in calls if c[2] == 360 * 640]
     assert len(texel) == 8  # four shading levels, on each device
-    assert segsum.segsum_launches == before  # the CPU run launches none
+    assert launched("segsum") == before  # the CPU run launches none
     for ids, g, T, out in texel[:4]:
         assert ids.is_cuda
         plain = segsum.segment_accumulate_plain(ids, g, T)
@@ -1588,10 +1607,10 @@ def test_aov_on_card_matches_cpu(device, aov):
     barycentric by that over an edge of the ~1-unit quads), the rest at
     the render's rtol 1e-5 / atol 1e-6."""
     scene = _bitmap_scene("cpu")
-    cases = [("cluster", lambda: cluster_trace.closest_hit_launches)]
+    cases = [("cluster", lambda: launched("closest_hit"))]
     if aov == "depth":
         cases.append(("stream",
-                      lambda: stream_trace.closest_hit_stream_launches))
+                      lambda: launched("closest_hit_stream")))
     rtol, atol = {"tri_id": (1e-6, 0.0), "bary": (0.0, 1e-5)}.get(
         aov, (1e-5, 1e-6))
     for backend, launches in cases:

@@ -31,6 +31,7 @@ from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_test_scene
 from crt_tpu_torch.scene.types import MATERIAL_REFRACTIVE
+from crt_tpu_torch.utils import trace as tracing
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 
@@ -182,18 +183,18 @@ def test_router_and_narrowing_equal_the_full_width_march(monkeypatch,
     else:
         scene = make_test_scene(**_glass_scene(), device="cpu")
     settings = RenderSettings(max_ray_depth=3, wavefront="iter")
-    tshade.march_host_syncs = 0
-    routed = render_image(scene, settings)
-    syncs = tshade.march_host_syncs
+    with tracing.recording() as c:
+        routed = render_image(scene, settings)
+    syncs = tracing.total(c, "crt.host_reads.march")
     assert syncs > 0 and torch.isfinite(routed).all()
     monkeypatch.setattr(
         tshade, "_MARCH_SPLIT" if knob == "router" else "_MARCH_NARROW",
         False)
-    tshade.march_host_syncs = 0
-    plain = render_image(scene, settings)
+    with tracing.recording() as c:
+        plain = render_image(scene, settings)
     assert torch.equal(routed, plain)
     # the narrowing costs one host read per shadow pass (the block gather)
-    assert tshade.march_host_syncs < syncs
+    assert tracing.total(c, "crt.host_reads.march") < syncs
     if scene_name == "tunnel":
         # the tunnel does shadow the floor: beyond-the-light glass counts
         lit = render_image(scene, settings.replace(compat_no_shadows=True))

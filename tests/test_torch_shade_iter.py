@@ -96,10 +96,8 @@ def test_mirror_scene_through_the_iterative_wavefront():
 def test_variants_agree_inside_the_port():
     scene = make_test_scene(**GLASS, device="cpu")
     base = render_image(scene)
-    ttr.closest_hit_compact_launches = 0
     compact = render_image(scene, RenderSettings(compact_bounces=True))
     assert torch.equal(compact, base)
-    assert ttr.closest_hit_compact_launches == 0  # CPU: the plain version
     for chunk in (2048, 2500):
         assert torch.equal(
             render_image(scene, RenderSettings(chunk_pixels=chunk)), base)

@@ -50,6 +50,7 @@ from crt_tpu_torch.ops import intersect as tint
 from crt_tpu_torch.ops import stream_binning as tsb
 from crt_tpu_torch.ops import stream_trace as tst
 from crt_tpu_torch.scene.procedural import make_test_scene
+from crt_tpu_torch.utils import trace as tracing
 from test_torch_grad import (
     GROUPS,
     assert_grads_close,
@@ -309,9 +310,7 @@ def test_generic_pairs_members_and_closest_hit(ref, base_tables, sc, name):
         assert len(live) == count[p]
     assert (count > 0).any() and (count < sc).any()
 
-    tst.closest_hit_stream_launches = 0
     hit, total = tst.closest_hit_stream_flat(st, o, d, act, TR)
-    assert tst.closest_hit_stream_launches == 0  # CPU: the plain version
     assert total == pair_tile.shape[0]
     eq(hit.tri, ref[q + "/tri"])
     eq(hit.t, ref[q + "/t"])
@@ -368,7 +367,6 @@ def test_occlusion_stream_plain_matches_pallas(ref, base_tables, sc):
     p = f"sc{sc}/"
     w = _shadow(ref, sc)
     args = (st, w["o_f"], w["d_f"], w["r2_f"], w["a_f"], w["apex"], SLACK, TR)
-    tst.occlusion_stream_launches = 0
     occ = tst.occluded_stream_flat(*args)
     eq(occ, ref[p + "occ"])
     eq(tst.occluded_stream_flat(*args, per_tile_cap=2), ref[p + "occ_cap"])
@@ -385,7 +383,6 @@ def test_occlusion_stream_plain_matches_pallas(ref, base_tables, sc):
             TR, phase1_k=k)
         eq(two, ref[p + f"two{k}"])
         assert torch.equal(two.reshape(-1)[act], occ[act])
-    assert tst.occlusion_stream_launches == 0
 
 
 def test_exact_t_tie_first_walked_pair_wins(ref):
@@ -492,10 +489,10 @@ def jax_stream_render(jscene, **settings_kw):
 def test_stream_image_matches_crt_tpu(monkeypatch):
     ref = jax_stream_render(jmake_test_scene(**RENDER_SCENE))
     scene = make_test_scene(**RENDER_SCENE, device="cpu")
-    tsb.stream_host_syncs = 0
-    img = render_image(scene, RenderSettings(backend="pallas_stream"))
+    with tracing.recording() as c:
+        img = render_image(scene, RenderSettings(backend="pallas_stream"))
     # one pair list for the trace, one for phase 1, two for phase 2
-    assert tsb.stream_host_syncs == 4
+    assert c["crt.host_reads.stream_nonzero"] == 4
     np.testing.assert_allclose(img.numpy(), ref, rtol=1e-5, atol=1e-6)
     lit = (img != scene.background_color).any(dim=-1)
     assert lit.any() and not lit.all()

@@ -289,9 +289,7 @@ def test_closest_hit_plain_matches_pallas(ref, name, wave):
     p = f"{name}/{wave}"
     np.testing.assert_array_equal(cl.numpy(), ref[p + "/cl"])
     np.testing.assert_array_equal(cnt.numpy(), ref[p + "/cnt"])
-    ttr.closest_hit_launches = 0
     t, tri, rows = ttr.closest_hit(tables, o, d, cl, cnt, rows_table)
-    assert ttr.closest_hit_launches == 0  # CPU tensors: the plain version
     np.testing.assert_array_equal(tri.numpy(), ref[p + "/tri"])
     np.testing.assert_array_equal(t.numpy(), ref[p + "/t"])
     np.testing.assert_array_equal(rows.numpy(), ref[p + "/rows"])
@@ -307,9 +305,7 @@ def test_occlusion_w_plain_matches_pallas(ref, name):
     cl, cnt = tbin.bin_apex_shared(tables, so, lights, act, 1024, 0.02)
     np.testing.assert_array_equal(cl.numpy(), ref[name + "/occ_cl"])
     np.testing.assert_array_equal(cnt.numpy(), ref[name + "/occ_cnt"])
-    ttr.occlusion_w_launches = 0
     occ = ttr.occlusion_w(tables, so, pt_, lights, cl, cnt)
-    assert ttr.occlusion_w_launches == 0
     np.testing.assert_array_equal(occ.numpy(), ref[name + "/occ"])
     assert occ.any() and not occ.all()
 
@@ -331,10 +327,8 @@ def test_closest_hit_compact_plain_matches_pallas(ref, name, wave):
     o_full = torch.cat([o, o]) if tile_mod else o
     cl, cnt = tbin.bin_rays(tables, o_full, d, 1024, act)
     assert (cnt == 0).any() and (cnt > 0).any()
-    ttr.closest_hit_compact_launches = 0
     t, tri, rows = ttr.closest_hit_compact(tables, o, d, cl, cnt, rows_table,
                                            tile_mod=tile_mod)
-    assert ttr.closest_hit_compact_launches == 0
     p = f"{name}/{wave}"
     np.testing.assert_array_equal(tri.numpy(), ref[p + "/tri"])
     np.testing.assert_array_equal(t.numpy(), ref[p + "/t"])
@@ -359,12 +353,10 @@ def test_compact_plain_and_live_list_match_pallas_sparse(ref, name, wave):
     cl, cnt = tbin.bin_rays(tables, o, d, 1024, T(ref[f"{name}/{wave}_act"]))
     assert int((cnt > 0).sum()) == (0 if wave == "dead" else 1)
     p = f"{name}/{wave}"
-    ttr.live_tiles_launches = ttr.closest_hit_compact_launches = 0
     ids, n_live = ttr.live_tiles(cnt)
     np.testing.assert_array_equal(ids.numpy(), ref[p + "/order"])
     assert int(n_live) == int(ref[p + "/n_live"])
     t, tri, rows = ttr.closest_hit_compact(tables, o, d, cl, cnt, rows_table)
-    assert ttr.live_tiles_launches == ttr.closest_hit_compact_launches == 0
     np.testing.assert_array_equal(tri.numpy(), ref[p + "/tri"])
     np.testing.assert_array_equal(t.numpy(), ref[p + "/t"])
     np.testing.assert_array_equal(rows.numpy(), ref[p + "/rows"])
@@ -389,7 +381,6 @@ def test_occlusion_w_modes_plain_match_pallas(ref, mode):
     act = T(ref["glass/shadow_act"])
     lights = scene.light_position
     gm, gmin, gmax = tct.glass_subset(scene, tables)
-    ttr.occlusion_w_launches = 0
     if mode == "glass_flag":
         cl, cnt = tbin.bin_apex_shared(tables, so, lights, act, 1024, 0.02,
                                        glass_boxes=(gmin, gmax))
@@ -408,7 +399,6 @@ def test_occlusion_w_modes_plain_match_pallas(ref, mode):
         occ = ttr.occlusion_w(tables, so, pt_, lights, cl, cnt, capped=False,
                               member_mask=gm)
         np.testing.assert_array_equal(occ.numpy(), ref["glass/unc_occ"])
-    assert ttr.occlusion_w_launches == 0
     assert occ.any() and not occ.all()
 
 

@@ -39,6 +39,7 @@ from crt_tpu_torch.ops.intersect import (
 )
 from crt_tpu_torch.renderer import make_trace_fn
 from crt_tpu_torch.scene.convert import accel_from_numpy
+from crt_tpu_torch.utils import trace as tracing
 from crt_tpu_torch.scene.procedural import (
     make_big_scene,
     make_test_scene,
@@ -192,10 +193,10 @@ def test_condition_reads_change_no_bit(ref, monkeypatch, check_every):
     # leaf tests of at most 100 rays at a time
     monkeypatch.setattr(traverse, "GATHER_BYTES",
                         17 * 4 * accel.leaf_size * 100)
-    walks, reads = traverse.tree_walks, traverse.tree_host_reads
-    hit = traverse.closest_hit_tree(accel, tri, o, d)
-    assert traverse.tree_walks == walks + 1
-    assert traverse.tree_host_reads >= reads + 3
+    with tracing.recording() as c:
+        hit = traverse.closest_hit_tree(accel, tri, o, d)
+    assert c["crt.tree.walks"] == 1
+    assert c["crt.host_reads.tree_walk"] >= 3
     assert torch.equal(hit.tri, base.tri) and torch.equal(hit.t, base.t)
 
 
