@@ -35,9 +35,9 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      rows and of the texture colours recorded from a real fit_scene
      backward;
      [glass]: the bounce-1 pool's trace (K1 and K4) and glass-flag pass
-     recorded from a real frame, the uncapped member-masked pass, the
-     segment sums of a real glass backward over the packed rows of the
-     pool and over the ior row; [scale]:
+     on its live lanes, recorded from a real frame, the uncapped
+     member-masked pass, the segment sums of a real glass backward over
+     the packed rows of the pool and over the ior row; [scale]:
      the 65,536-triangle primary, the segment sum over its wide id band,
      and its depth-0 shadow wavefront, capped (K2) and in the direction
      form (K5 / K6)): K1, K2, K4, K5 and K6 bit-equal to the plain version
@@ -1355,7 +1355,8 @@ def kernel_shapes(device):
     """K1-K7 at the shapes of PERF.md's redesign tables, in the order
     [kernels] (opaque bench frame; K5 / K6 also on the depth-1 shadow pass
     of a real frame with the w form off), [glass] (refractive bench frame,
-    its bounce-1 pool and backward recorded from a real frame), [scale]
+    its bounce-1 pool's live lanes and backward recorded from a real
+    frame), [scale]
     (65,536 triangles)."""
     from crt_tpu_torch.ops.binning import bin_apex_shared, bin_rays
     from crt_tpu_torch.ops.cluster_tables import (
@@ -1428,16 +1429,16 @@ def kernel_shapes(device):
     gm, gmin, gmax = glass_subset(scene, tables)
     rec = record_glass_frame(scene)
     po, pd, pact = rec["traces"][1]
-    pool = k1_shape("[glass]", "K1 glass bounce-1 pool", tables, po, pd, pact,
-                    None)
+    pool = k1_shape("[glass]", "K1 glass bounce-1 live lanes", tables, po, pd,
+                    pact, None)
     yield pool
-    yield k4_shape("[glass]", "K4 glass bounce-1 pool", tables, po, pd, pool,
-                   None)
+    yield k4_shape("[glass]", "K4 glass bounce-1 live lanes", tables, po, pd,
+                   pool, None)
     del pool
     point, shadow_o, lights, act_lr, pslack = rec["shadows"][1]
     gcl, gcnt = bin_apex_shared(tables, shadow_o, lights, act_lr, TILE,
                                 pslack, glass_boxes=(gmin, gmax))
-    yield k2_shape("[glass]", "K2 glass-flag, bounce-1 pool", tables,
+    yield k2_shape("[glass]", "K2 glass-flag, bounce-1 live lanes", tables,
                    shadow_o, point, lights, act_lr, gcl, gcnt,
                    member_mask=gm, glass_flag=True)
     del rec, po, pd, pact, point, shadow_o, act_lr, gcl, gcnt
@@ -1971,11 +1972,14 @@ GLASS_TRAINED = TRAINED + ("mat_ior",)
 
 
 def record_glass_frame(scene):
-    """The kernel inputs of one real frame of the iterative wavefront, in
-    call order: ``traces`` (o, d, act) of each bounce's pool trace,
-    ``shadows`` (point, shadow_o, lights, act [Ll, B*R], slack) of each
-    bounce's glass-flag pass at pool width, ``march`` (o, d, act) of every
-    segment of the bend-walk."""
+    """The kernel inputs of one real frame of the iterative wavefront, as
+    the default render shades it, in call order: ``traces`` (o, d, act) of
+    each bounce's pool trace (the camera rays' full-width, every later
+    bounce's on its gathered live lanes), ``shadows`` (point, shadow_o,
+    lights, act [Ll, C], slack) of each bounce's glass-flag pass on the
+    bounce's lanes, ``march`` (o, d, act) of every segment of the
+    bend-walk.  A trace is the pool's when ``shade_local`` calls it, the
+    march's otherwise."""
     from crt_tpu_torch import RenderSettings
     from crt_tpu_torch.ops.shade_iter import (
         default_banks, shade_wavefront_iter,
@@ -1989,7 +1993,8 @@ def record_glass_frame(scene):
     rec = {"traces": [], "shadows": [], "march": []}
 
     def recording(ro, rd, active=None):
-        rec["traces" if ro.shape[0] == width else "march"].append(
+        pool = sys._getframe(1).f_code.co_name == "shade_local"
+        rec["traces" if pool else "march"].append(
             (ro.detach().contiguous(), rd.detach().contiguous(),
              active.detach().clone()))
         return trace(ro, rd, active)
@@ -2007,11 +2012,17 @@ def record_glass_frame(scene):
     with torch.no_grad():
         shade_wavefront_iter(scene, st, recording, o, d)
     bounces = st.max_ray_depth + 1
-    check(len(rec["traces"]) == bounces and len(rec["shadows"]) == bounces
-          and all(c[0].shape[0] == width for c in rec["shadows"]),
-          f"{len(rec['traces'])} pool traces and {len(rec['shadows'])} "
-          "pool-width glass-flag passes in a frame, expected one of each "
-          "per bounce")
+    lanes = [c[0].shape[0] for c in rec["traces"]]
+    check(len(lanes) == bounces and len(rec["shadows"]) == bounces
+          and [c[0].shape[0] for c in rec["shadows"]] == lanes,
+          f"{len(lanes)} pool traces and {len(rec['shadows'])} glass-flag "
+          "passes on the same lanes in a frame, expected one of each per "
+          "bounce")
+    check(lanes[0] == width and all(n % TILE == 0 and n < width
+                                    for n in lanes[1:]),
+          f"pool trace lanes {lanes}: expected the camera bounce "
+          f"full-width ({width}) and every later one on its live lanes, "
+          "whole tiles")
     check(len(rec["march"]) > 0, "the frame marched no shadow lane")
     return rec
 
@@ -2113,11 +2124,13 @@ def phase_glass_kernels(device):
     # one real frame's kernel inputs, at the main path's own shapes
     rec = record_glass_frame(scene)
 
-    # the second bounce's glass-flag pass: the 8-bank pool under 2 lights
-    stats["occlusion_w_glass"], _ = glass_mode("bounce-1 pool",
+    # the second bounce's glass-flag pass: the 8-bank pool's live lanes
+    # under 2 lights
+    stats["occlusion_w_glass"], _ = glass_mode("bounce-1 live lanes",
                                                *rec["shadows"][1])
 
-    # the second bounce's pool trace: 8 banks, most lanes dead
+    # the second bounce's pool trace: the 8-bank pool's live lanes, as the
+    # render gathers them
     po_, pd_, pact = rec["traces"][1]
     pcl, pcnt = bin_rays(tables, po_, pd_, TILE, pact)
     k4 = closest_hit_compact(tables, po_, pd_, pcl, pcnt)
@@ -2144,7 +2157,7 @@ def phase_glass_kernels(device):
     b = walk_bound(tables, pcl, pcnt, (po_, pd_), k4[:2],
                    pact.reshape(-1, TILE), small=(perm,))
     tests, ray_bytes = b.pop("member_tests"), b.pop("ray_bytes")
-    print(f"[glass] closest_hit_compact on the bounce-1 pool: "
+    print(f"[glass] closest_hit_compact on the bounce-1 live lanes: "
           f"{po_.shape[0]} lanes in {pcnt.numel()} tiles "
           f"({int((pcnt > 0).sum())} live, {int(pact.sum())} active lanes, "
           f"{int(pcnt.sum())} walked entries), bit-equal to its plain version "

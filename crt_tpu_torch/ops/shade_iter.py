@@ -39,9 +39,38 @@ breadth-first: a child's stream position would depend on its siblings'
 subtree sizes.  Deterministic, and the same distribution as the recursive
 wavefront (``ops/shade.py``), which keeps the reference's order.
 
+Live lanes.  Past the camera rays the pool is mostly dead (a GI ray
+that escapes to the background ends its lane, and the grow schedule's
+leaf banks hold few rays).  Each later bounce takes one ``nonzero`` of
+its flat pool's ``act`` (its one host read); when at most
+``_COMPACT_MAX_LIVE`` of the lanes are live, every per-lane step runs on
+the gathered live lanes, padded to a multiple of ``TILE_RAYS`` with the
+pool's first dead lanes: the trace, the hit attributes, textures,
+shadows and lights, the continuation, the refraction geometry, the GI
+frame, draws and forked streams, and the leaf children's shading.
+``index_copy`` on the distinct gathered lanes puts the radiance, the
+continuation, the rng state and each child's candidate fields back at
+full width; a lane outside the set is dead, and the full-width bounce
+leaves such a lane as it was.  Child placement, the grow pads and the
+final sum over banks stay full-width: they work along columns.
+``nonzero`` keeps lane order, so the 1,024-lane blocks stay as coherent
+as the live rays allow.  So the gathered bounce is the full-width one
+restricted to a subset of its lanes, and the image is the full-width one
+bit for bit: every step is per lane, and a ray's closest hit does not
+depend on the rays that share its tile (a tie in t goes to the first
+cluster walked, and every tile walks its list in cluster order).  The
+padding is the pool's own lanes and not made-up rays because a dead
+lane's zero cotangent still meets the derivatives of its own math: a
+made-up ray parallel to the triangle its dead lane reads (the floor)
+gives ``refract`` a square root at 0, and 0 x inf is a NaN in the
+gradient.  A denser pool, and the camera rays, take the full-width
+path.
+
 A scene-partitioned render (``parallel/scene_sharded.py``) passes
 ``rows_fn``, which replaces the reads of the packed table and of the
-march's constants.
+march's constants.  Every rank holds the same all-reduced hits, so every
+rank gathers the same live lanes and the row exchange keeps equal
+lengths.
 """
 
 from __future__ import annotations
@@ -53,6 +82,7 @@ from torch.utils.checkpoint import checkpoint
 
 from crt_tpu_torch.ops import rng as rng_mod
 from crt_tpu_torch.ops import vecmath
+from crt_tpu_torch.ops.cluster_tables import TILE_RAYS
 from crt_tpu_torch.ops.shade import (
     _occlusion_masks,
     fresnel_weight,
@@ -165,6 +195,37 @@ def _place_children(pool_fields, dead, cand_act, cand_fields, dropped):
     return out, dead & ~has_src, has_src, dropped
 
 
+# A bounce past the primary one shades only the live lanes of its flat
+# pool while they are at most this share of it; a denser pool (and the
+# camera rays) goes full-width.  Gathering a mostly live pool saves
+# little work and holds the gathered copy beside the pool: on the 1080p
+# GI frame (K 4, depth 3) on an H100, gathering also its one mostly live
+# bounce (4.2 M lanes, 89 % live) took the same frame time and raised
+# the peak from 4.46 to 4.68 GiB.
+_COMPACT_MAX_LIVE = 0.5
+
+
+def _live_lanes(act):
+    """The lanes a bounce shades -> [C] int64, or None for all of them.
+
+    The live lanes of the flat pool ``act`` in lane order, then its first
+    dead lanes (found on the device) up to a multiple of ``TILE_RAYS``,
+    one tile at least.  None when more than ``_COMPACT_MAX_LIVE`` of the
+    lanes are live, or too few are dead to pad.  The ``nonzero`` waits
+    for the device: the bounce's one host read."""
+    tracing.count("crt.host_reads.shade_compact")
+    live = torch.nonzero(act).reshape(-1)
+    n, total = live.numel(), act.numel()
+    lanes = max(1, -(-n // TILE_RAYS)) * TILE_RAYS
+    if n > _COMPACT_MAX_LIVE * total or lanes > total:
+        return None
+    if lanes == n:
+        return live
+    dead_rank = torch.cumsum(~act, 0)  # k at the k-th dead lane and after
+    want = torch.arange(1, lanes - n + 1, device=act.device)
+    return torch.cat([live, torch.searchsorted(dead_rank, want)])
+
+
 def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
                          active: Optional[torch.Tensor] = None,
                          banks: Optional[int] = None, *,
@@ -273,6 +334,11 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         and local shade each instead of placing them, so the pool never
         holds the widest tree level and starvation cannot drop them.
         ``primary``: the pool holds the camera rays.
+
+        Every per-lane step runs on the bounce's lanes: the live ones of
+        the flat pool (``_live_lanes``), or all of them.  ``widen`` puts a
+        per-lane result back at full width, over ``into`` (the pool's own
+        field: a lane outside the set keeps its value) or over zeros.
         """
         Bc = pool.o.shape[0]
 
@@ -282,13 +348,38 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         def unflat(x):
             return x.reshape((Bc, R) + x.shape[1:])
 
-        o, d, act, w = flat(pool.o), flat(pool.d), flat(pool.act), flat(pool.w)
+        o_all, d_all, w_all = flat(pool.o), flat(pool.d), flat(pool.w)
+        act_all, acc_all = flat(pool.act), flat(pool.acc)
+        rng_all = (None if pool.rng is None
+                   else rng_mod.PCGState(*(flat(p) for p in pool.rng)))
+        tracing.count("crt.shade.bounces")
+        idx = None if primary else _live_lanes(act_all)
+        if idx is None:
+            o, d, w, act, acc = o_all, d_all, w_all, act_all, acc_all
+            rng = rng_all
+
+            def widen(x, into=None):
+                return x
+        else:
+            tracing.count("crt.shade.compacted_bounces")
+            o, d, w, act, acc = (x.index_select(0, idx) for x in
+                                 (o_all, d_all, w_all, act_all, acc_all))
+            rng = (None if rng_all is None else rng_mod.PCGState(
+                *(p.index_select(0, idx) for p in rng_all)))
+
+            def widen(x, into=None):
+                if into is None:
+                    into = x.new_zeros((Bc * R,) + x.shape[1:])
+                    return into.index_copy_(0, idx, x)
+                return into.index_copy(0, idx, x)
+
         contrib, attrs, albedo, masks = shade_local(o, d, act, primary)
         is_diffuse, is_reflective, is_refractive = masks
         normal, point = attrs.normal, attrs.point
-        acc = pool.acc + unflat(w * contrib)
+        acc = acc + w * contrib
         if last:
-            return pool._replace(act=torch.zeros_like(pool.act), acc=acc)
+            return pool._replace(act=torch.zeros_like(pool.act),
+                                 acc=unflat(widen(acc, acc_all)))
 
         # ---- refractive geometry (feeds both children)
         if want_refract:
@@ -330,16 +421,17 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         # ---- the GI samples' directions and forked streams, before any
         # placement: the parent's stream after its draws is the pool's,
         # and a child placed over a dying parent's slot brings its own
-        rng = pool.rng
         gi_children = []
         if scene.gi_on and K > 0:
             local_m = gi_basis(d, normal)
             gi_origin = point + normal * settings.diffuse_reflection_bias
-            r_flat = rng_mod.PCGState(*(flat(p) for p in rng))
             for k in range(K):
-                gi_dir, r_flat = gi_direction(r_flat, is_diffuse, local_m)
-                gi_children.append((gi_dir, rng_mod.derive(r_flat, k + 1)))
-            rng = rng_mod.PCGState(*(unflat(p) for p in r_flat))
+                gi_dir, rng = gi_direction(rng, is_diffuse, local_m)
+                gi_children.append((gi_dir, rng_mod.derive(rng, k + 1)))
+        rng_out = None
+        if rng_all is not None:
+            rng_out = rng_mod.PCGState(
+                unflat(widen(rng.state, rng_all.state)), unflat(rng_all.inc))
 
         if leaf_children:
             leaf = torch.zeros_like(w)
@@ -350,17 +442,22 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
             for gi_dir, _ in gi_children:
                 c = shade_local(gi_origin, gi_dir, is_diffuse)[0]
                 leaf = leaf + (w * gi_scale) * c
-            return _Pool(o=unflat(new_o), d=unflat(new_d), w=unflat(new_w),
-                         act=unflat(cont), acc=acc + unflat(leaf), rng=rng,
+            return _Pool(o=unflat(widen(new_o, o_all)),
+                         d=unflat(widen(new_d, d_all)),
+                         w=unflat(widen(new_w, w_all)),
+                         act=unflat(widen(cont)),
+                         acc=unflat(widen(acc + leaf, acc_all)), rng=rng_out,
                          dropped=pool.dropped)
 
-        pool_fields = [unflat(new_o), unflat(new_d), unflat(new_w)]
-        if rng is not None:
-            pool_fields += list(rng)
-        dead = ~unflat(cont)
-        act2 = unflat(cont)
+        pool_fields = [unflat(widen(new_o, o_all)),
+                       unflat(widen(new_d, d_all)),
+                       unflat(widen(new_w, w_all))]
+        if rng_out is not None:
+            pool_fields += list(rng_out)
+        act2 = unflat(widen(cont))
+        dead = ~act2
         dropped = pool.dropped
-        acc_out = acc
+        acc_out = unflat(widen(acc, acc_all))
 
         if grow_to is not None and grow_to > Bc:
             # fresh dead banks for this bounce's children; their values
@@ -382,36 +479,38 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
                 pool_fields[j] = padb(pool_fields[j], 0)
             dead = padb(dead, True)
             act2 = padb(act2, False)
-            acc_out = padb(acc, 0.0)
+            acc_out = padb(acc_out, 0.0)
 
-        def spawn(cand_act, co, cd, cw, crng, pool_fields, dead, act2,
-                  dropped):
-            cand = [unflat(co), unflat(cd), unflat(cw)]
-            if crng is not None:
-                cand += [unflat(p) for p in crng]
+        def spawn(cand_act, cand, pool_fields, dead, act2, dropped):
+            """Place the children of ``cand_act``; ``cand``: their fields
+            at full width, flat."""
             pool_fields, dead, placed, dropped = _place_children(
-                pool_fields, dead, unflat(cand_act), cand, dropped)
+                pool_fields, dead, unflat(cand_act),
+                [unflat(c) for c in cand], dropped)
             return pool_fields, dead, act2 | placed, dropped
 
         if want_refract:
             # the Fresnel pair's reflection ray, weight * fresnel, on a
             # forked stream so the two subtrees' GI draws decorrelate
-            refl_rng = None
+            cand = [refl_r_origin, refl_r_dir, w * fresnel]
             if rng is not None:
-                refl_rng = rng_mod.derive(
-                    rng_mod.PCGState(*(flat(p) for p in rng)), 97)
+                cand += list(rng_mod.derive(rng, 97))
             pool_fields, dead, act2, dropped = spawn(
-                is_refractive & refr_ok, refl_r_origin, refl_r_dir,
-                w * fresnel, refl_rng, pool_fields, dead, act2, dropped)
+                widen(is_refractive & refr_ok), [widen(c) for c in cand],
+                pool_fields, dead, act2, dropped)
+        if gi_children:
+            gi_act = widen(is_diffuse)
+            gi_o, gi_w = widen(gi_origin), widen(w * gi_scale)
         for gi_dir, child_rng in gi_children:
             pool_fields, dead, act2, dropped = spawn(
-                is_diffuse, gi_origin, gi_dir, w * gi_scale, child_rng,
+                gi_act, [gi_o, widen(gi_dir), gi_w,
+                         *(widen(p) for p in child_rng)],
                 pool_fields, dead, act2, dropped)
 
         return _Pool(o=pool_fields[0], d=pool_fields[1], w=pool_fields[2],
                      act=act2, acc=acc_out,
                      rng=(rng_mod.PCGState(*pool_fields[3:5])
-                          if rng is not None else None),
+                          if rng_out is not None else None),
                      dropped=dropped)
 
     def step(pool, **kw):

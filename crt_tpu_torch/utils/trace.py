@@ -34,7 +34,12 @@ them.  The port's counters:
     ``bool(t.any())``, ``float(loss)``), or a copy of a host value to the
     card from pageable memory, which waits for the stream;
   - ``crt.shade.lanes`` / ``crt.shade.live_lanes``: lanes the iterative
-    wavefront shades, and those of them that are live;
+    wavefront shades, and those of them that are live (a bounce on its
+    gathered live lanes counts those and its dead padding);
+  - ``crt.shade.bounces`` / ``crt.shade.compacted_bounces``: bounces of
+    the iterative wavefront, and those of them shaded on their gathered
+    live lanes (``crt.host_reads.shade_compact``: each bounce's
+    ``nonzero`` of its live lanes, past the camera rays');
   - ``crt.binning.pairs.cluster`` / ``crt.binning.pairs.supercluster``:
     (tile, cluster) and (tile, supercluster) pairs listed by Phase A;
   - ``crt.march.traces``: closest hits of the transmissive shadow march;

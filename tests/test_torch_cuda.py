@@ -982,6 +982,49 @@ def test_refractive_render_on_card_matches_cpu(device, settings):
     torch.testing.assert_close(gpu, cpu, rtol=1e-5, atol=1e-6)
 
 
+# scene keywords, settings, gi_salt (tests/test_torch_shade_iter.py's cases)
+LIVE_LANE_CASES = {
+    "gi_grow": (dict(gi_on=True), dict(max_ray_depth=3,
+                                       diffuse_reflection_ray_count=2), None),
+    "gi_grow_salted": (dict(gi_on=True),
+                       dict(max_ray_depth=3, diffuse_reflection_ray_count=2),
+                       5),
+    "gi_scan": (dict(gi_on=True),
+                dict(max_ray_depth=2, diffuse_reflection_ray_count=2,
+                     wavefront_sched="scan"), None),
+    "glass_scan_depth3": (dict(with_refractive=True), dict(max_ray_depth=3),
+                          None),
+    "gi_chunked": (dict(gi_on=True),
+                   dict(max_ray_depth=2, diffuse_reflection_ray_count=2,
+                        chunk_pixels=8192), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_LANE_CASES))
+def test_live_lane_bounces_bit_equal_on_card(device, monkeypatch, case):
+    """Through the kernels: every bounce past the camera rays' shaded on
+    its live lanes gives the full-width image bit for bit, with K1 and K2
+    on both paths."""
+    from crt_tpu_torch.ops import shade_iter
+
+    scene_kw, kw, salt = LIVE_LANE_CASES[case]
+    scene = make_test_scene(192, 128, num_quads=16, device=device,
+                            **scene_kw)
+    st = RenderSettings(**kw)
+    out = {}
+    for share in (1.0, -1.0):
+        monkeypatch.setattr(shade_iter, "_COMPACT_MAX_LIVE", share)
+        before = (launched("closest_hit"), launched("occlusion_w"),
+                  tracing.counters()["crt.shade.compacted_bounces"])
+        out[share] = render_image(scene, st, gi_salt=salt)
+        after = (launched("closest_hit"), launched("occlusion_w"),
+                 tracing.counters()["crt.shade.compacted_bounces"])
+        assert after[0] > before[0] and after[1] > before[1]
+        assert (after[2] > before[2]) == (share > 0)
+    assert float(out[1.0].abs().max()) > 0
+    assert torch.equal(out[1.0], out[-1.0])
+
+
 def test_render_on_card_matches_cpu(device):
     """The card render (kernels) vs the CPU render (plain versions): the
     trace is bit-equal, the shading ops may round differently on the two

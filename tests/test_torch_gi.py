@@ -411,6 +411,32 @@ def test_gi_grads_match_jax(wavefront):
             atol=ITER_ATOL_SCALE * float(np.abs(jg[k]).max()), err_msg=k)
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_gi_grads_with_live_lane_bounces(monkeypatch, remat):
+    """The GI gradient (K = 2, depth 2) with every bounce past the camera
+    rays' shaded on its live lanes vs full-width, with and without
+    ``remat_shading``: the image and the gradients bit for bit
+    (``index_select`` / ``index_copy`` on distinct lanes pass each lane's
+    cotangent on unchanged, and a dead lane's is 0)."""
+    scene = make_test_scene(64, 48, num_quads=4, gi_on=True, device="cpu")
+    st = RenderSettings(max_ray_depth=2, diffuse_reflection_ray_count=2,
+                        remat_shading=remat)
+    w = torch.from_numpy(weights((scene.height, scene.width, 3)))
+    out = {}
+    for share in (1.0, -1.0):
+        monkeypatch.setattr(shade_iter, "_COMPACT_MAX_LIVE", share)
+        params = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+                  for k in GI_GROUPS}
+        img = render_image(scene.replace(**params), st)
+        (img * w).sum().backward()
+        out[share] = img.detach(), {k: p.grad for k, p in params.items()}
+    assert torch.equal(out[1.0][0], out[-1.0][0])
+    for k in GI_GROUPS:
+        got, want = out[1.0][1][k], out[-1.0][1][k]
+        assert float(want.abs().max()) > 0, k
+        assert torch.equal(got, want), k
+
+
 def gi_walls_scene_dict():
     """A back wall filling the view and a floor below it, both far larger
     than the view, GI on, one light.  The crease and the quads' diagonals

@@ -1,7 +1,7 @@
 """The refractive slice of crt_tpu_torch end to end vs crt_tpu.render_image:
 the iterative bank wavefront (both schedules), the recursive tree that is
-its oracle, the live-tile compacted bounces, chunking, and the pool's
-bookkeeping.
+its oracle, the live-tile compacted bounces, the bounces shaded on their
+live lanes only, chunking, and the pool's bookkeeping.
 
 The port renders on CPU tensors through its cluster backend (binning, the
 plain versions of the kernels, the glass router); crt_tpu renders through
@@ -14,7 +14,10 @@ and ``pow`` need not round alike).  Inside the port: ``compact_bounces``
 EXACT (the compacted kernel is the plain kernel bit for bit); iterative vs
 recursive and scan vs grow atol 2e-6 (tests/test_shade_iter.py's: the same
 paths summed in another f32 order); chunked vs unchunked EXACT (a chunk is
-a set of whole tiles).  ``_place_children`` vs crt_tpu's: EXACT.
+a set of whole tiles); a bounce shaded on its live lanes vs full-width
+EXACT, images and gradients (every step is per lane and the trace's
+per-ray result does not depend on the rays that share its tile).
+``_place_children`` vs crt_tpu's: EXACT.
 """
 
 
@@ -36,6 +39,7 @@ from crt_tpu_torch.renderer import (
     use_iterative_wavefront,
 )
 from crt_tpu_torch.scene.procedural import make_test_scene
+from crt_tpu_torch.utils import trace as tracing
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
 GLASS = dict(width=96, height=64, num_quads=8, with_refractive=True)
@@ -229,3 +233,94 @@ def test_inactive_lanes_and_banks_argument():
     assert (part[1024:] == 0).all()
     wide = shade_iter.shade_wavefront_iter(scene, st, trace, o, d, banks=12)
     assert torch.equal(wide, full)
+
+
+# scene keywords, settings, gi_salt, chunks
+LIVE_LANE_CASES = {
+    "gi_grow": (dict(gi_on=True), dict(max_ray_depth=3,
+                                       diffuse_reflection_ray_count=2),
+                None, 1),
+    "gi_grow_salted": (dict(gi_on=True),
+                       dict(max_ray_depth=3, diffuse_reflection_ray_count=2),
+                       5, 1),
+    "gi_scan": (dict(gi_on=True),
+                dict(max_ray_depth=2, diffuse_reflection_ray_count=2,
+                     wavefront_sched="scan"), None, 1),
+    "glass_scan_depth3": (dict(with_refractive=True),
+                          dict(max_ray_depth=3), None, 1),
+    "gi_chunked": (dict(gi_on=True),
+                   dict(max_ray_depth=2, diffuse_reflection_ray_count=2,
+                        chunk_pixels=2048), None, 2),
+}
+
+
+def compaction(monkeypatch, on: bool):
+    """Force every bounce past the primary one onto its live lanes (on)
+    or full-width (off)."""
+    monkeypatch.setattr(shade_iter, "_COMPACT_MAX_LIVE", 1.0 if on else -1.0)
+
+
+@pytest.mark.parametrize("backend", ["cluster", "bruteforce"])
+@pytest.mark.parametrize("case", sorted(LIVE_LANE_CASES))
+def test_live_lane_bounces_bit_equal_full_width(monkeypatch, case, backend):
+    """A bounce shaded on its gathered live lanes and scattered back gives
+    the full-width image bit for bit; the primary bounce never compacts,
+    every other one does when forced."""
+    scene_kw, kw, salt, chunks = LIVE_LANE_CASES[case]
+    scene = make_test_scene(64, 48, num_quads=6, device="cpu", **scene_kw)
+    st = RenderSettings(backend=backend, **kw)
+    assert use_iterative_wavefront(scene, st)
+    out = {}
+    for on in (True, False):
+        compaction(monkeypatch, on)
+        with tracing.recording() as c:
+            out[on] = render_image(scene, st, gi_salt=salt)
+        bounces = chunks * (st.max_ray_depth + 1)
+        assert c["crt.shade.bounces"] == bounces
+        assert c["crt.shade.compacted_bounces"] == (
+            bounces - chunks if on else 0)
+        assert c["crt.host_reads.shade_compact"] == bounces - chunks
+        lanes = c["crt.shade.lanes"], c["crt.shade.live_lanes"]
+        assert 0 < lanes[1] < lanes[0]
+        if on:
+            compact_lanes = lanes
+    assert compact_lanes[1] == lanes[1] and compact_lanes[0] < lanes[0]
+    assert float(out[True].abs().max()) > 0
+    assert torch.equal(out[True], out[False])
+
+
+def test_live_lanes_engage_at_the_default_share_on_gi_grow():
+    """The GI pool's leaf and last bounces are mostly dead: at the
+    module's threshold they take their live lanes (bounce 1, its two
+    banks mostly live, stays full-width), the lanes shaded are mostly
+    live, and the image is the full-width one."""
+    scene = make_test_scene(64, 48, num_quads=6, gi_on=True, device="cpu")
+    st = RenderSettings(max_ray_depth=3, diffuse_reflection_ray_count=2)
+    with tracing.recording() as c:
+        img = render_image(scene, st)
+    assert c["crt.shade.bounces"] == 4
+    assert c["crt.shade.compacted_bounces"] == 2
+    assert 2 * c["crt.shade.live_lanes"] > c["crt.shade.lanes"]
+    with pytest.MonkeyPatch.context() as mp:
+        compaction(mp, False)
+        with tracing.recording() as full:
+            assert torch.equal(img, render_image(scene, st))
+    assert 4 * full["crt.shade.live_lanes"] < full["crt.shade.lanes"]
+
+
+def test_a_bounce_without_live_lanes_still_runs(monkeypatch):
+    """With every camera lane off, each later bounce gathers no lane and
+    shades one tile of dead lanes: the colours stay 0, as full-width."""
+    scene = make_test_scene(64, 32, num_quads=6, gi_on=True, device="cpu")
+    st = RenderSettings(max_ray_depth=2, diffuse_reflection_ray_count=2)
+    trace = make_trace_fn(scene, st)
+    o, d = _primary(scene)
+    rx, ry, _ = make_tiler(scene.height, scene.width, device="cpu")
+    dead = torch.zeros(o.shape[0], dtype=torch.bool)
+    with tracing.recording() as c:
+        color, dropped = shade_iter.shade_wavefront_iter_with_stats(
+            scene, st, trace, o, d, dead, raster_x=rx, raster_y=ry)
+    assert c["crt.shade.compacted_bounces"] == 2
+    assert c["crt.shade.lanes"] == o.shape[0] + 2 * 1024 * (1 + 1)
+    assert c["crt.shade.live_lanes"] == 0
+    assert not color.any() and int(dropped) == 0

@@ -369,8 +369,10 @@ def test_cluster_pairs_equal_the_list_lengths(case_inputs):
 def _march(_):
     glass = make_test_scene(64, 48, 8, with_refractive=True, device="cpu")
     render_image(glass, RenderSettings(max_ray_depth=3))
+    # the pool's bounces past the camera rays' take their live lanes
     return {"crt.host_reads.march.any": None,
-            "crt.host_reads.march.blocks": None}
+            "crt.host_reads.march.blocks": None,
+            "crt.host_reads.shade_compact": 3}
 
 
 def _stream_frame_reads(_):
@@ -395,8 +397,10 @@ def _fit_reads(_):
 def _gi_reads(_):
     render_image(gi_scene(), GI)
     # the frame's salt and each GI child's stream salt, and the pool's
-    # pad direction, are host values copied to the device
-    return {"crt.host_reads.rng_salt": None, "crt.host_reads.pool_pad": None}
+    # pad direction, are host values copied to the device; each bounce
+    # past the camera rays' reads its live lanes, in each of two chunks
+    return {"crt.host_reads.rng_salt": None, "crt.host_reads.pool_pad": None,
+            "crt.host_reads.shade_compact": 2 * GI.max_ray_depth}
 
 
 READ_CASES = {"march": _march, "stream": _stream_frame_reads, "tree": _tree,
