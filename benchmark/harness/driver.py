@@ -11,13 +11,27 @@ Two kinds of unit, as the traffic mix says:
     rendered in set-up from the perturbed parameters; its first steps are
     set-up and are what the check compares, the later ones the window.
 
+Both take the scene from the configuration's kind (``harness/scenes.py``:
+``quads``, ``soup`` or a module ``benchmark/scenes/<kind>.py`` of the
+configuration's own), and both honour the mix's ``gi``: with ``"gi":
+true`` the scene renders with diffuse GI, frames on their progressive
+pass's salt, fit steps and their target unsalted, as ``fit_scene``
+renders.  Each check builds the kind's reference ``Renderer``; a fit's
+check renders the reference frame in blocks of the check file's
+``pixel_block`` pixels where it names one.
+
 Each unit ends in a device synchronize; the window closes at the end of
 the unit that crosses ``seconds``, so its length is all the time of all
-its units.
+its units.  The garbage collector runs once just before the window: the
+stream trace's closures hold a frame's tables in a reference cycle until
+a collection, so without it the window's peak memory would follow the
+collector's phase, which any change to set-up's Python shifts (by one
+1 M-triangle table set, 144 MiB).
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import time
 from dataclasses import dataclass, field
@@ -82,10 +96,11 @@ class FrameCell:
         tf = cell.traffic
         self.gi = bool(tf.get("gi", False))
         self.jitter = bool(tf.get("jitter", False))
-        self.kind, self.desc = scenes.description(cell.config, self.gi)
-        self.ref_scene = scenes.reference_scene(self.kind, self.desc)
+        self.kind = scenes.find(cell.config, cell.bench_dir)
+        self.desc = self.kind.description(cell.config["scene"], self.gi)
+        self.ref_scene = self.kind.reference_scene(self.desc)
         self.settings = RenderSettings(**cell.config.get("settings", {}))
-        self.scene = scenes.program_scene(self.kind, self.desc, device)
+        self.scene = self.kind.program_scene(self.desc, device)
         self.W, self.H = self.ref_scene.width, self.ref_scene.height
         self.rots = None
         if self.jitter:
@@ -125,6 +140,7 @@ class FrameCell:
     def run(self, seconds: float, trace: bool) -> Window:
         for _ in range(int(self.cell.traffic["warmup_units"])):
             self.frame(keep=False)
+        gc.collect()
         w = Window(setup_peak=_mem_peak(self.dev))
         self.first_window_frame = self.k
         _mem_reset(self.dev)
@@ -172,11 +188,10 @@ class FrameCell:
     # -- check
     def reference_values(self, dtype, ks) -> list:
         """The reference's colours [pixels, 3] of window frames ``ks``."""
-        from reference.render import Renderer
-
-        r = Renderer(self.ref_scene, dtype=dtype, device=self.dev,
-                     max_ray_depth=self.settings.max_ray_depth,
-                     gi_rays=self.settings.diffuse_reflection_ray_count)
+        r = self.kind.Renderer(
+            self.ref_scene, dtype=dtype, device=self.dev,
+            max_ray_depth=self.settings.max_ray_depth,
+            gi_rays=self.settings.diffuse_reflection_ray_count)
         px = torch.from_numpy(self.idx_np % self.W).to(self.dev)
         py = torch.from_numpy(self.idx_np // self.W).to(self.dev)
         out = []
@@ -224,10 +239,12 @@ class FitCell:
 
         self.optim = optim
         self.cell, self.dev, self.seed, self.t0 = cell, device, seed, t0
-        self.kind, self.desc = scenes.description(cell.config, False)
-        self.ref_scene = scenes.reference_scene(self.kind, self.desc)
+        self.kind = scenes.find(cell.config, cell.bench_dir)
+        self.desc = self.kind.description(cell.config["scene"],
+                                          bool(cell.traffic.get("gi", False)))
+        self.ref_scene = self.kind.reference_scene(self.desc)
         self.settings = RenderSettings(**cell.config.get("settings", {}))
-        self.scene = scenes.program_scene(self.kind, self.desc, device)
+        self.scene = self.kind.program_scene(self.desc, device)
         base = {k: v.astype(np.float32) for k, v in self.ref_scene.params.items()}
         off = tr.perturbation(seed, base, cell.traffic["perturb"])
         self.moved = {k: base[k] + off[k] for k in off}
@@ -274,6 +291,8 @@ class FitCell:
             if i < warm - 1:
                 return
             if i == warm - 1:
+                gc.collect()
+                now = time.perf_counter()
                 w.setup_peak = _mem_peak(self.dev)
                 _mem_reset(self.dev)
                 if trace:
@@ -321,25 +340,34 @@ class FitCell:
     # -- check
     def reference_steps(self, dtype) -> dict:
         from reference.fit import fit_steps, target_frame
-        from reference.render import Renderer
 
-        r = Renderer(self.ref_scene, dtype=dtype, device=self.dev,
-                     max_ray_depth=self.settings.max_ray_depth,
-                     gi_rays=self.settings.diffuse_reflection_ray_count)
+        r = self.kind.Renderer(
+            self.ref_scene, dtype=dtype, device=self.dev,
+            max_ray_depth=self.settings.max_ray_depth,
+            gi_rays=self.settings.diffuse_reflection_ray_count)
         rot = self.ref_scene.cam_rotation.astype(np.float32)
-        target = target_frame(r, self.moved, rot)
+        block = self.cell.check.get("pixel_block")
+        target = target_frame(r, self.moved, rot, block)
         return fit_steps(r, target, rot, steps=self.CHECKED,
-                         lr=float(self.cell.traffic["lr"]))
+                         lr=float(self.cell.traffic["lr"]), block=block)
 
     def compare(self, control: bool = False) -> dict:
         """The numbers the check compares, each a relative gap to the
-        reference: ``loss_gap``, the largest over the checked steps;
-        ``grad_gap`` and ``step_gap``, the gap between the norms of a
-        leaf's first gradient (from Adam's state after one step) and of
-        its change after the checked steps, over the larger of the
-        reference leaf's norm and the median leaf's, worst leaf.  Leaves
-        whose reference gradient is under a thousandth of the median
-        leaf's are left out."""
+        reference: ``loss_gap``, the largest over the checked steps (under
+        GI the first step's alone, below); ``grad_gap`` and ``step_gap``,
+        the gap between the norms of a leaf's first gradient (from Adam's
+        state after one step) and of its change after the checked steps,
+        over the larger of the reference leaf's norm and the median
+        leaf's, worst leaf.  Leaves whose reference gradient is under a
+        thousandth of the median leaf's are left out.
+
+        Under GI a later step's loss is taken at parameters that have
+        rounded apart (the program's float32 against the reference's
+        float64), and a GI child ray that crosses a triangle's edge
+        between the two moves that loss by a tenth or more where the
+        program is right; so only the first step's loss, at the same
+        parameters on both sides, is compared, and the later steps are
+        ``step_gap``'s."""
         from reference.fit import leaf_norm
         from reference.render import PARAM_KEYS
 
@@ -351,8 +379,9 @@ class FitCell:
                    "delta": [low["delta"][k] for k in PARAM_KEYS]}
         else:
             got = self.record
+        steps = 1 if self.ref_scene.gi_on else len(ref["loss"])
         loss_gap = max(_gap(a, b, abs(b)) for a, b in
-                       zip(got["loss"], ref["loss"]))
+                       zip(got["loss"][:steps], ref["loss"][:steps]))
         g_ref = [leaf_norm(ref["grad0"][k]) for k in PARAM_KEYS]
         d_ref = [leaf_norm(ref["delta"][k]) for k in PARAM_KEYS]
         g_med, d_med = float(np.median(g_ref)), float(np.median(d_ref))

@@ -1,14 +1,28 @@
 """The scenes of the configurations, made by the benchmark from their
 parameters, and handed alike to the program and to the reference.
 
+A configuration's ``scene.kind`` names its kind.  Two are built in:
+
 ``quads``: a floor, random single-triangle quads, two point lights and up
 to three materials (the port's ``make_test_scene_dict`` as of the
 benchmark's first version, frozen here), as a .crtscene dict.
 ``soup``: a random triangle soup in a slab before the camera, one diffuse
 material and one light (the port's ``make_big_scene``, frozen), as arrays.
+
+Any other kind is the module ``benchmark/scenes/<kind>.py``, loaded by its
+path.  It gives ``description(params, gi_on)`` (``params``: the
+configuration's ``scene``), ``program_scene(desc, device)`` and
+``reference_scene(desc)``, and may give ``Renderer``, a subclass of
+``reference.render.Renderer`` for materials the base reference raises on;
+the frame and fit checks of its cells build that one.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import pathlib
+from typing import Callable
 
 import numpy as np
 
@@ -68,20 +82,15 @@ def soup_arrays(p: dict) -> dict:
             "width": p["width"], "height": p["height"]}
 
 
-def description(config: dict, gi_on: bool = False):
-    """(kind, the scene's description) of a configuration."""
-    kind = config["scene"]["kind"]
-    if kind == "quads":
-        return kind, quads_description(config["scene"], gi_on)
-    if kind == "soup":
-        if gi_on:
-            raise ValueError("the soup scene has no GI setting")
-        return kind, soup_arrays(config["scene"])
-    raise ValueError(f"unknown scene kind {kind!r}")
+def soup_description(p: dict, gi_on: bool = False) -> dict:
+    """The arrays of a ``soup`` configuration, which has no GI."""
+    if gi_on:
+        raise ValueError("the soup scene has no GI setting")
+    return soup_arrays(p)
 
 
 def program_scene(kind: str, desc, device):
-    """The program's Scene of a description, on ``device``."""
+    """The program's Scene of a built-in kind's description, on ``device``."""
     import torch
 
     if kind == "quads":
@@ -123,8 +132,59 @@ def program_scene(kind: str, desc, device):
 
 
 def reference_scene(kind: str, desc):
-    """The reference's RefScene of a description."""
+    """The reference's RefScene of a built-in kind's description."""
     from reference.render import scene_from_description, scene_from_soup
 
     return scene_from_description(desc) if kind == "quads" \
         else scene_from_soup(desc)
+
+
+@dataclasses.dataclass(frozen=True)
+class Kind:
+    """What the harness takes from a scene kind."""
+
+    description: Callable  # (params, gi_on) -> the scene's description
+    program_scene: Callable  # (desc, device) -> the program's Scene
+    reference_scene: Callable  # (desc) -> the reference's RefScene
+    Renderer: type  # the reference renderer of the kind's checks
+
+
+_BUILTIN = {"quads": quads_description, "soup": soup_description}
+
+
+def with_tree(scene, device):
+    """``scene`` with the KD tree that the ``tree`` backend walks, built
+    from its triangles as the program's loader builds it."""
+    from crt_tpu_torch.scene.accel import build_accel_tree
+
+    tree = build_accel_tree(scene.vertices.cpu().numpy(),
+                            scene.tri_vidx.cpu().numpy(), device="cpu")
+    return scene.replace(accel=tree.to(device))
+
+
+def find(config: dict, bench_dir: pathlib.Path) -> Kind:
+    """The kind of a configuration's scene: built in, or the module
+    ``<bench_dir>/scenes/<kind>.py``.  Its program scene carries the KD
+    tree exactly where the configuration's ``settings`` ask for the
+    ``tree`` backend, which walks it."""
+    from reference.render import Renderer
+
+    name = config["scene"]["kind"]
+    if name in _BUILTIN:
+        kind = Kind(_BUILTIN[name], functools.partial(program_scene, name),
+                    functools.partial(reference_scene, name), Renderer)
+    else:
+        path = bench_dir / "scenes" / f"{name}.py"
+        if not path.is_file():
+            raise ValueError(f"unknown scene kind {name!r}")
+        from harness.registry import load_module
+
+        mod = load_module(path, "bench_scene")
+        kind = Kind(mod.description, mod.program_scene, mod.reference_scene,
+                    getattr(mod, "Renderer", Renderer))
+    if config.get("settings", {}).get("backend") != "tree":
+        return kind
+    make = kind.program_scene
+    return dataclasses.replace(
+        kind, program_scene=lambda desc, device: with_tree(
+            make(desc, device), device))

@@ -1,0 +1,7 @@
+"""Device milliseconds per frame of the scene tables, in the GI cell:
+``tables_device_ms.frame``'s reader, as the GI cell's, which moves its
+own rate ``gi_frame_ms``."""
+
+from harness.registry import metric_reader
+
+read = metric_reader("tables_device_ms.frame")

@@ -130,7 +130,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     runner.free()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    t_check = time.perf_counter()
     cmp = runner.compare()
+    check_s = time.perf_counter() - t_check
     limits = cell.check["limits"]
     checks = {k: {"value": v, "limit": limits[k]}
               for k, v in cmp["numbers"].items()}
@@ -140,6 +142,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
             else [w.unit_s[0]] * 3
         print(f"info unit_ms_quartiles {[round(1e3 * x, 3) for x in q]}",
               file=log)
+    print(f"info check_s {check_s!r}", file=log)
     for k, v in cmp["info"].items():
         print(f"info {k} {v}", file=log)
     for k, c in checks.items():

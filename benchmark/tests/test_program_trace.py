@@ -17,7 +17,7 @@ from harness.trace import DeviceOp, Trace
 from crt_tpu_torch import utils as program_utils
 from crt_tpu_torch.utils import trace as tracing
 
-FRAME_METRICS = ("tables_device_ms.frame", "pool_live_share.frame",
+FRAME_METRICS = ("tables_device_ms.frame", "pool_live_share.gi_frame",
                  "host_reads.frame")
 STEP_METRICS = ("host_reads.step", "backward_host_ms.step")
 
@@ -66,16 +66,32 @@ def test_span_readers_on_synthetic_spans():
 
 def test_counter_readers_on_planted_counters(planted):
     ctx = _ctx(_trace())
-    assert metric_reader("pool_live_share.frame")(ctx) == 25.0
+    assert metric_reader("pool_live_share.gi_frame")(ctx) == 25.0
     assert metric_reader("host_reads.frame")(ctx) == 17.0
     assert metric_reader("host_reads.step")(ctx) == 17.0
+
+
+@pytest.mark.parametrize("name", [
+    "frame_ms", "launches.frame", "device_idle_pct.frame",
+    "shade_device_ms.frame", "binning_device_ms.frame",
+    "trace_kernel_ms.frame", "primary_hit_roofline",
+    "tables_device_ms.frame", "host_reads.frame"])
+def test_the_gi_cell_reads_as_the_other_frame_cells(name, planted):
+    """Its metrics are the frame cells' readers under names of its own."""
+    gi = "gi_frame_ms" if name == "frame_ms" \
+        else name.removesuffix(".frame") + ".gi_frame"
+    ctx = _ctx(_trace())
+    ctx.window = type("W", (), {"seconds": 0.5, "units": 2})
+    ctx.primary_bound_ms = staticmethod(lambda: 0.001)
+    ctx.kernel_names = staticmethod(lambda exclude_sources: {"k_trace"})
+    assert metric_reader(gi)(ctx) == metric_reader(name)(ctx)
 
 
 def test_nothing_to_read_reads_nothing():
     t = Trace(ops=[], spans={"bench.frame": [(0, 1)]}, window=(0, 1),
               units=1, host_ops=[("aten::add", 0, 1)])
     tracing.reset()
-    for name in ("tables_device_ms.frame", "pool_live_share.frame",
+    for name in ("tables_device_ms.frame", "pool_live_share.gi_frame",
                  "backward_host_ms.step"):
         assert metric_reader(name)(_ctx(t)) is None
     # a registry that counted no read: none a unit
@@ -102,10 +118,10 @@ def test_traced_cpu_run_reads_the_program(name):
                        torch.device("cpu"))
     m = res["metrics"]
     if name == "quads64.gi_frames":
-        assert 0 < m["pool_live_share.frame"]["value"] <= 100
+        assert 0 < m["pool_live_share.gi_frame"]["value"] <= 100
         # the GI streams' salts and the pool's pad, copied to the device
-        assert m["host_reads.frame"]["value"] > 0
-        assert "tables_device_ms.frame" not in m
+        assert m["host_reads.gi_frame"]["value"] > 0
+        assert "tables_device_ms.gi_frame" not in m
     else:
         # the loss a step (float(loss) in fit_scene)
         assert m["host_reads.step"]["value"] == 1.0
