@@ -486,34 +486,51 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
             occluded = sh.valid & (sh.t * sh.t <= r2_flat)
         return ~occluded.reshape(r2.shape), light_dir, r2
 
-    act = act_lr.reshape(-1)
-    occ_opaque = opaque_act = None
-    glass_fn = getattr(trace_fn, "shadow_apex_w_glass", None)
-    if _MARCH_SPLIT and point.dim() == 2 and glass_fn is not None:
-        with tracing.span("crt.trace"):
-            res = glass_fn(point.detach(), shadow_o_px.detach(),
-                           light_positions.detach(), act_lr,
-                           2.0 * shadow_bias)
-        if res is not None:
-            occ_opaque, glass = res
-            # |w| < 1 is where the kernel's |n.w| parallel test is weaker
-            # than the walk's |n.d|: those lanes march whatever the flag
-            march_lr = act_lr & (glass | (r2.detach() <= 1.0))
-            opaque_act = act_lr & ~march_lr
-            act = march_lr.reshape(-1)
+    # the transmissive branch: the split pass and the bend-walk, with the
+    # shadow lanes that enter it and those that walk, counted on the device
+    with tracing.span("crt.shade.march"):
+        tracing.count("crt.march.lanes", act_lr)
+        act = act_lr.reshape(-1)
+        occ_opaque = opaque_act = None
+        glass_fn = getattr(trace_fn, "shadow_apex_w_glass", None)
+        if _MARCH_SPLIT and point.dim() == 2 and glass_fn is not None:
+            with tracing.span("crt.trace"):
+                res = glass_fn(point.detach(), shadow_o_px.detach(),
+                               light_positions.detach(), act_lr,
+                               2.0 * shadow_bias)
+            if res is not None:
+                occ_opaque, glass = res
+                # |w| < 1 is where the kernel's |n.w| parallel test is
+                # weaker than the walk's |n.d|: those lanes march whatever
+                # the flag
+                march_lr = act_lr & (glass | (r2.detach() <= 1.0))
+                opaque_act = act_lr & ~march_lr
+                act = march_lr.reshape(-1)
+        tracing.count("crt.march.walk_lanes", act)
 
-    if march_tab is None:
-        march_tab = march_table(scene, rows_fn)
-    with torch.no_grad():
-        last_valid, last_t = _transmissive_march(
-            trace_fn, march_tab, refraction_bias, max_ray_depth, shadow_o,
-            d, act, narrow=_MARCH_NARROW and occ_opaque is not None)
+        if march_tab is None:
+            march_tab = march_table(scene, rows_fn)
+        with torch.no_grad():
+            last_valid, last_t = _transmissive_march(
+                trace_fn, march_tab, refraction_bias, max_ray_depth,
+                shadow_o, d, act,
+                narrow=_MARCH_NARROW and occ_opaque is not None)
     occluded = (last_valid & (last_t * last_t <= r2_flat)).reshape(r2.shape)
     if occ_opaque is not None:
         # march verdicts on the glass-suspect lanes, kernel verdicts on the
         # rest, each masked to its own part
         occluded = occluded | (occ_opaque.reshape(r2.shape) & opaque_act)
     return ~occluded, light_dir, r2
+
+
+def count_refraction(is_refractive, refr_ok) -> None:
+    """Count the refractive hits that refract
+    (``crt.shade.refracted_lanes``) and those that totally reflect
+    (``crt.shade.tir_lanes``), on the device; nothing is computed while
+    tracing is off."""
+    if tracing.enabled():
+        tracing.count("crt.shade.refracted_lanes", is_refractive & refr_ok)
+        tracing.count("crt.shade.tir_lanes", is_refractive & ~refr_ok)
 
 
 @tracing.spanned("crt.shade")
@@ -639,6 +656,7 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
     if want_refract:
         refr_normal, refr_dir, refr_ok, refr_origin = refraction_geometry(
             dirs, normal, attrs.ior, settings.refraction_bias, point)
+        count_refraction(active & is_refractive, refr_ok)
 
     # ---- shared reflection batch: reflective lanes reflect about the
     # shading normal, refractive lanes about the (possibly flipped) one

@@ -85,6 +85,7 @@ from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.cluster_tables import TILE_RAYS
 from crt_tpu_torch.ops.shade import (
     _occlusion_masks,
+    count_refraction,
     fresnel_weight,
     gi_basis,
     gi_direction,
@@ -385,6 +386,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         if want_refract:
             refr_normal, refr_dir, refr_ok, refr_origin = refraction_geometry(
                 d, normal, attrs.ior, settings.refraction_bias, point)
+            count_refraction(is_refractive, refr_ok)
             fresnel = fresnel_weight(d, refr_normal)[..., None]
             refl_r_dir = vecmath.reflect(d, refr_normal)
             refl_r_origin = point + refr_normal * settings.reflection_bias

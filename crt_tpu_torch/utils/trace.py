@@ -13,6 +13,9 @@ belongs to the span whose interval holds its launch.  The port's spans:
     use (``rows``, ``glass``);
   - ``crt.shade``: one chunk of either wavefront, and
     ``crt.shade.bounce.<b>`` each bounce of the iterative one;
+  - ``crt.shade.march``: the transmissive branch of a scene with live
+    refraction's shadows (``shade._occlusion_masks``): the glass-flag
+    split pass and the bend-walk, their traces included;
   - ``crt.trace.primary``: the camera rays' closest hit; ``crt.trace``:
     every other call into an intersection backend;
   - ``crt.binning``: Phase A (frusta, shafts, pair lists), no table build;
@@ -42,6 +45,12 @@ them.  The port's counters:
     ``nonzero`` of its live lanes, past the camera rays');
   - ``crt.binning.pairs.cluster`` / ``crt.binning.pairs.supercluster``:
     (tile, cluster) and (tile, supercluster) pairs listed by Phase A;
+  - ``crt.shade.refracted_lanes`` / ``crt.shade.tir_lanes``: refractive
+    hits of either wavefront that refract, and those that totally
+    reflect;
+  - ``crt.march.lanes`` / ``crt.march.walk_lanes``: shadow lanes that
+    enter the transmissive branch, and those of them that the split pass
+    leaves to the bend-walk (all of them where there is no split);
   - ``crt.march.traces``: closest hits of the transmissive shadow march;
   - ``crt.tree.walks`` / ``crt.tree.iterations``: KD-tree walks.
 

@@ -2,15 +2,19 @@
 
 With tracing off no span enters ``record_function`` and no counter moves;
 under a CPU ``torch.profiler`` a frame and a fit emit the spans of the
-layers, each inside its parent; the shading pool's lane counters equal a
-brute count; the image and the fit come out bit for bit the same with
-tracing on and off.  The counters of the kernels' wrappers, the Phase A
+layers, each inside its parent; the shading pool's lane counters, and a
+glass frame's march and refraction counters, equal a brute count; the
+transmissive march's span holds its glass-flag pass; the image and the
+fit come out bit for bit the same with tracing on and off.  The counters of the kernels' wrappers, the Phase A
 pairs and the host-read sites are cases of one parametrised test each.
 """
 
+import sys
+
+import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from crt_tpu_torch import RenderSettings, render_aov, render_image
 from crt_tpu_torch import scene_from_dict
@@ -20,6 +24,7 @@ from crt_tpu_torch.ops import (
     cluster_tables,
     cluster_trace,
     segsum,
+    shade,
     stream_trace,
 )
 from crt_tpu_torch.optim import fit_scene
@@ -28,6 +33,7 @@ from crt_tpu_torch.scene.procedural import (
     make_test_scene,
     make_test_scene_dict,
 )
+from crt_tpu_torch.scene.types import MATERIAL_REFRACTIVE
 from crt_tpu_torch.utils import trace as tracing
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
@@ -203,6 +209,109 @@ def test_live_lanes_equal_a_brute_count(case):
     assert c["crt.shade.lanes"] == brute.lanes > 0
     assert c["crt.shade.live_lanes"] == brute.live
     assert 0 < brute.live < brute.lanes
+
+
+# -- a glass frame: the march and the refractive hits --------------------------
+
+def glass_scene():
+    """The quads with glass, and one more glass sheet close before the
+    camera, turned 60 degrees about y with its back face to the camera:
+    rays that meet it leave the glass past the critical angle (total
+    internal reflection) or, at the frame's edge, refract."""
+    d = make_test_scene_dict(64, 48, 16, with_refractive=True)
+    glass = next(i for i, m in enumerate(d["materials"])
+                 if m["type"] == "refractive")
+    u, v = np.array([0.5, 0.0, 0.866]), np.array([0.0, 1.0, 0.0])
+    c = np.array([0.0, 0.5, 2.0])
+    # wound so that its normal (0.866, 0, -0.5) faces away from the camera
+    tri = np.stack([c - u - v, c + v, c + u - v])
+    d["objects"].append({"material_index": glass,
+                         "vertices": tri.reshape(-1).tolist(),
+                         "triangles": [0, 1, 2]})
+    return scene_from_dict(d, device="cpu")
+
+
+class GlassRecount:
+    """The backend, with a brute count of what the march and refraction
+    counters count: the shadow lanes handed to the glass-flag pass, and
+    the refractive hits of every shading trace (a ``shade_local`` of the
+    iterative wavefront, a level of the recursive one's ``with_rows``)
+    that refract or totally reflect, found from the hits anew."""
+
+    def __init__(self, fn, scene, settings):
+        self.fn, self.scene, self.settings = fn, scene, settings
+        self.entering = self.refracted = self.tir = 0
+
+    def _note(self, o, d, active, hit):
+        a = shade.hit_attributes(self.scene, o, d, hit)
+        glass = active & a.valid & (a.mat_type == MATERIAL_REFRACTIVE)
+        ok = shade.refraction_geometry(d, a.normal, a.ior,
+                                       self.settings.refraction_bias,
+                                       a.point)[2]
+        self.refracted += int((glass & ok).sum())
+        self.tir += int((glass & ~ok).sum())
+
+    def __call__(self, o, d, active=None):
+        hit = self.fn(o, d, active)
+        if sys._getframe(1).f_code.co_name == "shade_local":
+            self._note(o, d, active, hit)
+        return hit
+
+    def with_rows(self, o, d, active=None):
+        hit, rows = self.fn.with_rows(o, d, active)
+        self._note(o, d, active, hit)
+        return hit, rows
+
+    def shadow_apex_w_glass(self, point, shadow_o, lights, act_lr, slack):
+        self.entering += int(act_lr.sum())
+        with record_function("test.glass_pass"):
+            return self.fn.shadow_apex_w_glass(point, shadow_o, lights,
+                                               act_lr, slack)
+
+    def __getattr__(self, attr):
+        return getattr(self.fn, attr)
+
+
+@pytest.mark.parametrize("wavefront", ["iter", "recursive"])
+def test_march_and_refraction_counters_equal_a_brute_count(wavefront,
+                                                            monkeypatch):
+    scene = glass_scene()
+    st = RenderSettings(max_ray_depth=3, wavefront=wavefront)
+    brute = GlassRecount(make_trace_fn(scene, st), scene, st)
+    walking = []
+    march = shade._transmissive_march
+
+    def counted_march(*args, **kwargs):
+        walking.append(int(args[6].sum()))  # act: the lanes that walk
+        return march(*args, **kwargs)
+
+    monkeypatch.setattr(shade, "_transmissive_march", counted_march)
+    with tracing.recording() as c:
+        _render_flat(scene, st, trace_fn=brute)
+    assert c["crt.march.lanes"] == brute.entering > 0
+    assert c["crt.march.walk_lanes"] == sum(walking) > 0
+    assert c["crt.march.walk_lanes"] < c["crt.march.lanes"]
+    assert c["crt.shade.refracted_lanes"] == brute.refracted > 0
+    assert c["crt.shade.tir_lanes"] == brute.tir > 0
+
+
+def test_the_march_span_holds_its_glass_flag_pass():
+    scene = glass_scene()
+    st = RenderSettings(max_ray_depth=3)
+    brute = GlassRecount(make_trace_fn(scene, st), scene, st)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _render_flat(scene, st, trace_fn=brute)
+    ev = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()]
+    assert inside(ev, "test.glass_pass", ["crt.shade.march"])
+    assert inside(ev, "crt.shade.march",
+                  [f"crt.shade.bounce.{b}" for b in range(4)])
+    marches = named(ev, "crt.shade.march")
+    assert len(marches) == len(named(ev, "test.glass_pass"))
+    # the bend-walk's traces run under the span as well
+    walk = [s for s, _ in named(ev, "crt.trace")
+            if any(a <= s <= b for a, b in marches)]
+    assert len(walk) > len(marches)
 
 
 # -- the same bits with tracing on and off ------------------------------------
