@@ -135,7 +135,11 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      launches), then with the default settings (each chunk shaded under a
      checkpoint and again in the backward: time, peak, launches, the
      gradients vs remat_shading's) and, on a 480x270 GI frame, vs the
-     all-pairs backend's gradients;
+     all-pairs backend's gradients; then [cluster-bin]: Phase A's kernel
+     (csrc/cluster_bin.cu) on every bin_rays / bin_apex_shared call
+     recorded from that GI frame (the grow pool's bounce shapes, 32 calls)
+     and from the 1080p glass frame (16 calls), lists and counts bit-equal
+     to the plain version, one launch a call, device times and bound;
  11. bitmap: the benchmark scene with its floor textured by
      docs/previews/12-01-textures.jpg (tiled by the floor's uvs, decoded
      by the stb_image-exact baseline decoder, loaded through
@@ -288,8 +292,11 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      on phase 22's paths / the engine's frame, ``tools_launches`` (K1 and
      K2) those of phase 21's add-on frame, turntable and default-scene
      CLI frame,
-     ``precision_launches`` (K1, K2, K3) those of phase 6's renders under
-     each fp32 setting; the uncapped member-masked mode of the w-occlusion kernel is on
+     ``precision_launches`` (K1, K2, K3, Phase A) those of phase 6's
+     renders under each fp32 setting; Phase A's (cluster_bin) launches
+     are those of the opaque, glass and GI CLI frames, by frame under
+     ``main_path_launches``, its times and bound those of [cluster-bin];
+     the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
      for its comparison and times; K6 is reached through a factory option
      that no setting of render_image takes (``on_a_render_path`` false, the
@@ -1678,11 +1685,14 @@ def _launches(c, kernel: str) -> int:
 
 
 def read_launches() -> dict:
-    """Launch counts of the three kernels of the opaque frame."""
+    """Launch counts of the opaque frame's kernels: K1, K2, the segment
+    sum and Phase A (csrc/cluster_bin.cu, summed over its modes: one
+    launch before each K1 and each K2)."""
     c = counted()
     return {"closest_hit": _launches(c, "closest_hit"),
             "occlusion_w": _launches(c, "occlusion_w"),
-            "segsum": _launches(c, "segsum")}
+            "segsum": _launches(c, "segsum"),
+            "cluster_bin": _launches(c, "cluster_bin")}
 
 
 def read_stream_launches() -> dict:
@@ -1714,6 +1724,7 @@ def read_glass_launches() -> dict:
             "occlusion_w_glass": c["crt.launches.occlusion_w.glass"],
             "occlusion_w_uncapped": c["crt.launches.occlusion_w.uncapped"],
             "segsum": _launches(c, "segsum"),
+            "cluster_bin": _launches(c, "cluster_bin"),
             "march_traces": c["crt.march.traces"],
             "march_host_syncs": tracing.total(c, "crt.host_reads.march")}
 
@@ -1741,8 +1752,9 @@ def phase_main_path(device):
           f"bad PPM header {tokens[:4]}")
     check(len(tokens) == 4 + W * H * 3, "PPM has the wrong number of values")
     print(f"[main] CLI wrote a {W}x{H} P3 image; kernel launches {launches}")
-    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0},
-          f"the forward path launched {launches}, expected 4, 4 and 0")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0,
+                       "cluster_bin": 8},
+          f"the forward path launched {launches}, expected 4, 4, 0 and 8")
 
     scene = make_test_scene(**BENCH, device=device)
     img = render_image(scene, RenderSettings(backend="auto"))
@@ -1899,8 +1911,9 @@ def phase_train(device):
     launches = read_launches()
     print(f"[train] value_and_grad of the {W}x{H} image sum: value "
           f"{float(value):.6e}; kernel launches {launches}")
-    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 4},
-          f"the training path launched {launches}, expected 4, 4 and 4")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 4,
+                       "cluster_bin": 8},
+          f"the training path launched {launches}, expected 4, 4, 4 and 8")
     for k, gk in grads.items():
         check(tuple(gk.shape) == tuple(getattr(scene, k).shape)
               and bool(torch.isfinite(gk).all()) and bool(gk.abs().max() > 0),
@@ -1960,8 +1973,8 @@ def phase_train(device):
     # per step: 4 traces, 4 shadow passes, and the segment sum as the
     # backward of 4 packed-row reads and 4 texture-colour reads
     check(fit_launches == {"closest_hit": 12, "occlusion_w": 12,
-                           "segsum": 24},
-          f"fit_scene launched {fit_launches}, expected 12, 12 and 24")
+                           "segsum": 24, "cluster_bin": 24},
+          f"fit_scene launched {fit_launches}, expected 12, 12, 24 and 24")
     check(all(bool(torch.isfinite(v).all()) for v in params.values()),
           "fit_scene returned non-finite parameters")
     return launches
@@ -2263,8 +2276,10 @@ def phase_refract(device):
           f"({default_banks(scene, st)} banks, {bounces} bounces); launches "
           f"{launches}")
     # per bounce one pool trace and one glass-flag pass; the march adds one
-    # closest hit per segment it walked, between none and depth + 1 a pass
+    # closest hit per segment it walked, between none and depth + 1 a pass;
+    # each of them binned by one Phase A launch
     check(launches["occlusion_w_glass"] == bounces
+          and launches["cluster_bin"] == launches["closest_hit"] + bounces
           and launches["closest_hit"] == bounces + launches["march_traces"]
           and 0 < launches["march_traces"] <= bounces * bounces
           and launches["occlusion_w"] == 0
@@ -2283,7 +2298,8 @@ def phase_refract(device):
     check(c_launches["closest_hit"] == 0
           and c_launches["closest_hit_compact"] == launches["closest_hit"]
           and c_launches["live_tiles"] == c_launches["closest_hit_compact"]
-          and c_launches["occlusion_w_glass"] == bounces,
+          and c_launches["occlusion_w_glass"] == bounces
+          and c_launches["cluster_bin"] == launches["cluster_bin"],
           f"compact_bounces launched {c_launches}")
     print(f"[refract] compact_bounces=True: image bit-equal, every trace a "
           f"compacted launch: {c_launches}")
@@ -2482,10 +2498,12 @@ def phase_gi(device):
           f"chunks of {-(-R // chunks)} pixels); launches {launches} {at()}")
     check(launches["closest_hit"] == traces
           and launches["occlusion_w"] == traces
+          and launches["cluster_bin"] == 2 * traces
           and launches["closest_hit_compact"] == 0
           and launches["occlusion_w_glass"] == 0 and launches["segsum"] == 0,
-          f"the GI frame launched {launches}: expected {traces} closest hits "
-          f"and {traces} capped shadow passes ({chunks} chunks)")
+          f"the GI frame launched {launches}: expected {traces} closest hits, "
+          f"{traces} capped shadow passes ({chunks} chunks) and "
+          f"{2 * traces} Phase A launches")
     check(same, "the CLI's GI PPM differs from render_image's")
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all())
           and float(img.mean()) > 0, "the GI image is not a finite, lit "
@@ -2585,6 +2603,143 @@ def phase_gi(device):
     return launches
 
 
+def _cloned(x):
+    """Tensors, also inside plain tuples and dicts, cloned; the rest as is."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if type(x) is tuple:
+        return tuple(_cloned(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(v) for k, v in x.items()}
+    return x
+
+
+PHASE_A = ("bin_rays", "bin_apex_shared")
+
+
+def record_phase_a(scene, settings):
+    """Every Phase A call of the cluster path in one frame
+    (``render_image(scene, settings)``): [(entry, args, kw)], the tensors
+    cloned at the call, since the wavefront may write its buffers again."""
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.ops import cluster_trace
+
+    calls = []
+
+    def keep(entry):
+        def around(real, *args, **kw):
+            calls.append((entry, _cloned(args), _cloned(kw)))
+            return real(*args, **kw)
+
+        return around
+
+    with contextlib.ExitStack() as stack:
+        for entry in PHASE_A:
+            stack.enter_context(patched(cluster_trace, entry, keep(entry)))
+        render_image(scene, settings)
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_a_fn(entry, plain=False):
+    """``binning.bin_rays`` / ``bin_apex_shared``, or its plain version."""
+    from crt_tpu_torch.ops import binning
+
+    return getattr(binning, entry + ("_plain" if plain else ""))
+
+
+def phase_a_args(entry, args, kw) -> dict:
+    """A Phase A call's arguments by name, defaults filled in."""
+    import inspect
+
+    bound = inspect.signature(phase_a_fn(entry)).bind(*args, **kw)
+    bound.apply_defaults()
+    return bound.arguments
+
+
+def phase_a_bound(entry, args, kw, out) -> dict:
+    """The least time of one Phase A launch: the origins (and, for the
+    frustum, the directions) of the lanes the answer reads (the active
+    ones: a dead lane's rays are never read), every mask byte, the
+    apexes or lights, the boxes once and the lists and counts written, at
+    the card's memory rate; the tests' arithmetic is far below it."""
+    p = phase_a_args(entry, args, kw)
+    if entry == "bin_rays":
+        o, act, extra = p["origins"], p["active"], p["apex"]
+        per_lane = 12 if extra is not None else 24
+    else:
+        o, act, extra = p["shadow_o"], p["active"], p["light_positions"]
+        per_lane = 12
+    if act is None:
+        lanes = o.shape[0]
+    else:
+        lanes = int((act if act.dim() == 1 else act.any(dim=0)).sum())
+    boxes = [p["tables"].cl_min, p["tables"].cl_max]
+    if entry == "bin_apex_shared" and p["glass_boxes"] is not None:
+        boxes += list(p["glass_boxes"])
+    num_bytes = (per_lane * lanes + nbytes(act, extra, *boxes, *out))
+    return bound_ms(num_bytes, 0.0)
+
+
+def phase_cluster_bin(device):
+    """[cluster-bin] Phase A's kernel (csrc/cluster_bin.cu) against its
+    plain version on every call of one 1080p GI frame (K = 4, depth 3: the
+    grow pool's bounce shapes, 32 calls) and of one 1080p glass frame (16
+    calls), recorded from the frames themselves: lists and counts bit-equal,
+    one launch a call, by mode; the calls' summed kernel and plain device
+    times (device_ms: the profiler's device rows over 5 calls, median of
+    3 traces) and the bytes bound, which the kernels line carries
+    (measure/cluster_bin.py reads the host's time a call and the frames
+    in turns)."""
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.scene.procedural import make_test_scene
+    from crt_tpu_torch.utils import trace as tracing
+
+    frames = (("gi", GI, RenderSettings(diffuse_reflection_ray_count=GI_RAYS),
+               32),
+              ("glass", GLASS, RenderSettings(), 16))
+    result = {}
+    for name, kw, st, expect in frames:
+        scene = make_test_scene(**kw, device=device)
+        calls = record_phase_a(scene, st)
+        check(len(calls) == expect, f"[cluster-bin] the {name} frame made "
+              f"{len(calls)} Phase A calls, not {expect}")
+        modes, shapes = {}, set()
+        kernel_ms = plain_ms = bound = 0.0
+        for i, (entry, args, ckw) in enumerate(calls):
+            kernel, plain = phase_a_fn(entry), phase_a_fn(entry, plain=True)
+            reset_launches()
+            got = kernel(*args, **ckw)
+            c = counted()
+            mode = [k.rsplit(".", 1)[1] for k, v in c.items()
+                    if k.startswith("crt.launches.cluster_bin.") and v]
+            check(len(mode) == 1 and tracing.total(c, "crt.launches") == 1,
+                  f"[cluster-bin] {name} call {i} ({entry}) launched {c}")
+            want = plain(*args, **ckw)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f"[cluster-bin] {name} call {i} ({entry}, {mode[0]}): "
+                  f"lists or counts differ from the plain version "
+                  f"({int((got[1] != want[1]).sum())} counts)")
+            modes[mode[0]] = modes.get(mode[0], 0) + 1
+            shapes.add((mode[0], tuple(got[0].shape)))
+            kernel_ms += device_ms(lambda: kernel(*args, **ckw), calls=5)
+            plain_ms += device_ms(lambda: plain(*args, **ckw), calls=5)
+            bound += phase_a_bound(entry, args, ckw, got)["bound_ms"]
+        print(f"[cluster-bin] {name} frame: {len(calls)} calls bit-equal to "
+              f"the plain version, one launch each, by mode {modes}; lists "
+              f"{sorted(shapes)}; device time {kernel_ms:.4f} ms "
+              f"(plain {plain_ms:.4f}) / bound {bound:.4f} ms (bytes); "
+              f"{smi()}")
+        result[name] = {"calls": len(calls), "modes": modes,
+                        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound}
+        del calls, scene
+        torch.cuda.empty_cache()
+    return result
+
+
 PREVIEWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
                         "previews")
 BITMAP_FILE = "12-01-textures.jpg"  # a baseline JPEG, 640x360
@@ -2619,8 +2774,9 @@ def phase_bitmap(device):
     launches = read_launches()
     print(f"[bitmap] {BITMAP_FILE} decoded and loaded in {load_s:.3f} s; "
           f"the {W}x{H} frame's launches {launches}")
-    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0},
-          f"the bitmap frame launched {launches}, expected 4, 4 and 0")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0,
+                       "cluster_bin": 8},
+          f"the bitmap frame launched {launches}, expected 4, 4, 0 and 8")
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
           "the bitmap image is not a finite [H, W, 3]")
     ref = render_image(scene, RenderSettings(backend="bruteforce"))
@@ -4330,8 +4486,10 @@ def phase_blender(device):
           "the Combined pass is not a finite [W * H, 4] RGBA")
     check(np.array_equal(rect, ref.reshape(-1, 4)),
           "the Combined pass differs from render_scene_from_dict_array")
-    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0},
-          f"the engine launched {launches}, expected 4 K1 and 4 K2")
+    check(launches == {"closest_hit": 4, "occlusion_w": 4, "segsum": 0,
+                       "cluster_bin": 8},
+          f"the engine launched {launches}, expected 4 K1, 4 K2 and 8 "
+          "Phase A")
     print("[blender] the Combined pass equals render_scene_from_dict_array "
           "of the exported dict on the card, bit for bit")
     return launches
@@ -4395,9 +4553,10 @@ def cli_default_scene(reference, tmp):
         finally:
             os.environ["CRT_REFERENCE"] = saved
         check(rc == 1, f"the CLI without $CRT_REFERENCE returned {rc}")
-    check(launches == {"closest_hit": 16, "occlusion_w": 16, "segsum": 0},
+    check(launches == {"closest_hit": 16, "occlusion_w": 16, "segsum": 0,
+                       "cluster_bin": 32},
           f"the default scene's frame launched {launches}, expected 16 K1 "
-          "+ 16 K2")
+          "+ 16 K2 + 32 Phase A")
     print(f"[tools] the CLI with no scene: the 1920x1080 GI scene under "
           f"$CRT_REFERENCE/{cli.DEFAULT_SCENE} on the card, output.ppm equal "
           f"to the PPM of the same file given by path; launches {launches}; "
@@ -4504,9 +4663,9 @@ def phase_tools(device):
                   f"of its rig on every pixel; PNG decode "
                   f"{filter0_ms[-1]:.3f} ms")
         check(turn == {"closest_hit": 4 * frames, "occlusion_w": 4 * frames,
-                       "segsum": 0},
+                       "segsum": 0, "cluster_bin": 8 * frames},
               f"the turntable launched {turn}, expected {frames} x (4 K1 + "
-              "4 K2)")
+              "4 K2 + 8 Phase A)")
         launches["turntable"] = turn
         # the decode of a file with every row filter (filters 0-4 in turn,
         # 64 KiB IDAT chunks), as adaptive writers (PIL, stb) produce:
@@ -4748,7 +4907,9 @@ def main(argv=None) -> int:
     stats.update(phase_glass_kernels(device))
     glass, compact = phase_refract(device)
     torch.cuda.empty_cache()
-    phase_gi(device)
+    gi = phase_gi(device)
+    torch.cuda.empty_cache()
+    phase_a = phase_cluster_bin(device)
     torch.cuda.empty_cache()
     stats["segsum"]["texel_ids"] = phase_bitmap(device)
     torch.cuda.empty_cache()
@@ -4792,6 +4953,17 @@ def main(argv=None) -> int:
     launches["closest_hit_stream"] = big["closest_hit_stream"]
     launches["occlusion_stream"] = big["occlusion_stream"]
     launches.update(direction)
+    # Phase A's launches are those of the opaque, glass and GI CLI frames
+    # (one before each trace kernel); its times and bound those of the
+    # [cluster-bin] calls, recorded from the GI and glass frames
+    main_path = {"opaque": launches["cluster_bin"],
+                 "glass": glass["cluster_bin"], "gi": gi["cluster_bin"]}
+    launches["cluster_bin"] = sum(main_path.values())
+    stats["cluster_bin"] = dict(
+        max_abs_err=0.0, main_path_launches=main_path,
+        **{k: sum(f[k] for f in phase_a.values())
+           for k in ("kernel_ms", "plain_ms", "bound_ms")},
+        frames=phase_a)
     off_path = ("occlusion_w_uncapped", "occlusion_d_exit")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     described = (
@@ -4825,6 +4997,8 @@ def main(argv=None) -> int:
          "crt_tpu/ops/pallas_stream.py:669"),
         ("occlusion_stream_rows", "crt_tpu_torch/csrc/stream_trace.cu",
          "crt_tpu/ops/pallas_stream.py:783"),
+        ("cluster_bin", "crt_tpu_torch/csrc/cluster_bin.cu",
+         "crt_tpu/ops/pallas_trace.py:400, :516 (XLA, no pallas_call)"),
     )
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "on_a_render_path": n not in off_path,
@@ -4840,7 +5014,8 @@ def main(argv=None) -> int:
         if k["name"] in ("closest_hit", "occlusion_w"):
             k["tools_launches"] = {path: tools[path][k["name"]]
                                    for path in tools}
-        if k["name"] in ("closest_hit", "occlusion_w", "segsum"):
+        if k["name"] in ("closest_hit", "occlusion_w", "segsum",
+                         "cluster_bin"):
             k["precision_launches"] = {run: precision[run][k["name"]]
                                        for run in precision}
     check(all(k["launches"] > 0 for k in kernels

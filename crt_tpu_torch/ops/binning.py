@@ -1,4 +1,4 @@
-"""Phase A: per-tile frustums binned against cluster boxes, in plain torch.
+"""Phase A: per-tile frustums binned against cluster boxes.
 
 Counterpart of the binning half of ``crt_tpu/ops/pallas_trace.py``
 (``_frustum_box_mask``, ``_apex_cone_mask``, ``_apex_wedge_mask``,
@@ -12,6 +12,18 @@ add clusters, so the kernels that walk the lists stay exact.
 The walk order is the stable sort of ``~mask``: exact-t ties across
 clusters go to the first cluster walked, so the order is part of the
 result.
+
+``bin_rays`` and ``bin_apex_shared`` launch one CUDA kernel a call for
+CUDA tensors (``csrc/cluster_bin.cu``, or raise) and take their plain
+PyTorch versions, ``bin_rays_plain`` and ``bin_apex_shared_plain``, only
+for CPU tensors.  The kernel keeps the plain versions' float32 operations
+in their order, so on the card the lists and counts are theirs bit for
+bit.  ``utils/trace.py``'s registry counts each launch as
+``crt.launches.cluster_bin.<rays | apex | shared | shared_uncapped |
+shared_glass>``.  The streaming backend's Phase A
+(``stream_binning.py``, ``stream_trace.py``) calls ``_frustum_box_mask``,
+``apex_shaft_mask`` and ``tile_bounds`` directly, over per-row boxes: they
+stay plain.
 """
 
 from __future__ import annotations
@@ -205,10 +217,11 @@ def tile_bounds(origins, dirs, tile_rays: int, active=None):
             a[..., 0].any(dim=1))
 
 
-@tracing.spanned("crt.binning")
-def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
-             active=None, apex=None, apex_slack: float = 0.0):
-    """Generic frustum binning.  origins/dirs: [R, 3], R % tile_rays == 0.
+def bin_rays_plain(tables: ClusterTables, origins, dirs,
+                   tile_rays: int = TILE_RAYS, active=None, apex=None,
+                   apex_slack: float = 0.0):
+    """Plain version of ``bin_rays``.  origins/dirs: [R, 3], R % tile_rays
+    == 0.
 
     ``active`` ([R] bool or None) restricts the frustum to lanes whose
     result is consumed; a tile with no active lane gets an empty list.
@@ -234,11 +247,12 @@ def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
     return _counted(_compact(mask))
 
 
-@tracing.spanned("crt.binning")
-def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
-                    tile_rays: int = TILE_RAYS, origin_slack: float = 0.0,
-                    boxes=None, capped: bool = True, glass_boxes=None):
-    """Light-side shaft binning of a point-light shadow wavefront.
+def bin_apex_shared_plain(tables: ClusterTables, shadow_o, light_positions,
+                          active, tile_rays: int = TILE_RAYS,
+                          origin_slack: float = 0.0, boxes=None,
+                          capped: bool = True, glass_boxes=None):
+    """Plain version of ``bin_apex_shared``: light-side shaft binning of a
+    point-light shadow wavefront.
 
     Every shadow ray of a tile runs from its biased origin to one light
     point P, so its reachable set is the shaft hull(origin box, P).  It is
@@ -295,3 +309,150 @@ def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
         )
     mask = mask & tile_any[:, None]
     return _counted(_compact(mask))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrappers
+# ---------------------------------------------------------------------------
+
+# ``crt_cluster_bin``'s modes: frustum, ``apex=`` shaft, shared origin box
+_RAYS, _APEX, _SHARED = 0, 1, 2
+_SMEM_BYTES = 227 * 1024  # dynamic shared memory a block may take
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _f32_rows(name, x, rows, device):
+    """``x`` as a contiguous float32 [rows, 3] on ``device`` (no copy when
+    it is one already)."""
+    _require(x.device == device and x.dtype == torch.float32
+             and tuple(x.shape) == (rows, 3),
+             f"{name} must be a float32 [{rows}, 3] on {device}")
+    return x.contiguous()
+
+
+def _launch(mode: int, tables: ClusterTables, o, d, active, apex, boxes,
+            glass_boxes, tiles: int, tile_rays: int, lights: int,
+            capped: bool, slack: float):
+    """One launch of ``crt_cluster_bin`` -> (cluster_list [lights * tiles,
+    L] i32, counts [lights * tiles] i32), the pairs counted.  The launch
+    counts as ``crt.launches.cluster_bin.<rays | apex | shared |
+    shared_uncapped | shared_glass>``."""
+    from crt_tpu_torch.ops import cuda_lib
+    from crt_tpu_torch.ops.cluster_trace import _cuda_stream, _raise_on
+
+    dev = o.device
+    L = tables.cl_min.shape[0]
+    bmin, bmax = (_f32_rows(n, x, L, dev)
+                  for n, x in zip(("box min", "box max"), boxes))
+    gmin = gmax = None
+    if glass_boxes is not None:
+        gmin, gmax = (_f32_rows(n, x, L, dev) for n, x in
+                      zip(("glass box min", "glass box max"), glass_boxes))
+    masks = 0 if active is None else active.shape[0]
+    words = -(-L // 256) * 8  # the kernel's bitset: 8 words a 256 clusters
+    _require(4 * (words + masks) <= _SMEM_BYTES,
+             f"{L} clusters and {masks} masks exceed a block's shared memory")
+    s = float(torch.tensor(slack, dtype=torch.float32))
+
+    lib, _ = cuda_lib.load()
+    rows = lights * tiles
+    cluster_list = torch.empty((rows, L), dtype=torch.int32, device=dev)
+    counts = torch.empty((rows,), dtype=torch.int32, device=dev)
+    if rows:
+        with torch.cuda.device(dev):
+            err = lib.crt_cluster_bin(
+                o.data_ptr(), d.data_ptr() if d is not None else None,
+                active.data_ptr() if active is not None else None,
+                apex.data_ptr() if apex is not None else None,
+                bmin.data_ptr(), bmax.data_ptr(),
+                gmin.data_ptr() if gmin is not None else None,
+                gmax.data_ptr() if gmax is not None else None,
+                mode, L, tiles, tile_rays, lights,
+                masks, int(capped), s,
+                cluster_list.data_ptr(), counts.data_ptr(), _cuda_stream(dev),
+            )
+        _raise_on(err, "cluster_bin")
+        name = ("rays", "apex", "shared")[mode]
+        if glass_boxes is not None:
+            name += "_glass"
+        elif not capped:
+            name += "_uncapped"
+        tracing.count("crt.launches.cluster_bin." + name)
+    return _counted((cluster_list, counts))
+
+
+def _check_lanes(origins, tile_rays: int) -> int:
+    """Tiles of a wavefront of ``origins`` [R, 3] (R % tile_rays == 0)."""
+    R = origins.shape[0]
+    _require(tile_rays > 0 and R % tile_rays == 0,
+             f"R = {R} must be a multiple of tile_rays = {tile_rays}")
+    return R // tile_rays
+
+
+def _bool_mask(active, shape, device):
+    _require(active.device == device and active.dtype == torch.bool
+             and tuple(active.shape) == shape,
+             f"active must be a bool {list(shape)} on {device}")
+    return active.contiguous()
+
+
+@tracing.spanned("crt.binning")
+def bin_rays(tables: ClusterTables, origins, dirs, tile_rays: int = TILE_RAYS,
+             active=None, apex=None, apex_slack: float = 0.0):
+    """Generic frustum binning.  origins/dirs: [R, 3], R % tile_rays == 0.
+
+    ``active`` ([R] bool or None) restricts the frustum to lanes whose
+    result is consumed; a tile with no active lane gets an empty list.
+    ``apex`` ([tiles, 3] or None) is the point-light shadow mode (the
+    directions are not read).  See ``bin_rays_plain``.
+
+    Returns (cluster_list [tiles, L] i32, counts [tiles] i32).
+    """
+    dev = origins.device
+    if dev.type == "cpu":
+        return bin_rays_plain(tables, origins, dirs, tile_rays, active, apex,
+                              apex_slack)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"bin_rays has no kernel for {dev}")
+    tiles = _check_lanes(origins, tile_rays)
+    R = origins.shape[0]
+    o = _f32_rows("origins", origins, R, dev)
+    d = None if apex is not None else _f32_rows("dirs", dirs, R, dev)
+    a = None if active is None else _bool_mask(active, (R,), dev)[None]
+    ap = None if apex is None else _f32_rows("apex", apex, tiles, dev)
+    return _launch(_RAYS if apex is None else _APEX, tables, o, d, a, ap,
+                   (tables.cl_min, tables.cl_max), None, tiles, tile_rays, 1,
+                   True, apex_slack)
+
+
+@tracing.spanned("crt.binning")
+def bin_apex_shared(tables: ClusterTables, shadow_o, light_positions, active,
+                    tile_rays: int = TILE_RAYS, origin_slack: float = 0.0,
+                    boxes=None, capped: bool = True, glass_boxes=None):
+    """Light-side shaft binning of a point-light shadow wavefront, shared
+    origin boxes for every light (see ``bin_apex_shared_plain``).
+
+    shadow_o: [R, 3] biased per-pixel origins; active: [Ll, R] bool.
+    Returns (cluster_list [Ll*tpl, L], counts [Ll*tpl]), light-major.
+    """
+    dev = shadow_o.device
+    if dev.type == "cpu":
+        return bin_apex_shared_plain(tables, shadow_o, light_positions,
+                                     active, tile_rays, origin_slack, boxes,
+                                     capped, glass_boxes)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"bin_apex_shared has no kernel for {dev}")
+    tpl = _check_lanes(shadow_o, tile_rays)
+    R = shadow_o.shape[0]
+    Ll = light_positions.shape[0]
+    o = _f32_rows("shadow_o", shadow_o, R, dev)
+    lp = _f32_rows("light_positions", light_positions, Ll, dev)
+    a = _bool_mask(active, (Ll, R), dev)
+    return _launch(_SHARED, tables, o, None, a, lp,
+                   boxes if boxes is not None
+                   else (tables.cl_min, tables.cl_max),
+                   glass_boxes, tpl, tile_rays, Ll, capped, origin_slack)

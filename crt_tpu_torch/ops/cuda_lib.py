@@ -27,7 +27,7 @@ from typing import NamedTuple
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
 SOURCES = ("closest_hit.cu", "occlusion_w.cu", "occlusion_d.cu",
-           "stream_trace.cu", "segsum.cu")
+           "stream_trace.cu", "segsum.cu", "cluster_bin.cu")
 HEADERS = ("cluster_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -128,4 +128,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.crt_occlusion_stream.restype = i
     lib.crt_segment_accumulate.argtypes = [p, p, i, i, i, p, p]
     lib.crt_segment_accumulate.restype = i
+    lib.crt_cluster_bin.argtypes = ([p] * 8 + [i] * 7 + [ctypes.c_float]
+                                    + [p] * 3)
+    lib.crt_cluster_bin.restype = i
     return lib

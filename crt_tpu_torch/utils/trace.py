@@ -31,7 +31,10 @@ the counters of its block, filled when the block exits; ``reset()`` clears
 them.  The port's counters:
 
   - ``crt.launches.<kernel>[.<mode or layout>]``: CUDA kernel launches
-    (the plain versions launch nothing and count nothing);
+    (the plain versions launch nothing and count nothing); Phase A of the
+    cluster path counts ``crt.launches.cluster_bin.<rays, apex, shared,
+    shared_uncapped, shared_glass>``, one a ``bin_rays`` /
+    ``bin_apex_shared`` call;
   - ``crt.host_reads.<site>``: each point of the hot path where the host
     waits for the device: a read of a device value (``nonzero``,
     ``bool(t.any())``, ``float(loss)``), or a copy of a host value to the

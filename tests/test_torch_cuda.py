@@ -1746,3 +1746,180 @@ def test_render_ignores_the_callers_tf32(device):
         a, b = g_tf32[k].double(), g_ieee[k].double()
         assert bool(torch.isfinite(a).all()), k
         assert float((a - b).abs().max()) <= 4e-6 * float(b.abs().sum()), k
+
+
+# -- Phase A: csrc/cluster_bin.cu against its plain versions --------------
+
+BIN_COUNTERS = ("rays", "apex", "shared", "shared_uncapped", "shared_glass")
+
+
+def _phase_a_rays(gen, tiles, lo, hi):
+    """[tiles * 1024, 3] origins and directions: per tile a small origin box
+    somewhere in [lo, hi] and a narrow direction cone, a quarter of the
+    tiles with fully random directions; on about one tile in five an axis
+    whose direction components are all +0.0 or -0.0 (neither sign-definite
+    side of the slab), and on tiles 4 and 5 single lanes with a signed-zero
+    component."""
+    shape = (tiles, 1024, 3)
+    o = lo + (hi - lo) * torch.rand((tiles, 1, 3), generator=gen)
+    o = o + 0.05 * (hi - lo) * torch.rand(shape, generator=gen)
+    d = torch.randn((tiles, 1, 3), generator=gen)
+    d = d + 0.1 * torch.randn(shape, generator=gen)
+    wild = torch.rand((tiles, 1, 1), generator=gen) < 0.25
+    d = torch.where(wild, torch.randn(shape, generator=gen), d)
+    zeros = torch.where(torch.rand(shape, generator=gen) < 0.5, -0.0, 0.0)
+    flat = torch.rand((tiles, 1, 3), generator=gen) < 0.2
+    lane = torch.rand(shape, generator=gen) < 0.02
+    lane[:4] = False
+    lane[6:] = False
+    d = torch.where(flat | lane, zeros, d)
+    return o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+
+
+def _phase_a_masks(gen, tiles, masks=2):
+    """[masks, tiles * 1024] bool: tile 0 dead in every mask, tile 1 with
+    one live lane (another in each mask), tile 2 all live, tile 3 live in
+    the first mask alone, the rest half live."""
+    a = torch.rand((masks, tiles, 1024), generator=gen) < 0.5
+    a[:, :2] = False
+    for m in range(masks):
+        a[m, 1, 100 + 300 * m] = True
+    a[:, 2] = True
+    a[1:, 3] = False
+    return a.reshape(masks, -1)
+
+
+@pytest.fixture(scope="module", params=["quads", "big"])
+def phase_a_case(request, device):
+    """Tables and a random wavefront for Phase A: the 66-triangle glass
+    quads (L = 5, the benchmark scene's) or 65,536 triangles (L = 4,096,
+    over a block's 256 threads, with every 16th cluster's box as its glass
+    box and the others glass_subset's +-3.4e38); two lights either way."""
+    if request.param == "quads":
+        scene = make_test_scene(192, 128, num_quads=64,
+                                with_refractive=True, device=device)
+    else:
+        scene = make_big_scene(65536, 256, 128, seed=1, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    _, gmin, gmax = cluster_tables.glass_subset(scene, tables)
+    L = tables.cl_min.shape[0]
+    if request.param == "big":
+        keep = (torch.arange(L, device=device) % 16 == 3)[:, None]
+        gmin = torch.where(keep, tables.cl_min, gmin).contiguous()
+        gmax = torch.where(keep, tables.cl_max, gmax).contiguous()
+    lights = scene.light_position
+    if lights.shape[0] == 1:
+        lights = torch.cat([lights, lights + torch.tensor(
+            [1.5, 0.5, -2.0], device=device)])
+    gen = torch.Generator().manual_seed(11)
+    verts = scene.vertices.detach().cpu()
+    o, d = _phase_a_rays(gen, 24, verts.amin(0), verts.amax(0))
+    return dict(tables=tables, glass=(gmin, gmax), o=o.to(device),
+                d=d.to(device), act=_phase_a_masks(gen, 24).to(device),
+                lights=lights.contiguous(), L=L)
+
+
+def _phase_a_call(x, mode, lights, plain=False):
+    """One Phase A call in ``mode`` over ``x``'s tensors (on their device),
+    through the wrapper or the plain version."""
+    def fn(entry):
+        return getattr(binning, entry + ("_plain" if plain else ""))
+
+    tables, o, d = x["tables"], x["o"], x["d"]
+    act, lp = x["act"][:lights], x["lights"][:lights].contiguous()
+    if mode == "rays":
+        return fn("bin_rays")(tables, o, d, 1024)
+    if mode == "rays_masked":
+        return fn("bin_rays")(tables, o, d, 1024, act[0])
+    if mode == "apex":
+        apex = lp.repeat_interleave(o.shape[0] // 1024, dim=0)
+        return fn("bin_rays")(tables, o.repeat(lights, 1),
+                              d.repeat(lights, 1), 1024, act.reshape(-1),
+                              apex=apex, apex_slack=0.02)
+    kw = {"shared": {},
+          "shared_uncapped": dict(boxes=x["glass"], capped=False),
+          "shared_glass": dict(glass_boxes=x["glass"])}[mode]
+    return fn("bin_apex_shared")(tables, o, lp, act, 1024, 0.02, **kw)
+
+
+def _on_cpu(x):
+    out = {}
+    for k, v in x.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v.cpu()
+        elif isinstance(v, cluster_tables.ClusterTables):
+            out[k] = type(v)(*(t.cpu() for t in v))
+        elif isinstance(v, tuple):
+            out[k] = tuple(t.cpu() for t in v)
+        else:
+            out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("mode,lights", [
+    ("rays", 1), ("rays_masked", 1),
+    *((m, n) for m in ("apex", "shared", "shared_uncapped", "shared_glass")
+      for n in (1, 2))])
+def test_cluster_bin_matches_plain(device, phase_a_case, mode, lights):
+    """Phase A's kernel in every mode launches once, under its mode's
+    counter, and its lists and counts equal the plain version's bit for
+    bit, on the card and on the CPU, over random coherent and incoherent
+    tiles with +-0.0 direction components, dead tiles (count 0, the
+    identity list) and one-lane tiles, 1 and 2 lights, glass_subset's
+    +-3.4e38 boxes, and L = 5 or L = 4,096."""
+    x = phase_a_case
+    counter = {"rays_masked": "rays"}.get(mode, mode)
+    c0 = tracing.counters()
+    cl, cnt = _phase_a_call(x, mode, lights)
+    c1 = tracing.counters()
+    assert (tracing.total(c1, "crt.launches")
+            - tracing.total(c0, "crt.launches")) == 1
+    assert (c1[f"crt.launches.cluster_bin.{counter}"]
+            - c0[f"crt.launches.cluster_bin.{counter}"]) == 1
+    pcl, pcnt = _phase_a_call(x, mode, lights, plain=True)
+    ccl, ccnt = _phase_a_call(_on_cpu(x), mode, lights)
+    torch.cuda.synchronize()
+    assert cl.dtype == torch.int32 and cnt.dtype == torch.int32
+    assert torch.equal(cnt, pcnt) and torch.equal(cl, pcl)
+    assert torch.equal(cnt.cpu(), ccnt) and torch.equal(cl.cpu(), ccl)
+    L = x["L"]
+    assert bool((cnt > 0).any()) and bool((cnt < L).any())
+    if mode != "rays":
+        tpl = x["o"].shape[0] // 1024
+        dead = torch.arange(cnt.shape[0], device=device) % tpl == 0
+        assert not bool(cnt[dead].any())
+        ident = torch.arange(L, dtype=torch.int32, device=device)
+        assert bool((cl[dead] == ident).all())
+
+
+@pytest.mark.parametrize("frame", ["gi", "glass"])
+def test_cluster_bin_frames_bit_equal_to_plain_binning(device, monkeypatch,
+                                                       frame):
+    """The 1080p GI frame (K = 4, depth 3: 16 bin_rays and 16
+    bin_apex_shared calls in two chunks) and the 1080p glass frame (12
+    bin_rays, the march's traces among them, and 4 glass-box
+    bin_apex_shared calls): every Phase A call launches the kernel, and
+    the image equals, bit for bit, the one rendered with the plain binning
+    put in the kernel's place."""
+    scene_kw, st, expect = {
+        "gi": (dict(gi_on=True),
+               RenderSettings(diffuse_reflection_ray_count=4),
+               {"rays": 16, "shared": 16}),
+        "glass": (dict(with_refractive=True), RenderSettings(),
+                  {"rays": 12, "shared_glass": 4}),
+    }[frame]
+    scene = make_test_scene(1920, 1080, 64, device=device, **scene_kw)
+    before = modes("cluster_bin", BIN_COUNTERS)
+    img = render_image(scene, st)
+    after = modes("cluster_bin", BIN_COUNTERS)
+    added = {m: after[m] - before[m] for m in BIN_COUNTERS
+             if after[m] > before[m]}
+    monkeypatch.setattr(cluster_trace, "bin_rays", binning.bin_rays_plain)
+    monkeypatch.setattr(cluster_trace, "bin_apex_shared",
+                        binning.bin_apex_shared_plain)
+    plain = render_image(scene, st)
+    torch.cuda.synchronize()
+    assert added == expect
+    assert modes("cluster_bin", BIN_COUNTERS) == after
+    assert float(img.mean()) > 0
+    assert torch.equal(img.view(torch.int32), plain.view(torch.int32))

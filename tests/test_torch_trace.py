@@ -428,6 +428,26 @@ def _stream(x, layout, occl):
                                            st.sc, layout=layout)
 
 
+def _bin(x, mode):
+    """Phase A in one mode: ``bin_rays`` (frustum, masked frustum, apex) or
+    ``bin_apex_shared`` (capped, uncapped over the glass boxes, glass)."""
+    if mode.startswith("shared"):
+        _, gmin, gmax = cluster_tables.glass_subset(x["scene"], x["tables"])
+        kw = {"shared": {},
+              "shared_uncapped": dict(boxes=(gmin, gmax), capped=False),
+              "shared_glass": dict(glass_boxes=(gmin, gmax))}[mode]
+        return binning.bin_apex_shared(x["tables"], x["point"], x["lights"],
+                                       x["act"], 1024, 0.02, **kw)
+    Ll = x["lights"].shape[0]
+    if mode == "apex":
+        apex = x["lights"].repeat_interleave(x["point"].shape[0] // 1024, 0)
+        return binning.bin_rays(x["tables"], x["point"].repeat(Ll, 1),
+                                x["ldir"], 1024, x["act"].reshape(-1),
+                                apex=apex, apex_slack=0.02)
+    act = x["act"][0] if mode == "rays_masked" else None
+    return binning.bin_rays(x["tables"], x["o"], x["d"], 1024, act)
+
+
 def _segsum(x):
     ids = torch.tensor([0, -1, 2, 3, 7, 2], dtype=torch.int32)
     return segsum.segment_accumulate(
@@ -450,6 +470,9 @@ PLAIN_CASES = {
     **{f"occlusion_stream.{lay}": (lambda x, lay=lay: _stream(x, lay, True))
        for lay in stream_trace.LAYOUTS},
     "segsum": _segsum,
+    **{f"cluster_bin.{m}": (lambda x, m=m: _bin(x, m))
+       for m in ("rays", "rays_masked", "apex", "shared", "shared_uncapped",
+                 "shared_glass")},
 }
 
 
@@ -462,6 +485,38 @@ def test_plain_versions_count_no_launch(case_inputs, case):
     assert out is not None
     assert tracing.total(c, "crt.launches") == 0
     assert tracing.enabled() is False
+
+
+def test_cluster_bin_kernel_is_built(tmp_path):
+    """``cluster_bin.cu`` is one of the library's sources, and its text is
+    part of the build's digest: an edit to it builds the library anew."""
+    import shutil
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    assert "cluster_bin.cu" in cuda_lib.SOURCES
+    assert "crt_cluster_bin(" in (cuda_lib.CSRC / "cluster_bin.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, csrc)
+    before = cuda_lib._digest(csrc)
+    assert before == cuda_lib._digest(cuda_lib.CSRC)
+    with open(csrc / "cluster_bin.cu", "a") as f:
+        f.write("\n")
+    assert cuda_lib._digest(csrc) != before
+
+
+@pytest.mark.parametrize("entry", ["bin_rays", "bin_apex_shared"])
+def test_binning_raises_where_it_has_no_kernel(case_inputs, entry):
+    """A tensor on neither the CPU nor a CUDA card is refused, not binned
+    by the plain version."""
+    x = {k: v.to("meta") for k, v in case_inputs.items()
+         if isinstance(v, torch.Tensor)}
+    with pytest.raises(NotImplementedError, match=entry):
+        if entry == "bin_rays":
+            binning.bin_rays(case_inputs["tables"], x["o"], x["d"], 1024)
+        else:
+            binning.bin_apex_shared(case_inputs["tables"], x["point"],
+                                    x["lights"], x["act"], 1024, 0.02)
 
 
 # -- counters: Phase A's pairs and the host-read sites -----------------
