@@ -81,10 +81,9 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      mirror-bounce wavefronts (2,040 tiles) the tile-merged closest hit
      (K7) at merge 2 and 4 vs its plain version and vs the closest-hit
      kernel (K1), bit for bit, K1 and K7 timed in turns with the bound;
-     then the CLI frame, in process with the defaults (4 K1 launches) and
-     in a child process with CRT_TILE_MERGE=2 (4 K7 and no K1 launches):
-     the two PPMs equal byte for byte, and in process the float image with
-     the merge equals the default one;
+     then the CLI frame with the defaults (4 K1 launches) and the frame
+     through a cluster tracer built with tile_merge=2 (4 K7 and no K1
+     launches), whose float image equals the default one bit for bit;
   8. glass kernels: on the depth-0 shadow wavefront of the refractive
      benchmark scene (make_test_scene(1920, 1080, 64,
      with_refractive=True)) the w-occlusion kernel in its glass-flag mode
@@ -107,7 +106,7 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      scene, vs the CPU; compact_bounces=True bit-equal with every trace a
      compacted launch (each with one launch of its live-list kernel); the
      router's flag vs the separate uncapped gate
-     through the trace factory; frame times of the scan and grow schedules,
+     through the cluster tracer; frame times of the scan and grow schedules,
      of scan with compact_bounces, of the recursive tree and of scan in 8
      chunks, host syncs, device time and launches of a profiled frame,
      peak memory; then value_and_grad of the
@@ -219,18 +218,20 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      16,384, 65,536, 262,144 and 1,000,000 triangles (what sets
      renderer.AUTO_STREAM_MIN_CLUSTERS) and, at 65,536, their images on
      every pixel and their gradients held together;
- 18. layouts: render_image of the 1,000,000-triangle frame with
-     CRT_STREAM_LAYOUT=fused, lane and rows (launch counts reset just
+ 18. layouts: the 1,000,000-triangle frame through streaming tracers
+     built with layout=fused, lane and rows (launch counts reset just
      before, read just after: one closest hit and two any-hit launches, all
      of the layout's kernels); the lane and rows frames equal the fused one
      bit for bit; frame times in turns (median of 5, host clock around a
      synchronize);
- 19. direction-form: the opaque bench frame through the CLI in a child
-     process with CRT_APEX_W=0 (4 K5 launches, no w-form pass) and with
-     --backend pallas_stream (4 K8 + 8 K9): the two PPMs equal, and within
-     one 8-bit level of the default frame and of the all-pairs backend's
-     on all but 0.01 % of pixels; one frame shaded through a trace built
-     with use_occlusion_kernel=True (4 K6 launches), equal to the K5 frame;
+ 19. direction-form: the opaque bench frame through a cluster tracer
+     built with shadow_kernel="d" and tile_merge=2 (4 K7 and 4 K5
+     launches, no K1 and no w-form pass) and through the CLI in a child
+     process with --backend pallas_stream (4 K8 + 8 K9): the two images
+     equal to the 8-bit level, and within one level of the default frame
+     and of the all-pairs backend's on all but 0.01 % of pixels; one frame
+     shaded through a tracer built with shadow_kernel="anyhit" (4 K6
+     launches), equal to the K5 frame through K1 and through K7;
  20. blender: the port's Blender add-on registered under the bpy stand-in
      of tests/mock_bpy.py; the opaque bench scene's dict imported through
      its importer (meshes, lights, camera), exported from the depsgraph and
@@ -298,10 +299,10 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      ``main_path_launches``, its times and bound those of [cluster-bin];
      the uncapped member-masked mode of the w-occlusion kernel is on
      none of them (``on_a_render_path`` false, launches 0) and is listed
-     for its comparison and times; K6 is reached through a factory option
+     for its comparison and times; K6 is reached through a tracer argument
      that no setting of render_image takes (``on_a_render_path`` false, the
      launches of phase 19's frame); K7's launches are those of phase 7's
-     CRT_TILE_MERGE=2 frame, K10's and K11's those of phase 18's frames.
+     tile_merge=2 frame, K10's and K11's those of phase 18's frames.
 
 ``--profile`` runs, instead of phases 3 to 19, a torch.profiler pass over
 three forward+backward frames: host enqueue time vs device kernel time,
@@ -312,9 +313,9 @@ beside this one's and runs only phase 4's K1-K7 shapes, K1, K2, K4-K7
 also held to the other build's kernel on every lane (K3's
 distance from it printed: its atomics add in another order) and every
 time taken in turns (other, this, this, other), then profiles the opaque
-forward and forward+backward frames, the opaque forward frame with the w
-form off (4 K5), with CRT_TILE_MERGE=2 (4 K7) and shaded with
-use_occlusion_kernel=True (4 K6), the
+forward and forward+backward frames, the opaque forward frame through
+cluster tracers built with shadow_kernel="d" (4 K5), tile_merge=2 (4 K7)
+and shadow_kernel="anyhit" (4 K6), the
 glass scan frame and the glass scan frame with compact_bounces with each
 build in the same turns (device time, launches, each redesigned kernel's
 share); no JSON lines.  The
@@ -1239,8 +1240,8 @@ def repacked_rays(ray, cnt, members, open_lanes=None, pack_above=-1):
 
 def direction_inputs(tables, shadow_o, ldir, r2, lights, act, slack):
     """K5's and K6's inputs on one shadow wavefront (shadow_o [R, 3], ldir
-    [Ll, R, 3], r2 and act [Ll, R]), as ``trace.shadow_apex`` and
-    ``trace.occluded`` build them: the flat o, d, r2 and active lanes,
+    [Ll, R, 3], r2 and act [Ll, R]), as the cluster tracer's ``shadow``
+    with ``shadow_kernel`` "d" and "anyhit" builds them: the flat o, d, r2 and active lanes,
     K5's shaft lists (bin_rays' apex mode) and K6's generic lists."""
     from crt_tpu_torch.ops.binning import bin_rays
 
@@ -1330,24 +1331,36 @@ def kd_shape(tag, name, tables, w, exit=False, gen=None):
                       f"{packed_tests}"))
 
 
+def frame_with(scene, **kw):
+    """The default forward frame of ``scene`` through a cluster tracer
+    built with ``kw`` (``shadow_kernel``, ``tile_merge``)."""
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
+    from crt_tpu_torch.renderer import _render_flat
+
+    with torch.no_grad():
+        return _render_flat(scene, RenderSettings(),
+                            trace_fn=make_cluster_trace_fn(scene, **kw))
+
+
 def record_direction_frame(scene):
-    """The arguments of ``trace.shadow_apex`` (K5's pass: shadow_o, ldir,
-    r2, lights, act, slack) at each shading level of one real forward
-    frame, shaded through a trace built with ``apex_w=False``."""
+    """K5's inputs (shadow_o, ldir, r2, lights, act, slack) at each shading
+    level of one real forward frame, shaded through a cluster tracer built
+    with ``shadow_kernel="d"``, as its ``shadow`` takes them."""
     from crt_tpu_torch import RenderSettings
     from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
     from crt_tpu_torch.ops.shade import shade_wavefront
 
-    trace = make_cluster_trace_fn(scene, apex_w=False)
-    real = trace.shadow_apex
+    trace = make_cluster_trace_fn(scene, shadow_kernel="d")
+    real = trace.shadow
     calls = []
 
-    def recording(*args):
+    def recording(point, shadow_o, lights, ldir, r2, act, slack):
         calls.append(tuple(x.detach().clone() if torch.is_tensor(x) else x
-                           for x in args))
-        return real(*args)
+                           for x in (shadow_o, ldir, r2, lights, act, slack)))
+        return real(point, shadow_o, lights, ldir, r2, act, slack)
 
-    trace.shadow_apex = recording
+    trace.shadow = recording
     st = RenderSettings()
     o, d = primary_wavefront(scene)
     with torch.no_grad():
@@ -1584,10 +1597,10 @@ def shape_turns(sh, parent=None):
 
 def profile_turns(device, parent):
     """Profiled device time and launches of the opaque forward and
-    forward+backward frames, the opaque forward frame with the w form off
-    (K5 shadows), with CRT_TILE_MERGE=2 (K7 closest hits) and shaded
-    through a trace built with
-    use_occlusion_kernel=True (K6 shadows), the glass scan frame and the
+    forward+backward frames, the opaque forward frame through cluster
+    tracers built with shadow_kernel="d" (K5 shadows), tile_merge=2 (K7
+    closest hits) and shadow_kernel="anyhit" (K6 shadows, shaded by
+    shade_wavefront), the glass scan frame and the
     glass scan frame with compact_bounces, with the parent's kernels and
     the new ones in turns (parent, new, new, parent), and the redesigned
     kernels' share of the device time."""
@@ -1601,33 +1614,19 @@ def profile_turns(device, parent):
     compact = RenderSettings(compact_bounces=True)
     o, d = primary_wavefront(opaque)
 
-    def w_form_off():
-        saved = cluster_trace._APEX_W  # read when the trace is built
-        cluster_trace._APEX_W = False
-        try:
-            return render_image(opaque)
-        finally:
-            cluster_trace._APEX_W = saved
-
-    def merged_frame():
-        saved = cluster_trace._TILE_MERGE  # read when the trace is built
-        cluster_trace._TILE_MERGE = 2
-        try:
-            return render_image(opaque)
-        finally:
-            cluster_trace._TILE_MERGE = saved
-
     def any_hit_frame():
         with torch.no_grad():
             return shade_wavefront(
                 opaque, RenderSettings(), cluster_trace.make_cluster_trace_fn(
-                    opaque, use_occlusion_kernel=True, apex_w=False), o, d)
+                    opaque, shadow_kernel="anyhit"), o, d)
 
     frames = (("opaque forward", lambda: render_image(opaque)),
               ("opaque forward+backward", lambda: image_sum_grads(opaque)),
-              ("opaque forward, w form off (K5)", w_form_off),
-              ("opaque forward, CRT_TILE_MERGE=2 (K7)", merged_frame),
-              ("opaque frame shaded with use_occlusion_kernel (K6)",
+              ("opaque forward, w form off (K5)",
+               lambda: frame_with(opaque, shadow_kernel="d")),
+              ("opaque forward, tile_merge=2 (K7)",
+               lambda: frame_with(opaque, tile_merge=2)),
+              ("opaque frame shaded with shadow_kernel=anyhit (K6)",
                any_hit_frame),
               ("glass scan forward", lambda: render_image(glass)),
               ("glass scan forward, compact_bounces",
@@ -1786,7 +1785,7 @@ def phase_main_path(device):
 
 def phase_variants(device):
     """K7 on the opaque bench frame's primary and mirror-bounce wavefronts
-    at merge 2 and 4, then the CLI frame with CRT_TILE_MERGE=2."""
+    at merge 2 and 4, then the frame through a tracer with tile_merge=2."""
     from crt_tpu_torch import render_image
     from crt_tpu_torch.frontend import cli
     from crt_tpu_torch.ops import cluster_trace as ct
@@ -1842,41 +1841,32 @@ def phase_variants(device):
               f"ms ({bound['bound_by']}), library call none")
     print(f"[variants] K7 plain version (merge 2, primary): {ms_plain:.3f} ms")
 
-    # the CLI frame: in process with the default K1, in a child with the
-    # merge (crt_tpu and the port read CRT_TILE_MERGE when imported)
+    # the CLI's default frame (K1), and in process the frame through a
+    # cluster tracer built with tile_merge=2 (K7)
     with tempfile.TemporaryDirectory() as tmp:
         scene_path = os.path.join(tmp, "bench.crtscene")
         with open(scene_path, "w") as f:
             json.dump(make_test_scene_dict(**BENCH), f)
-        default_ppm = os.path.join(tmp, "default.ppm")
-        merged_ppm = os.path.join(tmp, "merged.ppm")
         reset_launches()
-        rc = cli.main([scene_path, default_ppm, "--device", str(device)])
+        rc = cli.main([scene_path, os.path.join(tmp, "default.ppm"),
+                       "--device", str(device)])
         default_counts = read_launches()
-        counts = cli_child([scene_path, merged_ppm, "--device", str(device)],
-                           {"CRT_TILE_MERGE": "2"})
-        with open(default_ppm) as f1, open(merged_ppm) as f2:
-            same = f1.read() == f2.read()
-    print(f"[variants] CLI default frame: launches {default_counts}; CLI "
-          f"with CRT_TILE_MERGE=2 (child): launches {counts}")
+    reset_launches()
+    merged = frame_with(scene, tile_merge=2)
+    counts = dict(read_launches(), closest_hit_merged=_launches(
+        counted(), "closest_hit_merged"))
+    print(f"[variants] CLI default frame: launches {default_counts}; frame "
+          f"through a tracer with tile_merge=2: launches {counts}")
     check(rc == 0 and default_counts["closest_hit"] == 4,
           f"the default CLI frame launched {default_counts}")
     check(counts["closest_hit_merged"] == 4 and counts["closest_hit"] == 0
           and counts["occlusion_w"] == 4,
-          f"the CRT_TILE_MERGE=2 frame launched {counts}: expected 4 K7, no "
+          f"the tile_merge=2 frame launched {counts}: expected 4 K7, no "
           "K1 and 4 shadow passes")
-    check(same, "the CRT_TILE_MERGE=2 PPM differs from the default frame's")
-    default = render_image(scene)
-    saved = ct._TILE_MERGE
-    ct._TILE_MERGE = 2
-    try:
-        merged = render_image(scene)
-    finally:
-        ct._TILE_MERGE = saved
-    check(torch.equal(merged, default), "the merged frame's floats differ "
-          "from the default frame's")
-    print("[variants] the CRT_TILE_MERGE=2 PPM equals the default frame's "
-          "byte for byte, and in process the float images are bit-equal")
+    check(torch.equal(merged, render_image(scene)), "the merged frame's "
+          "floats differ from the default frame's")
+    print("[variants] the tile_merge=2 frame's floats equal the default "
+          "frame's bit for bit")
     stats = dict(max_abs_err=err, ms=ms["primary", 2], plain_ms=ms_plain,
                  library_ms=None, ms_merge4=ms["primary", 4],
                  ms_bounce=ms["bounce", 2], k1_ms=ms["primary", 1],
@@ -1997,6 +1987,7 @@ def record_glass_frame(scene):
     from crt_tpu_torch.ops.shade_iter import (
         default_banks, shade_wavefront_iter,
     )
+    from crt_tpu_torch.ops.tracer import Tracer
     from crt_tpu_torch.renderer import make_trace_fn
 
     st = RenderSettings()
@@ -2005,25 +1996,31 @@ def record_glass_frame(scene):
     width = default_banks(scene, st) * o.shape[0]
     rec = {"traces": [], "shadows": [], "march": []}
 
-    def recording(ro, rd, active=None):
-        pool = sys._getframe(1).f_code.co_name == "shade_local"
-        rec["traces" if pool else "march"].append(
-            (ro.detach().contiguous(), rd.detach().contiguous(),
-             active.detach().clone()))
-        return trace(ro, rd, active)
+    class Recording(Tracer):
+        """The frame's cluster tracer, recording its pool traces, its
+        march traces and its glass-flag passes."""
 
-    def recording_glass(point, shadow_o, lights, act, slack):
-        rec["shadows"].append((point.detach().contiguous(),
-                               shadow_o.detach().contiguous(),
-                               lights.detach().contiguous(),
-                               act.detach().clone(), slack))
-        return trace.shadow_apex_w_glass(point, shadow_o, lights, act, slack)
+        rank = trace.rank
 
-    recording.shadow_apex_w = trace.shadow_apex_w
-    recording.shadow_apex_w_glass = recording_glass
-    recording.rank = trace.rank
+        def __call__(self, ro, rd, active=None):
+            pool = sys._getframe(1).f_code.co_name == "shade_local"
+            rec["traces" if pool else "march"].append(
+                (ro.detach().contiguous(), rd.detach().contiguous(),
+                 active.detach().clone()))
+            return trace(ro, rd, active)
+
+        def shadow(self, *args):
+            return trace.shadow(*args)
+
+        def shadow_glass(self, point, shadow_o, lights, act, slack):
+            rec["shadows"].append((point.detach().contiguous(),
+                                   shadow_o.detach().contiguous(),
+                                   lights.detach().contiguous(),
+                                   act.detach().clone(), slack))
+            return trace.shadow_glass(point, shadow_o, lights, act, slack)
+
     with torch.no_grad():
-        shade_wavefront_iter(scene, st, recording, o, d)
+        shade_wavefront_iter(scene, st, Recording(), o, d)
     bounces = st.max_ray_depth + 1
     lanes = [c[0].shape[0] for c in rec["traces"]]
     check(len(lanes) == bounces and len(rec["shadows"]) == bounces
@@ -2313,14 +2310,14 @@ def phase_refract(device):
                                                      device=device)
     act = hit.valid[None].expand(scene.num_lights, -1)
     reset_launches()
-    _, flag = trace.shadow_apex_w_glass(point, shadow_o, scene.light_position,
-                                        act, 2.0 * st.shadow_bias)
+    _, flag = trace.shadow_glass(point, shadow_o, scene.light_position, act,
+                                 2.0 * st.shadow_bias)
     gate = trace.refr_ray_hit_w(point, shadow_o, scene.light_position, act,
                                 2.0 * st.shadow_bias)
     gate_launches = read_glass_launches()
     check(torch.equal(flag & act, gate & act),
           "router flag and uncapped gate disagree")
-    print(f"[refract] router cross-check through the trace factory: "
+    print(f"[refract] router cross-check through the cluster tracer: "
           f"{int((flag & act).sum())} of {int(act.sum())} lanes flagged by "
           f"both routes; launches glass {gate_launches['occlusion_w_glass']}, "
           f"uncapped {gate_launches['occlusion_w_uncapped']}")
@@ -3744,6 +3741,7 @@ def phase_big(device):
     from crt_tpu_torch import renderer
     from crt_tpu_torch.ops import intersect
     from crt_tpu_torch.ops.shade import shade_wavefront
+    from crt_tpu_torch.ops.tracer import Tracer
     from crt_tpu_torch.scene.procedural import make_big_scene
 
     W, H = BIG["width"], BIG["height"]
@@ -3779,12 +3777,14 @@ def phase_big(device):
         scene.vertices, scene.tri_vidx,
         scene.mat_backface[scene.tri_material.long()])
 
-    def bf(origins, dirs, active=None):  # a [256, 4 T] product per chunk
-        return intersect.closest_hit_bruteforce(td, origins, dirs,
-                                                ray_chunk=256)
+    class AllPairs(Tracer):  # a [256, 4 T] product per chunk
+        def __call__(self, origins, dirs, active=None):
+            return intersect.closest_hit_bruteforce(td, origins, dirs,
+                                                    ray_chunk=256)
 
     with torch.no_grad():
-        ref = shade_wavefront(scene, RenderSettings(), bf, o[rays], d[rays])
+        ref = shade_wavefront(scene, RenderSettings(), AllPairs(), o[rays],
+                              d[rays])
     # 8 of 8192, the allowance of the hit comparison above: the all-pairs
     # backend takes its dot products by matmul, and a ray grazing an edge
     # may find the other triangle
@@ -3877,7 +3877,7 @@ def phase_big(device):
             c_ms = None
             c_txt = "out of memory"
         auto = renderer.make_trace_fn(sized, RenderSettings())
-        picked = "cluster" if hasattr(auto, "with_rows") else "stream"
+        picked = "cluster" if auto.emits_rows else "stream"
         print(f"[big] {n} triangles ({clusters} clusters): streaming backend "
               f"{s_ms:.3f} ms (peak {s_peak:.3f} GiB), cluster backend "
               f"{c_txt}; auto picks {picked}")
@@ -3904,44 +3904,44 @@ def phase_big(device):
 
 
 def phase_layouts(device, scene):
-    """The large-scene main path in the lane and rows table layouts:
-    render_image of the 1,000,000-triangle frame with CRT_STREAM_LAYOUT set
-    (the port reads it when render_image builds the trace)."""
-    from crt_tpu_torch import render_image
+    """The large-scene main path in the lane and rows table layouts: the
+    1,000,000-triangle frame at default settings through a streaming
+    tracer built with ``layout=`` (tables built in the frame, as
+    render_image builds them)."""
+    from crt_tpu_torch import RenderSettings
+    from crt_tpu_torch.ops.stream_trace import make_stream_trace_fn
+    from crt_tpu_torch.renderer import _render_flat
+
+    def frame(layout):
+        with torch.no_grad():
+            return _render_flat(scene, RenderSettings(),
+                                trace_fn=make_stream_trace_fn(
+                                    scene, layout=layout))
 
     layouts = ("fused", "lane", "rows")
     images, launches, ms = {}, {}, {}
-    saved = os.environ.get("CRT_STREAM_LAYOUT")
-    try:
-        for layout in layouts:
-            os.environ["CRT_STREAM_LAYOUT"] = layout
-            reset_launches()
-            images[layout] = render_image(scene)
-            torch.cuda.synchronize()
-            c = counted()
-            launches[layout] = tuple(
-                {k: c[f"crt.launches.{kind}.{k}"] for k in layouts}
-                for kind in ("closest_hit_stream", "occlusion_stream")) \
-                + (c["crt.launches.closest_hit"],)
-            print(f"[layouts] CRT_STREAM_LAYOUT={layout}: closest-hit "
-                  f"launches {launches[layout][0]}, any-hit launches "
-                  f"{launches[layout][1]}")
-            want = dict.fromkeys(layouts, 0)
-            check(launches[layout] == ({**want, layout: 1},
-                                       {**want, layout: 2}, 0),
-                  f"the {layout} frame launched {launches[layout]}: expected "
-                  f"one closest hit and two any-hit passes, all {layout}")
-        # frame times in turns, forward then backward
-        for rnd, order in enumerate((layouts, layouts[::-1])):
-            for layout in order:
-                os.environ["CRT_STREAM_LAYOUT"] = layout
-                ms[layout, rnd], _ = host_ms(lambda: render_image(scene),
-                                             warmup=1, reps=5)
-    finally:
-        if saved is None:
-            os.environ.pop("CRT_STREAM_LAYOUT", None)
-        else:
-            os.environ["CRT_STREAM_LAYOUT"] = saved
+    for layout in layouts:
+        reset_launches()
+        images[layout] = frame(layout)
+        torch.cuda.synchronize()
+        c = counted()
+        launches[layout] = tuple(
+            {k: c[f"crt.launches.{kind}.{k}"] for k in layouts}
+            for kind in ("closest_hit_stream", "occlusion_stream")) \
+            + (c["crt.launches.closest_hit"],)
+        print(f"[layouts] layout={layout}: closest-hit launches "
+              f"{launches[layout][0]}, any-hit launches "
+              f"{launches[layout][1]}")
+        want = dict.fromkeys(layouts, 0)
+        check(launches[layout] == ({**want, layout: 1},
+                                   {**want, layout: 2}, 0),
+              f"the {layout} frame launched {launches[layout]}: expected "
+              f"one closest hit and two any-hit passes, all {layout}")
+    # frame times in turns, forward then backward
+    for rnd, order in enumerate((layouts, layouts[::-1])):
+        for layout in order:
+            ms[layout, rnd], _ = host_ms(lambda: frame(layout), warmup=1,
+                                         reps=5)
     for layout in ("lane", "rows"):
         check(torch.equal(images[layout], images["fused"]),
               f"the {layout} frame differs from the fused frame")
@@ -3975,8 +3975,8 @@ print(json.dumps({"rc": rc,
 
 
 def cli_child(argv, env_extra):
-    """The CLI in a child process (its environment decides the module
-    flags) -> the kernel launch counts it printed on its last line."""
+    """The CLI in a child process, ``env_extra`` added to its environment
+    -> the kernel launch counts it printed on its last line."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, **env_extra)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -4002,26 +4002,32 @@ def phase_direction_form(device):
         make_test_scene, make_test_scene_dict,
     )
 
+    def levels(image):
+        return quantize(image.cpu().numpy())
+
     W, H = BENCH["width"], BENCH["height"]
     scene = make_test_scene(**BENCH, device=device)
+    reset_launches()
+    k5_frame = frame_with(scene, shadow_kernel="d", tile_merge=2)
+    k5_counts = dict(read_stream_launches(), closest_hit_merged=_launches(
+        counted(), "closest_hit_merged"))
+    k5_img = levels(k5_frame)
     with tempfile.TemporaryDirectory() as tmp:
         scene_path = os.path.join(tmp, "bench.crtscene")
         with open(scene_path, "w") as f:
             json.dump(make_test_scene_dict(**BENCH), f)
-        k5_ppm = os.path.join(tmp, "k5.ppm")
         st_ppm = os.path.join(tmp, "stream.ppm")
-        k5_counts = cli_child([scene_path, k5_ppm, "--device", str(device)],
-                              {"CRT_APEX_W": "0"})
         st_counts = cli_child([scene_path, st_ppm, "--device", str(device),
                                "--backend", "pallas_stream"], {})
-        k5_img = (read_ppm(k5_ppm) * 255).round().astype("int32")
         st_img = (read_ppm(st_ppm) * 255).round().astype("int32")
-    print(f"[direction-form] CLI with CRT_APEX_W=0: launches {k5_counts}; "
-          f"CLI with --backend pallas_stream: launches {st_counts}")
+    print(f"[direction-form] frame through a cluster tracer with "
+          f"shadow_kernel='d', tile_merge=2: launches {k5_counts}; CLI with "
+          f"--backend pallas_stream: launches {st_counts}")
     check(k5_counts["occlusion_d"] == 4 and k5_counts["occlusion_w"] == 0
-          and k5_counts["closest_hit"] == 4,
-          f"the CRT_APEX_W=0 frame launched {k5_counts}: expected 4 closest "
-          "hits, 4 direction-form shadow passes and no w-form pass")
+          and k5_counts["closest_hit_merged"] == 4
+          and k5_counts["closest_hit"] == 0,
+          f"the direction-form frame launched {k5_counts}: expected 4 K7 "
+          "closest hits, 4 direction-form shadow passes and no w-form pass")
     check(st_counts["closest_hit_stream"] == 4
           and st_counts["occlusion_stream"] == 8
           and st_counts["closest_hit"] == 0 and st_counts["occlusion_w"] == 0,
@@ -4030,15 +4036,13 @@ def phase_direction_form(device):
           "the streaming backend's frame differs from the cluster backend's "
           "direction-form frame")
 
-    def levels(image):
-        return quantize(image.cpu().numpy())
-
     default = levels(render_image(scene))
     brute = levels(render_image(scene, RenderSettings(backend="bruteforce")))
     for name, other in (("the default (w-form) cluster frame", default),
                         ("the all-pairs backend's frame", brute)):
         off = (abs(k5_img - other) > 1).any(axis=-1)
-        print(f"[direction-form] CRT_APEX_W=0 frame == pallas_stream frame "
+        print(f"[direction-form] the direction-form frame == pallas_stream "
+              f"frame "
               f"bit for bit; vs {name}: {int(off.sum())} of {off.size} px "
               f"more than one 8-bit level apart, "
               f"{int((k5_img != other).any(axis=-1).sum())} px differ at all")
@@ -4052,21 +4056,20 @@ def phase_direction_form(device):
         reset_launches()
         k6_img = untile(shade_wavefront(
             scene, RenderSettings(),
-            make_cluster_trace_fn(scene, use_occlusion_kernel=True,
-                                  apex_w=False), o, d))
+            make_cluster_trace_fn(scene, shadow_kernel="anyhit"), o, d))
         k6_counts = read_stream_launches()
         k5_float = untile(shade_wavefront(
             scene, RenderSettings(),
-            make_cluster_trace_fn(scene, apex_w=False), o, d))
-    print(f"[direction-form] shade_wavefront with use_occlusion_kernel=True: "
+            make_cluster_trace_fn(scene, shadow_kernel="d"), o, d))
+    print(f"[direction-form] shade_wavefront with shadow_kernel='anyhit': "
           f"launches {k6_counts}")
     check(k6_counts["occlusion_d_exit"] == 4 and k6_counts["occlusion_d"] == 0
           and k6_counts["occlusion_w"] == 0,
           f"the any-hit frame launched {k6_counts}: expected 4 K6 passes")
     check(torch.equal(k6_img, k5_float),
           "the any-hit (K6) frame differs from the direction-form (K5) frame")
-    check(bool((levels(k5_float) == k5_img).all()),
-          "the in-process direction-form frame differs from the CLI's")
+    check(torch.equal(k5_float, k5_frame),
+          "the K5 frame through K1 differs from the one through K7")
     print("[direction-form] the K6 frame equals the K5 frame bit for bit")
     return {"occlusion_d": k5_counts["occlusion_d"],
             "occlusion_d_exit": k6_counts["occlusion_d_exit"]}
@@ -4944,12 +4947,12 @@ def main(argv=None) -> int:
     stats["closest_hit_compact"]["live_tiles_launches"] = compact["live_tiles"]
     launches["occlusion_w_uncapped"] = (glass["occlusion_w_uncapped"]
                                         + compact["occlusion_w_uncapped"])
-    # the large frame's own path (render_image, default settings; with
-    # CRT_STREAM_LAYOUT=lane and =rows for K10 and K11), the CRT_APEX_W=0
-    # frame through the CLI (K5), and a frame shaded through a trace built
-    # with use_occlusion_kernel=True (K6: a factory option that no setting
-    # of render_image reaches, here or in crt_tpu).  K7's launches are the
-    # CRT_TILE_MERGE=2 CLI frame's.
+    # the large frame's own path (render_image, default settings; through
+    # tracers with layout=lane and rows for K10 and K11), the frame through
+    # a tracer with shadow_kernel="d" (K5), and a frame shaded through a
+    # tracer with shadow_kernel="anyhit" (K6: a tracer argument that no
+    # setting of render_image reaches, here or in crt_tpu).  K7's launches
+    # are the tile_merge=2 frame's.
     launches["closest_hit_stream"] = big["closest_hit_stream"]
     launches["occlusion_stream"] = big["occlusion_stream"]
     launches.update(direction)

@@ -1,4 +1,4 @@
-"""The binned cluster trace: kernel wrappers and the trace factory.
+"""The binned cluster trace: kernel wrappers and the tracer.
 
 Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
 
@@ -22,9 +22,9 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_trace.py``:
     with ``exit=True``, ``_occlusion_kernel`` as launched by
     ``occluded_pallas_flat`` (the same test seeded with the inactive
     lanes, leaving a tile once all its lanes are blocked);
-  - ``make_cluster_trace_fn`` replaces ``make_pallas_trace_fn``;
-    ``make_cluster_trace_fn_from_tables`` builds the same trace over given
-    tables (a rank's shard of them, ``parallel/scene_sharded.py``).
+  - ``ClusterTracer`` replaces the trace of ``make_pallas_trace_fn``, over
+    any tables (a rank's shard of them, ``parallel/scene_sharded.py``);
+    ``make_cluster_trace_fn`` builds a scene's tables and its tracer.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and
 takes its plain PyTorch version, in this module, only for CPU tensors.
@@ -35,18 +35,9 @@ Each CUDA launch is counted in ``utils/trace.py``'s registry as
 ``closest_hit_merged`` / ``live_tiles``, ``crt.launches.occlusion_w.<mode>``
 (``occlusion_mode``) and ``crt.launches.occlusion_d.<compact|exit>``; the
 plain versions count nothing.
-
-``CRT_APEX_W=0`` in the environment (read at import, as crt_tpu reads it)
-takes ``shadow_apex_w`` off the traces built here, so shadows go through
-the direction form (``trace.shadow_apex``, K5).  ``CRT_TILE_MERGE=k`` with
-k > 1 (read at import, as crt_tpu reads it) sends every closest hit of the
-traces built here through K7 with ``merge=k`` when the wavefront's tile
-count divides by k and the launch is not the compacted one.
 """
 
 from __future__ import annotations
-
-import os
 
 import torch
 
@@ -60,16 +51,10 @@ from crt_tpu_torch.ops.cluster_tables import (
     glass_subset,
 )
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.utils import trace as tracing
 
 _BIGID = 2**30
-
-# In-kernel shadow directions (the w form) on by default; "0" leaves the
-# direction form as the shadow path of the traces built here.
-_APEX_W = os.environ.get("CRT_APEX_W", "1") != "0"
-
-# Tiles per block of the closest hit (K7 when > 1), as crt_tpu's flag.
-_TILE_MERGE = int(os.environ.get("CRT_TILE_MERGE", "1"))
 
 # Tiles per step of the plain versions, and elements of one of their
 # [tiles, positions, 16, TR] temporaries: a step takes as many walk
@@ -767,7 +752,7 @@ def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
 
 
 # ---------------------------------------------------------------------------
-# The trace factory
+# The tracer
 # ---------------------------------------------------------------------------
 
 def pad_rays(o, d, active, tile_rays, pad_all_active: bool = False):
@@ -790,93 +775,70 @@ def pad_rays(o, d, active, tile_rays, pad_all_active: bool = False):
     return o.contiguous(), d.contiguous(), a
 
 
-def occluded_by_closest_hit(trace, shadow_o, light_dirs, r2, active):
-    """[Ll, R] occlusion masks from the generic closest hit of the stacked
-    [Ll * R] shadow wavefront: the fallback of the direction-form shadow
-    paths when R is not a tile multiple."""
-    Ll, R = r2.shape
-    sh = trace(shadow_o.expand(Ll, R, 3).reshape(-1, 3),
-               light_dirs.reshape(-1, 3), active.reshape(-1))
-    return (sh.valid & (sh.t * sh.t <= r2.reshape(-1))).reshape(Ll, R)
+SHADOW_KERNELS = ("w", "d", "anyhit")
 
 
-def make_cluster_trace_fn(scene, compact_masked: bool = False,
-                          use_occlusion_kernel: bool = False,
-                          apex_w: bool | None = None,
-                          tile_merge: int | None = None):
-    """trace_fn factory for the cluster backend (``make_pallas_trace_fn``).
+class ClusterTracer(Tracer):
+    """The cluster backend (``make_pallas_trace_fn``) over ``tables``.
 
-    ``trace(o, d, active=None) -> Hit``; ``trace.with_rows(o, d, active)
-    -> (Hit, rows [K+1, R])`` with the kernel-emitted packed rows and the
-    slot-rank row; ``trace.shadow_apex_w(point, shadow_o, light_positions,
-    active [Ll, R], origin_slack) -> occluded [Ll, R]`` (None when R is
-    not a tile multiple); ``trace.rank`` is the tables' triangle id ->
-    slot rank map.  Rays are padded to a tile multiple with
-    direction (0, 0, -1) and inactive lanes, as the JAX factory does.
-
-    ``trace.shadow_apex(shadow_o, light_dirs [Ll, R, 3], r2 [Ll, R],
-    light_positions, active [Ll, R], origin_slack) -> occluded [Ll, R]`` is
-    the direction form of the shadow pass: the light-side shaft binning of
-    ``bin_rays``'s apex mode and K5 over the live tiles, the origin tiles
-    stored once for all lights (``tile_mod``); when R is not a tile
-    multiple, the generic trace and a compare.  ``apex_w`` (None: the
-    module's ``CRT_APEX_W`` flag) off leaves ``shadow_apex_w`` and the
-    glass router off the trace, so shading takes ``shadow_apex``.  The
-    any-hit query ``occluded(o, d, r2, active=None) -> blocked`` (K6;
-    inactive lanes return True) is ``trace.occluded`` with
-    ``use_occlusion_kernel`` (shading then prefers it) and
-    ``trace.occluded_kernel`` otherwise.
+    Rays are padded to a tile multiple with direction (0, 0, -1) and
+    inactive lanes, as the JAX factory does.  Built with the ``scene`` the
+    tables come from, it also emits the packed rows (``with_rows``) and,
+    for a scene with refractive materials, routes the transmissive march
+    (``shadow_glass``); both read the scene's shading tables.
 
     ``compact_masked`` sends every trace that comes with an ``active``
     mask through the live-tile compacted kernel (``closest_hit_compact``).
-    Every other trace whose tile count divides by ``tile_merge`` (None: the
-    module's ``CRT_TILE_MERGE`` flag), when that is above 1, goes through
-    the tile-merged kernel (``closest_hit_merged``), as crt_tpu chooses it;
-    K1 takes the rest.
-    A scene with refractive materials also gets, with the arguments of
-    ``shadow_apex_w``, ``trace.shadow_apex_w_glass -> (occluded, glass)``
-    (the one-pass march router: the capped occlusion bits plus "some
-    refractive member lies anywhere on the unbounded ray") and
-    ``trace.refr_ray_hit_w -> glass`` (the same flag from a separate
-    uncapped pass over the refractive members alone).
+    Every other trace whose tile count divides by ``tile_merge``, when
+    that is above 1, goes through the tile-merged kernel
+    (``closest_hit_merged``), as crt_tpu chooses it; K1 takes the rest.
+
+    ``shadow_kernel`` picks the kernel of the opaque shadow pass, each
+    equal to the closest hit with a t^2 <= r^2 compare: "w" (K2, the
+    default) tests occlusion in the kernel along the unnormalized w =
+    light - point (s <= 1); "d" (K5) is the direction form, the light-side
+    shaft binning of ``bin_rays``' apex mode and K5 over the live tiles,
+    the origin tiles stored once for all lights (``tile_mod``); "anyhit"
+    (K6) is the any-hit query ``occluded`` over the stacked wavefront.  K2
+    and K5 take a flat wavefront of whole tiles; any other shadow pass is
+    the generic closest hit and a compare.
     """
-    return make_cluster_trace_fn_from_tables(
-        build_cluster_tables(scene), scene, compact_masked=compact_masked,
-        use_occlusion_kernel=use_occlusion_kernel, apex_w=apex_w,
-        tile_merge=tile_merge)
 
+    def __init__(self, tables: ClusterTables, scene=None,
+                 compact_masked: bool = False, tile_merge: int = 1,
+                 shadow_kernel: str = "w"):
+        if shadow_kernel not in SHADOW_KERNELS:
+            raise ValueError(f"unknown shadow kernel {shadow_kernel!r}")
+        self.tables = tables
+        self.scene = scene
+        self.compact_masked = compact_masked
+        self.tile_merge = tile_merge
+        self.shadow_kernel = shadow_kernel
+        self.emits_rows = scene is not None
+        self.rank = tables.rank
+        self._glass_router = (shadow_kernel == "w" and scene is not None
+                              and scene.has_materials
+                              and scene.has_refractive)
+        self._rows_table = None  # emit_rows_table, built at first use
+        self._glass = None  # glass_subset, built at first use
 
-def make_cluster_trace_fn_from_tables(tables: ClusterTables, scene=None,
-                                      compact_masked: bool = False,
-                                      use_occlusion_kernel: bool = False,
-                                      apex_w: bool | None = None,
-                                      tile_merge: int | None = None):
-    """``make_cluster_trace_fn`` over ``tables`` as given.  Without the
-    ``scene`` they were built from, the trace has no ``with_rows`` and no
-    glass router (both read the scene's shading tables)."""
-    rows_table_cache = []
-    glass_cache = []
-    if apex_w is None:
-        apex_w = _APEX_W
-    if tile_merge is None:
-        tile_merge = _TILE_MERGE
-
-    def _trace_impl(origins, dirs, active, want_rows):
+    def _trace(self, origins, dirs, active, want_rows):
+        tables = self.tables
         batch_shape = origins.shape[:-1]
         R = origins[..., 0].numel()
         o, d, a = pad_rays(origins.detach().reshape(-1, 3),
                            dirs.detach().reshape(-1, 3), active, TILE_RAYS)
         rows_table = None
         if want_rows:
-            if not rows_table_cache:
-                rows_table_cache.append(emit_rows_table(scene, tables))
-            rows_table = rows_table_cache[0]
+            if self._rows_table is None:
+                self._rows_table = emit_rows_table(self.scene, tables)
+            rows_table = self._rows_table
         cluster_list, counts = bin_rays(tables, o, d, TILE_RAYS, a)
         args = (tables, o, d, cluster_list, counts, rows_table)
-        if compact_masked and a is not None:
+        if self.compact_masked and a is not None:
             t, tri, rows = closest_hit_compact(*args)
-        elif tile_merge > 1 and counts.shape[0] % tile_merge == 0:
-            t, tri, rows = closest_hit_merged(*args, merge=tile_merge)
+        elif self.tile_merge > 1 and counts.shape[0] % self.tile_merge == 0:
+            t, tri, rows = closest_hit_merged(*args, merge=self.tile_merge)
         else:
             t, tri, rows = closest_hit(*args)
         hit = Hit(t=t[:R].reshape(batch_shape),
@@ -885,28 +847,31 @@ def make_cluster_trace_fn_from_tables(tables: ClusterTables, scene=None,
             return hit, rows[:, :R]
         return hit
 
-    def trace(origins, dirs, active=None):
-        return _trace_impl(origins, dirs, active, False)
+    def __call__(self, origins, dirs, active=None) -> Hit:
+        return self._trace(origins, dirs, active, False)
 
-    def trace_with_rows(origins, dirs, active=None):
+    def with_rows(self, origins, dirs, active=None):
         """(Hit, rows [K+1, R]): kernel-emitted packed rows + slot rank."""
-        return _trace_impl(origins, dirs, active, True)
+        return self._trace(origins, dirs, active, True)
 
-    def _shadow_w(point, shadow_o, light_positions, active, origin_slack,
-                  capped=True, masked=False, glass_flag=False):
-        """Bin the shadow shafts and run K2 in one mode -> [Ll, R] masks."""
+    def _shadow_w(self, point, shadow_o, light_positions, active,
+                  origin_slack, capped=True, masked=False, glass_flag=False):
+        """Bin the shadow shafts and run K2 in one mode -> [Ll, R] masks
+        (a pair of them with ``glass_flag``); None when R is not a tile
+        multiple."""
+        tables = self.tables
         Ll, R = active.shape
         if R % TILE_RAYS:
-            return None  # caller falls back to the generic shadow trace
+            return None
         shadow_o = shadow_o.detach().contiguous()
         point = point.detach().contiguous()
         light_positions = light_positions.detach().contiguous()
         gm = None
         bin_kw = {}
         if masked or glass_flag:
-            if not glass_cache:
-                glass_cache.append(glass_subset(scene, tables))
-            gm, gmin, gmax = glass_cache[0]
+            if self._glass is None:
+                self._glass = glass_subset(self.scene, tables)
+            gm, gmin, gmax = self._glass
             if glass_flag:
                 bin_kw = dict(glass_boxes=(gmin, gmax))
             else:
@@ -921,56 +886,69 @@ def make_cluster_trace_fn_from_tables(tables: ClusterTables, scene=None,
             return out[0].reshape(Ll, R), out[1].reshape(Ll, R)
         return out.reshape(Ll, R)
 
-    def shadow_apex_w(point, shadow_o, light_positions, active, origin_slack):
-        """Occlusion masks with in-kernel shadow directions -> [Ll, R]."""
-        return _shadow_w(point, shadow_o, light_positions, active,
-                         origin_slack)
+    def _shadow_d(self, shadow_o, light_dirs, r2, light_positions, active,
+                  origin_slack):
+        """Direction-form occlusion masks (K5) of a flat point-light
+        shadow wavefront of whole tiles -> [Ll, R]."""
+        Ll, R = r2.shape
+        tpl = R // TILE_RAYS
+        shadow_o = shadow_o.detach()
+        o_flat = shadow_o.expand(Ll, R, 3).reshape(-1, 3)
+        d_flat = light_dirs.detach().reshape(-1, 3).contiguous()
+        apex = light_positions.detach().repeat_interleave(tpl, dim=0)
+        cluster_list, counts = bin_rays(
+            self.tables, o_flat, d_flat, TILE_RAYS, active.reshape(-1),
+            apex=apex, apex_slack=origin_slack)
+        occ = occlusion_d(self.tables, shadow_o.contiguous(), d_flat,
+                          r2.detach().reshape(-1).contiguous(), cluster_list,
+                          counts, TILE_RAYS, tile_mod=tpl)
+        return occ.reshape(Ll, R)
 
-    def shadow_apex_w_glass(point, shadow_o, light_positions, active,
-                            origin_slack):
-        """One K2 pass -> (occluded [Ll, R], glass_on_ray [Ll, R]): the
-        bits of ``shadow_apex_w`` plus "some refractive member is hit
-        anywhere on the unbounded ray".  The bend-walk this routes around
-        bends at glass even beyond the light, so the lists are the union
-        of the capped shaft hull and the uncapped glass-member reach, and
-        the glass accumulator drops the s <= 1 cap."""
-        return _shadow_w(point, shadow_o, light_positions, active,
-                         origin_slack, glass_flag=True)
+    def shadow(self, point, shadow_o, light_positions, light_dirs, r2,
+               active, origin_slack):
+        if self.shadow_kernel == "anyhit":
+            return self.occluded(
+                shadow_o.detach().expand(light_dirs.shape).reshape(-1, 3),
+                light_dirs.detach().reshape(-1, 3), r2.detach().reshape(-1),
+                active.reshape(-1)).reshape(r2.shape)
+        if point.dim() != 2 or r2.shape[1] % TILE_RAYS:
+            return super().shadow(point, shadow_o, light_positions,
+                                  light_dirs, r2, active, origin_slack)
+        if self.shadow_kernel == "w":
+            return self._shadow_w(point, shadow_o, light_positions, active,
+                                  origin_slack)
+        return self._shadow_d(shadow_o, light_dirs, r2, light_positions,
+                              active, origin_slack)
 
-    def refr_ray_hit_w(point, shadow_o, light_positions, active,
+    def shadow_glass(self, point, shadow_o, light_positions, active,
+                     origin_slack):
+        """One K2 pass in its glass-flag mode -> (occluded [Ll, R],
+        glass_on_ray [Ll, R]): the bits of the w form plus "some
+        refractive member is hit anywhere on the unbounded ray".  The
+        bend-walk this routes around bends at glass even beyond the light,
+        so the lists are the union of the capped shaft hull and the
+        uncapped glass-member reach, and the glass accumulator drops the
+        s <= 1 cap.  None without the router (``shadow_kernel`` not "w",
+        or no glass in the scene) or when the wavefront is not a flat one
+        of whole tiles."""
+        if not self._glass_router or point.dim() != 2:
+            return None
+        return self._shadow_w(point, shadow_o, light_positions, active,
+                              origin_slack, glass_flag=True)
+
+    def refr_ray_hit_w(self, point, shadow_o, light_positions, active,
                        origin_slack):
         """[Ll, R] bool: can the uncapped shadow ray touch refractive
         geometry?  A separate any-hit pass over the refractive members
         alone, binned against their boxes with no cap: the independent
-        check of ``shadow_apex_w_glass``'s second output."""
-        return _shadow_w(point, shadow_o, light_positions, active,
-                         origin_slack, capped=False, masked=True)
+        check of ``shadow_glass``'s second output (None when R is not a
+        tile multiple)."""
+        return self._shadow_w(point, shadow_o, light_positions, active,
+                              origin_slack, capped=False, masked=True)
 
-    def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
-                    origin_slack):
-        """Direction-form occlusion masks of a point-light shadow wavefront
-        -> [Ll, R]."""
-        Ll, R = r2.shape
-        shadow_o = shadow_o.detach()
-        light_dirs = light_dirs.detach()
-        r2 = r2.detach()
-        if R % TILE_RAYS:
-            return occluded_by_closest_hit(trace, shadow_o, light_dirs, r2,
-                                           active)
-        tpl = R // TILE_RAYS
-        o_flat = shadow_o.expand(Ll, R, 3).reshape(-1, 3)
-        d_flat = light_dirs.reshape(-1, 3).contiguous()
-        apex = light_positions.detach().repeat_interleave(tpl, dim=0)
-        cluster_list, counts = bin_rays(
-            tables, o_flat, d_flat, TILE_RAYS, active.reshape(-1), apex=apex,
-            apex_slack=origin_slack)
-        occ = occlusion_d(tables, shadow_o.contiguous(), d_flat,
-                          r2.reshape(-1).contiguous(), cluster_list, counts,
-                          TILE_RAYS, tile_mod=tpl)
-        return occ.reshape(Ll, R)
-
-    def occluded(origins, dirs, r2, active=None):
-        """Any-hit occlusion query -> blocked, shaped like ``r2``."""
+    def occluded(self, origins, dirs, r2, active=None):
+        """Any-hit occlusion query (K6) -> blocked, shaped like ``r2``;
+        inactive lanes return True."""
         batch_shape = origins.shape[:-1]
         R = r2.numel()
         o, d, a = pad_rays(origins.detach().reshape(-1, 3),
@@ -978,23 +956,13 @@ def make_cluster_trace_fn_from_tables(tables: ClusterTables, scene=None,
                            pad_all_active=True)
         rr = r2.detach().reshape(-1)
         rr = torch.cat([rr, rr.new_zeros((o.shape[0] - R,))]).contiguous()
-        cluster_list, counts = bin_rays(tables, o, d, TILE_RAYS, a)
-        occ = occlusion_d(tables, o, d, rr, cluster_list, counts, TILE_RAYS,
-                          exit=True, active=a)
+        cluster_list, counts = bin_rays(self.tables, o, d, TILE_RAYS, a)
+        occ = occlusion_d(self.tables, o, d, rr, cluster_list, counts,
+                          TILE_RAYS, exit=True, active=a)
         return occ[:R].reshape(batch_shape)
 
-    if scene is not None:
-        trace.with_rows = trace_with_rows
-    trace.shadow_apex = shadow_apex
-    if apex_w:
-        trace.shadow_apex_w = shadow_apex_w
-        if scene is not None and scene.has_materials \
-                and scene.has_refractive:
-            trace.shadow_apex_w_glass = shadow_apex_w_glass
-            trace.refr_ray_hit_w = refr_ray_hit_w
-    if use_occlusion_kernel:
-        trace.occluded = occluded
-    else:
-        trace.occluded_kernel = occluded  # offered, not taken by shading
-    trace.rank = tables.rank
-    return trace
+
+def make_cluster_trace_fn(scene, **kw) -> ClusterTracer:
+    """The cluster backend of ``scene``: its tables built, and
+    ``ClusterTracer(tables, scene, **kw)``."""
+    return ClusterTracer(build_cluster_tables(scene), scene, **kw)

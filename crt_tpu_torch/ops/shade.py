@@ -149,23 +149,23 @@ def build_packed(scene, force_all: bool = False) -> torch.Tensor:
 
 def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
                    rank=None, force_all: bool = False,
-                   rows_fn=None) -> HitAttributes:
+                   read_rows=None) -> HitAttributes:
     """Recompute intersection attributes from the hit triangle ids.
 
     ``hit.tri`` is a constant (a discrete choice); everything else
     differentiates through the scene tensors.  ``kernel_rows`` ([K+1, R],
-    from ``trace.with_rows``) supplies the packed rows the closest-hit
+    from ``tracer.with_rows``) supplies the packed rows the closest-hit
     kernel emitted (the last row is the slot rank), and
     ``packed_rows_from_kernel`` routes their cotangents into the scene;
     without it the rows are gathered from ``build_packed`` through
-    ``packed_gather_ranked`` (``packed_gather`` when the trace has no
+    ``packed_gather_ranked`` (``packed_gather`` when the tracer has no
     ``rank``, the [T] triangle id -> Morton rank map).  A table that needs
     a gradient is always read through an adapter, whatever the shape of
-    the ray batch; one that needs none is read without.  ``rows_fn(tri)
-    -> [K, R]`` replaces every read of the packed table (a
-    scene-partitioned render: each rank holds a shard of the table and
-    the rows come back through an exchange, ``parallel/scene_sharded.py``);
-    the trace's emitted rows are then not used.
+    the ray batch; one that needs none is read without.  ``read_rows(tri)
+    -> [K, R]`` (a tracer's ``read_rows``) replaces every read of the
+    packed table (a scene-partitioned render: each rank holds a shard of
+    the table and the rows come back through an exchange,
+    ``parallel/scene_sharded.py``).
     """
     tri_raw = hit.tri.detach()
     valid = tri_raw >= 0
@@ -175,11 +175,12 @@ def hit_attributes(scene, origins, dirs, hit: Hit, kernel_rows=None,
     need_bary = _needs_bary(scene) or force_all
     any_smooth = scene.any_smooth or force_all
 
-    packed = None if rows_fn is not None else build_packed(scene, force_all)
+    packed = None if read_rows is not None else build_packed(scene,
+                                                             force_all)
     want_grad = (packed is not None and packed.requires_grad
                  and torch.is_grad_enabled())
-    if rows_fn is not None:
-        rows = rows_fn(tri_flat.clamp(min=0))
+    if read_rows is not None:
+        rows = read_rows(tri_flat.clamp(min=0))
     elif kernel_rows is not None:
         rows = kernel_rows[:-1].detach()
         if want_grad:
@@ -292,15 +293,15 @@ def light_sum(scene, illuminated, light_dir, r2, normal):
     return lum
 
 
-def march_table(scene, rows_fn=None):
+def march_table(scene, read_rows=None):
     """[5, T] constants of the transmissive march, one column gather per
     step: the face normal (rows 0-2), "is refractive" (row 3), the ior
-    (row 4).  Constants: the march decides visibility only.  With
-    ``rows_fn`` (a scene-partitioned render, where no rank holds the
-    vertices) a function of the ids to those columns instead
+    (row 4).  Constants: the march decides visibility only.  With a
+    tracer's ``read_rows`` (a scene-partitioned render, where no rank
+    holds the vertices) a function of the ids to those columns instead
     (``_march_rows``)."""
-    if rows_fn is not None:
-        return _march_rows(scene, rows_fn)
+    if read_rows is not None:
+        return _march_rows(scene, read_rows)
     verts = scene.vertices.detach()
     tv = scene.tri_vidx.long()
     v0, v1, v2 = verts[tv[:, 0]], verts[tv[:, 1]], verts[tv[:, 2]]
@@ -313,14 +314,14 @@ def march_table(scene, rows_fn=None):
     ], dim=0)
 
 
-def _march_rows(scene, rows_fn):
-    """``march_table``'s columns at triangle ids, read through ``rows_fn``:
-    tri [N] -> [5, N], the face normal from the packed rows' v0 | v1 | v2,
-    the material rows from the replicated material tables."""
+def _march_rows(scene, read_rows):
+    """``march_table``'s columns at triangle ids, read through
+    ``read_rows``: tri [N] -> [5, N], the face normal from the packed rows'
+    v0 | v1 | v2, the material rows from the replicated material tables."""
     mat_refr = (scene.mat_type == MATERIAL_REFRACTIVE).to(torch.float32)
 
     def rows(tri):
-        r = rows_fn(tri).detach()
+        r = read_rows(tri).detach()
         v0, v1, v2 = (r[o:o + 3].movedim(0, -1) for o in (0, 3, 6))
         face_n = vecmath.safe_normalize(vecmath.cross(v1 - v0, v2 - v0))
         mat = scene.tri_material.long()[tri]
@@ -330,7 +331,7 @@ def _march_rows(scene, rows_fn):
     return rows
 
 
-def _march_step(trace_fn, march_tab, refraction_bias, carry):
+def _march_step(tracer, march_tab, refraction_bias, carry):
     """One segment of the bend-walk: trace the marching lanes, record the
     hit, and bend the lanes that hit glass (total internal reflection
     stops a lane: the glass surface occludes).  ``march_tab`` is
@@ -338,7 +339,7 @@ def _march_step(trace_fn, march_tab, refraction_bias, carry):
     o, d, alive, last_valid, last_t = carry
     tracing.count("crt.march.traces")
     with tracing.span("crt.trace"):
-        sh = trace_fn(o, d, alive)
+        sh = tracer(o, d, alive)
     tri = torch.clamp(sh.tri, min=0).long()
     hit_valid = sh.valid & alive
 
@@ -364,7 +365,7 @@ def _march_step(trace_fn, march_tab, refraction_bias, carry):
     return o, d, cont, last_valid, last_t
 
 
-def _run_march(trace_fn, march_tab, refraction_bias, max_ray_depth, o, d,
+def _run_march(tracer, march_tab, refraction_bias, max_ray_depth, o, d,
                alive):
     """The bend-walk at any wavefront width -> (last_valid, last_t): the
     last hit of each lane, its distance along the last bent segment.  A
@@ -373,16 +374,16 @@ def _run_march(trace_fn, march_tab, refraction_bias, max_ray_depth, o, d,
     (``crt.host_reads.march.any``)."""
     carry = (o, d, alive, torch.zeros_like(alive),
              torch.zeros(alive.shape, dtype=torch.float32, device=o.device))
-    carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
+    carry = _march_step(tracer, march_tab, refraction_bias, carry)
     for _ in range(max_ray_depth):
         tracing.count("crt.host_reads.march.any")
         if not bool(carry[2].any()):
             break
-        carry = _march_step(trace_fn, march_tab, refraction_bias, carry)
+        carry = _march_step(tracer, march_tab, refraction_bias, carry)
     return carry[3], carry[4]
 
 
-def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
+def _transmissive_march(tracer, march_tab, refraction_bias, max_ray_depth,
                         shadow_o, d, act, narrow):
     """(last_valid, last_t) of the shadow lanes ``act`` ([N]).  ``narrow``
     gathers the 1024-lane blocks that hold a marching lane, walks those
@@ -392,7 +393,7 @@ def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
     (``crt.host_reads.march.blocks``)."""
     N = act.shape[0]
     if not narrow or N % _MARCH_BLOCK:
-        return _run_march(trace_fn, march_tab, refraction_bias,
+        return _run_march(tracer, march_tab, refraction_bias,
                           max_ray_depth, shadow_o, d, act)
     n_blk = N // _MARCH_BLOCK
     blk_live = act.reshape(n_blk, _MARCH_BLOCK).any(dim=1)
@@ -404,7 +405,7 @@ def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
                          device=act.device)
     if idx.numel():
         lv, lt = _run_march(
-            trace_fn, march_tab, refraction_bias, max_ray_depth,
+            tracer, march_tab, refraction_bias, max_ray_depth,
             shadow_o.reshape(n_blk, _MARCH_BLOCK, 3)[idx].reshape(-1, 3),
             d.reshape(n_blk, _MARCH_BLOCK, 3)[idx].reshape(-1, 3),
             act.reshape(n_blk, _MARCH_BLOCK)[idx].reshape(-1))
@@ -413,34 +414,27 @@ def _transmissive_march(trace_fn, march_tab, refraction_bias, max_ray_depth,
     return last_valid.reshape(-1), last_t.reshape(-1)
 
 
-def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
+def _occlusion_masks(scene, tracer, point, normal, light_positions,
                      shadow_bias, no_shadows, shadow_active,
-                     max_ray_depth=3, refraction_bias=1e-2, march_tab=None,
-                     rows_fn=None):
+                     max_ray_depth=3, refraction_bias=1e-2, march_tab=None):
     """is_illuminated per (light, ray), all lights in one batched pass.
 
     Returns (illuminated [Ll, R] bool, light_dir [Ll, R, 3], r2 [Ll, R]).
     The mask is a constant: every trace here sees detached inputs.
 
-    Without live refraction, a trace with ``shadow_apex_w`` (the cluster
-    backend) tests occlusion in the kernel along the unnormalized w =
-    light - point (s <= 1 is the reference's t^2 <= r^2).  Failing that,
-    in this order: ``trace.occluded`` (the any-hit query over the stacked
-    [Ll*R] wavefront), ``trace.shadow_apex`` (the direction-form shadow
-    pass of the cluster and streaming backends, for a flat [R] wavefront),
-    and the closest hit of the stacked wavefront with a t^2 <= r^2
-    compare.
+    Without live refraction, the mask is ``tracer.shadow``'s, the opaque
+    shadow pass of the backend (``ops/tracer.py``).
 
     With it, shadow rays refract through glass and go on: each lane is
     re-traced after bending at a refractive hit, up to ``max_ray_depth``
     bends; total internal reflection or a non-refractive hit ends the
     walk, and the last hit's distance along the last segment is held
-    against the original light distance.  A trace with
-    ``shadow_apex_w_glass`` first splits the lanes in one kernel pass:
-    lanes whose whole ray meets no glass (and whose light is farther than
-    1) take the kernel's occlusion bits, the rest march, over the live
-    1024-lane blocks only.  Without ``march_tab``, the march reads its
-    constants from ``march_table(scene, rows_fn)``.
+    against the original light distance.  Where ``tracer.shadow_glass``
+    routes the lanes (one kernel pass), lanes whose whole ray meets no
+    glass (and whose light is farther than 1) take its occlusion bits, the
+    rest march, over the live 1024-lane blocks only.  Without
+    ``march_tab``, the march reads its constants from
+    ``march_table(scene, tracer.read_rows)``.
     """
     light_vec = light_positions[:, None, :] - point[None]  # [Ll, R, 3]
     r2 = vecmath.length_squared(light_vec)
@@ -454,65 +448,45 @@ def _occlusion_masks(scene, trace_fn, point, normal, light_positions,
     # from the binning mask.
     facing = vecmath.dot(light_dir, normal[None].expand_as(light_vec)) > 0.0
     act_lr = shadow_active[None] & facing.detach()  # [Ll, R]
-    transmissive = scene.has_refractive and scene.refractions_on
+    point, shadow_o_px = point.detach(), shadow_o_px.detach()
+    light_positions = light_positions.detach()
 
-    apex_w_fn = getattr(trace_fn, "shadow_apex_w", None)
-    if apex_w_fn is not None and point.dim() == 2 and not transmissive:
+    if not (scene.has_refractive and scene.refractions_on):
         with tracing.span("crt.trace"):
-            occluded = apex_w_fn(point.detach(), shadow_o_px.detach(),
-                                 light_positions.detach(), act_lr,
-                                 2.0 * shadow_bias)
-        if occluded is not None:
-            return ~occluded.reshape(r2.shape), light_dir, r2
-
-    shadow_o = shadow_o_px.detach().expand(light_vec.shape).reshape(-1, 3)
-    d = light_dir.detach().reshape(-1, 3)
-    r2_flat = r2.detach().reshape(-1)
-    if not transmissive:
-        occluded_fn = getattr(trace_fn, "occluded", None)
-        apex_fn = getattr(trace_fn, "shadow_apex", None)
-        with tracing.span("crt.trace"):
-            if occluded_fn is not None:
-                occluded = occluded_fn(shadow_o, d, r2_flat,
-                                       act_lr.reshape(-1))
-            elif apex_fn is not None and point.dim() == 2:
-                occluded = apex_fn(shadow_o_px.detach(), light_dir.detach(),
-                                   r2.detach(), light_positions.detach(),
-                                   act_lr, 2.0 * shadow_bias)
-            else:
-                occluded = None
-                sh = trace_fn(shadow_o, d, act_lr.reshape(-1))
-        if occluded is None:
-            occluded = sh.valid & (sh.t * sh.t <= r2_flat)
-        return ~occluded.reshape(r2.shape), light_dir, r2
+            occluded = tracer.shadow(point, shadow_o_px, light_positions,
+                                     light_dir.detach(), r2.detach(), act_lr,
+                                     2.0 * shadow_bias)
+        return ~occluded, light_dir, r2
 
     # the transmissive branch: the split pass and the bend-walk, with the
     # shadow lanes that enter it and those that walk, counted on the device
+    shadow_o = shadow_o_px.expand(light_vec.shape).reshape(-1, 3)
+    d = light_dir.detach().reshape(-1, 3)
+    r2_flat = r2.detach().reshape(-1)
     with tracing.span("crt.shade.march"):
         tracing.count("crt.march.lanes", act_lr)
         act = act_lr.reshape(-1)
         occ_opaque = opaque_act = None
-        glass_fn = getattr(trace_fn, "shadow_apex_w_glass", None)
-        if _MARCH_SPLIT and point.dim() == 2 and glass_fn is not None:
+        res = None
+        if _MARCH_SPLIT:
             with tracing.span("crt.trace"):
-                res = glass_fn(point.detach(), shadow_o_px.detach(),
-                               light_positions.detach(), act_lr,
-                               2.0 * shadow_bias)
-            if res is not None:
-                occ_opaque, glass = res
-                # |w| < 1 is where the kernel's |n.w| parallel test is
-                # weaker than the walk's |n.d|: those lanes march whatever
-                # the flag
-                march_lr = act_lr & (glass | (r2.detach() <= 1.0))
-                opaque_act = act_lr & ~march_lr
-                act = march_lr.reshape(-1)
+                res = tracer.shadow_glass(point, shadow_o_px,
+                                          light_positions, act_lr,
+                                          2.0 * shadow_bias)
+        if res is not None:
+            occ_opaque, glass = res
+            # |w| < 1 is where the kernel's |n.w| parallel test is weaker
+            # than the walk's |n.d|: those lanes march whatever the flag
+            march_lr = act_lr & (glass | (r2.detach() <= 1.0))
+            opaque_act = act_lr & ~march_lr
+            act = march_lr.reshape(-1)
         tracing.count("crt.march.walk_lanes", act)
 
         if march_tab is None:
-            march_tab = march_table(scene, rows_fn)
+            march_tab = march_table(scene, tracer.read_rows)
         with torch.no_grad():
             last_valid, last_t = _transmissive_march(
-                trace_fn, march_tab, refraction_bias, max_ray_depth,
+                tracer, march_tab, refraction_bias, max_ray_depth,
                 shadow_o, d, act,
                 narrow=_MARCH_NARROW and occ_opaque is not None)
     occluded = (last_valid & (last_t * last_t <= r2_flat)).reshape(r2.shape)
@@ -534,22 +508,23 @@ def count_refraction(is_refractive, refr_ok) -> None:
 
 
 @tracing.spanned("crt.shade")
-def shade_wavefront(scene, settings, trace_fn, origins, dirs,
+def shade_wavefront(scene, settings, tracer, origins, dirs,
                     active: Optional[torch.Tensor] = None, *,
                     raster_x: Optional[torch.Tensor] = None,
                     raster_y: Optional[torch.Tensor] = None,
-                    gi_salt=None, rows_fn=None) -> torch.Tensor:
+                    gi_salt=None) -> torch.Tensor:
     """Shade a camera-ray wavefront -> [R, 3] linear colors, by the
     unrolled recursion.
 
-    ``trace_fn(origins, dirs, active) -> Hit`` is the intersection backend.
+    ``tracer`` is the intersection backend (``ops/tracer.py``).
     ``active=False`` lanes (chunk padding) produce arbitrary colors the
     caller discards; they are dropped from the trace binning.  A GI scene
     needs the rays' raster x / y (uint32 values) to seed each pixel's
     PCG32 stream; ``gi_salt`` (an int or an integer scalar tensor) forks
     the streams for a progressive pass, salt 0 bit for bit the unsalted
-    render.  ``rows_fn`` replaces the reads of the packed table
-    (``hit_attributes``) and of the march's constants.
+    render.  The tracer's ``read_rows``, where it has one, replaces the
+    reads of the packed table (``hit_attributes``) and of the march's
+    constants.
     """
     if active is None:
         active = torch.ones(origins.shape[:-1], dtype=torch.bool,
@@ -564,9 +539,9 @@ def shade_wavefront(scene, settings, trace_fn, origins, dirs,
                              raster_y.to(origins.device)), gi_salt)
     march_tab = None
     if scene.has_materials and scene.has_refractive and scene.refractions_on:
-        march_tab = march_table(scene, rows_fn)
-    return _shade_level(scene, settings, trace_fn, origins, dirs, 0, active,
-                        march_tab, rng, rows_fn)[0]
+        march_tab = march_table(scene, tracer.read_rows)
+    return _shade_level(scene, settings, tracer, origins, dirs, 0, active,
+                        march_tab, rng)[0]
 
 
 def refraction_geometry(dirs, normal, ior, refraction_bias, point):
@@ -612,8 +587,8 @@ def gi_direction(rng, active, local_m):
     return vecmath.rotate_rows(d, local_m), rng
 
 
-def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
-                 march_tab=None, rng=None, rows_fn=None):
+def _shade_level(scene, settings, tracer, origins, dirs, depth, active,
+                 march_tab=None, rng=None):
     """One unrolled recursion level -> (color [R, 3], rng)."""
     R = origins.shape[:-1]
     black = torch.zeros(R + (3,), dtype=torch.float32, device=origins.device)
@@ -622,13 +597,12 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
 
     kernel_rows = None
     with tracing.span("crt.trace.primary" if depth == 0 else "crt.trace"):
-        if rows_fn is None and hasattr(trace_fn, "with_rows"):
-            hit, kernel_rows = trace_fn.with_rows(origins, dirs, active)
+        if tracer.emits_rows and tracer.read_rows is None:
+            hit, kernel_rows = tracer.with_rows(origins, dirs, active)
         else:
-            hit = trace_fn(origins, dirs, active)
+            hit = tracer(origins, dirs, active)
     attrs = hit_attributes(scene, origins, dirs, hit, kernel_rows=kernel_rows,
-                           rank=getattr(trace_fn, "rank", None),
-                           rows_fn=rows_fn)
+                           rank=tracer.rank, read_rows=tracer.read_rows)
 
     if not scene.has_materials:
         # 07-era material-less scenes: gray half-lambert on the face normal.
@@ -672,15 +646,15 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         refl_dir = vecmath.reflect(dirs, n_eff)
         refl_origin = point + n_eff * settings.reflection_bias
         refl_color, rng = _shade_level(
-            scene, settings, trace_fn, refl_origin, refl_dir, depth + 1,
-            active & refl_active, march_tab, rng, rows_fn)
+            scene, settings, tracer, refl_origin, refl_dir, depth + 1,
+            active & refl_active, march_tab, rng)
     else:
         refl_color = black
 
     if want_refract:
         refr_color, rng = _shade_level(
-            scene, settings, trace_fn, refr_origin, refr_dir, depth + 1,
-            active & is_refractive & refr_ok, march_tab, rng, rows_fn)
+            scene, settings, tracer, refr_origin, refr_dir, depth + 1,
+            active & is_refractive & refr_ok, march_tab, rng)
 
     # ---- diffuse: the GI samples in order, each child's subtree drawing
     # from the pixel's stream before the next sample's angles
@@ -693,12 +667,12 @@ def _shade_level(scene, settings, trace_fn, origins, dirs, depth, active,
         for _ in range(K):
             gi_dir, rng = gi_direction(rng, gi_active, local_m)
             gi_color, rng = _shade_level(
-                scene, settings, trace_fn, gi_origin, gi_dir, depth + 1,
-                gi_active, march_tab, rng, rows_fn)
+                scene, settings, tracer, gi_origin, gi_dir, depth + 1,
+                gi_active, march_tab, rng)
             diffuse_color = diffuse_color + gi_color
     if scene.num_lights > 0:
         illuminated, light_dir, r2 = _occlusion_masks(
-            scene, trace_fn, point, normal, scene.light_position,
+            scene, tracer, point, normal, scene.light_position,
             settings.shadow_bias, settings.no_shadows,
             shadow_active=active & is_diffuse,
             max_ray_depth=settings.max_ray_depth,

@@ -66,9 +66,9 @@ gives ``refract`` a square root at 0, and 0 x inf is a NaN in the
 gradient.  A denser pool, and the camera rays, take the full-width
 path.
 
-A scene-partitioned render (``parallel/scene_sharded.py``) passes
-``rows_fn``, which replaces the reads of the packed table and of the
-march's constants.  Every rank holds the same all-reduced hits, so every
+A scene-partitioned render (``parallel/scene_sharded.py``) passes a
+tracer with ``read_rows``, which replaces the reads of the packed table
+and of the march's constants.  Every rank holds the same all-reduced hits, so every
 rank gathers the same live lanes and the row exchange keeps equal
 lengths.
 """
@@ -227,29 +227,28 @@ def _live_lanes(act):
     return torch.cat([live, torch.searchsorted(dead_rank, want)])
 
 
-def shade_wavefront_iter(scene, settings, trace_fn, origins, dirs,
+def shade_wavefront_iter(scene, settings, tracer, origins, dirs,
                          active: Optional[torch.Tensor] = None,
                          banks: Optional[int] = None, *,
                          raster_x: Optional[torch.Tensor] = None,
                          raster_y: Optional[torch.Tensor] = None,
-                         gi_salt=None, rows_fn=None) -> torch.Tensor:
+                         gi_salt=None) -> torch.Tensor:
     """Shade a camera wavefront iteratively -> [R, 3] linear colors.  A GI
     scene needs the rays' raster x / y (uint32 values) to seed each pixel's
     PCG32 stream; ``gi_salt`` forks the streams for a progressive pass
-    (salt 0: the unsalted render, bit for bit).  ``rows_fn`` replaces the
-    packed-table reads (``shade.hit_attributes``)."""
+    (salt 0: the unsalted render, bit for bit).  ``tracer`` is the
+    intersection backend (``ops/tracer.py``)."""
     color, _ = shade_wavefront_iter_with_stats(
-        scene, settings, trace_fn, origins, dirs, active, banks,
-        raster_x=raster_x, raster_y=raster_y, gi_salt=gi_salt,
-        rows_fn=rows_fn)
+        scene, settings, tracer, origins, dirs, active, banks,
+        raster_x=raster_x, raster_y=raster_y, gi_salt=gi_salt)
     return color
 
 
 @tracing.spanned("crt.shade")
-def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
+def shade_wavefront_iter_with_stats(scene, settings, tracer, origins, dirs,
                                     active=None, banks=None, *,
                                     raster_x=None, raster_y=None,
-                                    gi_salt=None, rows_fn=None):
+                                    gi_salt=None):
     """Like ``shade_wavefront_iter``, and the count of dropped children."""
     R = origins.shape[0]
     dev = origins.device
@@ -272,8 +271,8 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
     # The packer fills the lowest free banks first, so after bounce b every
     # occupied bank index is below min(B, grow_f^(b+1)).
     grow_f = _grow_factor(scene, settings)
-    march_tab = march_table(scene, rows_fn) if want_refract else None
-    rank = getattr(trace_fn, "rank", None)
+    march_tab = (march_table(scene, tracer.read_rows) if want_refract
+                 else None)
 
     def shade_local(o, d, act, primary=False):
         """Trace and the local (terminal) radiance of a flat wavefront:
@@ -287,8 +286,9 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
         tracing.count("crt.shade.lanes", act.numel())
         tracing.count("crt.shade.live_lanes", act)
         with tracing.span("crt.trace.primary" if primary else "crt.trace"):
-            hit = trace_fn(o, d, act)
-        attrs = hit_attributes(scene, o, d, hit, rank=rank, rows_fn=rows_fn)
+            hit = tracer(o, d, act)
+        attrs = hit_attributes(scene, o, d, hit, rank=tracer.rank,
+                               read_rows=tracer.read_rows)
         valid = attrs.valid & act
         miss = act & ~attrs.valid
 
@@ -309,7 +309,7 @@ def shade_wavefront_iter_with_stats(scene, settings, trace_fn, origins, dirs,
 
         if scene.num_lights > 0:
             illuminated, light_dir, r2 = _occlusion_masks(
-                scene, trace_fn, attrs.point, attrs.normal,
+                scene, tracer, attrs.point, attrs.normal,
                 scene.light_position, settings.shadow_bias,
                 settings.no_shadows, shadow_active=is_diffuse,
                 max_ray_depth=settings.max_ray_depth,

@@ -9,19 +9,19 @@ Counterpart of the launch half of ``crt_tpu/ops/pallas_stream.py``:
   - ``occlusion_stream`` (``csrc/stream_trace.cu``) replaces
     ``_make_f_kernel(occl=True)`` as launched by ``_launch_stream_occl``
     (K9, K10 with ``lane_sc``) and ``_stream_occl_kernel`` (K11);
-  - ``closest_hit_stream_flat``, ``occluded_stream_flat``,
-    ``occluded_stream_twophase``, ``make_stream_trace_fn`` and
-    ``stream_layout`` replace the functions of those names;
-    ``make_stream_trace_fn_from_tables`` builds the trace over given tables
-    and combines each launch's answer across the ranks that hold the other
-    shards of a scene (``parallel/scene_sharded.py``).
+  - ``closest_hit_stream_flat``, ``occluded_stream_flat`` and
+    ``occluded_stream_twophase`` replace the functions of those names;
+    ``StreamTracer`` replaces the trace of ``make_stream_trace_fn``, over
+    any tables, and combines each launch's answer across the ranks that
+    hold the other shards of a scene (``parallel/scene_sharded.py``);
+    ``make_stream_trace_fn`` builds a scene's tables and its tracer.
 
 The cluster backend tests every tile against every cluster; at a million
 triangles that mask and its intermediates are GBs per trace.  Here Phase A
 (``ops/stream_binning.py``) lists the (tile, supercluster) pairs that can
 interact and the live member clusters of each, and the kernels walk, per
 tile, that tile's range of the pair list over the table in one of three
-layouts (``stream_layout``, ``CRT_STREAM_LAYOUT``): "fused" [L, 16, 18],
+layouts (``StreamTracer``'s ``layout``): "fused" [L, 16, 18],
 "lane" [L2, 18, sc*16] (each supercluster's fused rows transposed) or
 "rows" (the six cluster-major arrays).  The layouts change how the table is
 read, never a result.  One launch serves any pair count: each tile's walk
@@ -43,7 +43,6 @@ nothing.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import torch
@@ -63,11 +62,11 @@ from crt_tpu_torch.ops.cluster_trace import (
     _raise_on,
     _require,
     closest_hit_plain,
-    occluded_by_closest_hit,
     occlusion_d_plain,
     pad_rays,
 )
 from crt_tpu_torch.ops.intersect import Hit
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.utils import trace as tracing
 
 LAYOUTS = ("fused", "lane", "rows")
@@ -77,16 +76,8 @@ _LAYOUT_CODE = {name: i for i, name in enumerate(LAYOUTS)}  # stream_trace.cu
 CHUNK_MEMBERS = 64
 
 
-def stream_layout() -> str:
-    """The table layout ``CRT_STREAM_LAYOUT`` names (default "fused"), read
-    at every call."""
-    return _check_layout(os.environ.get("CRT_STREAM_LAYOUT", "fused"))
-
-
-def _check_layout(layout: str | None) -> str:
-    """``layout``, or the environment's when None; ValueError if unknown."""
-    if layout is None:
-        return stream_layout()
+def _check_layout(layout: str) -> str:
+    """``layout``; ValueError if unknown."""
     if layout not in LAYOUTS:
         raise ValueError(f"unknown stream layout {layout!r}")
     return layout
@@ -114,9 +105,9 @@ def lane_slab(fused, sc: int):
 @tracing.spanned("crt.tables.stream")
 def build_stream_tables(tables: ClusterTables,
                         sc_clusters: int = sb.SC_CLUSTERS,
-                        layout: str | None = None) -> StreamTables:
-    """The scene's streaming tables; the lane slab too when ``layout``
-    (None: ``stream_layout()``) is "lane"."""
+                        layout: str = "fused") -> StreamTables:
+    """The scene's streaming tables; the lane slab too when ``layout`` is
+    "lane"."""
     layout = _check_layout(layout)
     tables, sc_min, sc_max = sb.build_supercluster_boxes(tables, sc_clusters)
     fused = sb.build_fused_table(tables)
@@ -318,9 +309,9 @@ def closest_hit_stream(table, tri_id, origins, dirs, pair_sc, pair_bits,
     tile_start [tiles + 1] i32 with tile_start[-1] == P.
     Returns (t [R] f32, tri [R] i32); +inf and -1 where nothing is hit.
     The three layouts give the same bits.  ``layout`` names the form of
-    ``table``, so it is never read from the environment here.  ``chunk``
-    (None: ``CHUNK_MEMBERS``) is the kernel's item length in live members;
-    it changes no bit, and the plain version has no use for it.
+    ``table``.  ``chunk`` (None: ``CHUNK_MEMBERS``) is the kernel's item
+    length in live members; it changes no bit, and the plain version has
+    no use for it.
     """
     dev = origins.device
     R = origins.shape[0]
@@ -448,9 +439,9 @@ def bin_stream_pairs(st: StreamTables, bounds, apex=None, apex_slack=0.0,
 def closest_hit_stream_flat(st: StreamTables, origins, dirs, active=None,
                             tile_rays: int = TILE_RAYS, apex=None,
                             apex_slack: float = 0.0,
-                            layout: str | None = None):
+                            layout: str = "fused"):
     """Streaming closest hit of a flat wavefront (R % tile_rays == 0) over
-    the table in ``layout`` (None: ``stream_layout()``).
+    the table in ``layout``.
     Returns (Hit, number of pairs)."""
     layout = _check_layout(layout)
     with tracing.span("crt.binning"):
@@ -467,14 +458,14 @@ def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
                          apex_slack, tile_rays: int = TILE_RAYS,
                          per_tile_cap: int | None = None,
                          lane_exact: bool = True,
-                         layout: str | None = None):
+                         layout: str = "fused"):
     """Streaming any-hit occlusion of a point-light shadow wavefront ->
-    blocked [R] bool over the table in ``layout`` (None:
-    ``stream_layout()``).  ``apex`` [tiles, 3] is each tile's light.  Pairs
-    come nearest first.  A complete walk (``per_tile_cap`` None) admits a
-    pair only if some lane's own segment reaches the supercluster
-    (``lane_exact_sc_mask`` over the shaft hull's survivors); a truncated
-    one skips that test, its list being short anyway.  Lanes outside
+    blocked [R] bool over the table in ``layout``.  ``apex`` [tiles, 3] is
+    each tile's light.  Pairs come nearest first.  A complete walk
+    (``per_tile_cap`` None) admits a pair only if some lane's own segment
+    reaches the supercluster (``lane_exact_sc_mask`` over the shaft hull's
+    survivors); a truncated one skips that test, its list being short
+    anyway.  Lanes outside
     ``active`` return True."""
     layout = _check_layout(layout)
     with tracing.span("crt.binning"):
@@ -500,7 +491,7 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
                              light_positions, active, origin_slack,
                              tile_rays: int = TILE_RAYS, phase1_k: int = 8,
                              lane_exact: bool = True,
-                             layout: str | None = None, combine=None):
+                             layout: str = "fused", combine=None):
     """Two-phase streaming shadow occlusion -> [Ll, R] bool.
 
     Phase 1 walks only each tile's ``phase1_k`` nearest superclusters.
@@ -512,7 +503,7 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
 
     shadow_o [R, 3] per-pixel origins shared by the lights; light_dirs
     [Ll, R, 3]; r2, active [Ll, R]; light_positions [Ll, 3].  Both phases
-    read the table in ``layout`` (None: ``stream_layout()``).
+    read the table in ``layout``.
     ``combine`` ([Ll, R] bool -> [Ll, R] bool) merges each phase's bits
     with the other shards' before they are used: phase 1's before the
     compaction, so every shard walks the same survivors in phase 2.
@@ -544,79 +535,73 @@ def occluded_stream_twophase(st: StreamTables, shadow_o, light_dirs, r2,
     return occ1 | (occ2_back & surv)
 
 
-def make_stream_trace_fn(scene, tile_rays: int | None = None,
-                         sc_clusters: int = sb.SC_CLUSTERS,
-                         shadow_k: int = 2, layout: str | None = None):
-    """trace_fn factory for the streaming backend ("pallas_stream").
+class StreamTracer(Tracer):
+    """The streaming backend ("pallas_stream") over ``tables``.
 
-    ``trace(o, d, active=None) -> Hit``, rays padded to a tile multiple
-    with direction (0, 0, -1) and inactive lanes.
-    ``trace.shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
-    origin_slack) -> occluded [Ll, R]``: the point-light shadow pass, binned
-    by the light-side shaft against supercluster and member boxes;
-    ``shadow_k`` is the phase-1 depth of the two-phase resolve
-    (``RenderSettings.stream_shadow_k``; 0 walks every list in one phase).
-    ``trace.rank`` is the triangle id -> Morton rank map, which keeps the
-    segment sum's id bands narrow in a backward.  The trace emits no packed
-    rows: shading gathers them.  Every launch reads the table in ``layout``
-    (None: ``stream_layout()``, read here, as crt_tpu reads it when it
-    builds the trace); only the lane layout builds its slab.
+    Rays are padded to a tile multiple of ``tile_rays`` with direction
+    (0, 0, -1) and inactive lanes.  ``shadow`` is the point-light shadow
+    pass, binned by the light-side shaft against supercluster and member
+    boxes, for a flat wavefront of whole tiles (any other is the generic
+    closest hit and a compare); ``shadow_k`` is the phase-1 depth of its
+    two-phase resolve (``RenderSettings.stream_shadow_k``; 0 walks every
+    list in one phase).  The tracer emits no packed rows: shading gathers
+    them.  Every launch reads the table in ``layout``; only the lane
+    layout builds its slab.  ``combine_hits`` (Hit -> Hit) and
+    ``combine_bits`` (occlusion bits -> bits) merge each launch's answer
+    with those of the other shards of a partitioned scene; the shadow
+    pass's two phases are merged one by one (``occluded_stream_twophase``).
     """
-    return make_stream_trace_fn_from_tables(
-        build_cluster_tables(scene), tile_rays, sc_clusters, shadow_k,
-        layout)
 
+    def __init__(self, tables: ClusterTables, tile_rays: int | None = None,
+                 sc_clusters: int = sb.SC_CLUSTERS, shadow_k: int = 2,
+                 layout: str = "fused", combine_hits=None,
+                 combine_bits=None):
+        self.tile_rays = tile_rays or TILE_RAYS
+        self.shadow_k = shadow_k
+        self.layout = _check_layout(layout)
+        self.combine_hits = combine_hits
+        self.combine_bits = combine_bits
+        self.st = build_stream_tables(tables, sc_clusters, self.layout)
+        self.rank = tables.rank
 
-def make_stream_trace_fn_from_tables(tables: ClusterTables,
-                                     tile_rays: int | None = None,
-                                     sc_clusters: int = sb.SC_CLUSTERS,
-                                     shadow_k: int = 2,
-                                     layout: str | None = None,
-                                     combine_hits=None, combine_bits=None):
-    """``make_stream_trace_fn`` over ``tables`` as given.
-    ``combine_hits`` (Hit -> Hit) and ``combine_bits`` (occlusion bits ->
-    bits) merge each launch's answer with those of the other shards of a
-    partitioned scene; the shadow pass's two phases are merged one by
-    one (``occluded_stream_twophase``)."""
-    tile_rays = tile_rays or TILE_RAYS
-    layout = _check_layout(layout)
-    st = build_stream_tables(tables, sc_clusters, layout)
-
-    def trace(origins, dirs, active=None):
+    def __call__(self, origins, dirs, active=None) -> Hit:
         batch_shape = origins.shape[:-1]
         R = origins[..., 0].numel()
         o, d, a = pad_rays(origins.detach().reshape(-1, 3),
-                           dirs.detach().reshape(-1, 3), active, tile_rays,
-                           pad_all_active=True)
-        hit, _ = closest_hit_stream_flat(st, o, d, a, tile_rays,
-                                         layout=layout)
+                           dirs.detach().reshape(-1, 3), active,
+                           self.tile_rays, pad_all_active=True)
+        hit, _ = closest_hit_stream_flat(self.st, o, d, a, self.tile_rays,
+                                         layout=self.layout)
         hit = Hit(t=hit.t[:R].reshape(batch_shape),
                   tri=hit.tri[:R].reshape(batch_shape))
-        return hit if combine_hits is None else combine_hits(hit)
+        return hit if self.combine_hits is None else self.combine_hits(hit)
 
-    def shadow_apex(shadow_o, light_dirs, r2, light_positions, active,
-                    origin_slack):
+    def shadow(self, point, shadow_o, light_positions, light_dirs, r2,
+               active, origin_slack):
+        tile_rays = self.tile_rays
+        if point.dim() != 2 or r2.shape[1] % tile_rays:
+            return super().shadow(point, shadow_o, light_positions,
+                                  light_dirs, r2, active, origin_slack)
         Ll, R = r2.shape
         shadow_o = shadow_o.detach()
         light_dirs = light_dirs.detach()
         r2 = r2.detach()
-        if R % tile_rays:
-            return occluded_by_closest_hit(trace, shadow_o, light_dirs, r2,
-                                           active)
         light_positions = light_positions.detach()
-        if shadow_k > 0:
+        if self.shadow_k > 0:
             return occluded_stream_twophase(
-                st, shadow_o, light_dirs, r2, light_positions, active,
-                origin_slack, tile_rays, phase1_k=shadow_k, layout=layout,
-                combine=combine_bits)
+                self.st, shadow_o, light_dirs, r2, light_positions, active,
+                origin_slack, tile_rays, phase1_k=self.shadow_k,
+                layout=self.layout, combine=self.combine_bits)
         apex = light_positions.repeat_interleave(R // tile_rays, dim=0)
         occ = occluded_stream_flat(
-            st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
+            self.st, shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
             light_dirs.reshape(-1, 3).contiguous(),
             r2.reshape(-1).contiguous(), active.reshape(-1), apex,
-            origin_slack, tile_rays, layout=layout).reshape(Ll, R)
-        return occ if combine_bits is None else combine_bits(occ)
+            origin_slack, tile_rays, layout=self.layout).reshape(Ll, R)
+        return occ if self.combine_bits is None else self.combine_bits(occ)
 
-    trace.shadow_apex = shadow_apex
-    trace.rank = tables.rank
-    return trace
+
+def make_stream_trace_fn(scene, **kw) -> StreamTracer:
+    """The streaming backend of ``scene``: its cluster tables built, and
+    ``StreamTracer(tables, **kw)``."""
+    return StreamTracer(build_cluster_tables(scene), **kw)

@@ -37,7 +37,9 @@ from __future__ import annotations
 import torch
 
 from crt_tpu_torch.ops import vecmath
+from crt_tpu_torch.ops.cluster_tables import triangle_rank
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.utils import trace as tracing
 
 STACK_SIZE = 48
@@ -217,23 +219,21 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
     return Hit(t=t.reshape(batch_shape), tri=hit_tri.reshape(batch_shape))
 
 
-def make_tree_trace_fn(scene):
-    """trace_fn factory for the tree backend.  The tree is the one built at
-    load: moving the vertices afterwards does not rebuild it (as in
-    crt_tpu)."""
-    if scene.accel is None:
-        raise ValueError("scene has no acceleration tree")
-    with tracing.span("crt.tables.triangles"):
-        tri = build_triangle_gather(
-            scene.vertices.detach(), scene.tri_vidx,
-            scene.mat_backface[scene.tri_material.long()],
-        )
+class TreeTracer(Tracer):
+    """The tree backend: the KD walk over the tree built at load.  Moving
+    the vertices afterwards does not rebuild it (as in crt_tpu)."""
 
-    def trace(o, d, active=None):
-        return closest_hit_tree(scene.accel, tri, o, d, active)
+    def __init__(self, scene):
+        if scene.accel is None:
+            raise ValueError("scene has no acceleration tree")
+        with tracing.span("crt.tables.triangles"):
+            self.tri = build_triangle_gather(
+                scene.vertices.detach(), scene.tri_vidx,
+                scene.mat_backface[scene.tri_material.long()],
+            )
+        self.accel = scene.accel
+        # the Morton rank keeps the segment sum's id bands narrow
+        self.rank = triangle_rank(scene)
 
-    # the Morton rank keeps the segment sum's id bands narrow
-    from crt_tpu_torch.ops.cluster_tables import triangle_rank
-
-    trace.rank = triangle_rank(scene)
-    return trace
+    def __call__(self, origins, dirs, active=None) -> Hit:
+        return closest_hit_tree(self.accel, self.tri, origins, dirs, active)

@@ -37,14 +37,18 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from crt_tpu_torch.ops import stream_binning as sb
 from crt_tpu_torch.ops.cluster_tables import (
     CLUSTER_SIZE,
     ClusterTables,
     build_cluster_tables,
 )
+from crt_tpu_torch.ops.cluster_trace import ClusterTracer
 from crt_tpu_torch.ops.intersect import Hit
 from crt_tpu_torch.ops.segsum import packed_gather
 from crt_tpu_torch.ops.shade import build_packed
+from crt_tpu_torch.ops.stream_trace import StreamTracer
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.parallel.sharded import (
     OneDeviceMesh,
     _grads,
@@ -61,8 +65,8 @@ from crt_tpu_torch.parallel.sharded import (
 from crt_tpu_torch.renderer import (
     _CLUSTER_BACKENDS,
     _STREAM_BACKENDS,
-    AUTO_STREAM_MIN_CLUSTERS,
     _render_flat,
+    auto_backend,
 )
 from crt_tpu_torch.scene.types import RenderSettings, Scene
 
@@ -160,13 +164,9 @@ def _packed_shard(scene: Scene, n: int, k: int) -> torch.Tensor:
 
 def _resolve_shard_backend(local_tables: ClusterTables, backend: str) -> str:
     """The shard's backend: "auto" is the port's own rule on the shard
-    (``renderer.make_trace_fn``): the streaming backend on the card above
-    ``AUTO_STREAM_MIN_CLUSTERS`` clusters in the shard, the cluster
-    backend otherwise."""
+    (``renderer.auto_backend`` of the shard's clusters)."""
     if backend == "auto":
-        big = (local_tables.n.is_cuda
-               and local_tables.n.shape[0] > AUTO_STREAM_MIN_CLUSTERS)
-        return "stream" if big else "cluster"
+        return auto_backend(local_tables.n.shape[0], local_tables.n.is_cuda)
     if backend in _CLUSTER_BACKENDS:
         return "cluster"
     if backend in _STREAM_BACKENDS:
@@ -174,65 +174,58 @@ def _resolve_shard_backend(local_tables: ClusterTables, backend: str) -> str:
     raise ValueError(f"unknown shard backend: {backend!r}")
 
 
-def _make_partitioned_stream_fn(local_tables: ClusterTables, scene_group,
-                                tile_rays: int | None = None,
-                                sc_clusters: int | None = None,
-                                shadow_k: int = 2):
-    """The streaming trace over the rank's table shard: each closest hit
-    min-combined across ``scene_group``, each phase of the shadow pass
-    OR-combined (phase 1's before its compaction)."""
-    from crt_tpu_torch.ops import stream_binning as sb
-    from crt_tpu_torch.ops.stream_trace import make_stream_trace_fn_from_tables
+class _PartitionedClusterTracer(Tracer):
+    """The cluster backend's closest hit over a rank's table shard,
+    combined over ``scene_group``; shading takes it for the shadow rays
+    too (the base ``shadow``)."""
 
-    def combine_hits(hit):
-        return _combine_hits_across(scene_group, hit)
+    def __init__(self, local_tables: ClusterTables, scene_group):
+        self.local = ClusterTracer(local_tables)
+        self.scene_group = scene_group
 
-    def combine_bits(bits):
-        return _any_across(scene_group, bits)
-
-    return make_stream_trace_fn_from_tables(
-        local_tables, tile_rays, sc_clusters or sb.SC_CLUSTERS, shadow_k,
-        combine_hits=combine_hits, combine_bits=combine_bits)
+    def __call__(self, origins, dirs, active=None):
+        return _combine_hits_across(self.scene_group,
+                                    self.local(origins, dirs, active))
 
 
 def make_partitioned_trace_fn(local_tables: ClusterTables, scene_group,
                               backend: str = "auto",
                               stream_tile_rays: int | None = None,
                               sc_clusters: int | None = None,
-                              stream_shadow_k: int = 2):
-    """trace_fn over a rank's cluster-table shard, its hits combined over
+                              stream_shadow_k: int = 2,
+                              read_rows=None) -> Tracer:
+    """A tracer over a rank's cluster-table shard, its hits combined over
     ``scene_group`` (the process group of the mesh's scene axis; None for
     one rank).  "cluster" ("pallas"): the cluster backend's closest hit,
     which shading also takes for the shadow rays; "stream"
     ("pallas_stream"): the streaming backend, closest hit and two-phase
-    shadow pass; "auto": ``_resolve_shard_backend``.  The tables'
-    triangle ids are the scene's own, so no id is translated."""
+    shadow pass, each launch's answer combined (the shadow pass's phase 1
+    before its compaction); "auto": ``_resolve_shard_backend``.  The
+    tables' triangle ids are the scene's own, so no id is translated.
+    ``read_rows`` (``make_partitioned_rows_fn``) is the tracer's packed-row
+    read."""
     backend = _resolve_shard_backend(local_tables, backend)
     if backend == "stream":
-        return _make_partitioned_stream_fn(
-            local_tables, scene_group, tile_rays=stream_tile_rays,
-            sc_clusters=sc_clusters, shadow_k=stream_shadow_k)
-    from crt_tpu_torch.ops.cluster_trace import (
-        make_cluster_trace_fn_from_tables,
-    )
-
-    local = make_cluster_trace_fn_from_tables(local_tables)
-
-    def trace(origins, dirs, active=None):
-        return _combine_hits_across(scene_group, local(origins, dirs, active))
-
-    return trace
+        tracer = StreamTracer(
+            local_tables, stream_tile_rays, sc_clusters or sb.SC_CLUSTERS,
+            stream_shadow_k,
+            combine_hits=lambda hit: _combine_hits_across(scene_group, hit),
+            combine_bits=lambda bits: _any_across(scene_group, bits))
+    else:
+        tracer = _PartitionedClusterTracer(local_tables, scene_group)
+    tracer.read_rows = read_rows
+    return tracer
 
 
 def make_partitioned_rows_fn(local_packed: torch.Tensor, shard_tris: int,
                              scene_group, shard: int):
-    """The packed-row read of ``shade.hit_attributes`` over a packed-table
-    shard: the rank reads the rows of the hits whose triangle it owns
-    (through ``segsum.packed_gather``, so a backward is the segment sum),
-    zeros elsewhere, and one differentiable all-reduce sum assembles the
-    whole [K, R] block on every rank of ``scene_group``."""
+    """The packed-row read of shading (a tracer's ``read_rows``) over a
+    packed-table shard: the rank reads the rows of the hits whose triangle
+    it owns (through ``segsum.packed_gather``, so a backward is the
+    segment sum), zeros elsewhere, and one differentiable all-reduce sum
+    assembles the whole [K, R] block on every rank of ``scene_group``."""
 
-    def rows_fn(tri):
+    def read_rows(tri):
         local = tri - shard * shard_tris
         mine = (local >= 0) & (local < shard_tris)
         ids = torch.where(mine, local, torch.full_like(local, -1))
@@ -243,7 +236,7 @@ def make_partitioned_rows_fn(local_packed: torch.Tensor, shard_tris: int,
         rows = torch.where(mine[None], rows, torch.zeros((), device=rows.device))
         return all_reduce_sum(rows, scene_group)
 
-    return rows_fn
+    return read_rows
 
 
 def _slim(scene: Scene) -> Scene:
@@ -279,14 +272,14 @@ def _partitioned_rows(scene, settings, mesh, rays_axis, scene_axis,
             scene, mesh, scene_axis)
     else:
         shard_tris = packed_local.shape[1]
-    trace_fn = make_partitioned_trace_fn(
+    tracer = make_partitioned_trace_fn(
         tables, scene_group, local_backend, stream_tile_rays=stream_tile_rays,
-        sc_clusters=sc_clusters, stream_shadow_k=settings.stream_shadow_k)
-    rows_fn = make_partitioned_rows_fn(packed_local, shard_tris, scene_group,
-                                       k)
+        sc_clusters=sc_clusters, stream_shadow_k=settings.stream_shadow_k,
+        read_rows=make_partitioned_rows_fn(packed_local, shard_tris,
+                                           scene_group, k))
     rows_per = -(-scene.height // n_ray)
     rows = _render_flat(_slim(scene), settings, row_offset=i * rows_per,
-                        num_rows=rows_per, trace_fn=trace_fn, rows_fn=rows_fn)
+                        num_rows=rows_per, trace_fn=tracer)
     return rows, i * rows_per, rays_group
 
 

@@ -24,10 +24,11 @@ from torch.utils.checkpoint import checkpoint
 
 from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops import intersect as intersect_ops
-from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE
+from crt_tpu_torch.ops.cluster_tables import CLUSTER_SIZE, triangle_rank
 from crt_tpu_torch.ops.shade import hit_attributes, shade_wavefront
 from crt_tpu_torch.ops.shade_iter import pool_width, shade_wavefront_iter
 from crt_tpu_torch.ops.texture import sample_textures
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.scene.types import RenderSettings, Scene, resolve_device
 from crt_tpu_torch.utils import trace as tracing
 
@@ -85,59 +86,70 @@ def use_iterative_wavefront(scene: Scene, settings: RenderSettings) -> bool:
     return branching or scene.gi_on
 
 
-def make_trace_fn(scene: Scene, settings: RenderSettings):
-    """Build the intersection backend ``trace_fn(origins, dirs, active)``.
+def auto_backend(clusters: int, on_card: bool) -> str:
+    """The backend ``backend="auto"`` takes for a scene (or a shard) of
+    ``clusters`` clusters: the streaming one on the card above
+    ``AUTO_STREAM_MIN_CLUSTERS``, the cluster one otherwise."""
+    return ("stream" if on_card and clusters > AUTO_STREAM_MIN_CLUSTERS
+            else "cluster")
+
+
+class EmptyTracer(Tracer):
+    """The backend of a scene without triangles: every ray misses."""
+
+    def __call__(self, origins, dirs, active=None) -> intersect_ops.Hit:
+        shape = origins.shape[:-1]
+        return intersect_ops.Hit(
+            t=torch.full(shape, float("inf"), device=origins.device),
+            tri=torch.full(shape, -1, dtype=torch.int32,
+                           device=origins.device),
+        )
+
+
+class BruteforceTracer(Tracer):
+    """The all-pairs backend (``ops/intersect.py``)."""
+
+    def __init__(self, scene: Scene):
+        with tracing.span("crt.tables.triangles"):
+            self.tri = intersect_ops.build_triangle_data(
+                scene.vertices.detach(), scene.tri_vidx,
+                scene.mat_backface[scene.tri_material.long()],
+            )
+        # the Morton rank keeps the segment sum's id bands narrow
+        self.rank = triangle_rank(scene)
+
+    def __call__(self, origins, dirs, active=None) -> intersect_ops.Hit:
+        del active  # dense all-pairs compute; masking cannot skip work
+        return intersect_ops.closest_hit_bruteforce(
+            self.tri, origins.detach(), dirs.detach())
+
+
+def make_trace_fn(scene: Scene, settings: RenderSettings) -> Tracer:
+    """Build the intersection backend, a ``Tracer`` (``ops/tracer.py``).
 
     "cluster" and "pallas" (the crt_tpu name) are the binned cluster trace;
     "stream" and "pallas_stream" the two-level streaming trace for large
     scenes; "bruteforce" is the all-pairs backend; "tree" walks the scene's
-    KD tree (``ops/traverse.py``).  "auto" is the cluster
-    trace, and on the card the streaming trace for a scene of more than
-    ``AUTO_STREAM_MIN_CLUSTERS`` clusters.
+    KD tree (``ops/traverse.py``).  "auto" is ``auto_backend``'s choice.
     """
     if scene.num_triangles == 0:
-        def empty_trace(origins, dirs, active=None):
-            shape = origins.shape[:-1]
-            return intersect_ops.Hit(
-                t=torch.full(shape, float("inf"), device=origins.device),
-                tri=torch.full(shape, -1, dtype=torch.int32,
-                               device=origins.device),
-            )
-
-        return empty_trace
+        return EmptyTracer()
 
     backend = settings.backend
     if backend == "auto":
-        clusters = -(-scene.num_triangles // CLUSTER_SIZE)
-        large = (scene.device.type == "cuda"
-                 and clusters > AUTO_STREAM_MIN_CLUSTERS)
-        backend = "stream" if large else "cluster"
+        backend = auto_backend(-(-scene.num_triangles // CLUSTER_SIZE),
+                               scene.device.type == "cuda")
     if backend in _CLUSTER_BACKENDS:
         from crt_tpu_torch.ops.cluster_trace import make_cluster_trace_fn
 
         return make_cluster_trace_fn(
             scene, compact_masked=settings.compact_bounces)
     if backend == "bruteforce":
-        with tracing.span("crt.tables.triangles"):
-            tri = intersect_ops.build_triangle_data(
-                scene.vertices.detach(), scene.tri_vidx,
-                scene.mat_backface[scene.tri_material.long()],
-            )
-
-        def trace(origins, dirs, active=None):
-            del active  # dense all-pairs compute; masking cannot skip work
-            return intersect_ops.closest_hit_bruteforce(
-                tri, origins.detach(), dirs.detach())
-
-        # the Morton rank keeps the segment sum's id bands narrow
-        from crt_tpu_torch.ops.cluster_tables import triangle_rank
-
-        trace.rank = triangle_rank(scene)
-        return trace
+        return BruteforceTracer(scene)
     if backend == "tree":
-        from crt_tpu_torch.ops.traverse import make_tree_trace_fn
+        from crt_tpu_torch.ops.traverse import TreeTracer
 
-        return make_tree_trace_fn(scene)
+        return TreeTracer(scene)
     if backend in _STREAM_BACKENDS:
         from crt_tpu_torch.ops.stream_trace import make_stream_trace_fn
 
@@ -180,11 +192,11 @@ def make_tiler(h: int, w: int, row_offset: int = 0, device=None):
 @tracing.spanned("crt.frame")
 def _render_flat(scene: Scene, settings: RenderSettings, gi_salt=None, *,
                  row_offset: int = 0, num_rows: int | None = None,
-                 trace_fn=None, rows_fn=None) -> torch.Tensor:
+                 trace_fn: Tracer | None = None) -> torch.Tensor:
     """The frame, or the ``num_rows`` rows from ``row_offset`` on (the row
     block of a sharded frame) -> [rows, width, 3].  ``trace_fn`` replaces
-    the scene's backend and ``rows_fn`` the packed-row read of shading
-    (the scene-partitioned path, ``parallel/scene_sharded.py``)."""
+    the scene's backend (the scene-partitioned path,
+    ``parallel/scene_sharded.py``, and tests)."""
     h, w = scene.height, scene.width
     rows = h if num_rows is None else num_rows
     rxf, ryf, untile = make_tiler(rows, w, row_offset=row_offset,
@@ -221,7 +233,7 @@ def _render_flat(scene: Scene, settings: RenderSettings, gi_salt=None, *,
 
     def shade(o, d, a, x, y):
         return shade_fn(scene, settings, trace_fn, o, d, a, raster_x=x,
-                        raster_y=y, gi_salt=gi_salt, rows_fn=rows_fn)
+                        raster_y=y, gi_salt=gi_salt)
 
     if chunk and chunk < R:
         chunk = max(tile_sz, (chunk // tile_sz) * tile_sz)
@@ -279,7 +291,7 @@ def render_image(scene: Scene, settings: RenderSettings | None = None,
 def aov_values(scene: Scene, origins: torch.Tensor, dirs: torch.Tensor,
                hit, aov: str, rank=None) -> torch.Tensor:
     """The AOV ``aov`` of rays [R, 3] whose closest hits are ``hit`` ->
-    [R, 3]; a miss takes the background colour.  ``rank`` is the trace's
+    [R, 3]; a miss takes the background colour.  ``rank`` is the tracer's
     triangle id -> Morton rank map, where it has one."""
     if aov not in AOVS:
         raise ValueError(f"unknown aov {aov!r}")
@@ -321,7 +333,7 @@ def _render_aov_flat(scene: Scene, settings: RenderSettings,
     with tracing.span("crt.trace.primary"):
         hit = trace_fn(origins, dirs, None)
     return untile(aov_values(scene, origins, dirs, hit, aov,
-                             rank=getattr(trace_fn, "rank", None)))
+                             rank=trace_fn.rank))
 
 
 def render_aov(scene: Scene, settings: RenderSettings | None = None,

@@ -4,10 +4,10 @@ Counterpart of ``crt_tpu/utils/debug.py``.  The reference collects the rays
 of one hard-coded pixel and flushes them as ``bpy.ops.crt.debug_ray_add``
 lines for replay in Blender (crt_debug.cpp:11-39).  Here any pixel can be
 traced: the wavefront is one ray, shaded by the unrolled recursion through
-a recording wrapper around the backend's trace, which logs every traced
-ray (primary, shadow, reflection, refraction, GI) with its hit distance.
-The wrapper is a plain function, so the shading takes the plain-trace
-route for every pass (shadows too), on any backend.
+a recording tracer around the backend, which logs every traced ray
+(primary, shadow, reflection, refraction, GI) with its hit distance.  It
+keeps the base tracer's shadow pass, a closest hit, so every pass (shadows
+too) is recorded, on any backend.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import torch
 
 from crt_tpu_torch.ops import camera as camera_ops
 from crt_tpu_torch.ops.shade import shade_wavefront
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.renderer import make_trace_fn
 from crt_tpu_torch.scene.types import RenderSettings
 
@@ -57,25 +58,33 @@ class DebugRayLog:
         return "\n".join(lines) + "\n"
 
 
+class _RecordingTracer(Tracer):
+    """``base``'s closest hit, every ray logged into ``log`` with the
+    order of its trace call.  It keeps the base class's shadow pass, so
+    shadow rays are logged too."""
+
+    def __init__(self, base: Tracer, log: DebugRayLog):
+        self.base, self.log, self.calls = base, log, 0
+
+    def __call__(self, origins, dirs, active=None):
+        hit = self.base(origins, dirs, active)
+        o = origins.detach().reshape(-1, 3).cpu().numpy()
+        d = dirs.detach().reshape(-1, 3).cpu().numpy()
+        t = hit.t.reshape(-1).cpu().numpy()
+        for k in range(len(o)):
+            self.log.entries.append(RayLogEntry(o[k], d[k], float(t[k]),
+                                                self.calls))
+        self.calls += 1
+        return hit
+
+
 def trace_pixel(scene, raster_x: int, raster_y: int,
                 settings: RenderSettings | None = None) -> DebugRayLog:
     """Shade one pixel on the scene's device, recording every ray the
     wavefront traces for it."""
     settings = settings or RenderSettings()
     log = DebugRayLog(raster_x=raster_x, raster_y=raster_y)
-    base_trace = make_trace_fn(scene, settings)
-    counter = [0]
-
-    def recording_trace(origins, dirs, active=None):
-        hit = base_trace(origins, dirs, active)
-        o = origins.detach().reshape(-1, 3).cpu().numpy()
-        d = dirs.detach().reshape(-1, 3).cpu().numpy()
-        t = hit.t.reshape(-1).cpu().numpy()
-        for k in range(len(o)):
-            log.entries.append(RayLogEntry(o[k], d[k], float(t[k]),
-                                           counter[0]))
-        counter[0] += 1
-        return hit
+    recording = _RecordingTracer(make_trace_fn(scene, settings), log)
 
     dev = scene.device
     rx = torch.tensor([float(raster_x)], device=dev)
@@ -85,7 +94,7 @@ def trace_pixel(scene, raster_x: int, raster_y: int,
         scene.width, scene.height, rx, ry)
     with torch.no_grad():
         color = shade_wavefront(
-            scene, settings, recording_trace, origins.reshape(-1, 3),
+            scene, settings, recording, origins.reshape(-1, 3),
             dirs.reshape(-1, 3), raster_x=rx.to(torch.int64),
             raster_y=ry.to(torch.int64))
     log.color = color.cpu().numpy()[0]

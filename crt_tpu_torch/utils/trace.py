@@ -8,9 +8,9 @@ belongs to the span whose interval holds its launch.  The port's spans:
 
   - ``crt.frame``: one frame (``renderer._render_flat``,
     ``renderer._render_aov_flat``);
-  - ``crt.tables.<kind>``: the tables a trace factory builds (``cluster``,
-    ``stream``, ``rank``, ``triangles``) and those a trace builds on first
-    use (``rows``, ``glass``);
+  - ``crt.tables.<kind>``: the tables a tracer is built with (``cluster``,
+    ``stream``, ``rank``, ``triangles``) and those it builds on first use
+    (``rows``, ``glass``);
   - ``crt.shade``: one chunk of either wavefront, and
     ``crt.shade.bounce.<b>`` each bounce of the iterative one;
   - ``crt.shade.march``: the transmissive branch of a scene with live

@@ -37,7 +37,12 @@ from crt_tpu_torch.ops import (
     stream_trace,
     vecmath,
 )
-from crt_tpu_torch.renderer import AOVS, make_tiler, make_trace_fn
+from crt_tpu_torch.renderer import (
+    AOVS,
+    _render_flat,
+    make_tiler,
+    make_trace_fn,
+)
 from crt_tpu_torch.scene.procedural import (
     make_big_scene,
     make_test_scene,
@@ -771,16 +776,16 @@ def test_closest_hit_merged_matches_plain_and_k1(device, merge):
     assert err == 1  # cudaErrorInvalidValue, nothing launched
 
 
-def test_tile_merge_render_on_card(device, monkeypatch):
+def test_tile_merge_render_on_card(device):
     """With the merge at 2 every closest hit of the frame takes K7 (6
     tiles) and the image equals the default one bit for bit."""
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device=device)
     default = render_image(scene)
-    monkeypatch.setattr(cluster_trace, "_TILE_MERGE", 2)
+    tracer = cluster_trace.make_cluster_trace_fn(scene, tile_merge=2)
     before = (launched("closest_hit_merged"),
               launched("closest_hit"))
-    img = render_image(scene)
+    img = _render_flat(scene, RenderSettings(), trace_fn=tracer)
     assert (launched("closest_hit_merged"),
             launched("closest_hit")) == (before[0] + 4, before[1])
     assert torch.equal(img, default)
@@ -1266,18 +1271,17 @@ def test_stream_layout_kernels_match_plain_and_fused(device, big, sc,
 
 
 @pytest.mark.parametrize("layout", ["lane", "rows"])
-def test_stream_render_layout_on_card(device, monkeypatch, layout):
-    """CRT_STREAM_LAYOUT alone moves a streaming frame's launches (one
-    closest hit and two any-hit passes per shading level) to the layout's
-    kernels; the image equals the fused frame bit for bit."""
+def test_stream_render_layout_on_card(device, layout):
+    """The streaming tracer's ``layout`` alone moves a streaming frame's
+    launches (one closest hit and two any-hit passes per shading level) to
+    the layout's kernels; the image equals the fused frame bit for bit."""
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device=device)
     settings = RenderSettings(backend="stream")
-    monkeypatch.delenv("CRT_STREAM_LAYOUT", raising=False)
     fused = render_image(scene, settings)
-    monkeypatch.setenv("CRT_STREAM_LAYOUT", layout)
+    tracer = stream_trace.make_stream_trace_fn(scene, layout=layout)
     before = _layout_counts()
-    img = render_image(scene, settings)
+    img = _render_flat(scene, settings, trace_fn=tracer)
     assert _added(before, _layout_counts()) == [{layout: 4}, {layout: 8}]
     assert torch.equal(img, fused)
 
@@ -1386,15 +1390,17 @@ def test_forward_render_is_deterministic(device, monkeypatch, frame):
     assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
-def test_direction_form_render_on_card(device, monkeypatch):
-    """With the w form off the cluster backend's shadows take K5: the image
-    equals the streaming backend's bit for bit (both direction form)."""
+def test_direction_form_render_on_card(device):
+    """With ``shadow_kernel="d"`` the cluster backend's shadows take K5:
+    the image equals the streaming backend's bit for bit (both direction
+    form)."""
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device=device)
-    monkeypatch.setattr(cluster_trace, "_APEX_W", False)
+    tracer = cluster_trace.make_cluster_trace_fn(scene, shadow_kernel="d")
     before = (modes("occlusion_d", ("compact", "exit")),
               launched("occlusion_w"))
-    img = render_image(scene, RenderSettings(backend="cluster"))
+    img = _render_flat(scene, RenderSettings(backend="cluster"),
+                       trace_fn=tracer)
     assert modes("occlusion_d", ("compact", "exit"))["compact"] \
         == before[0]["compact"] + 4
     assert launched("occlusion_w") == before[1]

@@ -2,11 +2,13 @@
 
 ``occlusion_d`` takes its plain PyTorch version on CPU tensors; here it is
 held to ``_occluded_binned_compact`` (K5, through ``trace.shadow_apex`` of
-``make_pallas_trace_fn(scene, interpret=True)`` and directly) and to
+``make_pallas_trace_fn(scene, interpret=True)`` and directly, and so
+through ``ClusterTracer(shadow_kernel="d").shadow``) and to
 ``occluded_pallas_flat(interpret=True)`` (K6), together with the ``apex``
-mode of ``bin_rays`` that feeds K5, the order in which
-``shade._occlusion_masks`` picks a shadow path, and the image the cluster
-backend renders when the w form is switched off (``CRT_APEX_W=0``).
+mode of ``bin_rays`` that feeds K5, the kernel each ``shadow_kernel``
+of the cluster tracer takes for ``shade._occlusion_masks``, and the image
+the cluster backend renders with the direction form (crt_tpu's
+``CRT_APEX_W=0``).
 Also the cases the kernels' batched walk and exits stress: lists of 58 to
 150 clusters (``make_big_scene`` at 4,096 triangles, many staging
 batches), the boundaries of the member test on a hand-built scene (t * t
@@ -33,12 +35,14 @@ import pytest
 import torch
 
 from crt_tpu_torch import RenderSettings, render_image, scene_from_dict
+from crt_tpu_torch import renderer
 from crt_tpu_torch.ops import binning as tbin
 from crt_tpu_torch.ops import camera, vecmath
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.ops import cluster_trace as ttr
 from crt_tpu_torch.ops import shade as tshade
 from crt_tpu_torch.ops.intersect import Hit
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.renderer import make_tiler
 from crt_tpu_torch.scene.procedural import make_big_scene, make_test_scene
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
@@ -293,6 +297,7 @@ def _wave(ref, scene):
     lights = scene.light_position
     return dict(
         shadow_o=shadow_o, ldir=ldir, r2=r2, act=act, lights=lights,
+        point=shadow_o - torch.tensor([0.0, 1e-2, 0.0]),
         tpl=R // 1024, apex=lights.repeat_interleave(R // 1024, dim=0),
         o_f=shadow_o.expand(Ll, R, 3).reshape(-1, 3).contiguous(),
         d_f=ldir.reshape(-1, 3).contiguous(),
@@ -313,8 +318,9 @@ def test_bin_rays_apex_mode_matches_crt_tpu(ref, scene, tables):
 
 def test_occlusion_d_plain_matches_pallas(ref, scene, tables):
     """K5: direct on crt_tpu's lists (origin tiles stored once, tile_mod)
-    and through the factory's shadow_apex, its generic fallback for a
-    ragged R included."""
+    and through the cluster tracer's ``shadow`` with ``shadow_kernel="d"``
+    (crt_tpu's ``shadow_apex``), its generic fallback for a ragged R
+    included."""
     w = _wave(ref, scene)
     cl, cnt = tbin.bin_rays(tables, w["o_f"], w["d_f"], 1024, w["a_f"],
                             apex=w["apex"], apex_slack=SLACK)
@@ -330,17 +336,19 @@ def test_occlusion_d_plain_matches_pallas(ref, scene, tables):
     assert occ[~dead & ~w["a_f"]].any() and not occ[~dead & ~w["a_f"]].all()
     assert occ[w["a_f"]].any() and not occ[w["a_f"]].all()
 
-    trace = ttr.make_cluster_trace_fn(scene)
-    args = (w["shadow_o"], w["ldir"], w["r2"], w["lights"], w["act"], SLACK)
-    eq(trace.shadow_apex(*args), ref["k5_e2e"])
-    short = (w["shadow_o"][:100], w["ldir"][:, :100], w["r2"][:, :100],
-             w["lights"], w["act"][:, :100], SLACK)
-    eq(trace.shadow_apex(*short), ref["k5_short"])
+    trace = ttr.make_cluster_trace_fn(scene, shadow_kernel="d")
+    args = (w["point"], w["shadow_o"], w["lights"], w["ldir"], w["r2"],
+            w["act"], SLACK)
+    eq(trace.shadow(*args), ref["k5_e2e"])
+    short = (w["point"][:100], w["shadow_o"][:100], w["lights"],
+             w["ldir"][:, :100], w["r2"][:, :100], w["act"][:, :100], SLACK)
+    eq(trace.shadow(*short), ref["k5_short"])
 
 
 def test_occlusion_d_exit_plain_matches_pallas(ref, scene, tables):
     """K6: the any-hit query over generic lists, with and without an
-    active mask, direct and through the factory (ragged R, padded)."""
+    active mask, direct and through the tracer (ragged R, padded), and as
+    the shadow pass of ``shadow_kernel="anyhit"``."""
     w = _wave(ref, scene)
     cl, cnt = tbin.bin_rays(tables, w["o_f"], w["d_f"], 1024, w["a_f"])
     occ = ttr.occlusion_d(tables, w["o_f"], w["d_f"], w["r2_f"], cl, cnt,
@@ -353,17 +361,16 @@ def test_occlusion_d_exit_plain_matches_pallas(ref, scene, tables):
     eq(occ_all, ref["k6_all"])
 
     trace = ttr.make_cluster_trace_fn(scene)
-    assert not hasattr(trace, "occluded")
+    assert trace.shadow_kernel == "w"
     n = w["o_f"].shape[0] - 100
-    e2e = trace.occluded_kernel(w["o_f"][:n], w["d_f"][:n], w["r2_f"][:n],
-                                w["a_f"][:n])
+    e2e = trace.occluded(w["o_f"][:n], w["d_f"][:n], w["r2_f"][:n],
+                         w["a_f"][:n])
     eq(e2e, ref["k6_e2e"])
-    eq(trace.occluded_kernel(w["o_f"][:n], w["d_f"][:n], w["r2_f"][:n]),
+    eq(trace.occluded(w["o_f"][:n], w["d_f"][:n], w["r2_f"][:n]),
        ref["k6_e2e_all"])
-    kernel = ttr.make_cluster_trace_fn(scene, use_occlusion_kernel=True)
-    assert not hasattr(kernel, "occluded_kernel")
-    assert torch.equal(kernel.occluded(w["o_f"][:n], w["d_f"][:n],
-                                       w["r2_f"][:n], w["a_f"][:n]), e2e)
+    kernel = ttr.make_cluster_trace_fn(scene, shadow_kernel="anyhit")
+    eq(kernel.shadow(w["point"], w["shadow_o"], w["lights"], w["ldir"],
+                     w["r2"], w["act"], SLACK).reshape(-1), ref["k6"])
 
 
 def test_k5_k6_and_closest_hit_agree_on_active_lanes(ref, scene):
@@ -372,46 +379,47 @@ def test_k5_k6_and_closest_hit_agree_on_active_lanes(ref, scene):
     w = _wave(ref, scene)
     trace = ttr.make_cluster_trace_fn(scene)
     act = w["a_f"]
-    k5 = trace.shadow_apex(w["shadow_o"], w["ldir"], w["r2"], w["lights"],
-                           w["act"], SLACK).reshape(-1)
-    k6 = trace.occluded_kernel(w["o_f"], w["d_f"], w["r2_f"], act)
+    args = (w["point"], w["shadow_o"], w["lights"], w["ldir"], w["r2"],
+            w["act"], SLACK)
+    k5 = ttr.ClusterTracer(trace.tables, shadow_kernel="d").shadow(
+        *args).reshape(-1)
+    k6 = trace.occluded(w["o_f"], w["d_f"], w["r2_f"], act)
     sh = trace(w["o_f"], w["d_f"], act)
     ch = sh.valid & (sh.t * sh.t <= w["r2_f"])
     assert torch.equal(k5[act], k6[act]) and torch.equal(k5[act], ch[act])
+    assert torch.equal(Tracer.shadow(trace, *args).reshape(-1), ch)
     # the w form answers the same question with |n.w| in its parallel test
-    point = w["shadow_o"] - torch.tensor([0.0, 1e-2, 0.0])
-    kw = trace.shadow_apex_w(point, w["shadow_o"], w["lights"], w["act"],
-                             SLACK).reshape(-1)
+    kw = trace.shadow(*args).reshape(-1)
     assert (kw[act] != k5[act]).float().mean() < 1e-3
 
 
-def _fake_trace(calls, *offers, apex_w_result=None):
-    """A trace that records which shadow path shading takes."""
-    def trace(o, d, active=None):
-        calls.append("trace")
+class _ShadowRecorder(Tracer):
+    """A tracer that records which shadow entry shading takes: the base
+    class's (a closest hit, "trace") or its own ``shadow``."""
+
+    def __init__(self, calls, own_shadow):
+        self.calls, self.own_shadow = calls, own_shadow
+
+    def __call__(self, o, d, active=None):
+        self.calls.append("trace")
         n = o.shape[:-1]
         return Hit(t=torch.full(n, float("inf")),
                    tri=torch.full(n, -1, dtype=torch.int32))
 
-    def shadow_apex_w(point, shadow_o, lights, act, slack):
-        calls.append("shadow_apex_w")
-        return apex_w_result
-
-    def occluded(o, d, r2, active=None):
-        calls.append("occluded")
+    def shadow(self, point, shadow_o, lights, ldir, r2, act, slack):
+        if not self.own_shadow:
+            return super().shadow(point, shadow_o, lights, ldir, r2, act,
+                                  slack)
+        self.calls.append("shadow")
         return torch.zeros(r2.shape, dtype=torch.bool)
 
-    def shadow_apex(shadow_o, ldir, r2, lights, act, slack):
-        calls.append("shadow_apex")
-        return torch.zeros(r2.shape, dtype=torch.bool)
 
-    for name in offers:
-        setattr(trace, name, locals()[name])
-    return trace
-
-
-def test_occlusion_masks_dispatch_order(scene):
-    R = 64
+@pytest.mark.parametrize("R", [64, 2048])
+def test_occlusion_masks_dispatch_order(scene, R, monkeypatch):
+    """Shading asks the tracer for its shadow pass and nothing else; the
+    cluster tracer's ``shadow_kernel`` picks K2, K5 or K6 where the
+    wavefront is a flat one of whole tiles, and the closest hit where it
+    is not (K6 takes any wavefront)."""
     gen = np.random.default_rng(0)
     point = T(gen.normal(size=(R, 3)).astype(np.float32))
     normal = torch.tensor([0.0, 1.0, 0.0]).expand(R, 3)
@@ -422,36 +430,56 @@ def test_occlusion_masks_dispatch_order(scene):
         lit, ldir, r2 = tshade._occlusion_masks(
             scene, trace, point, normal, scene.light_position, 1e-2, False,
             active)
-        assert lit.shape == r2.shape == (2, R) and lit.all()
+        assert lit.shape == r2.shape == (2, R)
         return list(calls)
 
     calls = []
-    every = ("shadow_apex_w", "occluded", "shadow_apex")
-    blocked = torch.zeros((2, R), dtype=torch.bool)
-    assert taken(_fake_trace(calls, *every, apex_w_result=blocked)) == [
-        "shadow_apex_w"]
-    # the w form declines (None): the any-hit query is next
-    assert taken(_fake_trace(calls, *every)) == ["shadow_apex_w", "occluded"]
-    assert taken(_fake_trace(calls, "occluded", "shadow_apex")) == ["occluded"]
-    assert taken(_fake_trace(calls, "shadow_apex")) == ["shadow_apex"]
-    assert taken(_fake_trace(calls)) == ["trace"]
+    assert taken(_ShadowRecorder(calls, True)) == ["shadow"]
+    assert taken(_ShadowRecorder(calls, False)) == ["trace"]
+
+    for name in ("closest_hit", "occlusion_w", "occlusion_d"):
+        def counting(*args, _name=name, _real=getattr(ttr, name), **kw):
+            calls.append(_name + ("/exit" if kw.get("exit") else ""))
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(ttr, name, counting)
+    whole = R % 1024 == 0
+    want = {"w": "occlusion_w" if whole else "closest_hit",
+            "d": "occlusion_d" if whole else "closest_hit",
+            "anyhit": "occlusion_d/exit"}
+    lights = scene.light_position
+    lv = lights[:, None, None, :] - point[None, None]
+    batched = (point[None], point[None], lights, vecmath.safe_normalize(lv),
+               vecmath.length_squared(lv), active.expand(2, 1, R), SLACK)
+    for kind, kernel in want.items():
+        tracer = ttr.make_cluster_trace_fn(scene, shadow_kernel=kind)
+        assert taken(tracer) == [kernel]
+        # a wavefront that is not flat ([1, R] points) takes the closest
+        # hit, but in K6
+        calls.clear()
+        assert tracer.shadow(*batched).shape == (2, 1, R)
+        assert calls == [
+            "occlusion_d/exit" if kind == "anyhit" else "closest_hit"]
 
 
-def test_apex_w_switch(scene, monkeypatch):
+def test_apex_w_switch(scene):
+    """The glass router exists only with the w form on a glass scene."""
     glass = make_test_scene(64, 32, num_quads=6, with_refractive=True,
                             device="cpu")
+    R = 2048
+    point = torch.zeros((R, 3))
+    args = (point, point, glass.light_position,
+            torch.ones((2, R), dtype=torch.bool), SLACK)
     on = ttr.make_cluster_trace_fn(glass)
-    assert all(hasattr(on, n) for n in (
-        "shadow_apex_w", "shadow_apex_w_glass", "refr_ray_hit_w",
-        "shadow_apex", "occluded_kernel"))
-    off = ttr.make_cluster_trace_fn(glass, apex_w=False)
-    assert hasattr(off, "shadow_apex") and not any(hasattr(off, n) for n in (
-        "shadow_apex_w", "shadow_apex_w_glass", "refr_ray_hit_w"))
-    assert ttr._APEX_W  # CRT_APEX_W is unset here
-    monkeypatch.setattr(ttr, "_APEX_W", False)
-    assert not hasattr(ttr.make_cluster_trace_fn(scene), "shadow_apex_w")
-    assert hasattr(ttr.make_cluster_trace_fn(scene, apex_w=True),
-                   "shadow_apex_w")
+    assert on.shadow_kernel == "w" and on.emits_rows
+    assert on.shadow_glass(*args) is not None
+    for kind in ("d", "anyhit"):
+        off = ttr.make_cluster_trace_fn(glass, shadow_kernel=kind)
+        assert off.shadow_glass(*args) is None
+    assert ttr.make_cluster_trace_fn(scene).shadow_glass(*args) is None
+    assert ttr.ClusterTracer(on.tables).shadow_glass(*args) is None
+    with pytest.raises(ValueError):
+        ttr.make_cluster_trace_fn(scene, shadow_kernel="apex")
 
 
 def test_image_with_the_w_form_off_matches_crt_tpu(ref, monkeypatch):
@@ -464,7 +492,9 @@ def test_image_with_the_w_form_off_matches_crt_tpu(ref, monkeypatch):
         calls.append(kw.get("exit", False))
         return real(*args, **kw)
 
-    monkeypatch.setattr(ttr, "_APEX_W", False)
+    monkeypatch.setattr(renderer, "make_trace_fn",
+                        lambda scn, st: ttr.make_cluster_trace_fn(
+                            scn, shadow_kernel="d"))
     monkeypatch.setattr(ttr, "occlusion_d", counting)
     img = render_image(scene, RenderSettings(backend="cluster"))
     assert calls == [False] * 4  # one K5 pass per shading level

@@ -102,14 +102,18 @@ def _shadow_inputs(scene, trace):
 
 @pytest.mark.parametrize("route", ["refr_ray_hit_w", "shadow_apex_w_glass"])
 def test_glass_flag_is_a_superset_of_fp64_truth(route):
-    """Both routes to the glass flag mark every lane whose uncapped shadow
-    ray really hits refractive geometry (all-pairs test in fp64 with small
-    margins, as tests/test_lane_compact.py does for crt_tpu's gate)."""
+    """Both routes to the glass flag, the separate uncapped pass and the
+    router (``shadow_glass``, crt_tpu's ``shadow_apex_w_glass``), mark
+    every lane whose uncapped shadow ray really hits refractive geometry
+    (all-pairs test in fp64 with small margins, as
+    tests/test_lane_compact.py does for crt_tpu's gate)."""
     scene = make_test_scene(**_glass_scene(), device="cpu")
     trace = ttr.make_cluster_trace_fn(scene)
     point, shadow_o, lp, act = _shadow_inputs(scene, trace)
-    res = getattr(trace, route)(point, shadow_o, lp, act, 2e-3)
-    flag = (res[1] if route == "shadow_apex_w_glass" else res).numpy()
+    if route == "refr_ray_hit_w":
+        flag = trace.refr_ray_hit_w(point, shadow_o, lp, act, 2e-3).numpy()
+    else:
+        flag = trace.shadow_glass(point, shadow_o, lp, act, 2e-3)[1].numpy()
 
     verts = scene.vertices.numpy().astype(np.float64)
     tvi = scene.tri_vidx.numpy()

@@ -427,7 +427,7 @@ def test_stream_hits_equal_cluster_and_bruteforce(base_tables, sc):
     # where the first cluster walked wins here and the smallest id there
     assert torch.equal(h.t, bf.t)
     assert (h.tri != bf.tri).float().mean() < 0.01
-    assert hasattr(stream, "rank") and not hasattr(stream, "with_rows")
+    assert stream.rank is not None and not stream.emits_rows
 
 
 def test_wrappers_check_inputs(base_tables):
@@ -503,8 +503,7 @@ def test_stream_image_matches_crt_tpu(monkeypatch):
         assert torch.equal(render_image(scene, RenderSettings(**kw)), img), kw
     # on the CPU "auto" stays with the cluster backend whatever the size
     monkeypatch.setattr(trenderer, "AUTO_STREAM_MIN_CLUSTERS", 1)
-    assert hasattr(trenderer.make_trace_fn(scene, RenderSettings()),
-                   "shadow_apex_w")
+    assert trenderer.make_trace_fn(scene, RenderSettings()).emits_rows
 
 
 def test_stream_grads_match_jax():

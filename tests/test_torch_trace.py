@@ -181,7 +181,8 @@ def test_spans_nest_under_the_profiler(case):
 class CountingTrace:
     """The backend, with a brute count of the lanes of every closest hit;
     in the iterative wavefront (no glass: shadows take the backend's
-    shadow entry) each closest hit is one ``shade_local``'s."""
+    ``shadow``, which forwards to the cluster tracer's K2 pass) each
+    closest hit is one ``shade_local``'s."""
 
     def __init__(self, fn):
         self.fn, self.lanes, self.live = fn, 0, 0
@@ -262,11 +263,11 @@ class GlassRecount:
         self._note(o, d, active, hit)
         return hit, rows
 
-    def shadow_apex_w_glass(self, point, shadow_o, lights, act_lr, slack):
+    def shadow_glass(self, point, shadow_o, lights, act_lr, slack):
         self.entering += int(act_lr.sum())
         with record_function("test.glass_pass"):
-            return self.fn.shadow_apex_w_glass(point, shadow_o, lights,
-                                               act_lr, slack)
+            return self.fn.shadow_glass(point, shadow_o, lights, act_lr,
+                                        slack)
 
     def __getattr__(self, attr):
         return getattr(self.fn, attr)

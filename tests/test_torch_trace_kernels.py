@@ -3,8 +3,8 @@
 closest_hit (K1), closest_hit_compact (K4) and occlusion_w (K2, every
 mode) take their plain PyTorch versions on CPU tensors; here they are held
 to ``_closest_hit_binned``, ``_closest_hit_binned_compact`` and
-``_occluded_binned_compact_w`` run in Pallas interpret mode, and the trace
-factory to ``make_pallas_trace_fn(scene, interpret=True)``.  (The CUDA
+``_occluded_binned_compact_w`` run in Pallas interpret mode, and the
+cluster tracer to ``make_pallas_trace_fn(scene, interpret=True)``.  (The CUDA
 kernels themselves are held to the plain versions on the card by
 chip_smoke.py.)
 
@@ -31,6 +31,8 @@ from crt_tpu_torch import scene_from_dict
 from crt_tpu_torch.ops import binning as tbin
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.ops import cluster_trace as ttr
+from crt_tpu_torch.ops import vecmath
+from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.scene.procedural import make_test_scene
 from torch_port_fixtures import _one_torch_thread, _release_heap  # noqa: F401
 
@@ -402,14 +404,22 @@ def test_occlusion_w_modes_plain_match_pallas(ref, mode):
     assert occ.any() and not occ.all()
 
 
+def _shadow_args(point, shadow_o, lights, act, slack):
+    """``Tracer.shadow``'s arguments: the w form's, with the light
+    directions and squared distances of the direction form."""
+    lv = lights[:, None, :] - point[None]
+    return (point, shadow_o, lights, vecmath.safe_normalize(lv),
+            vecmath.length_squared(lv), act, slack)
+
+
 def test_glass_router_functions_match_pallas(ref):
-    """``shadow_apex_w_glass`` and ``refr_ray_hit_w`` of the trace factory,
-    offered only when the scene has refractive materials."""
+    """``shadow_glass`` and ``refr_ray_hit_w`` of the cluster tracer; the
+    router exists only when the scene has refractive materials."""
     scene, _, _ = _tables("glass")
     trace = ttr.make_cluster_trace_fn(scene)
     args = (T(ref["glass/point"]), T(ref["glass/shadow_o"]),
             scene.light_position, T(ref["glass/shadow_act"]), 0.02)
-    occ, glass = trace.shadow_apex_w_glass(*args)
+    occ, glass = trace.shadow_glass(*args)
     np.testing.assert_array_equal(occ.numpy(), ref["glass/e2e_glass_occ"])
     np.testing.assert_array_equal(glass.numpy(), ref["glass/e2e_glass_flag"])
     gate = trace.refr_ray_hit_w(*args)
@@ -418,13 +428,13 @@ def test_glass_router_functions_match_pallas(ref):
     # merged pass keeps the capped mode's occlusion bits
     act = args[3]
     assert torch.equal(glass & act, gate & act)
-    assert torch.equal(occ & act, trace.shadow_apex_w(*args) & act)
+    assert torch.equal(occ & act,
+                       trace.shadow(*_shadow_args(*args)) & act)
     short = (args[0][:100], args[1][:100], args[2], act[:, :100], 0.02)
-    assert trace.shadow_apex_w_glass(*short) is None
+    assert trace.shadow_glass(*short) is None
     assert trace.refr_ray_hit_w(*short) is None
     opaque = ttr.make_cluster_trace_fn(_tables("edges")[0])
-    assert not hasattr(opaque, "shadow_apex_w_glass")
-    assert not hasattr(opaque, "refr_ray_hit_w")
+    assert opaque.shadow_glass(*args) is None
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -453,15 +463,16 @@ def test_trace_factory_matches_pallas(ref, name):
     np.testing.assert_array_equal(hit.tri.numpy(), ref[name + "/e2e_pad_tri"])
     np.testing.assert_array_equal(hit.t.numpy(), ref[name + "/e2e_pad_t"])
 
-    occ = trace.shadow_apex_w(T(ref[name + "/point"]),
-                              T(ref[name + "/shadow_o"]), scene.light_position,
-                              T(ref[name + "/shadow_act"]), 0.02)
+    occ = trace.shadow(*_shadow_args(
+        T(ref[name + "/point"]), T(ref[name + "/shadow_o"]),
+        scene.light_position, T(ref[name + "/shadow_act"]), 0.02))
     np.testing.assert_array_equal(occ.numpy(), ref[name + "/e2e_occ"])
-    assert trace.shadow_apex_w(T(ref[name + "/point"])[:100],
-                               T(ref[name + "/shadow_o"])[:100],
-                               scene.light_position,
-                               T(ref[name + "/shadow_act"])[:, :100],
-                               0.02) is None
+    # a ragged wavefront: the generic closest hit and a compare
+    short = _shadow_args(T(ref[name + "/point"])[:100],
+                         T(ref[name + "/shadow_o"])[:100],
+                         scene.light_position,
+                         T(ref[name + "/shadow_act"])[:, :100], 0.02)
+    assert torch.equal(trace.shadow(*short), Tracer.shadow(trace, *short))
 
 
 def test_exact_t_tie_first_walked_cluster_wins(ref):

@@ -7,11 +7,12 @@ mode at merge 2 and 4 (t, tri and emitted rows) and to K1's plain version
 on the same lists.  The streaming wrappers in the lane and rows layouts are
 held to interpret-mode ``closest_hit_stream_flat`` / ``occluded_stream_flat``
 with ``layout=`` on tests/test_pallas_stream.py's setup and to the port's
-fused results.  The trace factory takes K7 where crt_tpu takes it (a tile
-count that divides by the merge, not the compacted launch), so
-``render_image`` with the merge equals the default image, and equals
-``crt_tpu.render_image(jit=False)`` run with ``CRT_TILE_MERGE=2``; a
-streaming frame in each layout equals the fused frame.  (The CUDA kernels
+fused results.  The cluster tracer built with ``tile_merge`` takes K7
+where crt_tpu takes it (a tile count that divides by the merge, not the
+compacted launch), so a frame with the merge equals the default image,
+and equals ``crt_tpu.render_image(jit=False)`` run with
+``CRT_TILE_MERGE=2``; a streaming frame in each layout equals the fused
+frame.  (The CUDA kernels
 themselves are held to the plain versions on the card by chip_smoke.py and
 tests/test_torch_cuda.py.)
 
@@ -35,6 +36,7 @@ import pytest
 import torch
 
 from crt_tpu_torch import RenderSettings, render_image
+from crt_tpu_torch.renderer import _render_flat
 from crt_tpu_torch.ops import binning as tbin
 from crt_tpu_torch.ops import cluster_tables as tct
 from crt_tpu_torch.ops import cluster_trace as ttr
@@ -277,10 +279,11 @@ def test_trace_factory_takes_k7_where_crt_tpu_does(monkeypatch, merge,
         scene, tile_merge=1).with_rows(o, d, act)
     assert torch.equal(hit.tri, base.tri) and torch.equal(hit.t, base.t)
     assert torch.equal(rows, base_rows)
-    # None takes the module flag, read at import as crt_tpu reads it
-    monkeypatch.setattr(ttr, "_TILE_MERGE", 4)
+    # the default takes no merge; the argument sets it
     calls.clear()
     ttr.make_cluster_trace_fn(scene)(o, d)
+    assert calls == []
+    ttr.ClusterTracer(trace.tables, tile_merge=4)(o, d)
     assert calls == [4]
 
 
@@ -335,7 +338,9 @@ def test_stream_layouts_match_pallas_and_fused(ref, layout):
     assert occ.any() and not occ.all()
 
 
-def test_unknown_layout_raises(ref, monkeypatch):
+def test_unknown_layout_raises(ref):
+    """The ``layout=`` argument rejects an unknown name, and "fused" is
+    every default."""
     st, o, d, r2, active, apex = _stream_case(ref)
     with pytest.raises(ValueError):
         tst.closest_hit_stream_flat(st, o, d, None, STREAM_TR,
@@ -350,22 +355,21 @@ def test_unknown_layout_raises(ref, monkeypatch):
     with pytest.raises(ValueError):  # a fused table named as the lane slab
         tst.closest_hit_stream(st.fused, st.tables.tri_id, o, d, *pairs,
                                STREAM_SC, STREAM_TR, layout="lane")
-    monkeypatch.setenv("CRT_STREAM_LAYOUT", "columns")
     with pytest.raises(ValueError):
-        tst.stream_layout()
+        tst.StreamTracer(st.tables, STREAM_TR, STREAM_SC, layout="columns")
     with pytest.raises(ValueError):
-        tst.occluded_stream_flat(st, o, d, r2, active, apex, 0.02, STREAM_TR)
-    monkeypatch.setenv("CRT_STREAM_LAYOUT", "rows")
-    assert tst.stream_layout() == "rows"
-    monkeypatch.delenv("CRT_STREAM_LAYOUT")
-    assert tst.stream_layout() == "fused"
+        tst.occluded_stream_flat(st, o, d, r2, active, apex, 0.02, STREAM_TR,
+                                 layout="columns")
+    assert tst.StreamTracer(st.tables, STREAM_TR, STREAM_SC,
+                            layout="rows").layout == "rows"
+    assert tst.StreamTracer(st.tables, STREAM_TR, STREAM_SC).layout == "fused"
     assert tst.build_stream_tables(st.tables, STREAM_SC).lane is None
 
 
 def test_render_with_tile_merge_matches_default_and_crt_tpu(ref,
                                                             monkeypatch):
-    """The opaque test scene at two tiles: the factory reads the merge when
-    it is built, every closest hit of the frame takes K7, and the image
+    """The opaque test scene at two tiles: with a tracer built with
+    ``tile_merge=2`` every closest hit of the frame takes K7, and the image
     equals the default one bit for bit and crt_tpu's merged render."""
     scene = make_test_scene(**RENDER_SCENE, device="cpu")
     default = render_image(scene)
@@ -377,8 +381,8 @@ def test_render_with_tile_merge_matches_default_and_crt_tpu(ref,
         return real(*args, **kw)
 
     monkeypatch.setattr(ttr, "closest_hit_merged_plain", spy)
-    monkeypatch.setattr(ttr, "_TILE_MERGE", 2)
-    img = render_image(scene)
+    img = _render_flat(scene, RenderSettings(),
+                       trace_fn=ttr.make_cluster_trace_fn(scene, tile_merge=2))
     assert calls == [2] * 4  # the primary trace and three bounces
     assert torch.equal(img, default)
     assert int(ref["render_merged_traces"]) > 0  # crt_tpu took K7 too
@@ -388,13 +392,12 @@ def test_render_with_tile_merge_matches_default_and_crt_tpu(ref,
 
 @pytest.mark.parametrize("layout", ["lane", "rows"])
 def test_stream_render_layout_matches_fused(monkeypatch, layout):
-    """A small streaming frame with CRT_STREAM_LAYOUT set (read when the
-    trace is built) equals the fused frame bit for bit; every kernel call
-    of the frame read the layout's table."""
+    """A small streaming frame through a tracer built with ``layout=``
+    equals the fused frame bit for bit; every kernel call of the frame
+    read the layout's table."""
     scene = make_test_scene(64, 32, num_quads=16, with_edges=True,
                             device="cpu")
     settings = RenderSettings(backend="stream")
-    monkeypatch.delenv("CRT_STREAM_LAYOUT", raising=False)
     fused = render_image(scene, settings)
     seen = []
     for name in ("closest_hit_stream_plain", "occlusion_stream_plain"):
@@ -405,7 +408,7 @@ def test_stream_render_layout_matches_fused(monkeypatch, layout):
             return real(*args, **kw)
 
         monkeypatch.setattr(tst, name, spy)
-    monkeypatch.setenv("CRT_STREAM_LAYOUT", layout)
-    img = render_image(scene, settings)
+    img = _render_flat(scene, settings,
+                       trace_fn=tst.make_stream_trace_fn(scene, layout=layout))
     assert len(seen) == 4 * 3 and set(seen) == {layout}
     assert torch.equal(img, fused)
