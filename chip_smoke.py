@@ -1706,8 +1706,9 @@ def read_stream_launches() -> dict:
             "closest_hit_stream": _launches(c, "closest_hit_stream"),
             "occlusion_stream": _launches(c, "occlusion_stream"),
             "segsum": _launches(c, "segsum"),
+            "stream_bin": _launches(c, "stream_bin"),
             "stream_pairs": c["crt.binning.pairs.supercluster"],
-            "stream_host_syncs": c["crt.host_reads.stream_nonzero"]}
+            "stream_host_syncs": c["crt.host_reads.stream_pairs"]}
 
 
 def read_glass_launches() -> dict:
@@ -3431,9 +3432,8 @@ def phase_stream_kernels(device):
           f"{t2 - t1:.2f} s, then {ms_tables:.3f} ms a build")
 
     # ---- K8 on the primary wavefront
-    bounds = tile_bounds(o, d, TILE, None)
-    pair_sc, bits, start = stt.bin_stream_pairs(st, bounds)
-    ms_pa = cuda_ms(lambda: stt.bin_stream_pairs(st, bounds))
+    pair_sc, bits, start = sb.bin_stream(*stt._boxes(st), o, d, TILE)
+    ms_pa = cuda_ms(lambda: sb.bin_stream(*stt._boxes(st), o, d, TILE))
     k8_args = (st.fused, st.tables.tri_id, o, d, pair_sc, bits, start, st.sc,
                TILE)
     t, tri = stt.closest_hit_stream(*k8_args)
@@ -3646,6 +3646,7 @@ def phase_stream_kernels(device):
             **{k: stats["occlusion_stream"][k]
                for k in ("bound_ms", "bound_by", "floor_ms")})
     del calls, w, o_f, d_f, r2_f, a_f, hull, extra, single, two
+    stats["stream_bin"] = phase_stream_bin(scene)
 
     # ---- a scene both backends hold: K8 == K1, K9 == K5
     mid = make_big_scene(**MID, seed=0, build_accel=False,
@@ -3673,6 +3674,107 @@ def phase_stream_kernels(device):
     return stats
 
 
+# FP32 operations of Phase A's streaming kernel (csrc/stream_bin.cu): one
+# per-lane slab test (per axis two subtracts, two divides, a min and a max;
+# the entry and exit folds and three compares), one frustum box test (per
+# axis two subtracts, two divides, a clamp, a max and a min; two compares)
+# and one shaft box test (the capped slab, the cone's twenty and six wedges
+# of four divides and six min / max).
+LANE_TEST_FLOPS = 3 * 6 + 4 + 3
+FRUSTUM_BOX_FLOPS = 3 * 7 + 2
+SHAFT_BOX_FLOPS = FRUSTUM_BOX_FLOPS + 20 + 6 * 12
+
+
+def stream_bin_bound(mode, p, out, hull) -> dict:
+    """The least time of one ``bin_stream`` call (arguments by name ``p``):
+    each lane's origin, and its direction (frustum and per-lane test), reach
+    (per-lane test) and mask byte read once, the supercluster boxes and
+    each listed pair's member boxes once, the list written; or the box
+    tests of every (tile, supercluster) and (pair, member) and the
+    per-lane tests of the hull's pairs at the fp32 peak."""
+    R = p["origins"].shape[0]
+    tiles = R // p["tile_rays"]
+    L2 = p["sc_min"].shape[0]
+    sc = p["cl_min"].shape[0] // L2
+    P = out[0].shape[0]
+    per_lane = (12 + (12 if mode in ("rays", "shaft_exact") else 0)
+                + (4 if mode == "shaft_exact" else 0)
+                + (1 if p["active"] is not None else 0))
+    num_bytes = (per_lane * R + 24 * L2 + 24 * sc * P + nbytes(*out)
+                 + nbytes(p["apex"]))
+    box = FRUSTUM_BOX_FLOPS if mode == "rays" else SHAFT_BOX_FLOPS
+    flops = box * (tiles * L2 + P * sc)
+    if mode == "shaft_exact":
+        flops += hull * p["tile_rays"] * LANE_TEST_FLOPS
+    return {**bound_ms(num_bytes, flops), "pairs": P, "hull_pairs": hull,
+            "tiles": tiles}
+
+
+def phase_stream_bin(scene) -> dict:
+    """PS: Phase A's streaming kernel (csrc/stream_bin.cu) on the calls of
+    one frame of ``scene`` (rays, shaft_capped, shaft_exact) and on the
+    shaft_exact call again with ``lane_exact=False`` (shaft): lists bit-equal
+    to ``bin_stream_plain``'s, one launch under the mode's counter; the
+    kernel's time a call (CUDA events, the read of the list's length and
+    the pack launch included), its device time (the profiler's rows) and
+    the plain version's, beside the bound."""
+    import inspect
+
+    from crt_tpu_torch import render_image
+    from crt_tpu_torch.ops import stream_binning as sb
+    from crt_tpu_torch.utils import trace as tracing
+
+    calls = []
+
+    def keep(real, *args, **kw):
+        bound = inspect.signature(real).bind(*_cloned(args), **_cloned(kw))
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return real(*args, **kw)
+
+    reset_launches()
+    with patched(sb, "bin_stream", keep):
+        render_image(scene)
+    torch.cuda.synchronize()
+    calls.append(dict(calls[-1], lane_exact=False))
+    result = {}
+    for p in calls:
+        mode = sb.stream_mode(p["apex"], p["per_tile_cap"], p["lane_exact"])
+
+        def kernel(p=p):
+            return sb.bin_stream(**p)
+
+        c0 = counted()
+        got = kernel()
+        c1 = counted()
+        check(tracing.total(c1, "crt.launches")
+              - tracing.total(c0, "crt.launches") == 1
+              and c1[f"crt.launches.stream_bin.{mode}"]
+              - c0[f"crt.launches.stream_bin.{mode}"] == 1,
+              f"[stream-kernels] PS {mode}: not one launch of its mode")
+        want = sb.bin_stream_plain(**p)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"[stream-kernels] PS {mode}: the lists differ from the plain "
+              "version")
+        hull = (c1["crt.binning.pairs.hull"] - c0["crt.binning.pairs.hull"]
+                if mode == "shaft_exact" else 0)
+        ms = cuda_ms(kernel)
+        dms = device_ms(kernel, calls=5)
+        pms = cuda_ms(lambda p=p: sb.bin_stream_plain(**p), warmup=1, reps=3)
+        b = stream_bin_bound(mode, p, got, hull)
+        print(f"[stream-kernels] PS {mode}: {b['pairs']} pairs over "
+              f"{b['tiles']} tiles"
+              + (f" ({hull} in the shaft hull)" if hull else "")
+              + f", bit-equal to the plain version, one launch; kernel "
+              f"{ms:.3f} ms a call ({dms:.4f} ms on the device), bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), plain {pms:.3f} ms, "
+              f"library call none; {smi()}")
+        result[mode] = dict(max_abs_err=0.0, ms=ms, device_ms=dms,
+                            plain_ms=pms, library_ms=None, **b)
+    return result
+
+
 def ray_colors(img, scene):
     """An [H, W, 3] image back in ray order: (colors [R, 3], inside [R])."""
     from crt_tpu_torch.renderer import make_tiler
@@ -3696,12 +3798,11 @@ def image_agreement(name, img, ref, min_frac=0.9999):
 
 def phase_a_ms(fn) -> float:
     """Device time of the streaming Phase A inside one call of fn(): CUDA
-    events around every call of its functions, host gaps included."""
+    events around every ``bin_stream`` call, host gaps included."""
     from crt_tpu_torch.ops import stream_binning as sb
-    from crt_tpu_torch.ops import stream_trace as stt
 
     spans = []
-    depth = [0]  # one of these functions calls another: time the outer one
+    depth = [0]  # a call inside another is timed by the outer one
 
     def bracket(real):
         def timed(*args, **kw):
@@ -3720,8 +3821,7 @@ def phase_a_ms(fn) -> float:
             return out
         return timed
 
-    patched = ((stt, "tile_bounds"), (stt, "bin_stream_pairs"),
-               (sb, "pair_mask"), (sb, "lane_exact_sc_mask"))
+    patched = ((sb, "bin_stream"),)
     saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
     for mod, name, real in saved:
         setattr(mod, name, bracket(real))
@@ -3755,11 +3855,14 @@ def phase_big(device):
           f" default settings: launches {launches}")
     check(launches["closest_hit_stream"] == 1
           and launches["occlusion_stream"] == 2
+          and launches["stream_bin"] == 3
+          and launches["stream_host_syncs"] == 3
           and launches["closest_hit"] == 0 and launches["occlusion_w"] == 0
           and launches["occlusion_d"] == 0 and launches["segsum"] == 0,
           f"the large frame launched {launches}: expected one streaming "
-          "closest hit, the two launches of the two-phase shadow resolve and "
-          "no cluster-backend kernel (auto must choose the streaming backend)")
+          "closest hit, the two launches of the two-phase shadow resolve, "
+          "three of Phase A with one host read each, and no cluster-backend "
+          "kernel (auto must choose the streaming backend)")
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
           "the large frame is not a finite [H, W, 3]")
     # the forward is deterministic: the closest hit's chunks combine through
@@ -4338,6 +4441,8 @@ def parallel_rank(rank: int, out_dir: str) -> int:
     launches = out["scene-partitioned 1M frame"]["launches"]
     check(launches["closest_hit_stream"] == 1
           and launches["occlusion_stream"] == 2
+          and launches["stream_bin"] == 3
+          and launches["stream_host_syncs"] == 3
           and launches["closest_hit"] == 0,
           f"the partitioned 1M frame launched {launches}, expected one K8, "
           "two K9 and no K1 on each rank")

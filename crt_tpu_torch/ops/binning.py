@@ -20,10 +20,11 @@ for CPU tensors.  The kernel keeps the plain versions' float32 operations
 in their order, so on the card the lists and counts are theirs bit for
 bit.  ``utils/trace.py``'s registry counts each launch as
 ``crt.launches.cluster_bin.<rays | apex | shared | shared_uncapped |
-shared_glass>``.  The streaming backend's Phase A
-(``stream_binning.py``, ``stream_trace.py``) calls ``_frustum_box_mask``,
-``apex_shaft_mask`` and ``tile_bounds`` directly, over per-row boxes: they
-stay plain.
+shared_glass>``.  The streaming backend's Phase A has a kernel of its own
+(``stream_binning.bin_stream``, ``csrc/stream_bin.cu``); its plain version
+calls ``_frustum_box_mask``, ``apex_shaft_mask`` and ``tile_bounds``
+directly, over per-row boxes.  Both kernels take these tests from
+``csrc/bin_common.cuh``.
 """
 
 from __future__ import annotations

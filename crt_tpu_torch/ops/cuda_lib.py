@@ -27,8 +27,8 @@ from typing import NamedTuple
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
 SOURCES = ("closest_hit.cu", "occlusion_w.cu", "occlusion_d.cu",
-           "stream_trace.cu", "segsum.cu", "cluster_bin.cu")
-HEADERS = ("cluster_common.cuh",)
+           "stream_trace.cu", "segsum.cu", "cluster_bin.cu", "stream_bin.cu")
+HEADERS = ("cluster_common.cuh", "bin_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -131,4 +131,10 @@ def bind(path: str) -> ctypes.CDLL:
     lib.crt_cluster_bin.argtypes = ([p] * 8 + [i] * 7 + [ctypes.c_float]
                                     + [p] * 3)
     lib.crt_cluster_bin.restype = i
+    lib.crt_stream_bin.argtypes = ([p] * 7 + [i] * 6 + [ctypes.c_float]
+                                   + [p] * 7)
+    lib.crt_stream_bin.restype = i
+    lib.crt_stream_pack.argtypes = ([p] * 7 + [i] * 4 + [ctypes.c_float]
+                                    + [p] * 3)
+    lib.crt_stream_pack.restype = i
     return lib

@@ -1,4 +1,4 @@
-"""Phase A of the streaming backend: two-level binning, in plain torch.
+"""Phase A of the streaming backend: two-level binning.
 
 Counterpart of the binning half of ``crt_tpu/ops/pallas_stream.py``
 (``build_supercluster_boxes``, ``_tile_bounds``, ``lane_exact_sc_mask``,
@@ -21,10 +21,21 @@ surviving members; its set bits, lowest first, are crt_tpu's 5-bit-packed
 live-first permutation (a stable sort of the live members to the front is
 their ascending order).
 
-``nonzero`` sizes its result by the data, which is one device-to-host read
-on the card: ``utils/trace.py``'s registry counts each as
-``crt.host_reads.stream_nonzero`` and adds up the pairs listed as
-``crt.binning.pairs.supercluster``.
+A call's list comes from ``bin_stream``: for CUDA tensors one launch of
+``csrc/stream_bin.cu`` (or a raise) and a pack launch once the list's
+length is read, for CPU tensors ``bin_stream_plain``, the composition of
+the plain functions here, which the kernel equals bit for bit.  Its modes
+(``MODES``), read from what the caller passes: "rays" (the frustum,
+ascending order), "shaft_capped" (the shaft, nearest first, cut to
+``per_tile_cap`` a tile), "shaft_exact" (the shaft and the per-lane test,
+nearest first) and "shaft" (``lane_exact=False``).
+
+``utils/trace.py``'s registry counts each launch as
+``crt.launches.stream_bin.<mode>``, the pairs listed as
+``crt.binning.pairs.supercluster`` and, in "shaft_exact", the shaft's
+candidates as ``crt.binning.pairs.hull``.  The list's length is one
+device-to-host read: ``crt.host_reads.stream_pairs`` a launch, and
+``crt.host_reads.stream_nonzero`` each ``nonzero`` of the plain versions.
 """
 
 from __future__ import annotations
@@ -33,9 +44,13 @@ import torch
 
 from crt_tpu_torch.ops.binning import (
     _INF,
+    _SMEM_BYTES,
+    _f32_rows,
     _frustum_box_mask,
+    _require,
     _sum3,
     apex_shaft_mask,
+    tile_bounds,
 )
 from crt_tpu_torch.ops.cluster_tables import ClusterTables
 from crt_tpu_torch.ops.vecmath import sqrt
@@ -47,6 +62,10 @@ SC_CLUSTERS = 32  # default clusters per supercluster (32 x 16 = 512 tris)
 # [pairs, 32, 3] and [pairs, tile_rays, 3] temporaries.
 _MEMBER_PAIR_CHUNK = 1 << 16
 _LANE_PAIR_CHUNK = 1 << 13
+
+MODES = ("rays", "shaft_capped", "shaft_exact", "shaft")
+_MODE_CODE = {"rays": 0, "shaft_capped": 1, "shaft": 1,
+              "shaft_exact": 2}  # csrc/stream_bin.cu
 
 
 def _nonzero(mask: torch.Tensor) -> torch.Tensor:
@@ -247,3 +266,157 @@ def bin_pairs(sc_min, sc_max, bounds, apex=None, apex_slack: float = 0.0,
     pair_sc = ord_d[pair_tile, rank] if near_first else rank
     tracing.count("crt.binning.pairs.supercluster", pair_tile.shape[0])
     return pair_tile, pair_sc, tile_start
+
+
+def pair_list(sc_min, sc_max, cl_min, cl_max, bounds, apex=None,
+              apex_slack: float = 0.0, **bin_kw):
+    """``bin_pairs``' pairs of a wavefront whose per-tile ``bounds`` are
+    ``tile_bounds``', as the kernels' list arguments -> (pair_sc [P] i32,
+    pair_bits [P] i32, tile_start [tiles + 1] i32): each pair's member
+    mask from ``_member_runs`` over the cluster boxes ``cl_min`` /
+    ``cl_max`` ([L2 * sc, 3])."""
+    pair_tile, pair_sc, tile_start = bin_pairs(sc_min, sc_max, bounds, apex,
+                                               apex_slack, **bin_kw)
+    _, bits = _member_runs(bounds, pair_tile, pair_sc, cl_min, cl_max,
+                           cl_min.shape[0] // sc_min.shape[0], apex,
+                           apex_slack)
+    return pair_sc.to(torch.int32), bits, tile_start
+
+
+def stream_mode(apex, per_tile_cap, lane_exact: bool) -> str:
+    """The mode of a call (``MODES``): "rays" without ``apex``; with it,
+    "shaft_capped" where ``per_tile_cap`` is given, else "shaft_exact" or,
+    without ``lane_exact``, "shaft"."""
+    if apex is None:
+        _require(per_tile_cap is None, "per_tile_cap needs an apex")
+        return "rays"
+    if per_tile_cap is not None:
+        return "shaft_capped"
+    return "shaft_exact" if lane_exact else "shaft"
+
+
+def bin_stream_plain(sc_min, sc_max, cl_min, cl_max, origins, dirs,
+                     tile_rays: int, active=None, apex=None,
+                     apex_slack: float = 0.0, r2=None, per_tile_cap=None,
+                     lane_exact: bool = True):
+    """Plain version of ``bin_stream``: ``tile_bounds``, then ``pair_list``
+    of the mode's mask, ANDed in "shaft_exact" with ``lane_exact_sc_mask``
+    over the shaft hull's survivors."""
+    mode = stream_mode(apex, per_tile_cap, lane_exact)
+    bounds = tile_bounds(origins, dirs, tile_rays, active)
+    extra = None
+    if mode == "shaft_exact":
+        hull = pair_mask(sc_min, sc_max, bounds, apex, apex_slack)
+        tracing.count("crt.binning.pairs.hull", hull)
+        extra = lane_exact_sc_mask(origins, dirs, r2, active, apex_slack,
+                                   sc_min, sc_max, tile_rays, where=hull)
+    return pair_list(sc_min, sc_max, cl_min, cl_max, bounds, apex,
+                     apex_slack, near_first=apex is not None,
+                     per_tile_cap=per_tile_cap, extra_mask=extra)
+
+
+def bin_stream(sc_min, sc_max, cl_min, cl_max, origins, dirs,
+               tile_rays: int, active=None, apex=None,
+               apex_slack: float = 0.0, r2=None, per_tile_cap=None,
+               lane_exact: bool = True):
+    """Phase A of one launch of the streaming kernels -> (pair_sc [P] i32,
+    pair_bits [P] i32, tile_start [tiles + 1] i32): tile i owns pairs
+    tile_start[i] .. tile_start[i + 1] - 1.
+
+    sc_min, sc_max [L2, 3] supercluster boxes; cl_min, cl_max [L2 * sc, 3]
+    their member clusters' boxes; origins, dirs [R, 3] f32, R % tile_rays
+    == 0; active [R] bool or None; apex [tiles, 3] (the light of each tile:
+    the shaft modes), apex_slack; r2 [R] f32 (squared reach: "shaft_exact"
+    only).  The mode (``stream_mode``) follows ``apex``, ``per_tile_cap``
+    and ``lane_exact``.  Launches ``csrc/stream_bin.cu`` for CUDA tensors
+    (or raises) and takes ``bin_stream_plain`` for CPU tensors.
+    """
+    mode = stream_mode(apex, per_tile_cap, lane_exact)
+    dev = origins.device
+    if dev.type == "cpu":
+        return bin_stream_plain(sc_min, sc_max, cl_min, cl_max, origins,
+                                dirs, tile_rays, active, apex, apex_slack,
+                                r2, per_tile_cap, lane_exact)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"bin_stream has no kernel for {dev}")
+    from crt_tpu_torch.ops import cuda_lib
+    from crt_tpu_torch.ops.cluster_trace import _cuda_stream, _raise_on
+
+    R = origins.shape[0]
+    _require(tile_rays > 0 and R % tile_rays == 0,
+             f"R = {R} must be a multiple of tile_rays = {tile_rays}")
+    tiles = R // tile_rays
+    L2 = sc_min.shape[0]
+    _require(L2 > 0 and cl_min.shape[0] % L2 == 0
+             and 1 <= cl_min.shape[0] // L2 <= 32,
+             "cl_min must hold 1 to 32 clusters a supercluster")
+    sc = cl_min.shape[0] // L2
+    sc_min, sc_max = (_f32_rows(n, x, L2, dev) for n, x in
+                      (("sc_min", sc_min), ("sc_max", sc_max)))
+    cl_min, cl_max = (_f32_rows(n, x, L2 * sc, dev) for n, x in
+                      (("cl_min", cl_min), ("cl_max", cl_max)))
+    o = _f32_rows("origins", origins, R, dev)
+    d = (None if mode in ("shaft", "shaft_capped")
+         else _f32_rows("dirs", dirs, R, dev))
+    ap = None if apex is None else _f32_rows("apex", apex, tiles, dev)
+    rr = None
+    if mode == "shaft_exact":
+        _require(r2.device == dev and r2.dtype == torch.float32
+                 and tuple(r2.shape) == (R,),
+                 f"r2 must be a float32 [{R}] on {dev}")
+        rr = r2.contiguous()
+    a = None
+    if active is not None:
+        _require(active.device == dev and active.dtype == torch.bool
+                 and tuple(active.shape) == (R,),
+                 f"active must be a bool [{R}] on {dev}")
+        a = active.contiguous()
+
+    width = L2 if per_tile_cap is None else max(0, min(per_tile_cap, L2))
+    words = -(-L2 // 256) * 8  # the kernel's bitsets: 8 words a 256
+    bits = 4 * words * (2 if mode == "shaft_exact" else 1)
+    _require(bits <= _SMEM_BYTES,
+             f"{L2} superclusters exceed a block's shared memory")
+    i32 = dict(dtype=torch.int32, device=dev)
+    if not tiles:
+        none = torch.empty((0,), **i32)
+        return none, none.clone(), torch.zeros((1,), **i32)
+    gkeys = None  # the sort keys, in shared memory where they fit
+    if mode != "rays" and bits + 8 * L2 > _SMEM_BYTES:
+        gkeys = torch.empty((tiles, L2), dtype=torch.int64, device=dev)
+    rows = torch.empty((tiles, width), **i32)
+    bounds = torch.empty((tiles, 12), dtype=torch.float32, device=dev)
+    counts = torch.empty((tiles,), **i32)
+    tile_start = torch.empty((tiles + 1,), **i32)
+    sync = torch.empty((2,), **i32)
+    s = float(torch.tensor(apex_slack, dtype=torch.float32))
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    lib, _ = cuda_lib.load()
+    with torch.cuda.device(dev):
+        err = lib.crt_stream_bin(
+            o.data_ptr(), ptr(d), ptr(rr), ptr(a), ptr(ap), sc_min.data_ptr(),
+            sc_max.data_ptr(), _MODE_CODE[mode], L2, tiles, tile_rays, width,
+            -1 if per_tile_cap is None else width, s, ptr(gkeys),
+            rows.data_ptr(), bounds.data_ptr(), counts.data_ptr(),
+            tile_start.data_ptr(), sync.data_ptr(), _cuda_stream(dev))
+    _raise_on(err, "stream_bin")
+    tracing.count("crt.launches.stream_bin." + mode)
+    if mode == "shaft_exact":
+        tracing.count("crt.binning.pairs.hull", sync[1:])
+    tracing.count("crt.host_reads.stream_pairs")
+    P = int(tile_start[-1])
+    pair_sc = torch.empty((P,), **i32)
+    pair_bits = torch.empty((P,), **i32)
+    if P:
+        with torch.cuda.device(dev):
+            err = lib.crt_stream_pack(
+                rows.data_ptr(), bounds.data_ptr(), counts.data_ptr(),
+                tile_start.data_ptr(), ptr(ap), cl_min.data_ptr(),
+                cl_max.data_ptr(), int(mode != "rays"), sc, tiles, width, s,
+                pair_sc.data_ptr(), pair_bits.data_ptr(), _cuda_stream(dev))
+        _raise_on(err, "stream_bin")
+    tracing.count("crt.binning.pairs.supercluster", P)
+    return pair_sc, pair_bits, tile_start

@@ -48,7 +48,8 @@ from typing import NamedTuple
 import torch
 
 from crt_tpu_torch.ops import stream_binning as sb
-from crt_tpu_torch.ops.binning import tile_bounds
+# benchmark/harness/spans.py wraps this name as Phase A
+from crt_tpu_torch.ops.binning import tile_bounds  # noqa: F401
 from crt_tpu_torch.ops.cluster_tables import (
     CLUSTER_SIZE,
     TILE_RAYS,
@@ -425,29 +426,29 @@ def occlusion_stream(table, origins, dirs, r2, seed, pair_sc, pair_bits,
 # Phase A + kernel
 # ---------------------------------------------------------------------------
 
+def _boxes(st: StreamTables):
+    """The supercluster and cluster boxes ``sb.bin_stream`` bins against."""
+    return st.sc_min, st.sc_max, st.tables.cl_min, st.tables.cl_max
+
+
 def bin_stream_pairs(st: StreamTables, bounds, apex=None, apex_slack=0.0,
-                 **bin_kw):
-    """Phase A of one launch -> (pair_sc [P] i32, pair_bits [P] i32,
-    tile_start [tiles + 1] i32), the kernels' list arguments."""
-    pair_tile, pair_sc, tile_start = sb.bin_pairs(
-        st.sc_min, st.sc_max, bounds, apex, apex_slack, **bin_kw)
-    _, bits = sb._member_runs(bounds, pair_tile, pair_sc, st.tables.cl_min,
-                              st.tables.cl_max, st.sc, apex, apex_slack)
-    return pair_sc.to(torch.int32), bits, tile_start
+                     **bin_kw):
+    """The plain Phase A lists of a wavefront's ``tile_bounds`` ->
+    (pair_sc [P] i32, pair_bits [P] i32, tile_start [tiles + 1] i32), the
+    kernels' list arguments (``sb.pair_list``)."""
+    return sb.pair_list(*_boxes(st), bounds, apex, apex_slack, **bin_kw)
 
 
 def closest_hit_stream_flat(st: StreamTables, origins, dirs, active=None,
-                            tile_rays: int = TILE_RAYS, apex=None,
-                            apex_slack: float = 0.0,
+                            tile_rays: int = TILE_RAYS,
                             layout: str = "fused"):
     """Streaming closest hit of a flat wavefront (R % tile_rays == 0) over
     the table in ``layout``.
     Returns (Hit, number of pairs)."""
     layout = _check_layout(layout)
     with tracing.span("crt.binning"):
-        bounds = tile_bounds(origins, dirs, tile_rays, active)
-        pair_sc, bits, tile_start = bin_stream_pairs(st, bounds, apex,
-                                                     apex_slack)
+        pair_sc, bits, tile_start = sb.bin_stream(*_boxes(st), origins, dirs,
+                                                  tile_rays, active)
     t, tri = closest_hit_stream(layout_table(st, layout), st.tables.tri_id,
                                 origins, dirs, pair_sc, bits, tile_start,
                                 st.sc, tile_rays, layout)
@@ -469,17 +470,9 @@ def occluded_stream_flat(st: StreamTables, origins, dirs, r2, active, apex,
     ``active`` return True."""
     layout = _check_layout(layout)
     with tracing.span("crt.binning"):
-        bounds = tile_bounds(origins, dirs, tile_rays, active)
-        extra = None
-        if per_tile_cap is None and lane_exact:
-            hull = sb.pair_mask(st.sc_min, st.sc_max, bounds, apex,
-                                apex_slack)
-            extra = sb.lane_exact_sc_mask(origins, dirs, r2, active,
-                                          apex_slack, st.sc_min, st.sc_max,
-                                          tile_rays, where=hull)
-        pair_sc, bits, tile_start = bin_stream_pairs(
-            st, bounds, apex, apex_slack, near_first=True,
-            per_tile_cap=per_tile_cap, extra_mask=extra)
+        pair_sc, bits, tile_start = sb.bin_stream(
+            *_boxes(st), origins, dirs, tile_rays, active, apex, apex_slack,
+            r2, per_tile_cap, lane_exact)
     seed = (torch.zeros(r2.shape, dtype=torch.bool, device=r2.device)
             if active is None else ~active)
     return occlusion_stream(layout_table(st, layout), origins, dirs, r2, seed,

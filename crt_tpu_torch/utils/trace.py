@@ -34,7 +34,9 @@ them.  The port's counters:
     (the plain versions launch nothing and count nothing); Phase A of the
     cluster path counts ``crt.launches.cluster_bin.<rays, apex, shared,
     shared_uncapped, shared_glass>``, one a ``bin_rays`` /
-    ``bin_apex_shared`` call;
+    ``bin_apex_shared`` call, and of the streaming path
+    ``crt.launches.stream_bin.<rays, shaft_capped, shaft_exact, shaft>``,
+    one a ``bin_stream`` call (its pack launch not counted apart);
   - ``crt.host_reads.<site>``: each point of the hot path where the host
     waits for the device: a read of a device value (``nonzero``,
     ``bool(t.any())``, ``float(loss)``), or a copy of a host value to the
@@ -48,6 +50,8 @@ them.  The port's counters:
     ``nonzero`` of its live lanes, past the camera rays');
   - ``crt.binning.pairs.cluster`` / ``crt.binning.pairs.supercluster``:
     (tile, cluster) and (tile, supercluster) pairs listed by Phase A;
+    ``crt.binning.pairs.hull``: the light-side shaft's (tile,
+    supercluster) pairs that the per-lane test then prunes ("shaft_exact");
   - ``crt.shade.refracted_lanes`` / ``crt.shade.tir_lanes``: refractive
     hits of either wavefront that refract, and those that totally
     reflect;

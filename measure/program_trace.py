@@ -286,7 +286,7 @@ def phase_trace(name, runner, seconds: float) -> dict:
 
     ctx = type("Ctx", (), {"trace": t, "window": w})
     new = {m: metric_reader(m)(ctx) for m in (
-        "tables_device_ms.frame", "pool_live_share.frame",
+        "tables_device_ms.frame", "shade_live_share.frame",
         "host_reads.frame", "host_reads.step", "backward_host_ms.step")}
     pairs = {
         "shade": (ms(t, "bench.shade", ("bench.trace", "bench.binning")),

@@ -34,6 +34,7 @@ from crt_tpu_torch.ops import (
     cluster_tables,
     cluster_trace,
     segsum,
+    stream_binning,
     stream_trace,
     vecmath,
 )
@@ -1342,7 +1343,8 @@ def test_occlusion_stream_tile_exits(device, case):
 def test_stream_render_on_card_matches_cpu(device):
     """A small scene through the streaming backend, card vs CPU, and vs the
     cluster backend on the card; per shading level one K8 launch and the
-    two K9 launches of the two-phase shadow resolve."""
+    two K9 launches of the two-phase shadow resolve, each after one launch
+    of Phase A's kernel."""
     scene = make_test_scene(96, 64, num_quads=16, with_edges=True,
                             device="cpu")
     st = RenderSettings(backend="pallas_stream")
@@ -1350,14 +1352,17 @@ def test_stream_render_on_card_matches_cpu(device):
     before = (launched("closest_hit_stream"),
               launched("occlusion_stream"),
               launched("closest_hit"))
-    syncs = tracing.counters()["crt.host_reads.stream_nonzero"]
+    syncs = tracing.counters()["crt.host_reads.stream_pairs"]
+    bins = launched("stream_bin")
     gpu = render_image(scene.to(device), st)
     after = (launched("closest_hit_stream"),
              launched("occlusion_stream"),
              launched("closest_hit"))
     assert after == (before[0] + 4, before[1] + 8, before[2])
-    assert tracing.counters()["crt.host_reads.stream_nonzero"] \
-        == syncs + 16
+    # Phase A: one launch and one read of the list's length a trace
+    assert launched("stream_bin") == bins + 12
+    assert tracing.counters()["crt.host_reads.stream_pairs"] \
+        == syncs + 12
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=1e-5, atol=1e-6)
     for kw in (dict(backend="cluster"), dict(backend="stream",
                                              stream_shadow_k=0)):
@@ -1927,5 +1932,209 @@ def test_cluster_bin_frames_bit_equal_to_plain_binning(device, monkeypatch,
     torch.cuda.synchronize()
     assert added == expect
     assert modes("cluster_bin", BIN_COUNTERS) == after
+    assert float(img.mean()) > 0
+    assert torch.equal(img.view(torch.int32), plain.view(torch.int32))
+
+
+# -- Phase A of the streaming trace: csrc/stream_bin.cu against its plain
+# version ------------------------------------------------------------------
+
+STREAM_BIN_MODES = stream_binning.MODES
+
+
+def _stream_bin(x, mode, plain=False, cap=2):
+    """One streaming Phase A call in ``mode`` over ``x``'s tensors (on
+    their device), through ``bin_stream`` or ``bin_stream_plain``."""
+    shaft = dict(apex=x["apex"], apex_slack=0.02)
+    kw = {"rays": {},
+          "shaft_capped": dict(shaft, per_tile_cap=cap),
+          "shaft_exact": dict(shaft, r2=x["r2"]),
+          "shaft": dict(shaft, lane_exact=False)}[mode]
+    fn = stream_binning.bin_stream_plain if plain else stream_binning.bin_stream
+    return fn(*x["boxes"], x["o"], x["d"], 1024, x["act"], **kw)
+
+
+@pytest.fixture(scope="module", params=["quads3", "big24", "big32"])
+def stream_bin_case(request, device):
+    """The flat two-light shadow wavefront of a scene (light 1 active on x
+    > 0 only, every third tile of pixels dead) with its streaming tables:
+    the 24 quads at 3 clusters a supercluster (padded clusters in the last
+    one), or 65,536 triangles at 24 (padded) and 32."""
+    big, sc = {"quads3": (False, 3), "big24": (True, 24),
+               "big32": (True, 32)}[request.param]
+    scene = _sized_scene(big, device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    st = stream_trace.build_stream_tables(tables, sc)
+    o, d, r2, act, apex = _flat(*_dir_shadow_wavefront(scene, tables, 1024),
+                                1024)
+    return dict(boxes=stream_trace._boxes(st), o=o, d=d, r2=r2, act=act,
+                apex=apex)
+
+
+def _same_lists(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g.cpu(), w.cpu())
+
+
+def _stream_bin_checked(x, mode, **kw):
+    """``bin_stream`` in ``mode``: one launch under its mode's counter and
+    one read of the list's length; its lists equal the plain version's on
+    the card and on the CPU, and so do the counted pairs."""
+    c0 = tracing.counters()
+    got = _stream_bin(x, mode, **kw)
+    c1 = tracing.counters()
+    want = _stream_bin(x, mode, plain=True, **kw)
+    c2 = tracing.counters()
+    cpu = _stream_bin(_on_cpu(x), mode, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert (tracing.total(c1, "crt.launches")
+            - tracing.total(c0, "crt.launches")) == 1
+    assert (c1[f"crt.launches.stream_bin.{mode}"]
+            - c0[f"crt.launches.stream_bin.{mode}"]) == 1
+    assert (c1["crt.host_reads.stream_pairs"]
+            - c0["crt.host_reads.stream_pairs"]) == 1
+    for name in ("crt.binning.pairs.supercluster", "crt.binning.pairs.hull"):
+        assert c1[name] - c0[name] == c2[name] - c1[name]
+    _same_lists(got, want)
+    _same_lists(got, cpu)
+    return got
+
+
+@pytest.mark.parametrize("mode", STREAM_BIN_MODES)
+def test_stream_bin_matches_plain(device, stream_bin_case, mode):
+    """Phase A's streaming kernel in every mode: one launch, and the pair
+    list, member words and tile ranges of the plain version bit for bit,
+    with dead tiles, one-light tiles and padded clusters."""
+    _, _, start = _stream_bin_checked(stream_bin_case, mode)
+    assert int(start[-1]) > 0
+    assert bool((start[1:] == start[:-1]).any())  # tiles without a pair
+
+
+def _edge_case(device, empty=False):
+    """Boxes and a wavefront of 8 tiles built to reach the edges: every
+    other supercluster the copy of the one before (equal distances, ties in
+    index order); the last member of every third a pad (+-3.4e38); tile 0
+    without an active lane, tile 1 with one; tile 2's light at x = 1.8e19
+    inside long superclusters whose centres lie past it, so that their
+    squared distance from the tile overflows to +inf, above the refused
+    superclusters' 3.4e38.  ``empty``
+    moves every lane, and its light further, below every box."""
+    gen = torch.Generator().manual_seed(5)
+    L2, sc, tiles = 300, 6, 8
+    centre = torch.randn((L2, 1, 3), generator=gen) * 4.0
+    lo = centre + torch.rand((L2, sc, 3), generator=gen) - 0.5
+    hi = lo + 0.5 * torch.rand((L2, sc, 3), generator=gen)
+    lo[-6:] = torch.tensor([0.9e19, -1.0, -1.0]) + torch.rand(
+        (6, sc, 3), generator=gen) * torch.tensor([1e18, 0.5, 0.5])
+    hi[-6:] = torch.cat([torch.full((6, sc, 1), 3.2e19),
+                         lo[-6:, :, 1:] + 1.0], dim=-1)
+    lo[1::2], hi[1::2] = lo[0::2], hi[0::2]
+    lo[::3, -1], hi[::3, -1] = 3.4e38, -3.4e38
+    cl_min, cl_max = lo.reshape(-1, 3), hi.reshape(-1, 3)
+    boxes = (lo.amin(dim=1), hi.amax(dim=1), cl_min, cl_max)
+
+    at = torch.rand((tiles, 1, 3), generator=gen) * 12.0 - 6.0
+    at[2] = 0.0
+    o = at + 0.3 * torch.rand((tiles, 1024, 3), generator=gen)
+    lights = torch.rand((tiles, 3), generator=gen) * 16.0 - 8.0
+    lights[2] = torch.tensor([1.8e19, 0.0, 0.0])
+    if empty:
+        o = o - torch.tensor([0.0, 1e3, 0.0])
+        lights = lights - torch.tensor([0.0, 2e3, 0.0])
+    lv = lights[:, None, :].double() - o.double()
+    r2 = (lv * lv).sum(dim=-1)
+    d = (lv / torch.sqrt(r2)[..., None]).float()
+    r2 = r2.float()
+    act = torch.rand((tiles, 1024), generator=gen) < 0.5
+    act[0] = False
+    act[1] = False
+    act[1, 77] = True
+    x = dict(boxes=boxes, o=o.reshape(-1, 3), d=d.reshape(-1, 3),
+             r2=r2.reshape(-1), act=act.reshape(-1), apex=lights)
+    return {k: tuple(t.to(device) for t in v) if isinstance(v, tuple)
+            else v.to(device).contiguous() for k, v in x.items()}
+
+
+@pytest.mark.parametrize("keys", ["shared", "global"])
+@pytest.mark.parametrize("mode,cap", [
+    ("rays", 2), ("shaft", 2), ("shaft_exact", 2),
+    *(("shaft_capped", c) for c in (1, 2, 3, 10, 1000))])
+def test_stream_bin_edges_match_plain(device, monkeypatch, mode, cap, keys):
+    """Equal distances, padded clusters, a dead tile, a one-lane tile, keys
+    of +inf (after the refused superclusters in the plain version's sort,
+    so a cap counts those too), caps from 1 to over every tile's survivors,
+    and the sort keys in shared memory or, past its size, in global
+    memory: the kernel's lists equal the plain version's."""
+    x = _edge_case(device)
+    if keys == "global":  # room for the bitsets and not for the keys
+        monkeypatch.setattr(stream_binning, "_SMEM_BYTES", 4 * 16 * 2)
+    pair_sc, _, start = _stream_bin_checked(x, mode, cap=cap)
+    per_tile = (start[1:] - start[:-1]).cpu()
+    assert per_tile[0] == 0 and per_tile[1:].sum() > 0
+    if mode == "shaft":
+        lists = [pair_sc[start[t]:start[t + 1]].cpu().tolist()
+                 for t in range(8)]
+        assert any(c >= 294 for c in lists[2])  # a key of +inf listed
+        assert any(c % 2 == 0 and c + 1 in lst
+                   and lst.index(c + 1) == lst.index(c) + 1
+                   for lst in lists for c in lst)  # a tie, index order
+
+
+@pytest.mark.parametrize("mode", STREAM_BIN_MODES)
+def test_stream_bin_empty_list(device, mode):
+    """A wavefront whose shafts and frusta reach no box: one launch, no
+    pack, an empty list and tile ranges of zeros, as the plain version."""
+    pair_sc, bits, start = _stream_bin_checked(_edge_case(device, True),
+                                               mode)
+    assert pair_sc.shape == (0,) and bits.shape == (0,)
+    assert not bool(start.any())
+
+
+def _cloned_args(args, kw):
+    def c(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    return tuple(map(c, args)), {k: c(v) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("frame", ["1m", "k0"])
+def test_stream_bin_frames_bit_equal_to_plain_binning(device, monkeypatch,
+                                                      frame):
+    """The 1 M-triangle 1080p frame (default settings: a rays, a
+    shaft_capped and a shaft_exact call) and a 65,536-triangle 1080p frame
+    with ``stream_shadow_k=0`` (a rays and a shaft_exact call): each Phase
+    A call launches the kernel once and lists what the plain version lists,
+    and the image equals, bit for bit, the one rendered with the plain
+    Phase A in the kernel's place."""
+    n, settings, expect = {
+        "1m": (1_000_000, RenderSettings(),
+               {"rays": 1, "shaft_capped": 1, "shaft_exact": 1}),
+        "k0": (65536, RenderSettings(backend="stream", stream_shadow_k=0),
+               {"rays": 1, "shaft_exact": 1}),
+    }[frame]
+    scene = make_big_scene(n, 1920, 1080, seed=0, device=device)
+    calls = []
+    real = stream_binning.bin_stream
+
+    def record(*args, **kw):
+        calls.append(_cloned_args(args, kw))
+        out = real(*args, **kw)
+        calls[-1] += (out,)
+        return out
+
+    monkeypatch.setattr(stream_binning, "bin_stream", record)
+    before = modes("stream_bin", STREAM_BIN_MODES)
+    img = render_image(scene, settings)
+    after = modes("stream_bin", STREAM_BIN_MODES)
+    assert {m: after[m] - before[m] for m in STREAM_BIN_MODES
+            if after[m] > before[m]} == expect
+    assert len(calls) == sum(expect.values())
+    for args, kw, out in calls:
+        _same_lists(out, stream_binning.bin_stream_plain(*args, **kw))
+    monkeypatch.setattr(stream_binning, "bin_stream",
+                        stream_binning.bin_stream_plain)
+    plain = render_image(scene, settings)
+    torch.cuda.synchronize()
+    assert modes("stream_bin", STREAM_BIN_MODES) == after
     assert float(img.mean()) > 0
     assert torch.equal(img.view(torch.int32), plain.view(torch.int32))

@@ -358,6 +358,52 @@ def test_lane_exact_mask_and_shadow_pairs(ref, base_tables, sc):
                       per_tile_cap=2)
 
 
+@pytest.mark.parametrize("mode", tsb.MODES)
+@pytest.mark.parametrize("sc", SCS)
+def test_bin_stream_equals_the_plain_composition(ref, base_tables, sc, mode):
+    """``bin_stream`` on CPU tensors, in each mode, lists what the plain
+    functions compose to (``tile_bounds``, ``pair_mask``,
+    ``lane_exact_sc_mask``, ``bin_pairs``, ``_member_runs``) and, where the
+    reference holds the list, crt_tpu's: the primary wavefront with its
+    active mask in "rays", the two-light shadow wavefront in the shaft
+    modes."""
+    st = _stream_tables(base_tables, sc)
+    boxes = (st.sc_min, st.sc_max, st.tables.cl_min, st.tables.cl_max)
+    if mode == "rays":
+        o, d, act = T(ref["o"]), T(ref["d"]), T(ref["act"])
+        r2 = apex = None
+    else:
+        w = _shadow(ref, sc)
+        o, d, r2, act, apex = (w["o_f"], w["d_f"], w["r2_f"], w["a_f"],
+                               w["apex"])
+    cap = 2 if mode == "shaft_capped" else None
+    got = tsb.bin_stream(*boxes, o, d, TR, act, apex, SLACK, r2, cap,
+                         lane_exact=mode != "shaft")
+
+    bounds = tbin.tile_bounds(o, d, TR, act)
+    extra = None
+    if mode == "shaft_exact":
+        hull = tsb.pair_mask(st.sc_min, st.sc_max, bounds, apex, SLACK)
+        extra = tsb.lane_exact_sc_mask(o, d, r2, act, SLACK, st.sc_min,
+                                       st.sc_max, TR, where=hull)
+    pair_tile, pair_sc, tile_start = tsb.bin_pairs(
+        st.sc_min, st.sc_max, bounds, apex, SLACK,
+        near_first=apex is not None, per_tile_cap=cap, extra_mask=extra)
+    _, bits = tsb._member_runs(bounds, pair_tile, pair_sc, st.tables.cl_min,
+                               st.tables.cl_max, sc, apex, SLACK)
+    assert got[0].dtype == got[1].dtype == got[2].dtype == torch.int32
+    assert torch.equal(got[0], pair_sc.to(torch.int32))
+    assert torch.equal(got[1], bits) and torch.equal(got[2], tile_start)
+    assert got[0].shape[0] > 0
+    q = f"sc{sc}/" + {"rays": "masked", "shaft_capped": "near_cap",
+                      "shaft_exact": "near_extra", "shaft": "near"}[mode]
+    if q + "/sc" in ref:
+        eq(got[0], ref[q + "/sc"])
+    if mode == "rays":
+        with pytest.raises(ValueError):  # a cap needs the shaft
+            tsb.bin_stream(*boxes, o, d, TR, act, per_tile_cap=2)
+
+
 @pytest.mark.parametrize("sc", SCS)
 def test_occlusion_stream_plain_matches_pallas(ref, base_tables, sc):
     """K9's plain version through occluded_stream_flat (complete walk with

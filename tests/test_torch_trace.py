@@ -25,6 +25,7 @@ from crt_tpu_torch.ops import (
     cluster_trace,
     segsum,
     shade,
+    stream_binning,
     stream_trace,
 )
 from crt_tpu_torch.optim import fit_scene
@@ -449,6 +450,21 @@ def _bin(x, mode):
     return binning.bin_rays(x["tables"], x["o"], x["d"], 1024, act)
 
 
+def _stream_bin(x, mode):
+    """The streaming Phase A in one mode: the camera rays' frustum, or the
+    shadow rays' shaft (capped, with the per-lane test, or without)."""
+    boxes = stream_trace._boxes(x["st"])
+    if mode == "rays":
+        return stream_binning.bin_stream(*boxes, x["o"], x["d"], 1024)
+    Ll = x["lights"].shape[0]
+    apex = x["lights"].repeat_interleave(x["point"].shape[0] // 1024, 0)
+    kw = {"shaft_capped": dict(per_tile_cap=2), "shaft_exact": {},
+          "shaft": dict(lane_exact=False)}[mode]
+    return stream_binning.bin_stream(
+        *boxes, x["point"].repeat(Ll, 1), x["ldir"], 1024,
+        x["act"].reshape(-1), apex, 0.02, x["r2"], **kw)
+
+
 def _segsum(x):
     ids = torch.tensor([0, -1, 2, 3, 7, 2], dtype=torch.int32)
     return segsum.segment_accumulate(
@@ -474,6 +490,8 @@ PLAIN_CASES = {
     **{f"cluster_bin.{m}": (lambda x, m=m: _bin(x, m))
        for m in ("rays", "rays_masked", "apex", "shared", "shared_uncapped",
                  "shared_glass")},
+    **{f"stream_bin.{m}": (lambda x, m=m: _stream_bin(x, m))
+       for m in stream_binning.MODES},
 }
 
 
@@ -506,7 +524,8 @@ def test_cluster_bin_kernel_is_built(tmp_path):
     assert cuda_lib._digest(csrc) != before
 
 
-@pytest.mark.parametrize("entry", ["bin_rays", "bin_apex_shared"])
+@pytest.mark.parametrize("entry", ["bin_rays", "bin_apex_shared",
+                                   "bin_stream"])
 def test_binning_raises_where_it_has_no_kernel(case_inputs, entry):
     """A tensor on neither the CPU nor a CUDA card is refused, not binned
     by the plain version."""
@@ -515,9 +534,33 @@ def test_binning_raises_where_it_has_no_kernel(case_inputs, entry):
     with pytest.raises(NotImplementedError, match=entry):
         if entry == "bin_rays":
             binning.bin_rays(case_inputs["tables"], x["o"], x["d"], 1024)
+        elif entry == "bin_stream":
+            stream_binning.bin_stream(
+                *stream_trace._boxes(case_inputs["st"]), x["o"], x["d"], 1024)
         else:
             binning.bin_apex_shared(case_inputs["tables"], x["point"],
                                     x["lights"], x["act"], 1024, 0.02)
+
+
+def test_stream_phase_a_is_looked_up_on_stream_binning(monkeypatch):
+    """A streaming frame takes its Phase A through ``stream_binning``'s
+    attribute at each call (where ``bench.binning`` wraps it): a wrapper
+    put there sees the frame's three calls, the camera rays' frustum and
+    the two phases of the shadow resolve."""
+    seen = []
+    real = stream_binning.bin_stream
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out[2].shape[0] - 1)  # the call's tiles
+        return out
+
+    monkeypatch.setattr(stream_binning, "bin_stream", spy)
+    scene = make_test_scene(64, 48, 8, with_reflective=False, device="cpu")
+    with tracing.recording() as c:
+        render_image(scene, RenderSettings(backend="stream"))
+    assert len(seen) == 3 and seen[1] == seen[2]
+    assert c["crt.binning.pairs.hull"] > 0  # the complete walk's shaft
 
 
 # -- counters: Phase A's pairs and the host-read sites -----------------
