@@ -755,6 +755,13 @@ def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
 # The tracer
 # ---------------------------------------------------------------------------
 
+def _count_shadow(counts, active):
+    """A shadow pass's (tile, cluster) list pairs and active lanes, summed
+    on the device."""
+    tracing.count("crt.shadow.pairs", counts)
+    tracing.count("crt.shadow.lanes", active)
+
+
 def pad_rays(o, d, active, tile_rays, pad_all_active: bool = False):
     """Flat rays padded to a tile multiple, as the JAX factories pad them:
     origin 0, direction (0, 0, -1), inactive.  ``pad_all_active`` turns a
@@ -880,6 +887,7 @@ class ClusterTracer(Tracer):
             tables, shadow_o, light_positions, active, TILE_RAYS,
             origin_slack, **bin_kw,
         )
+        _count_shadow(counts, active)
         out = occlusion_w(tables, shadow_o, point, light_positions,
                           cluster_list, counts, capped, gm, glass_flag)
         if glass_flag:
@@ -899,6 +907,7 @@ class ClusterTracer(Tracer):
         cluster_list, counts = bin_rays(
             self.tables, o_flat, d_flat, TILE_RAYS, active.reshape(-1),
             apex=apex, apex_slack=origin_slack)
+        _count_shadow(counts, active)
         occ = occlusion_d(self.tables, shadow_o.contiguous(), d_flat,
                           r2.detach().reshape(-1).contiguous(), cluster_list,
                           counts, TILE_RAYS, tile_mod=tpl)

@@ -452,7 +452,7 @@ def _occlusion_masks(scene, tracer, point, normal, light_positions,
     light_positions = light_positions.detach()
 
     if not (scene.has_refractive and scene.refractions_on):
-        with tracing.span("crt.trace"):
+        with tracing.span("crt.trace.shadow"):
             occluded = tracer.shadow(point, shadow_o_px, light_positions,
                                      light_dir.detach(), r2.detach(), act_lr,
                                      2.0 * shadow_bias)

@@ -47,15 +47,16 @@ _STREAM_BACKENDS = ("stream", "pallas_stream")
 # on the card.  The cluster backend tests every tile against every cluster,
 # so its Phase A grows with the scene; the streaming backend pays for its
 # two-level lists and its two-phase shadow resolve whatever the size.
-# chip_smoke.py times both on make_big_scene at 1080p, forward frame, on an
-# NVIDIA H100 80GB HBM3 (700 W), cluster against streaming: at 1,024
-# clusters (16,384 triangles) 29.459 against 81.803 ms; at 4,096 clusters
-# (65,536 triangles) the two tie, 60.832 against 68.014 ms (56.384 against
-# 48.177 in another run: these frames follow the host); at 16,384 clusters
-# 211.353 against 103.138 ms; at 62,500 clusters (1,000,000 triangles)
-# 751.939 ms and 12.9 GiB against 282.891 ms and 2.4 GiB.  So the cluster
-# backend, whose trace also emits the packed rows, keeps every scene up to
-# the size where they tie.
+# Timed on make_big_scene at 1080p (``render_image``, depth 3, one light;
+# medians of 6 frames, the two backends in turn) on an NVIDIA H100 80GB
+# HBM3 (700 W), with each backend's Phase A one kernel, cluster against
+# streaming: at 1,024 clusters (16,384 triangles) 10.993 against 12.302 ms;
+# at 4,096 clusters (65,536 triangles) 26.808 against 22.488 ms, and 25.271
+# against 19.382 in a second run; at 16,384 clusters 112.563 against
+# 51.049 ms.  So the two now tie between 1,024 and 4,096 clusters, below
+# this threshold, which was set where they tied before either Phase A was
+# a kernel.  The benchmark's ``tri65k.frames`` cell renders 4,096 clusters
+# through ``auto``: a move of the threshold shows there.
 AUTO_STREAM_MIN_CLUSTERS = 4096
 
 # Pool lanes (the widest level's banks x pixels) the iterative wavefront

@@ -16,8 +16,11 @@ belongs to the span whose interval holds its launch.  The port's spans:
   - ``crt.shade.march``: the transmissive branch of a scene with live
     refraction's shadows (``shade._occlusion_masks``): the glass-flag
     split pass and the bend-walk, their traces included;
-  - ``crt.trace.primary``: the camera rays' closest hit; ``crt.trace``:
-    every other call into an intersection backend;
+  - ``crt.trace.primary``: the camera rays' closest hit;
+    ``crt.trace.shadow``: the opaque point-light shadow pass
+    (``tracer.shadow`` in ``shade._occlusion_masks``), its Phase A
+    included; ``crt.trace``: every other call into an intersection
+    backend (a reader of the prefix ``crt.trace`` takes all three);
   - ``crt.binning``: Phase A (frusta, shafts, pair lists), no table build;
   - ``crt.fit.forward`` / ``crt.fit.backward`` / ``crt.fit.optimizer``: a
     fit step's render and loss, its backward and reduce, its update.
@@ -52,6 +55,11 @@ them.  The port's counters:
     (tile, cluster) and (tile, supercluster) pairs listed by Phase A;
     ``crt.binning.pairs.hull``: the light-side shaft's (tile,
     supercluster) pairs that the per-lane test then prunes ("shaft_exact");
+  - ``crt.shadow.pairs`` / ``crt.shadow.lanes``: the (tile, cluster)
+    pairs of the cluster backend's shadow lists (``bin_apex_shared`` for
+    K2 in any mode, ``bin_rays``' apex mode for K5; the same pairs are in
+    ``crt.binning.pairs.cluster``), and the active shadow lanes they were
+    binned for;
   - ``crt.shade.refracted_lanes`` / ``crt.shade.tir_lanes``: refractive
     hits of either wavefront that refract, and those that totally
     reflect;

@@ -121,7 +121,9 @@ SPAN_CASES = {
         **{f"crt.shade.bounce.{b}": ["crt.shade"] for b in range(3)},
         "crt.trace.primary": ["crt.shade.bounce.0"],
         "crt.trace": [f"crt.shade.bounce.{b}" for b in range(3)],
-        "crt.binning": ["crt.trace.primary", "crt.trace"],
+        "crt.trace.shadow": [f"crt.shade.bounce.{b}" for b in range(3)],
+        "crt.binning": ["crt.trace.primary", "crt.trace",
+                        "crt.trace.shadow"],
     }),
     "stream": (_stream_frame, {
         "crt.tables.cluster": ["crt.frame"],
@@ -129,7 +131,9 @@ SPAN_CASES = {
         "crt.shade": ["crt.frame"],
         "crt.trace.primary": ["crt.shade"],
         "crt.trace": ["crt.shade"],
-        "crt.binning": ["crt.trace.primary", "crt.trace"],
+        "crt.trace.shadow": ["crt.shade"],
+        "crt.binning": ["crt.trace.primary", "crt.trace",
+                        "crt.trace.shadow"],
     }),
     "aov": (_aov_frame, {
         "crt.tables.cluster": ["crt.frame"],
@@ -142,8 +146,10 @@ SPAN_CASES = {
         "crt.shade": ["crt.frame"],
         "crt.trace.primary": ["crt.shade"],
         "crt.trace": ["crt.shade"],
+        "crt.trace.shadow": ["crt.shade"],
         "crt.tables.rows": ["crt.trace.primary"],
-        "crt.binning": ["crt.trace.primary", "crt.trace"],
+        "crt.binning": ["crt.trace.primary", "crt.trace",
+                        "crt.trace.shadow"],
     }),
 }
 
@@ -572,6 +578,86 @@ def test_cluster_pairs_equal_the_list_lengths(case_inputs):
         _, cnt2 = binning.bin_apex_shared(x["tables"], x["point"],
                                           x["lights"], x["act"], 1024, 0.02)
     assert c["crt.binning.pairs.cluster"] == int(cnt.sum() + cnt2.sum()) > 0
+
+
+class ShadowSpy:
+    """The cluster backend with ``shadow_kernel``, noting the lists of
+    every Phase A call it makes: the camera and mirror rays' (``bin_rays``
+    without an apex) and the shadow passes' (``bin_apex_shared``, or
+    ``bin_rays``' apex mode for K5), with each pass's active lanes."""
+
+    def __init__(self, monkeypatch, scene, shadow_kernel):
+        self.tracer = cluster_trace.ClusterTracer(
+            cluster_tables.build_cluster_tables(scene), scene,
+            shadow_kernel=shadow_kernel)
+        self.rays, self.shadow, self.lanes, self.passes = [], [], 0, 0
+        real_rays, real_shared = binning.bin_rays, binning.bin_apex_shared
+
+        def bin_rays(*a, **kw):
+            out = real_rays(*a, **kw)
+            (self.shadow if kw.get("apex") is not None
+             else self.rays).append(int(out[1].sum()))
+            return out
+
+        def bin_apex_shared(*a, **kw):
+            out = real_shared(*a, **kw)
+            self.shadow.append(int(out[1].sum()))
+            return out
+
+        real_pass = {"w": self.tracer._shadow_w, "d": self.tracer._shadow_d}
+        active_at = {"w": 3, "d": 4}[shadow_kernel]
+
+        def shadow_pass(*a, **kw):
+            self.passes += 1
+            self.lanes += int(a[active_at].sum())
+            return real_pass[shadow_kernel](*a, **kw)
+
+        monkeypatch.setattr(cluster_trace, "bin_rays", bin_rays)
+        monkeypatch.setattr(cluster_trace, "bin_apex_shared", bin_apex_shared)
+        monkeypatch.setattr(self.tracer, f"_shadow_{shadow_kernel}",
+                            shadow_pass)
+
+
+@pytest.mark.parametrize("shadow_kernel", ["w", "d"])
+def test_shadow_pairs_and_lanes_equal_the_shadow_lists(monkeypatch,
+                                                       shadow_kernel):
+    """``crt.shadow.pairs`` is the shadow lists' ``counts.sum()`` and
+    ``crt.shadow.lanes`` their passes' active lanes; the camera, mirror
+    and shadow lists together stay ``crt.binning.pairs.cluster``."""
+    scene = make_test_scene(64, 48, 8, device="cpu")
+    spy = ShadowSpy(monkeypatch, scene, shadow_kernel)
+    with tracing.recording() as c:
+        _render_flat(scene, RenderSettings(max_ray_depth=3),
+                     trace_fn=spy.tracer)
+    assert spy.passes >= 2 and len(spy.shadow) == spy.passes
+    assert c["crt.shadow.pairs"] == sum(spy.shadow) > 0
+    assert c["crt.shadow.lanes"] == spy.lanes > 0
+    assert c["crt.binning.pairs.cluster"] == sum(spy.rays) + sum(spy.shadow)
+
+
+def test_a_cluster_frame_opens_one_shadow_span_a_shadow_pass(monkeypatch):
+    """Each opaque shadow pass runs in a ``crt.trace.shadow`` span of its
+    own, its Phase A inside, and nothing else opens one."""
+    scene = make_test_scene(64, 48, 8, device="cpu")
+    spy = ShadowSpy(monkeypatch, scene, "w")
+    real = spy.tracer._shadow_w
+
+    def marked(*a, **kw):
+        with record_function("test.shadow_pass"):
+            return real(*a, **kw)
+
+    monkeypatch.setattr(spy.tracer, "_shadow_w", marked)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _render_flat(scene, RenderSettings(max_ray_depth=3),
+                     trace_fn=spy.tracer)
+    ev = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()]
+    spans = named(ev, "crt.trace.shadow")
+    assert len(spans) == spy.passes == len(named(ev, "test.shadow_pass"))
+    assert inside(ev, "test.shadow_pass", ["crt.trace.shadow"])
+    inner = [s for s, _ in named(ev, "crt.binning")
+             if any(a <= s <= b for a, b in spans)]
+    assert len(inner) == spy.passes
 
 
 def _march(_):
