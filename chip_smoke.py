@@ -381,9 +381,11 @@ FLOPS_PER_MEMBER = 5 + 5 + 1 + 1 + 3 * 13
 # second (the rate counts an FMA as two flops).
 NOFMA_SLOTS_PER_MEMBER = 50 + 9
 H100_FP32_ISSUE = H100_FP32_FLOPS / 2
-# csrc/cluster_common.cuh CRT_VOTE_LIST: K5 / K6 pack repeated rays on
-# longer lists only.
+# csrc/cluster_common.cuh CRT_VOTE_LIST: K5 / K6 pack repeated rays, and
+# the any-hit walks repack, on longer lists only.
 VOTE_LIST = 32
+# csrc/cluster_common.cuh CRT_BATCH: clusters staged per batch barrier.
+BATCH = 8
 
 
 def bound_ms(num_bytes: float, flops: float) -> dict:
@@ -1189,8 +1191,15 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
     no_exit = int(members.sum()) * TILE
     Ll = lights.shape[0]
     w = (lights[:, None, :] - point[None]).reshape(-1, 3)
-    packed, packed_tests = repacked_rays(
-        torch.cat([shadow_o.repeat(Ll, 1), w], dim=1), cnt, members)
+    ray = torch.cat([shadow_o.repeat(Ll, 1), w], dim=1)
+    packed, packed_tests = repacked_rays(ray, cnt, members)
+
+    def run_done(counts):
+        got = run(counts)
+        return got[0] & got[1] if isinstance(got, tuple) else got
+
+    walk = walk_text(run, run_done, cnt, b["member_tests"], ray,
+                     model=gen is not None)
     return dict(tag=tag, name=name, kernel="K2", calls={
         "kernel": lambda lib=None: on(lib, run),
         "dead": lambda lib=None: on(lib, lambda: run(dead))},
@@ -1203,28 +1212,63 @@ def k2_shape(tag, name, tables, shadow_o, point, lights, act_lr, cl, cnt,
               f"({no_exit / max(b['member_tests'], 1):.2f}x); rays walked "
               f"after repacking {packed} of {int((cnt > 0).sum()) * TILE} "
               f"lanes of live tiles, member tests of their warps without "
-              f"any exit {packed_tests}"))
+              f"any exit {packed_tests}; {walk}"))
 
 
-def repacked_rays(ray, cnt, members, open_lanes=None, pack_above=-1):
-    """The repacking of K2, K5 and K6: (rays walked, member tests of the
-    warps they fill) on the tiles with a list.  ``ray`` [R, k] holds each
-    lane's ray (K2: o and w = light - p; K5 / K6: o, d and r2); only the
-    ``open_lanes`` (K6: the unseeded ones; None: all) are walked.  On a
-    tile whose list is longer than ``pack_above`` clusters (K2: every
-    tile; K5 / K6: CRT_VOTE_LIST) a lane whose ray is, bit for bit, its
-    warp's first open lane's is not walked, and the other rays of each
-    256-lane unit fill ceil(n / 32) warps; on the others every warp with
-    an open lane walks."""
+def own_rays(ray, open_lanes=None, lead_only=False):
+    """[R] the lanes that pack_rays gives a place: open (``open_lanes``,
+    K6: the unseeded ones; None: all) and with a ray (``ray`` [R, k]: K2 o
+    and w = light - p; K5 / K6 o, d and r2) that no earlier open lane of
+    its warp has, bit for bit (``lead_only``: the parent's rule, that the
+    warp's first open lane has not)."""
     bits = ray.contiguous().view(torch.int32).reshape(-1, 32, ray.shape[1])
     if open_lanes is None:
         open_lanes = torch.ones(bits.shape[:2], dtype=torch.bool,
                                 device=ray.device)
     open_lanes = open_lanes.reshape(-1, 32)
-    lead = open_lanes.to(torch.int32).argmax(dim=1)  # the first open lane
-    first = bits[torch.arange(bits.shape[0], device=ray.device), lead]
-    is_lead = torch.arange(32, device=ray.device) == lead[:, None]
-    own = open_lanes & ((bits != first[:, None]).any(dim=2) | is_lead)
+    earlier = torch.ones(32, 32, dtype=torch.bool, device=ray.device).tril(-1)
+    if lead_only:  # only the first open lane leads
+        first = torch.nn.functional.one_hot(
+            open_lanes.to(torch.int32).argmax(dim=1), 32).bool()
+        lead = first[:, None, :] & earlier[None]
+    own = []
+    for w0 in range(0, bits.shape[0], 8192):  # 8,192 warps at a time
+        w1 = w0 + 8192
+        b = bits[w0:w1]
+        same = (b[:, :, None, :] == b[:, None, :, :]).all(dim=3)
+        ahead = (lead[w0:w1] if lead_only
+                 else earlier & open_lanes[w0:w1, None, :])
+        repeat = (same & ahead).any(dim=2)
+        own.append(open_lanes[w0:w1] & ~repeat)
+    return torch.cat(own).reshape(-1)
+
+
+def packed_lanes(ray, cnt, open_lanes=None, lead_only=False):
+    """[R] own_rays as pack_rays takes it on each tile: every earlier
+    open lane's ray repeated on tiles whose list is longer than
+    CRT_VOTE_LIST, the warp's first open lane's on the others (and
+    everywhere with ``lead_only``, the parent's rule)."""
+    lead = own_rays(ray, open_lanes, lead_only=True)
+    if lead_only:
+        return lead
+    long_list = (cnt > VOTE_LIST).repeat_interleave(TILE)
+    return torch.where(long_list, own_rays(ray, open_lanes), lead)
+
+
+def repacked_rays(ray, cnt, members, open_lanes=None, pack_above=-1):
+    """The packing of K2, K5 and K6: (rays walked, member tests of the
+    warps they fill) on the tiles with a list.  ``ray`` [R, k] holds each
+    lane's ray (K2: o and w = light - p; K5 / K6: o, d and r2); only the
+    ``open_lanes`` (K6: the unseeded ones; None: all) are walked.  On a
+    tile whose list is longer than ``pack_above`` clusters (K2: every
+    tile; K5 / K6: CRT_VOTE_LIST) a lane whose ray is, bit for bit, an
+    earlier open lane's of its warp is not walked (packed_lanes), and the
+    other rays of each 256-lane unit fill ceil(n / 32) warps; on the
+    others every warp with an open lane walks."""
+    own = packed_lanes(ray, cnt, open_lanes).reshape(-1, 32)
+    if open_lanes is None:
+        open_lanes = torch.ones_like(own)
+    open_lanes = open_lanes.reshape(-1, 32)
     per_unit = own.reshape(-1, 256).sum(dim=1)
     warps = torch.div(per_unit + 31, 32, rounding_mode="floor")
     unpacked = (cnt <= pack_above).repeat_interleave(TILE // 256)
@@ -1236,6 +1280,123 @@ def repacked_rays(ray, cnt, members, open_lanes=None, pack_above=-1):
     live = (cnt > 0).repeat_interleave(TILE // 256)
     tests = warps * 32 * members.repeat_interleave(TILE // 256)
     return int(per_unit[live].sum()), int(tests[live].sum())
+
+
+def done_batches(run_done, cnt):
+    """[lanes] the batch barrier of an any-hit walk at which each lane is
+    first done: the least b for which ``run_done(counts)`` ([lanes] bool:
+    the kernel on every list cut to its first counts clusters) is True on
+    lists cut to CRT_BATCH * b clusters; past the longest walk where
+    never.  The outputs are ORs over the list in its order, so that is the
+    lane's state at barrier b of the whole walk."""
+    nb = (int(cnt.max()) + BATCH - 1) // BATCH
+    first = None
+    for b in range(nb + 1):
+        done = run_done(torch.clamp(cnt, max=BATCH * b))
+        if first is None:
+            first = torch.full(done.shape, nb + 1, dtype=torch.int32,
+                               device=done.device)
+        first = torch.where(done & (first > b), b, first)
+    return first
+
+
+def walk_model(first, cnt, own=None, pack_above=-1, repack=True):
+    """(lane tests, repacks) of an any-hit launch by WalkCount's rule
+    (csrc/cluster_common.cuh walk_any_hit): at each batch barrier of a
+    256-lane unit's walk, the warps with an unfinished lane test the
+    batch's clusters, 32 x 16 member tests a cluster; the walk ends when no
+    lane is unfinished.  On lists longer than CRT_VOTE_LIST, with
+    ``repack``, the rays sit in copies of 8, 4, 2 or 1 warps that share
+    each batch's clusters (so a copy's busy warps count the whole batch),
+    and the unfinished lanes move to the front of a new layout when they
+    would fill fewer warps than hold them or fit a smaller copy (without:
+    the parent's rule).  ``first`` [lanes] is done_batches'; ``own``
+    [lanes] (own_rays) the lanes pack_rays places in order on lists longer
+    than ``pack_above`` (None: no packing), the other places holding no
+    ray."""
+    dev = first.device
+    per_tile = TILE // 256
+    c = cnt.repeat_interleave(per_tile)
+    walked = c > 0
+    at = first.reshape(-1, 256)[walked].clone()
+    c = c[walked]
+    if own is not None:
+        own = own.reshape(-1, 256)[walked]
+        order = torch.argsort((~own).to(torch.int8), dim=1, stable=True)
+        placed = torch.gather(at, 1, order)
+        placed = torch.where(
+            torch.arange(256, device=dev) < own.sum(dim=1, keepdim=True),
+            placed, 0)
+        at = torch.where((c > pack_above)[:, None], placed, at)
+    nb = (c + BATCH - 1) // BATCH
+    long_list = c > VOTE_LIST
+    group = torch.full_like(c, 256 // 32)  # warps a copy
+    in_copy = torch.arange(256 // 32, device=dev)[None]
+    tests = repacks = 0
+    for bi in range(int(nb.max()) if nb.numel() else 0):
+        done = at <= bi
+        per_warp = (~done).reshape(-1, 256 // 32, 32).sum(dim=2)
+        per_warp = torch.where(in_copy < group[:, None], per_warp, 0)
+        live = per_warp.sum(dim=1)
+        warps = (per_warp > 0).sum(dim=1)
+        walking = (nb > bi) & (live > 0)
+        busy = warps
+        if repack:
+            need = (live + 31) // 32
+            regroup = torch.where(need <= 1, 1, torch.where(
+                need <= 2, 2, torch.where(need <= 4, 4, 8)))
+            moved = walking & long_list & ((need < warps) | (regroup < group))
+            if bool(moved.any()):
+                order = torch.argsort(done[moved].to(torch.int8), dim=1,
+                                      stable=True)
+                at[moved] = torch.gather(at[moved], 1, order)
+                group = torch.where(moved, regroup, group)
+                repacks += int(moved.sum())
+                busy = torch.where(moved, need, warps)
+        clusters = torch.clamp(c - BATCH * bi, max=BATCH)
+        tests += int((busy * 32 * 16 * clusters)[walking].sum())
+    return tests, repacks
+
+
+def walk_counts(run):
+    """(lane tests, repacks) that the kernel of ``run()`` counts
+    (``crt.shadow.lane_tests``, ``crt.shadow.repacks``)."""
+    from crt_tpu_torch.utils import trace as tracing
+
+    with tracing.recording() as c:
+        run()
+    return c["crt.shadow.lane_tests"], c["crt.shadow.repacks"]
+
+
+def walk_text(run, run_done, cnt, needed, ray, open_lanes=None,
+              pack_above=-1, model=False) -> str:
+    """The kernel's own lane tests and repacks beside the ``needed``
+    member tests; on lists of at most CRT_VOTE_LIST clusters no repack.
+    With ``model`` also walk_model's, held to the kernel's own, and the
+    parent's rule's (first-lane packing, no repack); ``ray`` and
+    ``open_lanes`` as own_rays takes them."""
+    tests, repacks = walk_counts(run)
+    if int(cnt.max()) <= VOTE_LIST:
+        check(repacks == 0, f"{repacks} repacks on lists of at most "
+              f"{VOTE_LIST} clusters")
+    text = (f"lane tests {tests} ({tests / max(needed, 1):.2f}x needed), "
+            f"repacks {repacks}")
+    if model:
+        first = done_batches(run_done, cnt)
+        m_tests, m_repacks = walk_model(first, cnt,
+                                        packed_lanes(ray, cnt, open_lanes),
+                                        pack_above)
+        check((m_tests, m_repacks) == (tests, repacks),
+              f"the walk model reads lane tests {m_tests}, repacks "
+              f"{m_repacks}; the kernel counted {tests}, {repacks}")
+        p_tests, _ = walk_model(first, cnt,
+                                packed_lanes(ray, cnt, open_lanes,
+                                             lead_only=True),
+                                pack_above, repack=False)
+        text += (f" (as the walk model reads them); without the repack "
+                 f"(the parent's rule) lane tests {p_tests} "
+                 f"({p_tests / max(needed, 1):.2f}x needed)")
+    return text
 
 
 def direction_inputs(tables, shadow_o, ldir, r2, lights, act, slack):
@@ -1306,9 +1467,13 @@ def kd_shape(tag, name, tables, w, exit=False, gen=None):
                    blocked=out.reshape(-1, TILE))
     members = tile_members(tables, cl, cnt)
     no_exit = int(members.sum()) * TILE
-    packed, packed_tests = repacked_rays(
-        torch.cat([w["o_f"], d, r2[:, None]], dim=1), cnt, members,
-        act if exit else None, pack_above=VOTE_LIST)
+    ray = torch.cat([w["o_f"], d, r2[:, None]], dim=1)
+    packed, packed_tests = repacked_rays(ray, cnt, members,
+                                         act if exit else None,
+                                         pack_above=VOTE_LIST)
+    walk = walk_text(run, lambda counts: run(None, counts), cnt,
+                     b["member_tests"], ray, act if exit else None,
+                     pack_above=VOTE_LIST, model=gen is not None)
     lanes = cnt.numel() * TILE
     return dict(tag=tag, name=name, kernel="K6" if exit else "K5", out=(out,),
                 bound=b, held=held,
@@ -1328,7 +1493,7 @@ def kd_shape(tag, name, tables, w, exit=False, gen=None):
                       f"walked after repacking {packed} of "
                       f"{int((cnt > 0).sum()) * TILE} lanes of live tiles, "
                       f"member tests of their warps without any exit "
-                      f"{packed_tests}"))
+                      f"{packed_tests}; {walk}"))
 
 
 def frame_with(scene, **kw):

@@ -294,36 +294,86 @@ inline long long persistent_grid(const void* kernel, long long units) {
 // without (votes on every list, or on none, measured slower: PERF.md).
 #define CRT_VOTE_LIST 32
 
-// A block's packed rays (RAY floats each, component-major) and the answers
-// of their walks.
+// A block's packed rays (RAY floats each, component-major), the answers
+// of their walks, and what a long walk's batch barriers exchange: each
+// thread's flags (fl), the unfinished lanes of each warp (live) and, where
+// a repack moves a ray, its place and flags (tag).
 template <int RAY>
 struct RayPack {
   float ray[RAY * CRT_BLOCK];
+  int tag[CRT_BLOCK];
   int scan[CRT_BLOCK / 32];
+  int live[CRT_BLOCK / 32];
   unsigned char res[CRT_BLOCK];
+  unsigned char fl[CRT_BLOCK];
 };
 
+// What a block's walks did, counted only while the launch is given a
+// `stats` buffer: each warp's member tests issued (32 lanes x 16 members
+// x the clusters of every batch the warp tests, whether or not a lane is
+// finished) and the repacks.  Added to stats[1] and stats[0] once a
+// block, at the end of the launch (walk_count_flush).
+struct WalkCount {
+  unsigned long long tests[CRT_BLOCK / 32];
+  unsigned long long repacks;
+};
+
+// Zero the block's counts; before the first barrier of the launch.
+__device__ __forceinline__ void walk_count_init(WalkCount& wc) {
+  if (threadIdx.x < CRT_BLOCK / 32) wc.tests[threadIdx.x] = 0ull;
+  if (threadIdx.x == 0) wc.repacks = 0ull;
+}
+
+// Add the block's counts to stats (repacks, lane tests); every thread
+// calls it at the end of the launch.
+__device__ __forceinline__ void walk_count_flush(const WalkCount& wc,
+                                                 unsigned long long* stats) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long tests = 0ull;
+#pragma unroll
+    for (int w = 0; w < CRT_BLOCK / 32; ++w) tests += wc.tests[w];
+    atomicAdd(stats, wc.repacks);
+    atomicAdd(stats + 1, tests);
+  }
+}
+
 // Repeated rays are walked once.  Of the `open` lanes (those with something
-// to learn), a lane whose ray is, bit for bit, its warp's first open lane's
-// takes that lane's answer, and the rays of the others are packed to the
-// front of the block, so the warps past them have nothing to test.  `ray`
-// becomes the packed ray at this thread's place and `live` the number of
-// packed rays (places >= live hold none).  Returns the place whose answer
-// this lane takes (unused by a lane that is not open).  Every thread of
-// the block calls it; two barriers.
+// to learn), a lane whose ray is, bit for bit, an earlier open lane's of
+// its warp (`distinct`; else its warp's first open lane's) takes the first
+// such lane's answer, and the rays of the others are packed to the front
+// of the block, so the warps past them have nothing to test.  (A frame's
+// lanes without a hit all carry the camera's ray, so with `distinct` a
+// warp walks it once for all its misses, whichever lane comes first; the
+// walks of long lists take it, short ones the cheaper first-lane test.)
+// `ray` becomes the packed ray at this thread's place and `live` the
+// number of packed rays (places >= live hold none).  Returns the place
+// whose answer this lane takes (unused by a lane that is not open).  Every
+// thread of the block calls it, with the same `distinct`; two barriers.
 template <int RAY>
 __device__ __forceinline__ int pack_rays(RayPack<RAY>& pk, float (&ray)[RAY],
-                                         bool open, int& live) {
+                                         bool open, bool distinct,
+                                         int& live) {
   const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
   const unsigned opens = __ballot_sync(0xffffffffu, open);
-  const int lead = opens != 0u ? __ffs(opens) - 1 : 0;
-  bool same = true;
+  int lead;
+  if (distinct) {
+    unsigned same = opens;
 #pragma unroll
-  for (int k = 0; k < RAY; ++k) {  // every lane takes part in each shuffle
-    const float first = __shfl_sync(0xffffffffu, ray[k], lead);
-    same = same && __float_as_uint(ray[k]) == __float_as_uint(first);
+    for (int k = 0; k < RAY; ++k)  // every lane takes part in each match
+      same &= __match_any_sync(0xffffffffu, __float_as_uint(ray[k]));
+    lead = same != 0u ? __ffs(same) - 1 : ln;
+  } else {
+    lead = opens != 0u ? __ffs(opens) - 1 : 0;
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < RAY; ++k) {  // every lane takes part in each shuffle
+      const float first = __shfl_sync(0xffffffffu, ray[k], lead);
+      same = same && __float_as_uint(ray[k]) == __float_as_uint(first);
+    }
+    lead = same ? lead : ln;
   }
-  const bool own = open && (ln == lead || !same);
+  const bool own = open && lead == ln;
   const unsigned mask = __ballot_sync(0xffffffffu, own);
   if (ln == 0) pk.scan[wp] = __popc(mask);
   __syncthreads();
@@ -345,50 +395,183 @@ __device__ __forceinline__ int pack_rays(RayPack<RAY>& pk, float (&ray)[RAY],
   return own ? pos : lead_pos;
 }
 
-// The answer at place `from` of the walks' answers (`answer` this thread's,
-// at its place).  Every thread calls it, after the walk.
-template <int RAY>
+// The answer at place `from` of the walks' answers, once every walked
+// state has left its answer at its place (`s`: the state this thread
+// holds after the walk, at place s.place, or none where s.place < 0).
+// Every thread calls it, after the walk.
+template <int RAY, class State>
 __device__ __forceinline__ unsigned char answer_at(RayPack<RAY>& pk,
-                                                   unsigned char answer,
+                                                   const State& s,
                                                    int from) {
-  pk.res[threadIdx.x] = answer;
+  if (s.place >= 0) pk.res[s.place] = s.flags();
   __syncthreads();
   return pk.res[from];
 }
 
+// The repack of a long walk.  The block's rays sit in `copies` copies of
+// `group` warps each (group * copies = 8 warps; thread t holds slot t %
+// (32 group) of copy t / (32 group)), every copy the same rays and, after
+// the merge at each barrier, the same flags; copy k tests clusters k, k +
+// copies, ... of each batch.  This moves copy 0's `live` unfinished rays
+// to the front of a new layout of `regroup` warps a copy, in their order,
+// each to every copy.  `done` says whether this lane is finished, `open`
+// is its warp's ballot of unfinished lanes and `live_w` copy 0's
+// unfinished lanes of each warp (all read at the batch barrier).  A
+// finished lane of copy 0 leaves its answer at its place first; a moved
+// ray takes its flags along, and copy 0's also its place, so the answers
+// stay where answer_at reads them.  A thread past `live` in its copy holds
+// no ray after it (finished), and a thread outside copy 0 no place (-1).
+// Every thread of the block calls it; one barrier.
+template <int RAY, class State>
+__device__ __forceinline__ void repack_rays(RayPack<RAY>& pk, State& s,
+                                            bool done, unsigned open,
+                                            const int* live_w, int live,
+                                            int group, int regroup) {
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  if (wp < group) {  // copy 0
+    if (done) {
+      if (s.place >= 0) pk.res[s.place] = s.flags();
+    } else {
+      int pos = __popc(open & ((1u << ln) - 1u));
+#pragma unroll
+      for (int w = 0; w < CRT_BLOCK / 32; ++w) pos += w < wp ? live_w[w] : 0;
+#pragma unroll
+      for (int k = 0; k < RAY; ++k) pk.ray[k * CRT_BLOCK + pos] = s.r[k];
+      pk.tag[pos] = s.place | (s.flags() << 8);
+    }
+  }
+  __syncthreads();
+  const int slots = 32 * regroup;
+  const int i = (int)threadIdx.x % slots;
+  if (i < live) {
+#pragma unroll
+    for (int k = 0; k < RAY; ++k) s.r[k] = pk.ray[k * CRT_BLOCK + i];
+    const int tag = pk.tag[i];
+    s.place = (int)threadIdx.x < slots ? tag & 0xff : -1;
+    s.set_flags(tag >> 8);
+  } else {
+    s.place = -1;
+    s.set_flags(State::kDone);
+  }
+}
+
+// Every copy's flags of a slot ORed into each copy of it (the layout of
+// repack_rays: `copies` copies of `group` warps).  Every thread of the
+// block calls it; one barrier.
+template <int RAY, class State>
+__device__ __forceinline__ void merge_copies(RayPack<RAY>& pk, State& s,
+                                             int group, int copies) {
+  pk.fl[threadIdx.x] = s.flags();
+  __syncthreads();
+  const int slot = (int)threadIdx.x % (32 * group);
+  int f = 0;
+  for (int c = 0; c < copies; ++c) f |= pk.fl[c * 32 * group + slot];
+  s.set_flags(f);
+}
+
+// The warps a copy takes for `need` warps of rays: 1, 2, 4 or 8.
+__device__ __forceinline__ int copy_group(int need) {
+  return need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+}
+
 // The walk of a tile's `count` clusters of `list` by an any-hit ray state
-// `s`: s.done() (nothing left to learn; the outputs are ORs) and
-// s.test<VOTE>(img, n) (the n clusters staged at img, in list order; VOTE:
-// warp votes may skip a member's later stages, on lists of at most
-// CRT_VOTE_LIST clusters).  CRT_BATCH clusters are staged per barrier,
-// CRT_STAGES - 1 batches ahead; a warp whose lanes are all done skips the
-// batch, and the block leaves the walk when every lane is done at a batch
-// barrier.  Every thread of the block calls it; the ring is free after.
-template <class State>
+// `s`: its ray s.r[RAY], the place s.place whose answer it holds, its
+// flags (s.flags(), s.set_flags(); State::kDone a finished state's),
+// s.done() (nothing left to learn; the outputs are ORs) and
+// s.test<VOTE>(img, n, first, step) (clusters first, first + step, ... <
+// n of the n staged at img, in list order; VOTE: warp votes may skip a
+// member's later stages, on lists of at most CRT_VOTE_LIST clusters).
+// CRT_BATCH clusters are staged per barrier, CRT_STAGES - 1 batches ahead;
+// a warp whose lanes are all done skips the batch.
+//
+// On lists of at most CRT_VOTE_LIST clusters the barrier is
+// __syncthreads_and(done) and the block leaves the walk when every lane is
+// done.  On longer ones a lane's walk is a chain of dependent member tests
+// over the whole list, and a block's unfinished rays often fill one or two
+// of its warps; so there the block keeps its rays in copies (repack_rays):
+// at each batch barrier the copies merge their flags (an OR: each output
+// is an OR of member tests), the block leaves when no lane is unfinished,
+// and when copy 0's unfinished lanes would fill fewer warps than hold
+// them, or fit a smaller copy, they move to the front of a new layout
+// with as many copies as fit.  Each copy then tests its share of each
+// batch, so every warp takes part and a lane's chain is shorter.  No
+// member test changes, and none whose answer could change an output is
+// skipped.  `wc` counts the tests and repacks (null: no count).  Every
+// thread of the block calls it; the ring is free after.
+template <int RAY, class State>
 __device__ __forceinline__ void walk_any_hit(ClusterRing& ring,
+                                             RayPack<RAY>& pk,
                                              const ClusterPlan& pl,
                                              const int* __restrict__ list,
-                                             int count, State& s) {
+                                             int count, State& s,
+                                             WalkCount* wc) {
 #pragma unroll
   for (int st = 0; st < CRT_STAGES - 1; ++st)
     issue_clusters(ring, st, list, st * CRT_BATCH, batch_size(st, count), pl);
   const int nb = (count + CRT_BATCH - 1) / CRT_BATCH;
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  if (count <= CRT_VOTE_LIST) {  // uniform over the block
+    for (int bi = 0; bi < nb; ++bi) {
+      cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
+      const bool done = s.done();
+      // the batch barrier, and the block-wide exit
+      if (__syncthreads_and(done)) break;
+      const int nx = bi + CRT_STAGES - 1;
+      issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
+                     batch_size(nx, count), pl);
+      if (__all_sync(0xffffffffu, done)) continue;  // the warp is done
+      const float* img = ring.rec + (bi % CRT_STAGES) * CRT_BATCH_FLOATS;
+      const int nc = batch_size(bi, count);
+      if (wc != nullptr && ln == 0)
+        wc->tests[wp] += 32ull * CRT_CLUSTER_SIZE * (unsigned long long)nc;
+      s.template test<true>(img, nc, 0, 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next walk
+    return;
+  }
+  int group = CRT_BLOCK / 32;  // warps a copy (uniform)
+  int copies = 1, first = 0;   // copies, and this warp's copy
   for (int bi = 0; bi < nb; ++bi) {
     cp_async_wait<CRT_STAGES - 2>();  // this thread's copies of batch bi
-    const bool done = s.done();
-    // the batch barrier, and the block-wide exit
-    if (__syncthreads_and(done)) break;
+    // the batch barrier: the copies' flags merged, copy 0's unfinished
+    // lanes counted, the block-wide exit, the repack
+    if (copies > 1)
+      merge_copies(pk, s, group, copies);
+    else
+      __syncthreads();
+    bool done = s.done();
+    const unsigned open = __ballot_sync(0xffffffffu, !done);
+    if (ln == 0 && wp < group) pk.live[wp] = __popc(open);
+    __syncthreads();
+    int live = 0, warps = 0;
+    for (int w = 0; w < group; ++w) {
+      live += pk.live[w];
+      warps += pk.live[w] > 0 ? 1 : 0;
+    }
+    if (live == 0) break;
+    const int need = (live + 31) / 32;
+    const int regroup = copy_group(need);
+    if (need < warps || regroup < group) {
+      repack_rays(pk, s, done, open, pk.live, live, group, regroup);
+      group = regroup;
+      copies = CRT_BLOCK / 32 / group;
+      first = wp / group;
+      done = s.done();
+      if (wc != nullptr && threadIdx.x == 0) ++wc->repacks;
+    }
     const int nx = bi + CRT_STAGES - 1;
     issue_clusters(ring, nx % CRT_STAGES, list, nx * CRT_BATCH,
                    batch_size(nx, count), pl);
     if (__all_sync(0xffffffffu, done)) continue;  // the warp is done
     const float* img = ring.rec + (bi % CRT_STAGES) * CRT_BATCH_FLOATS;
     const int nc = batch_size(bi, count);
-    if (count <= CRT_VOTE_LIST)  // uniform over the block
-      s.template test<true>(img, nc);
-    else
-      s.template test<false>(img, nc);
+    if (wc != nullptr && ln == 0)
+      wc->tests[wp] += 32ull * CRT_CLUSTER_SIZE *
+                       (unsigned long long)((nc - first + copies - 1) / copies);
+    s.template test<false>(img, nc, first, copies);
   }
   cp_async_wait<0>();
+  if (copies > 1) merge_copies(pk, s, group, copies);  // the last batch's
   __syncthreads();  // the ring is free for the next walk
 }

@@ -41,18 +41,23 @@
 //     (walk_any_hit, K2's walk).
 //   - On lists of more than CRT_VOTE_LIST clusters repeated rays are
 //     walked once (pack_rays, K2's packing).  A lane whose ray (o, d and
-//     r2, bit for bit) is its warp's first unseeded lane's takes that
-//     lane's answer, and the other unseeded rays are packed to the front
-//     of the block, so the warps past them have nothing to test; a seeded
-//     lane (K6) takes no place, and a unit whose lanes are all seeded
-//     walks nothing.  On shorter lists each lane walks its own ray, a
-//     seeded one blocked from the start.
+//     r2, bit for bit) is an earlier unseeded lane's of its warp takes the
+//     first such lane's answer, and the other unseeded rays are packed to
+//     the front of the block, so the warps past them have nothing to
+//     test; a seeded lane (K6) takes no place, and a unit whose lanes are
+//     all seeded walks nothing.  On shorter lists each lane walks its own
+//     ray, a seeded one blocked from the start.
 //   - The output is an OR, so a blocked lane tests no more: a warp whose
 //     lanes are all blocked skips the batch (warp vote), and the block
-//     leaves the walk when every lane is blocked at a batch barrier
-//     (__syncthreads_and).  On lists of at most CRT_VOTE_LIST clusters a
-//     warp also skips a member's divide when no lane passes the plane and
-//     face gates, and its edges when no lane passes t >= 0 and t * t <= r2.
+//     leaves the walk when every lane is blocked at a batch barrier.  On
+//     lists longer than CRT_VOTE_LIST that barrier counts the unblocked
+//     lanes, moves them to the front of the block when they would fill
+//     fewer warps than hold them and keeps them in copies that share each
+//     batch's clusters (repack_rays, K2's repack: a moved ray takes along
+//     its flag and the place whose answer it owns).  On lists of at most
+//     CRT_VOTE_LIST clusters a warp also skips a member's divide when no
+//     lane passes the plane and face gates, and its edges when no lane
+//     passes t >= 0 and t * t <= r2.
 //     The TPU runs K5 without these exits and K6 with them; here both have
 //     them, since a lane that is not blocked keeps testing every member and
 //     so no lane's answer changes.  Every operation done is the member
@@ -75,6 +80,7 @@ struct OcclDArgs {
   const int* counts;
   int num_clusters, tile_rays, tile_mod;
   unsigned char* occ;
+  unsigned long long* stats;  // WalkCount's totals, or null
 };
 
 // The 256 bytes of a unit with an empty list, four a thread: zeros, or the
@@ -89,16 +95,17 @@ __device__ __forceinline__ void write_unit_seed(const OcclDArgs& a,
   }
 }
 
-// The `count` staged clusters of `img` against one lane's ray, in list
-// order, into `blocked`: the member test's operations in its order; a
-// stage is skipped only where no lane of the warp (VOTE) still passes the
-// gates before it.
+// Clusters first, first + step, ... of the `count` staged at `img` against
+// one lane's ray, in list order, into `blocked`: the member test's
+// operations in its order; a stage is skipped only where no lane of the
+// warp (VOTE) still passes the gates before it.
 template <bool VOTE>
 __device__ __forceinline__ void test_batch(const float* img, int count,
-                                           float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           float reach2, bool& blocked) {
-  for (int k = 0; k < count; ++k) {
+                                           int first, int step, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float reach2,
+                                           bool& blocked) {
+  for (int k = first; k < count; k += step) {
     const float* rec = img + k * CRT_CLUSTER_FLOATS;
 #pragma unroll
     for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
@@ -125,14 +132,22 @@ __device__ __forceinline__ void test_batch(const float* img, int count,
   }
 }
 
-// One lane's packed ray and flag, walked by walk_any_hit.
+// One lane's packed ray (o, d, r2) and flag, walked by walk_any_hit.
 struct DRay {
-  float ox, oy, oz, dx, dy, dz, reach2;
+  static constexpr int kDone = 1;
+  float r[CRT_RAY_D];
   bool blocked;
+  int place;  // the place whose answer it holds (pack_rays)
   __device__ __forceinline__ bool done() const { return blocked; }
+  __device__ __forceinline__ unsigned char flags() const {
+    return (unsigned char)blocked;
+  }
+  __device__ __forceinline__ void set_flags(int f) { blocked = (f & 1) != 0; }
   template <bool VOTE>
-  __device__ __forceinline__ void test(const float* img, int count) {
-    test_batch<VOTE>(img, count, ox, oy, oz, dx, dy, dz, reach2, blocked);
+  __device__ __forceinline__ void test(const float* img, int count,
+                                       int first, int step) {
+    test_batch<VOTE>(img, count, first, step, r[0], r[1], r[2], r[3], r[4],
+                     r[5], r[6], blocked);
   }
 };
 
@@ -140,7 +155,7 @@ __device__ __forceinline__ void walk_unit(ClusterRing& ring,
                                           RayPack<CRT_RAY_D>& pk,
                                           const ClusterPlan& pl,
                                           const OcclDArgs& a, long long u,
-                                          int count) {
+                                          int count, WalkCount* wc) {
   const int per_tile = a.tile_rays / CRT_BLOCK;
   const int tile = (int)(u / per_tile);
   const int lane = (int)(u % per_tile) * CRT_BLOCK + threadIdx.x;
@@ -158,16 +173,20 @@ __device__ __forceinline__ void walk_unit(ClusterRing& ring,
   // more than it saves: PERF.md, section 6).
   const bool pack = count > CRT_VOTE_LIST;  // uniform over the block
   int from = threadIdx.x, live = CRT_BLOCK;
-  if (pack) from = pack_rays(pk, ray, !seeded, live);
+  if (pack) from = pack_rays(pk, ray, !seeded, true, live);
   // nothing to learn: seeded, or no packed ray at this place
-  DRay s{ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], ray[6],
-         pack ? (int)threadIdx.x >= live : seeded};
+  DRay s{{ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], ray[6]},
+         pack ? (int)threadIdx.x >= live : seeded,
+         (int)threadIdx.x};
   // uniform; a packed unit whose lanes are all seeded walks nothing
   if (live > 0)
-    walk_any_hit(ring, pl, a.cluster_list + (long long)tile * a.num_clusters,
-                 count, s);
-  const bool blocked =
-      pack ? answer_at(pk, (unsigned char)s.blocked, from) != 0 : s.blocked;
+    walk_any_hit(ring, pk, pl,
+                 a.cluster_list + (long long)tile * a.num_clusters, count, s,
+                 wc);
+  // where rays moved (packed, or repacked in a long walk) each answer is
+  // read back from its place
+  const bool moved = pack || count > CRT_VOTE_LIST;
+  const bool blocked = moved ? answer_at(pk, s, from) != 0 : s.blocked;
   a.occ[r] = (unsigned char)(seeded || blocked);
 }
 
@@ -176,14 +195,18 @@ __global__ void __launch_bounds__(CRT_BLOCK) occlusion_d_kernel(
   __shared__ ClusterRing ring;
   __shared__ RayPack<CRT_RAY_D> pk;
   __shared__ int s_count[CRT_BLOCK];
+  __shared__ WalkCount s_walk;
+  WalkCount* wc = a.stats != nullptr ? &s_walk : nullptr;
+  if (wc != nullptr) walk_count_init(s_walk);
   const ClusterPlan pl(a.tb);
   for_each_unit(units, a.tile_rays / CRT_BLOCK, a.counts, s_count,
                 [&](long long u, int count) {
                   if (count == 0)
                     write_unit_seed(a, u);
                   else
-                    walk_unit(ring, pk, pl, a, u, count);
+                    walk_unit(ring, pk, pl, a, u, count, wc);
                 });
+  if (wc != nullptr) walk_count_flush(s_walk, a.stats);
 }
 
 }  // namespace
@@ -191,14 +214,15 @@ __global__ void __launch_bounds__(CRT_BLOCK) occlusion_d_kernel(
 // Host entry, bound with ctypes.  All pointers are device pointers on the
 // device that owns `stream`.  `o` holds tile_mod tiles when tile_mod > 0,
 // else num_tiles; `seed` [num_tiles * tile_rays] bytes or null; `seed` and
-// `occ` are 4-byte aligned.  Returns cudaGetLastError() after the launch.
+// `occ` are 4-byte aligned.  `stats` (2 words, or null, last) as for
+// crt_occlusion_w.  Returns cudaGetLastError() after the launch.
 extern "C" int crt_occlusion_d(
     const float* o, const float* d, const float* r2,
     const unsigned char* seed, const float* n, const float* nv0,
     const float* m, const float* c, const float* nobf,
     const int* cluster_list, const int* counts, int num_clusters,
     int num_tiles, int tile_rays, int tile_mod, unsigned char* occ,
-    void* stream) {
+    void* stream, unsigned long long* stats) {
   if (num_tiles <= 0) return 0;
   if (tile_rays <= 0 || tile_rays % CRT_BLOCK != 0 || tile_mod < 0)
     return (int)cudaErrorInvalidValue;
@@ -207,7 +231,7 @@ extern "C" int crt_occlusion_d(
   const OcclDArgs a{o, d, r2, seed,
                     ClusterTables{n, nv0, m, c, nobf, nullptr, nullptr},
                     cluster_list, counts, num_clusters, tile_rays, tile_mod,
-                    occ};
+                    occ, stats};
   const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
   const long long grid =
       persistent_grid((const void*)occlusion_d_kernel, units);

@@ -40,24 +40,39 @@
 //     mask in each slot's tail word, CRT_STAGES - 1 batches ahead
 //     (cluster_common.cuh walk_any_hit, which K5 / K6 walk too).
 //   - Repeated rays are walked once (pack_rays).  A lane whose ray (o and
-//     w, bit for bit) is its warp's first lane's takes that lane's answer,
-//     and the other rays are packed to the front of the block, so the
-//     warps past them have nothing to test.  A frame's lanes without a hit
-//     all carry the camera's ray, and they are walked in full, since their
-//     bits are part of the output: at 65,536 triangles they were most of
-//     the tests.
+//     w, bit for bit) is an earlier lane's of its warp (on lists of at most
+//     CRT_VOTE_LIST clusters: its warp's first lane's) takes the first such
+//     lane's answer, and the other rays are packed to the front of the
+//     block, so the warps past them have nothing to test.  A frame's lanes
+//     without a hit all carry the camera's ray, and they are walked, since
+//     their bits are part of the output: at 65,536 triangles they are most
+//     of the tests.
 //   - Every output is an OR, so a lane with nothing left to learn (blocked,
 //     and with the glass flag also flagged: a lane blocked by an early
 //     opaque cluster still has to find the glass in a later one) tests no
 //     more: a warp whose lanes are all done skips the batch (warp vote),
 //     and the block leaves the walk when every lane is done at a batch
-//     barrier (__syncthreads_and).  A member outside the member mask is
-//     skipped by every lane.  On lists of at most CRT_VOTE_LIST clusters a
-//     warp also skips a member's divide when no lane passes the plane,
-//     face and done gates, and its edges when no lane's hit could change an
-//     output; on longer lists those votes cost more than they skip.  Every
-//     operation done is the member test's (cluster_common.cuh), in its
-//     order, so no bit changes.
+//     barrier.  A member outside the member mask is skipped by every lane.
+//     On lists of at most CRT_VOTE_LIST clusters a warp also skips a
+//     member's divide when no lane passes the plane, face and done gates,
+//     and its edges when no lane's hit could change an output; on longer
+//     lists those votes cost more than they skip.
+//   - On lists longer than CRT_VOTE_LIST a lane's walk is a long chain of
+//     dependent member tests, and a unit's distinct unfinished rays often
+//     fill one or two warps (at 65,536 triangles a unit packs about 32
+//     rays, few of them ever blocked), so without copies the other warps
+//     idle and a walk takes as long as one warp's chain.  There the batch
+//     barrier counts the unfinished lanes, moves them to the front of the
+//     block when they would fill fewer warps than hold them (repack_rays),
+//     and keeps them in as many copies as the block's 8 warps hold (1, 2,
+//     4 or 8 warps a copy); copy k tests clusters k, k + copies, ... of
+//     each batch, and the copies OR their flags at every barrier.  A moved
+//     ray takes along its flags and the place whose answer it owns; a
+//     finished lane leaves its answer at its place first.  Shorter lists
+//     keep the plain barrier.
+//   Every operation done is the member test's (cluster_common.cuh), in its
+//   order, and every output an OR of the same tests in list order, so no
+//   bit changes.
 
 #include "cluster_common.cuh"
 
@@ -73,6 +88,7 @@ struct OcclArgs {
   int num_clusters, tiles_per_light, tile_rays;
   unsigned char* occ;
   unsigned char* glass_out;
+  unsigned long long* stats;  // WalkCount's totals, or null
 };
 
 // The unit's 256 zero bytes of each output, four a thread.
@@ -86,17 +102,18 @@ __device__ __forceinline__ void write_unit_zero(const OcclArgs& a,
   }
 }
 
-// The `count` staged clusters of `img` against one lane's ray (origin o,
-// unnormalized direction w), in list order, into its flags.  Every
-// operation done is the member test's; a member is skipped only where no
-// lane of the warp (VOTE) or no lane at all (outside the member mask)
-// could change an output with it.
+// Clusters first, first + step, ... of the `count` staged at `img` against
+// one lane's ray (origin o, unnormalized direction w), in list order, into
+// its flags.  Every operation done is the member test's; a member is
+// skipped only where no lane of the warp (VOTE) or no lane at all (outside
+// the member mask) could change an output with it.
 template <bool CAPPED, bool MASKED, bool GLASS, bool VOTE>
 __device__ __forceinline__ void test_batch(const float* img, int count,
-                                           float ox, float oy, float oz,
-                                           float wx, float wy, float wz,
-                                           bool& blocked, bool& glass) {
-  for (int k = 0; k < count; ++k) {
+                                           int first, int step, float ox,
+                                           float oy, float oz, float wx,
+                                           float wy, float wz, bool& blocked,
+                                           bool& glass) {
+  for (int k = first; k < count; k += step) {
     const float* rec = img + k * CRT_CLUSTER_FLOATS;
 #pragma unroll
     for (int j = 0; j < CRT_CLUSTER_SIZE; ++j) {
@@ -134,18 +151,29 @@ __device__ __forceinline__ void test_batch(const float* img, int count,
   }
 }
 
-// One lane's packed ray and flags, walked by walk_any_hit.
+// One lane's packed ray (o and w) and flags, walked by walk_any_hit.
 template <bool CAPPED, bool MASKED, bool GLASS>
 struct WRay {
-  float ox, oy, oz, wx, wy, wz;
+  static constexpr int kDone = GLASS ? 3 : 1;
+  float r[6];
   bool blocked, glass;
+  int place;  // the place whose answer it holds (pack_rays)
   __device__ __forceinline__ bool done() const {
     return GLASS ? (blocked && glass) : blocked;
   }
+  __device__ __forceinline__ unsigned char flags() const {
+    return (unsigned char)(blocked | (glass << 1));
+  }
+  __device__ __forceinline__ void set_flags(int f) {
+    blocked = (f & 1) != 0;
+    glass = (f & 2) != 0;
+  }
   template <bool VOTE>
-  __device__ __forceinline__ void test(const float* img, int count) {
-    test_batch<CAPPED, MASKED, GLASS, VOTE>(img, count, ox, oy, oz, wx, wy,
-                                            wz, blocked, glass);
+  __device__ __forceinline__ void test(const float* img, int count,
+                                       int first, int step) {
+    test_batch<CAPPED, MASKED, GLASS, VOTE>(img, count, first, step, r[0],
+                                            r[1], r[2], r[3], r[4], r[5],
+                                            blocked, glass);
   }
 };
 
@@ -154,7 +182,8 @@ __device__ __forceinline__ void walk_unit(ClusterRing& ring,
                                           RayPack<6>& pk,
                                           const ClusterPlan& pl,
                                           const OcclArgs& a, long long u,
-                                          int tile, int count) {
+                                          int tile, int count,
+                                          WalkCount* wc) {
   const int per_tile = a.tile_rays / CRT_BLOCK;
   const int lane = (int)(u % per_tile) * CRT_BLOCK + threadIdx.x;
   const long long out = u * CRT_BLOCK + threadIdx.x;
@@ -166,14 +195,15 @@ __device__ __forceinline__ void walk_unit(ClusterRing& ring,
                   a.lights[3 * light + 1] - a.p[3 * src + 1],
                   a.lights[3 * light + 2] - a.p[3 * src + 2]};
   int live;
-  const int from = pack_rays(pk, ray, true, live);
+  const int from = pack_rays(pk, ray, true, count > CRT_VOTE_LIST, live);
   const bool no_ray = (int)threadIdx.x >= live;  // nothing to learn
-  WRay<CAPPED, MASKED, GLASS> s{ray[0], ray[1], ray[2], ray[3],
-                                ray[4], ray[5], no_ray, no_ray};
-  walk_any_hit(ring, pl, a.cluster_list + (long long)tile * a.num_clusters,
-               count, s);
-  const unsigned char res =
-      answer_at(pk, (unsigned char)(s.blocked | (s.glass << 1)), from);
+  WRay<CAPPED, MASKED, GLASS> s{{ray[0], ray[1], ray[2], ray[3], ray[4],
+                                 ray[5]},
+                                no_ray, no_ray, (int)threadIdx.x};
+  walk_any_hit(ring, pk, pl,
+               a.cluster_list + (long long)tile * a.num_clusters, count, s,
+               wc);
+  const unsigned char res = answer_at(pk, s, from);
   a.occ[out] = res & 1;
   if (GLASS) a.glass_out[out] = (res >> 1) & 1;
 }
@@ -184,6 +214,9 @@ __global__ void __launch_bounds__(CRT_BLOCK) occlusion_w_kernel(
   __shared__ ClusterRing ring;
   __shared__ RayPack<6> pk;
   __shared__ int s_count[CRT_BLOCK];
+  __shared__ WalkCount s_walk;
+  WalkCount* wc = a.stats != nullptr ? &s_walk : nullptr;
+  if (wc != nullptr) walk_count_init(s_walk);
   const ClusterPlan pl(a.tb);
   const int per_tile = a.tile_rays / CRT_BLOCK;
   for_each_unit(units, per_tile, a.counts, s_count,
@@ -192,8 +225,9 @@ __global__ void __launch_bounds__(CRT_BLOCK) occlusion_w_kernel(
                     write_unit_zero<GLASS>(a, u);
                   else
                     walk_unit<CAPPED, MASKED, GLASS>(
-                        ring, pk, pl, a, u, (int)(u / per_tile), count);
+                        ring, pk, pl, a, u, (int)(u / per_tile), count, wc);
                 });
+  if (wc != nullptr) walk_count_flush(s_walk, a.stats);
 }
 
 template <bool CAPPED, bool MASKED, bool GLASS>
@@ -211,15 +245,17 @@ int launch(const OcclArgs& a, long long units, cudaStream_t st) {
 // Host entry, bound with ctypes.  All pointers are device pointers on the
 // device that owns `stream`.  `gm` [L,16] is needed when `member_masked` or
 // `glass_flag` is set, `glass_out` when `glass_flag` is; `occ` and
-// `glass_out` are 4-byte aligned.  Returns cudaGetLastError() after the
-// launch.
+// `glass_out` are 4-byte aligned.  `stats` (2 words, or null) gets the
+// walks' repacks and member tests added (WalkCount); it comes last, so
+// the other arguments keep their places in a library built without it.
+// Returns cudaGetLastError() after the launch.
 extern "C" int crt_occlusion_w(
     const float* o, const float* p, const float* lights, const float* n,
     const float* nv0, const float* m, const float* c, const float* nobf,
     const float* gm, const int* cluster_list, const int* counts,
     int num_clusters, int num_tiles, int tiles_per_light, int tile_rays,
     int capped, int member_masked, int glass_flag, unsigned char* occ,
-    unsigned char* glass_out, void* stream) {
+    unsigned char* glass_out, void* stream, unsigned long long* stats) {
   if (num_tiles <= 0) return 0;
   if (tile_rays % CRT_BLOCK != 0 || tiles_per_light <= 0)
     return (int)cudaErrorInvalidValue;
@@ -234,7 +270,7 @@ extern "C" int crt_occlusion_w(
                    ClusterTables{n, nv0, m, c, nobf, nullptr,
                                  mask ? gm : nullptr},
                    cluster_list, counts, num_clusters, tiles_per_light,
-                   tile_rays, occ, glass_out};
+                   tile_rays, occ, glass_out, stats};
   const long long units = (long long)num_tiles * (tile_rays / CRT_BLOCK);
   cudaStream_t st = (cudaStream_t)stream;
   if (glass_flag)

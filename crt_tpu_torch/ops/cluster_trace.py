@@ -597,6 +597,25 @@ def closest_hit_merged(tables: ClusterTables, origins, dirs, cluster_list,
     return best_t, best_tri, rows
 
 
+def walk_stats(device):
+    """The two-word buffer that K2, K5 and K6 add their walks' repacks and
+    member tests to, while tracing is on; None (no count, no work)
+    otherwise.  ``count_walk`` counts it."""
+    if not tracing.enabled():
+        return None
+    return torch.zeros((2,), dtype=torch.int64, device=device)
+
+
+def count_walk(stats) -> None:
+    """Count a launch's ``walk_stats`` buffer on the device:
+    ``crt.shadow.repacks`` (the long walks' repacks) and
+    ``crt.shadow.lane_tests`` (member tests issued by the lanes of the warps
+    that tested: 32 x 16 x the clusters of each batch a warp tests)."""
+    if stats is not None:
+        tracing.count("crt.shadow.repacks", stats[0])
+        tracing.count("crt.shadow.lane_tests", stats[1])
+
+
 def occlusion_mode(capped: bool, glass_flag: bool) -> str:
     """The suffix of ``crt.launches.occlusion_w`` a launch counts under."""
     if glass_flag:
@@ -655,6 +674,7 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
     glass = (torch.empty((Ll * R,), dtype=torch.bool, device=dev)
              if glass_flag else None)
     if Ll * tpl:
+        stats = walk_stats(dev)
         with torch.cuda.device(dev):
             err = lib.crt_occlusion_w(
                 shadow_o.data_ptr(), point.data_ptr(),
@@ -669,8 +689,10 @@ def occlusion_w(tables: ClusterTables, shadow_o, point, light_positions,
                 occ.data_ptr(),
                 glass.data_ptr() if glass_flag else None,
                 _cuda_stream(dev),
+                stats.data_ptr() if stats is not None else None,
             )
         _raise_on(err, "occlusion_w")
+        count_walk(stats)
         tracing.count("crt.launches.occlusion_w."
                     + occlusion_mode(capped, glass_flag))
     return (occ, glass) if glass_flag else occ
@@ -735,6 +757,7 @@ def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
     lib, _ = cuda_lib.load()
     occ = torch.empty((R,), dtype=torch.bool, device=dev)
     if tiles:
+        stats = walk_stats(dev)
         with torch.cuda.device(dev):
             err = lib.crt_occlusion_d(
                 origins.data_ptr(), dirs.data_ptr(), r2.data_ptr(),
@@ -744,8 +767,10 @@ def occlusion_d(tables: ClusterTables, origins, dirs, r2, cluster_list,
                 tables.nobf.data_ptr(), cluster_list.data_ptr(),
                 counts.data_ptr(), L, tiles, tile_rays, tile_mod,
                 occ.data_ptr(), _cuda_stream(dev),
+                stats.data_ptr() if stats is not None else None,
             )
         _raise_on(err, "occlusion_d")
+        count_walk(stats)
         tracing.count("crt.launches.occlusion_d."
                     + ("exit" if exit else "compact"))
     return occ

@@ -114,9 +114,10 @@ def bind(path: str) -> ctypes.CDLL:
     lib.crt_closest_hit_compact.restype = i
     lib.crt_live_tiles.argtypes = [p, i, p, p]
     lib.crt_live_tiles.restype = i
-    lib.crt_occlusion_w.argtypes = [p] * 11 + [i] * 7 + [p] * 3
+    # the shadow kernels' walk stats come last, after the stream
+    lib.crt_occlusion_w.argtypes = [p] * 11 + [i] * 7 + [p] * 4
     lib.crt_occlusion_w.restype = i
-    lib.crt_occlusion_d.argtypes = [p] * 11 + [i] * 4 + [p] * 2
+    lib.crt_occlusion_d.argtypes = [p] * 11 + [i] * 4 + [p] * 3
     lib.crt_occlusion_d.restype = i
     lib.crt_closest_hit_merged.argtypes = [p] * 11 + [i] * 5 + [p] * 4
     lib.crt_closest_hit_merged.restype = i

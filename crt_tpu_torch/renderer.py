@@ -51,12 +51,12 @@ _STREAM_BACKENDS = ("stream", "pallas_stream")
 # medians of 6 frames, the two backends in turn) on an NVIDIA H100 80GB
 # HBM3 (700 W), with each backend's Phase A one kernel, cluster against
 # streaming: at 1,024 clusters (16,384 triangles) 10.993 against 12.302 ms;
-# at 4,096 clusters (65,536 triangles) 26.808 against 22.488 ms, and 25.271
-# against 19.382 in a second run; at 16,384 clusters 112.563 against
-# 51.049 ms.  So the two now tie between 1,024 and 4,096 clusters, below
-# this threshold, which was set where they tied before either Phase A was
-# a kernel.  The benchmark's ``tri65k.frames`` cell renders 4,096 clusters
-# through ``auto``: a move of the threshold shows there.
+# at 4,096 clusters (65,536 triangles) 17.783 against 20.059 ms; at 16,384
+# clusters 112.563 against 51.049 ms.  So the two tie between 4,096 and
+# 16,384 clusters, above this threshold, which was set where they tied
+# before either Phase A was a kernel.  The benchmark's
+# ``tri65k.frames`` cell renders 4,096 clusters through ``auto``: a move of
+# the threshold shows there.
 AUTO_STREAM_MIN_CLUSTERS = 4096
 
 # Pool lanes (the widest level's banks x pixels) the iterative wavefront

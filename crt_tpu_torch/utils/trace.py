@@ -60,6 +60,12 @@ them.  The port's counters:
     K2 in any mode, ``bin_rays``' apex mode for K5; the same pairs are in
     ``crt.binning.pairs.cluster``), and the active shadow lanes they were
     binned for;
+  - ``crt.shadow.lane_tests`` / ``crt.shadow.repacks``: counted by the
+    any-hit kernels themselves (K2, K5, K6; ``cluster_trace.walk_stats``,
+    only while tracing is on): member tests issued by the lanes of the
+    warps that tested (32 x 16 x the clusters of each batch a warp tests,
+    finished lanes included), and the repacks of the long walks' unfinished
+    lanes to the front of the block;
   - ``crt.shade.refracted_lanes`` / ``crt.shade.tir_lanes``: refractive
     hits of either wavefront that refract, and those that totally
     reflect;

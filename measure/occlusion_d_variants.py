@@ -8,8 +8,9 @@ substitution, built into the gitignored ``build/measure/occlusion_d/``:
 
   - ``vote never``, ``vote <= 8``, ``vote <= 128``, ``vote always``: the
     warp votes that skip a member's divide and edges on lists of at most
-    that many clusters (this checkout: CRT_VOTE_LIST, 32; the votes of
-    K2's walk change too, but only K5 / K6 are timed here);
+    that many clusters, and the copies of the longer walks on the others
+    (this checkout: CRT_VOTE_LIST, 32; K2's walk changes too, but only K5
+    / K6 are timed here);
   - ``pack always``, ``pack never``: repeated rays packed on every list,
     or on none (this checkout: on lists longer than CRT_VOTE_LIST);
   - ``nobf under the gate``: each member's tail word (its nobf) read
@@ -48,13 +49,13 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 VOTE = ("cluster_common.cuh",
-        "if (count <= CRT_VOTE_LIST)  // uniform over the block")
+        "if (count <= CRT_VOTE_LIST) {  // uniform over the block")
 PACK = ("occlusion_d.cu", "const bool pack = count > CRT_VOTE_LIST;")
 VARIANTS = {
-    "vote never": [(*VOTE, "if (count <= 0)")],
-    "vote <= 8": [(*VOTE, "if (count <= 8)")],
-    "vote <= 128": [(*VOTE, "if (count <= 128)")],
-    "vote always": [(*VOTE, "if (true)")],
+    "vote never": [(*VOTE, "if (count <= 0) {")],
+    "vote <= 8": [(*VOTE, "if (count <= 8) {")],
+    "vote <= 128": [(*VOTE, "if (count <= 128) {")],
+    "vote always": [(*VOTE, "if (true) {")],
     "pack always": [(*PACK, "const bool pack = true;")],
     "pack never": [(*PACK, "const bool pack = false;")],
     "nobf under the gate": [

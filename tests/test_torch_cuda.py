@@ -176,8 +176,9 @@ def test_occlusion_w_modes_match_plain(device, mode, sparse):
     name = cluster_trace.occlusion_mode(kw.get("capped", True),
                                         kw.get("glass_flag", False))
     before = modes("occlusion_w", ("capped", "uncapped", "glass"))
-    k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt,
-                                  **kw)
+    with tracing.recording() as c:
+        k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl,
+                                      cnt, **kw)
     after = modes("occlusion_w", ("capped", "uncapped", "glass"))
     assert after[name] == before[name] + 1
     assert sum(after.values()) == sum(before.values()) + 1
@@ -195,6 +196,9 @@ def test_occlusion_w_modes_match_plain(device, mode, sparse):
         assert (cnt == 0).sum() >= cnt.numel() // 2
         dead = (cnt == 0).repeat_interleave(1024)
         assert not k[dead].any()
+    # lists of at most CRT_VOTE_LIST clusters keep the plain barrier
+    assert int(cnt.max()) <= 32 and c["crt.shadow.repacks"] == 0
+    assert c["crt.shadow.lane_tests"] > 0
 
 
 def test_glass_flag_found_behind_an_opaque_blocker(device):
@@ -348,24 +352,30 @@ def test_cluster_kernels_on_lists_longer_than_a_batch(device, long_lists,
                                                       kernel):
     """K1 (and K4 / K7, which take its walk), K2, K5 and K6 on lists of
     tens to hundreds of clusters, staged in many batches: bit-equal to the
-    plain version on every lane."""
+    plain version on every lane; the any-hit walks repack their unfinished
+    lanes there."""
     L = long_lists
     tables, o, d = L["tables"], L["o"], L["d"]
     if kernel.startswith("occlusion_d"):
         w = _kd_wave(tables, *L["shadow"], L["act"])
-        k, cnt = _kd_equal(tables, w, kernel == "occlusion_d_exit")
+        with tracing.recording() as c:
+            k, cnt = _kd_equal(tables, w, kernel == "occlusion_d_exit")
         assert int(cnt.max()) > 8 * 8
         act = w["a_f"]
         assert k[act].any() and not k[act].all()
+        assert c["crt.shadow.repacks"] > 0
         return
     if kernel == "occlusion_w":
         assert int(L["scnt"].max()) > 8 * 8
-        k = cluster_trace.occlusion_w(tables, *L["shadow"], L["scl"],
-                                      L["scnt"])
+        with tracing.recording() as c:
+            k = cluster_trace.occlusion_w(tables, *L["shadow"], L["scl"],
+                                          L["scnt"])
         p = cluster_trace.occlusion_w_plain(tables, *L["shadow"], L["scl"],
                                             L["scnt"])
         torch.cuda.synchronize()
         assert torch.equal(k, p) and k.any() and not k.all()
+        assert c["crt.shadow.repacks"] > 0
+        assert c["crt.shadow.lane_tests"] > 0
         return
     cl, cnt, rows_table = L["cl"], L["cnt"], L["rows_table"]
     assert int(cnt.min()) > 8 and int(cnt.max()) > 8 * 8
@@ -488,32 +498,43 @@ def test_closest_hit_rows_of_any_width(device, kp):
         assert k[2] is None and p[2] is None
 
 
+@pytest.mark.parametrize("long", [False, True])
 @pytest.mark.parametrize("mode", ["capped", "uncapped_masked", "glass"])
-def test_occlusion_w_with_repeated_rays(device, mode):
+def test_occlusion_w_with_repeated_rays(device, long_lists, mode, long):
     """Lanes that share their warp's first lane's ray, bit for bit, take
     its answer: every other warp of the wavefront repeats that lane's ray
     (as a frame's lanes without a hit repeat the camera's), the rest are
-    distinct; bit-equal to the plain version in each mode."""
-    scene = make_test_scene(192, 128, num_quads=24, with_refractive=True,
-                            device=device)
-    tables = cluster_tables.build_cluster_tables(scene)
-    gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
-    shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
+    distinct; bit-equal to the plain version in each mode, on short lists
+    and on long_lists' (a subset of every third member for the masked
+    modes), where the walk may also repack (never on the short ones)."""
+    if long:
+        tables = long_lists["tables"]
+        shadow_o, point, lights = long_lists["shadow"]
+        gm = (tables.tri_id % 3 == 0).to(torch.float32).contiguous()
+    else:
+        scene = make_test_scene(192, 128, num_quads=24,
+                                with_refractive=True, device=device)
+        tables = cluster_tables.build_cluster_tables(scene)
+        gm, gmin, gmax = cluster_tables.glass_subset(scene, tables)
+        shadow_o, point, lights, act = _shadow_wavefront(scene, tables)
     lane = torch.arange(shadow_o.shape[0], device=device)
     lead = lane - lane % 32
     rep = (lane // 32) % 2 == 1
     src = torch.where(rep, lead, lane)
     shadow_o, point = shadow_o[src].contiguous(), point[src].contiguous()
-    kw, bin_kw = dict(
-        capped=({}, {}),
-        uncapped_masked=(dict(capped=False, member_mask=gm),
-                         dict(boxes=(gmin, gmax), capped=False)),
-        glass=(dict(member_mask=gm, glass_flag=True),
-               dict(glass_boxes=(gmin, gmax))))[mode]
-    cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
-                                      0.02, **bin_kw)
-    k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl, cnt,
-                                  **kw)
+    kw = dict(capped={}, uncapped_masked=dict(capped=False, member_mask=gm),
+              glass=dict(member_mask=gm, glass_flag=True))[mode]
+    if long:
+        cl, cnt = long_lists["scl"], long_lists["scnt"]
+    else:
+        bin_kw = dict(capped={},
+                      uncapped_masked=dict(boxes=(gmin, gmax), capped=False),
+                      glass=dict(glass_boxes=(gmin, gmax)))[mode]
+        cl, cnt = binning.bin_apex_shared(tables, shadow_o, lights, act, 1024,
+                                          0.02, **bin_kw)
+    with tracing.recording() as c:
+        k = cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl,
+                                      cnt, **kw)
     p = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights, cl,
                                         cnt, **kw)
     torch.cuda.synchronize()
@@ -522,6 +543,9 @@ def test_occlusion_w_with_repeated_rays(device, mode):
     for got, want in zip(k, p):
         assert torch.equal(got, want)
     assert k[0].any() and not k[0].all()
+    assert (int(cnt.max()) > 32) == long  # CRT_VOTE_LIST
+    if not long:
+        assert c["crt.shadow.repacks"] == 0
 
 
 @pytest.mark.parametrize("long", [False, True])
@@ -550,6 +574,209 @@ def test_occlusion_d_with_repeated_rays(device, long_lists, exit, long):
     k, cnt = _kd_equal(tables, w, exit)
     assert k[w["a_f"]].any() and not k[w["a_f"]].all()
     assert (int(cnt.max()) > 32) == long  # CRT_VOTE_LIST
+
+
+# The walk scene: a grid of WALK_GRID x WALK_GRID opaque triangles at y =
+# 1, one a unit cell, a light at (0, WALK_LIGHT_Y, 0), and above the light
+# a patch of quads (x in [0, 8]) that only an uncapped ray reaches; its
+# clusters come last on every list, after the grid's 64.
+WALK_GRID = 32
+WALK_LIGHT_Y = 8.0
+WALK_BIAS = 0.01
+NEVER = -1
+
+
+@pytest.fixture(scope="module")
+def walk_scene(device):
+    """The walk scene's tables, its lights, the list order (the grid's
+    clusters, then the patch's) and the patch as a member subset."""
+    tris, verts = [], []
+
+    def tri(*corners):
+        tris.extend(range(len(verts) // 3, len(verts) // 3 + 3))
+        for c in corners:
+            verts.extend(c)
+
+    for i in range(WALK_GRID):
+        for j in range(WALK_GRID):
+            x, z = i - WALK_GRID / 2 + 0.5, j - WALK_GRID / 2 + 0.5
+            tri([x - 0.4, 1.0, z - 0.4], [x + 0.4, 1.0, z - 0.4],
+                [x, 1.0, z + 0.4])
+    grid = len(tris) // 3
+    for i in range(8):
+        for j in range(-8, 8):
+            tri([i, 10.0, j], [i + 1, 10.0, j], [i, 10.0, j + 1])
+            tri([i + 1, 10.0, j], [i + 1, 10.0, j + 1], [i, 10.0, j + 1])
+    scene = scene_from_dict({
+        "settings": {"background_color": [0, 0, 0],
+                     "image_settings": {"width": 32, "height": 32}},
+        "camera": {"matrix": [1, 0, 0, 0, 1, 0, 0, 0, 1],
+                   "position": [0, 0, 30]},
+        "lights": [{"intensity": 10, "position": [0, WALK_LIGHT_Y, 0]}],
+        "materials": [{"type": "diffuse", "albedo": [1, 1, 1],
+                       "smooth_shading": False}],
+        "objects": [{"material_index": 0, "triangles": tris,
+                     "vertices": verts}]}, device=device)
+    tables = cluster_tables.build_cluster_tables(scene)
+    ids = tables.tri_id
+    patch = ids >= grid
+    assert not (patch.any(dim=1)[:, None] & (ids >= 0) & ~patch).any()
+    order = torch.argsort(patch.any(dim=1).to(torch.int8), stable=True)
+    assert int((~patch.any(dim=1)).sum()) == 64
+    return dict(tables=tables, lights=scene.light_position.contiguous(),
+                order=order.to(torch.int32), subset=patch.float().contiguous())
+
+
+def walk_rays(w, case, R=4096):
+    """(shadow_o, point, batch) of ``case`` on the walk scene: lane i's ray
+    to the light crosses the grid at the centre of a triangle of a cluster
+    in staging batch batch[i] of the list (8 clusters a batch), or
+    (NEVER) beside the grid.  staggered: batches 0-7 and NEVER mixed within
+    every warp; one_lit_a_warp: one NEVER lane a warp, the rest batch 0;
+    all_but_one: one NEVER lane a tile; repeated: staggered, with a third
+    of the warps repeating their first lane's ray and a third their
+    second lane's (as a frame's lanes without a hit repeat the camera's
+    after a hit), the rest distinct."""
+    dev = w["order"].device
+    lane = torch.arange(R, device=dev)
+    warp = lane // 32
+    if case == "one_lit_a_warp":
+        batch = torch.where(lane % 32 == warp % 32, NEVER, 0)
+    elif case == "all_but_one":
+        batch = torch.where(lane % 1024 == 777, NEVER, 0)
+    else:
+        batch = (lane % 32 + warp) % 9
+        batch = torch.where(batch == 8, NEVER, batch)
+    cl = w["order"][(8 * batch.clamp(min=0) + lane % 8).long()].long()
+    t = w["tables"].tri_id[cl, (lane // 8) % 16].long()
+    x = (t // WALK_GRID).float() - WALK_GRID / 2 + 0.5
+    z = (t % WALK_GRID).float() - WALK_GRID / 2 + 0.5
+    never = batch == NEVER
+    x = torch.where(never, WALK_GRID / 2 + 3.0 + 0.01 * (lane % 7), x)
+    z = torch.where(never, (lane % 16).float() - 8.0, z)
+    # o = p + bias up crosses y = 1 at x / (1 - s) * (1 - s) = x
+    s = (1.0 - WALK_BIAS) / WALK_LIGHT_Y
+    point = torch.stack([x / (1 - s), torch.zeros_like(x), z / (1 - s)], 1)
+    if case == "repeated":
+        lead = lane - lane % 32 + (warp % 3 == 2).to(lane.dtype)
+        src = torch.where((warp % 3 != 0) & (lane > lead), lead, lane)
+        point, batch = point[src], batch[src]
+    up = torch.tensor([0.0, WALK_BIAS, 0.0], device=dev)
+    return (point + up).contiguous(), point.contiguous(), batch
+
+
+WALK_KERNELS = ["capped", "uncapped", "uncapped_masked", "glass", "k5",
+                "k6_seeded", "k6_unseeded"]
+
+
+def walk_launch(w, kernel, shadow_o, point, cl, cnt):
+    """The launch of ``kernel`` on the walk scene's rays and lists, and its
+    plain version: (run(counts) -> outputs, plain outputs, the lanes'
+    rays and open lanes as pack_rays sees them, pack_above)."""
+    tables, lights = w["tables"], w["lights"]
+    R = point.shape[0]
+    if kernel.startswith("k"):
+        lv = lights[0] - point
+        r2 = (lv * lv).sum(dim=1).contiguous()
+        d = (lv / torch.sqrt(r2)[:, None]).contiguous()
+        act = None
+        if kernel == "k5":
+            kw, pkw = dict(tile_mod=R // 1024), dict(tile_mod=R // 1024)
+        else:
+            act = (torch.ones(R, dtype=torch.bool, device=point.device)
+                   if kernel == "k6_unseeded"
+                   else torch.arange(R, device=point.device) % 3 != 0)
+            kw, pkw = dict(exit=True, active=act), dict(seed=~act)
+
+        def run(counts):
+            return cluster_trace.occlusion_d(tables, shadow_o, d, r2, cl,
+                                             counts, 1024, **kw)
+
+        plain = cluster_trace.occlusion_d_plain(tables, shadow_o, d, r2, cl,
+                                                cnt, 1024, **pkw)
+        return (run, (plain,), torch.cat([shadow_o, d, r2[:, None]], dim=1),
+                act, 32)
+    kw = dict(capped={}, uncapped=dict(capped=False),
+              uncapped_masked=dict(capped=False, member_mask=w["subset"]),
+              glass=dict(member_mask=w["subset"], glass_flag=True))[kernel]
+
+    def run(counts):
+        return cluster_trace.occlusion_w(tables, shadow_o, point, lights, cl,
+                                         counts, **kw)
+
+    plain = cluster_trace.occlusion_w_plain(tables, shadow_o, point, lights,
+                                            cl, cnt, **kw)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    return run, plain, torch.cat([shadow_o, lights[0] - point], dim=1), None, -1
+
+
+@pytest.mark.parametrize("kernel", WALK_KERNELS)
+@pytest.mark.parametrize("case", ["staggered", "one_lit_a_warp",
+                                  "all_but_one", "repeated"])
+def test_any_hit_walk_repacks_keep_every_answer(device, walk_scene, case,
+                                                kernel):
+    """K2 in each mode, K5, and K6 seeded and unseeded, on 80-cluster
+    lists where each lane is blocked in a batch of its own (walk_rays):
+    bit-equal to the plain version on every lane, blocked where the ray
+    crosses the grid (the capped launches), and counting the lane tests
+    and repacks that chip_smoke.walk_model reads from the lanes' done
+    batches; on the same lists cut to 32 clusters, also bit-equal, with no
+    repack.  The glass flag's lanes are blocked in batches 0-7 and find
+    the patch in batches 8-9, or never: moved while blocked, unflagged."""
+    import chip_smoke
+
+    w = walk_scene
+    shadow_o, point, batch = walk_rays(w, case)
+    tiles = point.shape[0] // 1024
+    cl = w["order"].repeat(tiles, 1).contiguous()
+    for cut in (cl.shape[1], 32):
+        cnt = torch.full((tiles,), cut, dtype=torch.int32, device=device)
+        run, plain, ray, act, pack_above = walk_launch(w, kernel, shadow_o,
+                                                       point, cl, cnt)
+        with tracing.recording() as c:
+            out = run(cnt)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        for got, want in zip(out, plain):
+            assert torch.equal(got, want)
+        tests, repacks = (c["crt.shadow.lane_tests"],
+                          c["crt.shadow.repacks"])
+        if cut == 32:
+            assert repacks == 0 and tests > 0
+            continue
+        if kernel in ("capped", "k5", "k6_unseeded"):
+            assert torch.equal(out[0], batch != NEVER)
+
+        def done(counts):
+            got = run(counts)
+            return got[0] & got[1] if isinstance(got, tuple) else got
+
+        first = chip_smoke.done_batches(done, cnt)
+        own = chip_smoke.packed_lanes(ray, cnt, act)
+        assert (tests, repacks) == chip_smoke.walk_model(first, cnt, own,
+                                                         pack_above)
+        if case in ("staggered", "repeated"):
+            assert repacks > 0
+
+
+def test_any_hit_walk_without_stats(device, walk_scene, monkeypatch):
+    """An untraced launch (no stats buffer) gives the same bits as a
+    counted one, and counts nothing."""
+    w = walk_scene
+    shadow_o, point, _ = walk_rays(w, "staggered")
+    cl = w["order"].repeat(4, 1).contiguous()
+    cnt = torch.full((4,), cl.shape[1], dtype=torch.int32, device=device)
+    counted = [walk_launch(w, k, shadow_o, point, cl, cnt)[0](cnt)
+               for k in ("glass", "k6_seeded")]
+    monkeypatch.setattr(cluster_trace, "walk_stats", lambda dev: None)
+    with tracing.recording() as c:
+        bare = [walk_launch(w, k, shadow_o, point, cl, cnt)[0](cnt)
+                for k in ("glass", "k6_seeded")]
+    torch.cuda.synchronize()
+    assert torch.equal(bare[0][0], counted[0][0])
+    assert torch.equal(bare[0][1], counted[0][1])
+    assert torch.equal(bare[1], counted[1])
+    assert c["crt.shadow.lane_tests"] == 0 and c["crt.shadow.repacks"] == 0
 
 
 @pytest.mark.parametrize("exit", [False, True])

@@ -521,3 +521,56 @@ def test_wrappers_check_inputs():
     assert torch.isinf(t).all() and (tri == -1).all() and (rows == 0).all()
     t, tri, rows = ttr.closest_hit(tables, o, d, cl, cnt, rows_table)
     assert torch.isinf(t).all() and (tri == -1).all() and (rows == 0).all()
+
+
+def test_walk_stats_only_while_tracing():
+    """The any-hit wrappers hand their kernel a stats buffer only while
+    tracing is on: untraced launches pass none (and count nothing);
+    traced ones a zeroed int64 pair that ``count_walk`` counts as
+    ``crt.shadow.repacks`` and ``crt.shadow.lane_tests``."""
+    from crt_tpu_torch.utils import trace as tracing
+
+    assert not tracing.enabled()
+    assert ttr.walk_stats(torch.device("cpu")) is None
+    ttr.count_walk(None)
+    with tracing.recording() as c:
+        stats = ttr.walk_stats(torch.device("cpu"))
+        assert stats.dtype == torch.int64 and stats.tolist() == [0, 0]
+        ttr.count_walk(None)
+        ttr.count_walk(torch.tensor([3, 4096], dtype=torch.int64))
+    assert c["crt.shadow.repacks"] == 3
+    assert c["crt.shadow.lane_tests"] == 4096
+
+
+@pytest.mark.parametrize("repack", [False, True])
+def test_walk_model_counts_lane_tests_and_repacks(repack):
+    """chip_smoke.walk_model, the rule the any-hit kernels count by, on a
+    hand-counted tile of 40 clusters (5 batches, 4 units): unit 0's lanes
+    are all done at barrier 1 but lane 5 of each warp, never done; unit 1
+    is done at once; units 2 and 3 never.  Without the repack unit 0's 8
+    warps test all 5 batches; with it the 8 lanes left fill one warp from
+    barrier 1 on (one repack).  On a list of 32 clusters there is no
+    repack.  Where packing leaves unit 2 128 rays, they take two copies of
+    4 warps from barrier 0 on (one more repack, the same tests)."""
+    import chip_smoke
+
+    per_batch = 32 * 16 * 8  # a warp's member tests of a full batch
+    first = torch.full((4, 256), 99, dtype=torch.int32)
+    first[0] = 1
+    first[0, 5::32] = 99
+    first[1] = 0
+    cnt = torch.tensor([40], dtype=torch.int32)
+    unit0 = 8 * per_batch + 4 * (1 if repack else 8) * per_batch
+    want = (unit0 + 2 * 5 * 8 * per_batch, int(repack))
+    assert chip_smoke.walk_model(first.reshape(-1), cnt,
+                                 repack=repack) == want
+    short = torch.tensor([32], dtype=torch.int32)
+    assert chip_smoke.walk_model(first.reshape(-1), short,
+                                 repack=repack) == (
+        8 * per_batch + 3 * 8 * per_batch + 2 * 4 * 8 * per_batch, 0)
+    # packing: only the even lanes of unit 2 hold a ray, so 4 warps walk
+    own = torch.ones(4, 256, dtype=torch.bool)
+    own[2, 1::2] = False
+    got = chip_smoke.walk_model(first.reshape(-1), cnt, own.reshape(-1),
+                                repack=repack)
+    assert got == (want[0] - 5 * 4 * per_batch, want[1] + int(repack))
