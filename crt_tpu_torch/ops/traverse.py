@@ -124,7 +124,8 @@ def _leaf_intersect(tri, leaf_tri_ids, o, d, best_t, best_tri):
 def _walk(nodes_f, nodes_i, leaf_tris, tri, o, d, most):
     """Walk the rays [W, 3] from the root to the end of every stack ->
     (t [W], tri [W], loop iterations, host reads).  ``most``: rays a leaf
-    test takes at once."""
+    test takes at once.  Counts ``crt.tree.leaf_lanes``: the lanes tested
+    at a hit leaf, from the lists the walk reads anyway."""
     W = o.shape[0]
     dev = o.device
     out_t = torch.full((W,), float("inf"), device=dev)
@@ -135,7 +136,7 @@ def _walk(nodes_f, nodes_i, leaf_tris, tri, o, d, most):
     sp = torch.ones((W,), dtype=torch.int64, device=dev)  # root pushed
     best_t, best_tri = out_t.clone(), out_tri.clone()
     inv = _inverse(d)
-    iterations = reads = 0
+    iterations = reads = leaf_lanes = 0
     while True:
         for _ in range(CHECK_EVERY):
             # pop; a lane with an empty stack reads slot 0 and tests nothing
@@ -158,6 +159,7 @@ def _walk(nodes_f, nodes_i, leaf_tris, tri, o, d, most):
             # leaf: intersect the padded row, on the lanes at a hit leaf
             at_leaf = (hit_box & is_leaf).nonzero()[:, 0]
             reads += 1
+            leaf_lanes += at_leaf.numel()
             for s in range(0, at_leaf.numel(), most):
                 i = at_leaf[s:s + most]
                 best_t[i], best_tri[i] = _leaf_intersect(
@@ -175,6 +177,7 @@ def _walk(nodes_f, nodes_i, leaf_tris, tri, o, d, most):
                                           inv[keep], stack[keep], sp[keep])
             best_t, best_tri = best_t[keep], best_tri[keep]
     out_t[lane], out_tri[lane] = best_t, best_tri
+    tracing.count("crt.tree.leaf_lanes", leaf_lanes)
     return out_t, out_tri, iterations, reads
 
 
@@ -182,10 +185,11 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
     """Wavefront KD traversal -> Hit for any leading batch shape.
 
     ``active=False`` lanes are not walked: they miss (t = inf, tri = -1),
-    as crt_tpu's lanes that start with an empty stack do.  Counted in
-    ``utils/trace.py``'s registry: ``crt.tree.walks``,
-    ``crt.tree.iterations`` and the walk's host reads,
-    ``crt.host_reads.tree_walk``.
+    as crt_tpu's lanes that start with an empty stack do.  The walk runs
+    under the span ``crt.tree.walk``.  Counted in ``utils/trace.py``'s
+    registry: ``crt.tree.walks``, ``crt.tree.iterations``,
+    ``crt.tree.leaf_lanes`` (the lanes tested at a hit leaf) and the
+    walk's host reads, ``crt.host_reads.tree_walk``.
     """
     batch_shape = origins.shape[:-1]
     with torch.no_grad():
@@ -205,9 +209,10 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
                                  accel.node_leaf_id[:, None]], dim=1)
             most = max(1, GATHER_BYTES // (17 * 4 * accel.leaf_size))
             wo, wd = (o, d) if lanes is None else (o[lanes], d[lanes])
-            wt, wtri, iterations, rd = _walk(nodes_f, nodes_i,
-                                             accel.leaf_tris, tri, wo, wd,
-                                             most)
+            with tracing.span("crt.tree.walk"):
+                wt, wtri, iterations, rd = _walk(nodes_f, nodes_i,
+                                                 accel.leaf_tris, tri, wo,
+                                                 wd, most)
             reads += rd
             if lanes is None:
                 t, hit_tri = wt, wtri

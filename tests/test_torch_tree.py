@@ -303,3 +303,115 @@ def test_cli_backend_tree(tmp_path, capsys):
     np.testing.assert_array_equal(
         read_ppm(str(out)),
         np.clip(np.trunc(expected * np.float32(255)), 0, 255) / 255)
+
+
+def _camera(scene):
+    from crt_tpu_torch.ops import camera
+    from crt_tpu_torch.renderer import make_tiler
+
+    rx, ry, _ = make_tiler(scene.height, scene.width, device="cpu")
+    return camera.generate_rays(scene.cam_position, scene.cam_rotation,
+                                scene.cam_tan_half_fov, scene.width,
+                                scene.height, rx, ry)
+
+
+def _per_ray_leaf_tests(accel, o, d):
+    """Leaf tests (leaves popped whose box the ray meets) of the
+    reference's per-ray stack walk, ray by ray in float32 NumPy with the
+    port's slab test."""
+    lo, hi = accel.node_min.numpy(), accel.node_max.numpy()
+    kids, leaf = accel.node_children.numpy(), accel.node_leaf_id.numpy()
+    inv = traverse._inverse(d).numpy()
+    leaves = 0
+    for r in range(o.shape[0]):
+        oo = o[r].numpy()
+        stack = [0]
+        while stack:
+            n = stack.pop()
+            t1, t2 = (lo[n] - oo) * inv[r], (hi[n] - oo) * inv[r]
+            near = max(np.minimum(t1, t2).max(), np.float32(0.0))
+            if np.maximum(t1, t2).min() < near:
+                continue
+            if leaf[n] >= 0:
+                leaves += 1
+            else:
+                stack += [int(c) for c in kids[n] if c >= 0]
+    return leaves
+
+
+def test_walk_records_its_span_and_counter():
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = make_test_scene(32, 16, num_quads=16, device="cpu")
+    o, d = _camera(scene)
+    trace = make_trace_fn(scene, RenderSettings(backend="tree"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.recording() as c:
+            trace(o, d)
+    assert sum(e.name == "crt.tree.walk" for e in prof.events()) == 1
+    assert c["crt.tree.leaf_lanes"] > 0
+    assert c["crt.tree.walks"] == 1
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_leaf_lanes_equal_a_per_ray_walk(masked):
+    scene = make_test_scene(32, 16, num_quads=16, with_edges=True,
+                            device="cpu")
+    o, d = _camera(scene)
+    act = None
+    if masked:
+        act = torch.from_numpy(
+            np.random.default_rng(3).uniform(size=o.shape[0]) < 0.5)
+    trace = make_trace_fn(scene, RenderSettings(backend="tree"))
+    with tracing.recording() as c:
+        trace(o, d, act)
+    keep = slice(None) if act is None else act
+    leaves = _per_ray_leaf_tests(scene.accel, o[keep], d[keep])
+    assert c["crt.tree.leaf_lanes"] == leaves > 0
+
+
+def test_tree_frame_is_bit_equal_with_tracing_on_and_off():
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = make_test_scene(48, 32, num_quads=16, device="cpu")
+    settings = RenderSettings(backend="tree")
+    off = render_image(scene, settings)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracing.recording() as c:
+            on = render_image(scene, settings)
+    assert torch.equal(on, off)
+    # the camera walk, the mirror bounces' and the shadow walks; a call
+    # with no active lane walks nothing
+    walks = sum(e.name == "crt.tree.walk" for e in prof.events())
+    assert 2 < walks <= c["crt.tree.walks"]
+
+
+def test_counting_adds_no_host_read_and_nothing_while_off():
+    """The walk's host reads stay one a leaf list and one a loop
+    condition (and one for an ``active`` mask); its counter is a host int,
+    so the walk runs the same torch ops with tracing on and off."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.__name__.split(".")[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    scene = make_test_scene(32, 16, num_quads=16, device="cpu")
+    o, d = _camera(scene)
+    act = o[:, 0] >= 0  # every lane, through the mask
+    trace = make_trace_fn(scene, RenderSettings(backend="tree"))
+    with Ops() as off:
+        want = trace(o, d, act)
+    with tracing.recording() as c, Ops() as on:
+        got = trace(o, d, act)
+    assert torch.equal(got.t, want.t) and torch.equal(got.tri, want.tri)
+    it = c["crt.tree.iterations"]
+    assert c["crt.host_reads.tree_walk"] == 1 + it + it // traverse.CHECK_EVERY
+    assert on.ops == off.ops
