@@ -156,18 +156,22 @@ Phases, each printing what it found; any failure raises (exit code != 0):
      through backend="stream" (one K8 launch each): each vs the all-pairs
      backend's AOV on 8,192 sampled pixels (the same hit on >= 99.9 % of
      them, and bit for bit where the hit is the same); times;
- 13. tree: the KD-tree backend (plain torch, no hand kernel of its own) on
-     the benchmark scene: its tree (nodes, leaves, leaf_size, the native
-     builder, build time), the forward frame (each walk's lanes, loop
-     iterations and host reads; wall, device time, launches, peak memory;
-     no hand-kernel launch) vs the cluster backend's image (>= 99.99 % of
-     pixels within rtol 1e-4 / atol 1e-5) and 8,192 sampled primary hits
-     vs the all-pairs backend, value_and_grad of the image sum (time, peak,
-     K3 launches) vs the cluster backend's gradients (rtol 1e-3 / atol
-     1e-4 of the largest entry), one primary trace of
-     make_big_scene(65536) with its tree (time, device time, iterations)
-     and 8,192 sampled hits vs K1's, and the CLI with --backend tree in a
-     child process (a P3 image, no hand-kernel launch);
+ 13. tree: the KD-tree backend (its walk one launch of csrc/tree_walk.cu)
+     on the benchmark scene: its tree (nodes, leaves, leaf_size, the
+     native builder, build time), the forward frame (each walk's lanes,
+     launch, host reads (0) and leaf lanes; wall, device time, launches,
+     peak memory; no cluster kernel) vs the cluster backend's image
+     (>= 99.99 % of pixels within rtol 1e-4 / atol 1e-5) and 8,192 sampled
+     primary hits vs the all-pairs backend, each of the frame's 8 walks
+     through the kernel bit for bit vs the plain lock-step walk on the
+     same tensors (kernel and plain times; the camera walk beside
+     benchmark/harness/tree_bound.py's bound), value_and_grad of the image
+     sum (time, peak, K3 launches) vs the cluster backend's gradients
+     (rtol 1e-3 / atol 1e-4 of the largest entry), one primary trace of
+     make_big_scene(65536) with its tree (kernel vs plain walk, bit for
+     bit; time, device time) and 8,192 sampled hits vs K1's, and the CLI
+     with --backend tree in a child process (a P3 image, no cluster
+     kernel);
  14. utils: on the benchmark scene, render_with_stats (its trace count
      equal to the cluster kernels' launches of the same frame: its
      counting wrapper sends every pass, shadows too, through K1),
@@ -3068,9 +3072,12 @@ def phase_aov(device):
 
 
 @contextlib.contextmanager
-def record_walks():
-    """Within the block, each call of traverse.closest_hit_tree appends
-    (lanes, loop iterations, host reads) to the list yielded."""
+def record_walks(keep=False):
+    """Within the block, each call of traverse.closest_hit_tree appends a
+    dict to the list yielded: its live ``lanes``, and what it counted of
+    ``launches`` (``crt.launches.tree_walk``), ``host_reads``,
+    ``iterations`` and ``leaf_lanes``; with ``keep`` also ``args``, the
+    flat (accel, tri, o, d, active) it walked, cloned."""
     from crt_tpu_torch.ops import traverse
     from crt_tpu_torch.utils import trace as tracing
 
@@ -3079,24 +3086,83 @@ def record_walks():
     def logged(real, accel, tri, origins, dirs, active=None):
         with tracing.recording() as c:
             hit = real(accel, tri, origins, dirs, active)
-        lanes = (origins[..., 0].numel() if active is None
-                 else int(active.sum()))
-        walks.append((lanes, c["crt.tree.iterations"],
-                      c["crt.host_reads.tree_walk"]))
+        w = {"lanes": (origins[..., 0].numel() if active is None
+                       else int(active.sum())),
+             "launches": c["crt.launches.tree_walk"],
+             "host_reads": c["crt.host_reads.tree_walk"],
+             "iterations": c["crt.tree.iterations"],
+             "leaf_lanes": c["crt.tree.leaf_lanes"]}
+        if keep:
+            w["args"] = (accel, tri, origins.reshape(-1, 3).clone(),
+                         dirs.reshape(-1, 3).clone(),
+                         None if active is None
+                         else active.reshape(-1).clone())
+        walks.append(w)
         return hit
 
     with patched(traverse, "closest_hit_tree", logged):
         yield walks
 
 
+def tree_walk_bound(scene, o, d, t_hit) -> dict:
+    """The least time of the KD walk of rays ``o``, ``d`` whose hits lie
+    at ``t_hit``: ``benchmark/harness/tree_bound.py``'s count (its frozen
+    builder, the boxes each ray enters by its hit's t and the members of
+    the leaves among them) at ``harness/roofline.py``'s peaks."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "benchmark"))
+    from harness import roofline
+    from harness import tree_bound as tb
+
+    tree = {k: torch.from_numpy(v).to(o.device) for k, v in tb.build_tree(
+        scene.vertices.detach().cpu().numpy(),
+        scene.tri_vidx.cpu().numpy()).items()}
+    boxes, tests = tb.entered(tree, o, d, t_hit)
+    num_bytes = (tree["node_min"].shape[0] * tb.NODE_BYTES
+                 + tree["leaf_tris"].numel() * tb.LEAF_SLOT_BYTES
+                 + scene.num_triangles * tb.PLANE_BYTES
+                 + o.shape[0] * (roofline.RAY_BYTES + roofline.ANSWER_BYTES))
+    flops = boxes * tb.FLOPS_PER_BOX + tests * roofline.FLOPS_PER_MEMBER
+    return {**roofline.bound_ms(num_bytes, flops), "box_tests": boxes,
+            "member_tests": tests}
+
+
+def tree_walk_parity(walks, tag="[tree]"):
+    """Each recorded walk through the kernel and the plain lock-step walk
+    on the same tensors: bit for bit, and the kernel's time (CUDA events,
+    10 launches back to back) beside the plain walk's (host clock around a
+    synchronize).  Returns each walk's (kernel ms, plain ms)."""
+    from crt_tpu_torch.ops import traverse
+
+    times = []
+    for i, w in enumerate(walks):
+        accel, tri, o, d, act = w["args"]
+        k = traverse.walk(accel, tri, o, d, act)
+        p = traverse.closest_hit_tree_plain(accel, tri, o, d, act)
+        torch.cuda.synchronize()
+        check(torch.equal(k[1], p[1])
+              and torch.equal(k[0].view(torch.int32), p[0].view(torch.int32)),
+              f"{tag} walk {i}: the kernel differs from the plain walk")
+        k_ms = cuda_ms_many(lambda: traverse.walk(accel, tri, o, d, act))
+        p_ms, _ = host_ms(lambda: traverse.closest_hit_tree_plain(
+            accel, tri, o, d, act), reps=3)
+        times.append((k_ms, p_ms))
+        print(f"{tag} walk {i}: {o.shape[0]} rays, {w['lanes']} live, "
+              f"{w['leaf_lanes']} leaf lanes: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms; bit-equal")
+    return times
+
+
 def phase_tree(device):
-    """The KD-tree backend (plain torch; no hand kernel of its own): the
+    """The KD-tree backend (its walk one launch of csrc/tree_walk.cu): the
     opaque benchmark scene's tree (native builder), its forward frame
-    (wall, device, each walk's iterations and host reads, launches, peak)
+    (wall, device, each walk's launch, host reads and leaf lanes, peak)
     held to the cluster backend's image and to the all-pairs backend's
-    hits, its gradient (K3 launches) held to the cluster backend's, one
-    primary trace of the 65,536-triangle scene held to K1's hits, and a
-    --backend tree CLI child."""
+    hits, each of the frame's 8 walks through the kernel held bit for bit
+    to the plain lock-step walk and timed beside it and (the camera walk)
+    its bound, its gradient (K3 launches) held to the cluster backend's,
+    one primary trace of the 65,536-triangle scene held to K1's hits, and
+    a --backend tree CLI child."""
     from crt_tpu_torch import RenderSettings, render_image
     from crt_tpu_torch.ops import traverse
     from crt_tpu_torch.renderer import make_trace_fn
@@ -3125,23 +3191,44 @@ def phase_tree(device):
           and torch.equal(acc.leaf_tris, scene.accel.leaf_tris),
           "the loader's tree differs from a fresh build")
 
-    # the forward frame
+    # the forward frame: one walk launch a walk, no host read
     reset_launches()
-    with record_walks() as walks:
+    with record_walks(keep=True) as walks:
         img = render_image(scene, tree)
         torch.cuda.synchronize()
     kernels = read_launches()
     check(tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()),
           "the tree frame is not a finite [H, W, 3]")
     check(all(v == 0 for v in kernels.values()),
-          f"the tree frame launched a hand kernel: {kernels}")
-    print(f"[tree] forward frame: {len(walks)} walks (lanes, iterations, "
-          f"host reads): {walks}; {sum(w[1] for w in walks)} iterations, "
-          f"{sum(w[2] for w in walks)} host reads; hand-kernel launches "
-          f"{kernels}")
+          f"the tree frame launched a cluster kernel: {kernels}")
+    check(len(walks) == 8
+          and all(w["launches"] == 1 and w["host_reads"] == 0
+                  for w in walks),
+          "a walk of the tree frame was not one launch without a host "
+          f"read: {[(w['launches'], w['host_reads']) for w in walks]}")
+    print(f"[tree] forward frame: {len(walks)} walks (live lanes, leaf "
+          f"lanes): {[(w['lanes'], w['leaf_lanes']) for w in walks]}; "
+          f"{sum(w['leaf_lanes'] for w in walks)} leaf lanes, "
+          f"{sum(w['launches'] for w in walks)} walk launches, "
+          f"{sum(w['host_reads'] for w in walks)} walk host reads; "
+          f"cluster kernel launches {kernels}")
+    times = tree_walk_parity(walks)
+    o, d = walks[0]["args"][2:4]
+    b = tree_walk_bound(scene, o, d, traverse.walk(*walks[0]["args"])[0])
+    cam_ms = times[0][0]
+    print(f"[tree] the 8 walks: kernel {sum(k for k, _ in times):.4f} ms, "
+          f"plain {sum(p for _, p in times):.3f} ms; the camera walk "
+          f"{cam_ms:.4f} ms / bound {b['bound_ms']:.5f} ms "
+          f"({b['bound_by']}: {b['box_tests']} box tests, "
+          f"{b['member_tests']} member tests, pruned at the walk's hits), "
+          f"{100 * b['bound_ms'] / cam_ms:.3f} % of its roofline")
+    for w in walks:
+        del w["args"]
+    torch.cuda.empty_cache()
     wall, enq = host_ms(lambda: render_image(scene, tree), reps=3)
     dev_ms, launches, _ = profile_frame(lambda: render_image(scene, tree),
-                                        tag="[tree]")
+                                        top=8, tag="[tree]",
+                                        tags=("tree_walk",))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     render_image(scene, tree)
@@ -3149,8 +3236,7 @@ def phase_tree(device):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[tree] forward frame {wall:.3f} ms wall (enqueue {enq:.3f}) = "
           f"{W * H / wall / 1e3:.3f} Mrays/s; device {dev_ms:.3f} ms in "
-          f"{launches} launches; peak {peak:.3f} GiB; CHECK_EVERY "
-          f"{traverse.CHECK_EVERY}")
+          f"{launches} launches; peak {peak:.3f} GiB")
 
     ref = render_image(scene)
     image_agreement("[tree] tree vs cluster backend", img, ref)
@@ -3192,14 +3278,17 @@ def phase_tree(device):
           f"{mk_s:.3f} s")
     o, d = primary_wavefront(big)
     trace = make_trace_fn(big, tree)
-    with record_walks() as walks:
+    with record_walks(keep=True) as walks:
         hit = trace(o, d)
         torch.cuda.synchronize()
+    (k_ms, p_ms), = tree_walk_parity(walks, tag="[tree] 65,536 triangles:")
+    del walks
     wall, enq = host_ms(lambda: trace(o, d), reps=3)
-    dev_ms, launches, _ = profile_frame(lambda: trace(o, d), tag="[tree]")
+    dev_ms, launches, _ = profile_frame(lambda: trace(o, d), tag="[tree]",
+                                        tags=("tree_walk",))
     print(f"[tree] 65,536-triangle primary trace: {wall:.3f} ms wall "
           f"(enqueue {enq:.3f}), device {dev_ms:.3f} ms in {launches} "
-          f"launches; (lanes, iterations, host reads) {walks}")
+          f"launches; kernel {k_ms:.4f} ms, plain walk {p_ms:.3f} ms")
     reset_launches()
     k1 = make_trace_fn(big, RenderSettings(backend="cluster"))(o, d)
     check(read_launches()["closest_hit"] == 1,
@@ -3224,8 +3313,8 @@ def phase_tree(device):
           and len(tokens) == 4 + W * H * 3,
           f"the --backend tree CLI wrote a bad PPM {tokens[:4]}")
     check(all(v == 0 for v in counts.values()),
-          f"the --backend tree CLI launched a hand kernel: {counts}")
-    print(f"[tree] the --backend tree CLI wrote a {W}x{H} P3 image; hand "
+          f"the --backend tree CLI launched a cluster kernel: {counts}")
+    print(f"[tree] the --backend tree CLI wrote a {W}x{H} P3 image; cluster "
           f"kernel launches {counts}")
     print(f"[tree] {smi()}")
     return k3

@@ -27,7 +27,8 @@ from typing import NamedTuple
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "crt_tpu_torch"
 SOURCES = ("closest_hit.cu", "occlusion_w.cu", "occlusion_d.cu",
-           "stream_trace.cu", "segsum.cu", "cluster_bin.cu", "stream_bin.cu")
+           "stream_trace.cu", "segsum.cu", "cluster_bin.cu", "stream_bin.cu",
+           "tree_walk.cu")
 HEADERS = ("cluster_common.cuh", "bin_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -138,4 +139,7 @@ def bind(path: str) -> ctypes.CDLL:
     lib.crt_stream_pack.argtypes = ([p] * 7 + [i] * 4 + [ctypes.c_float]
                                     + [p] * 3)
     lib.crt_stream_pack.restype = i
+    ll = ctypes.c_longlong
+    lib.crt_tree_walk.argtypes = [p] * 9 + [ll, i, i, ll] + [p] * 4
+    lib.crt_tree_walk.restype = i
     return lib

@@ -1,20 +1,26 @@
-"""Batched KD-tree traversal in plain torch: the ``tree`` backend.
+"""Batched KD-tree traversal: the ``tree`` backend.
 
 Counterpart of ``crt_tpu/ops/traverse.py``.  The reference walks the tree
-per ray with a ``std::stack`` (crt_intersection.cpp:109-136); here a
-wavefront walks in lock step.  Every ray carries a fixed stack of
-``STACK_SIZE`` node ids (the depth is bounded by
-MAX_ACCELERATION_TREE_DEPTH = 39); each iteration pops one node per ray,
-tests its AABB, intersects the ray with the node's padded leaf row or
-pushes its two children (child0 first, so child1 is walked first).  The
-closest hit keeps the first triangle among equal t in a leaf and the first
-leaf walked across leaves.
+per ray with a ``std::stack`` (crt_intersection.cpp:109-136): pop a node,
+test its AABB, intersect the ray with the node's padded leaf row or push
+its two children (child0 first, so child1 is walked first).  The closest
+hit keeps the first triangle among equal t in a leaf and the first leaf
+walked across leaves.  The depth is bounded by
+MAX_ACCELERATION_TREE_DEPTH = 39, so ``STACK_SIZE`` node ids hold a walk.
 
-crt_tpu runs the walk in one ``lax.while_loop`` over every lane until no
-stack holds a node, testing every lane against a leaf row each iteration.
-The body is a no-op on a lane whose stack is empty, and a leaf test
-changes nothing on a lane that is not at a leaf whose box it hits, so the
-port changes no bit by doing less:
+On the card a walk is one launch of ``csrc/tree_walk.cu``: one thread a
+ray, each with its own stack, in the reference's order; ``active=False``
+lanes walk nothing, and no value is read back to the host.  crt_tpu has no
+Pallas kernel here: it runs the walk in one ``lax.while_loop`` over every
+lane until no stack holds a node, testing every lane against a leaf row
+each iteration.
+
+On the CPU, and as the kernel's bit-for-bit reference on any device,
+``closest_hit_tree_plain`` walks a wavefront in lock step in plain torch:
+every ray carries a fixed stack of ``STACK_SIZE`` node ids and each
+iteration pops one node per ray.  The body is a no-op on a lane whose stack
+is empty, and a leaf test changes nothing on a lane that is not at a leaf
+whose box it hits, so it changes no bit of crt_tpu's loop by doing less:
 
 - it walks only the active lanes (one host read to list them);
 - each iteration runs the leaf test on the lanes at a hit leaf only (one
@@ -28,8 +34,6 @@ port changes no bit by doing less:
 
 The hit is a constant (the walk runs under ``no_grad`` on detached
 vertices); the renderer recomputes what the shading needs from the ids.
-The walk makes no kernel of its own: it is plain torch on the card as on
-the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from crt_tpu_torch.ops import vecmath
 from crt_tpu_torch.ops.cluster_tables import triangle_rank
+from crt_tpu_torch.ops.cluster_trace import _cuda_stream, _raise_on, _require
 from crt_tpu_torch.ops.intersect import PARALLEL_EPS, Hit
 from crt_tpu_torch.ops.tracer import Tracer
 from crt_tpu_torch.utils import trace as tracing
@@ -182,26 +187,125 @@ def _walk(nodes_f, nodes_i, leaf_tris, tri, o, d, most):
 
 
 def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
-    """Wavefront KD traversal -> Hit for any leading batch shape.
+    """KD traversal -> Hit for any leading batch shape.
 
     ``active=False`` lanes are not walked: they miss (t = inf, tri = -1),
-    as crt_tpu's lanes that start with an empty stack do.  The walk runs
-    under the span ``crt.tree.walk``.  Counted in ``utils/trace.py``'s
-    registry: ``crt.tree.walks``, ``crt.tree.iterations``,
-    ``crt.tree.leaf_lanes`` (the lanes tested at a hit leaf) and the
-    walk's host reads, ``crt.host_reads.tree_walk``.
+    as crt_tpu's lanes that start with an empty stack do.  The rays are
+    flattened (and copied where they are not contiguous) for ``walk``.
     """
     batch_shape = origins.shape[:-1]
     with torch.no_grad():
-        o = origins.detach().reshape(-1, 3)
-        d = dirs.detach().reshape(-1, 3)
+        o = origins.detach().reshape(-1, 3).contiguous()
+        d = dirs.detach().reshape(-1, 3).contiguous()
+        act = None if active is None else active.reshape(-1).contiguous()
+        t, hit_tri = walk(accel, tri, o, d, act)
+    return Hit(t=t.reshape(batch_shape), tri=hit_tri.reshape(batch_shape))
+
+
+def _check_walk(accel, tri, o, d, active):
+    dev = o.device
+    R = o.shape[0] if o.dim() == 2 else -1
+    for name, x in (("origins", o), ("dirs", d)):
+        _require(x.device == dev and x.dtype == torch.float32
+                 and x.is_contiguous() and x.dim() == 2
+                 and tuple(x.shape) == (R, 3),
+                 f"{name} must be a contiguous float32 [R, 3] on {dev}")
+    if active is not None:
+        _require(active.device == dev and active.dtype == torch.bool
+                 and active.is_contiguous() and tuple(active.shape) == (R,),
+                 f"active must be a contiguous bool [{R}] on {dev}")
+    N = accel.node_min.shape[0]
+    for name, dtype, shape in (("node_min", torch.float32, (N, 3)),
+                               ("node_max", torch.float32, (N, 3)),
+                               ("node_children", torch.int32, (N, 2)),
+                               ("node_leaf_id", torch.int32, (N,))):
+        x = getattr(accel, name)
+        _require(x.device == dev and x.dtype == dtype and x.is_contiguous()
+                 and tuple(x.shape) == shape,
+                 f"accel.{name} must be a contiguous {dtype} {list(shape)}"
+                 f" on {dev}")
+    leaves = accel.leaf_tris
+    _require(leaves.device == dev and leaves.dtype == torch.int32
+             and leaves.is_contiguous() and leaves.dim() == 2
+             and leaves.shape[1] >= 1,
+             f"accel.leaf_tris must be a contiguous int32 [leaves, "
+             f"leaf_size] on {dev}")
+    _require(tri.device == dev and tri.dtype == torch.float32
+             and tri.is_contiguous() and tri.dim() == 2
+             and tri.shape[0] == 17 and tri.shape[1] >= 1,
+             f"tri must be build_triangle_gather's contiguous float32 "
+             f"[17, T + 1] on {dev}")
+
+
+def walk(accel, tri, o, d, active=None):
+    """The walk of rays ``o``, ``d`` [R, 3] f32 (``active`` [R] bool or
+    None) through ``accel`` over ``tri``'s planes -> (t [R] f32, tri [R]
+    i32).
+
+    On the card one launch of ``csrc/tree_walk.cu`` under the span
+    ``crt.tree.walk``, counted as ``crt.tree.walks`` and
+    ``crt.launches.tree_walk``, with ``crt.host_reads.tree_walk`` 0: no
+    host read.  While tracing is on the kernel adds its hit leaves to a
+    one-word buffer, counted as ``crt.tree.leaf_lanes``.  It has no
+    lock-step loop, so it counts no ``crt.tree.iterations``.  On the CPU
+    ``closest_hit_tree_plain``, with its counts.  The tables are read from
+    ``accel`` as passed, each call.
+    """
+    _check_walk(accel, tri, o, d, active)
+    dev = o.device
+    if dev.type == "cpu":
+        return closest_hit_tree_plain(accel, tri, o, d, active)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"the KD walk has no kernel for {dev}")
+
+    from crt_tpu_torch.ops import cuda_lib
+
+    lib, _ = cuda_lib.load()
+    R = o.shape[0]
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    hit_tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    if R:
+        stats = (torch.zeros((1,), dtype=torch.int64, device=dev)
+                 if tracing.enabled() else None)
+        with tracing.span("crt.tree.walk"), torch.cuda.device(dev):
+            err = lib.crt_tree_walk(
+                o.data_ptr(), d.data_ptr(),
+                active.data_ptr() if active is not None else None,
+                accel.node_min.data_ptr(), accel.node_max.data_ptr(),
+                accel.node_children.data_ptr(),
+                accel.node_leaf_id.data_ptr(), accel.leaf_tris.data_ptr(),
+                tri.data_ptr(), R, accel.node_min.shape[0],
+                accel.leaf_tris.shape[1], tri.shape[1],
+                t.data_ptr(), hit_tri.data_ptr(), _cuda_stream(dev),
+                stats.data_ptr() if stats is not None else None,
+            )
+        _raise_on(err, "tree_walk")
+        tracing.count("crt.tree.walks")
+        tracing.count("crt.launches.tree_walk")
+        tracing.count("crt.host_reads.tree_walk", 0)
+        if stats is not None:
+            tracing.count("crt.tree.leaf_lanes", stats)
+    return t, hit_tri
+
+
+def closest_hit_tree_plain(accel, tri, o, d, active=None):
+    """The lock-step walk in plain torch of rays ``o``, ``d`` [R, 3]
+    (``active`` [R] bool or None) -> (t [R], tri [R]): the CPU path and
+    the kernel's reference, on any device.
+
+    The walk runs under the span ``crt.tree.walk``.  Counted in
+    ``utils/trace.py``'s registry: ``crt.tree.walks``,
+    ``crt.tree.iterations``, ``crt.tree.leaf_lanes`` (the lanes tested at
+    a hit leaf) and the walk's host reads, ``crt.host_reads.tree_walk``.
+    """
+    with torch.no_grad():
         R = o.shape[0]
         t = torch.full((R,), float("inf"), device=o.device)
         hit_tri = torch.full((R,), -1, dtype=torch.int32, device=o.device)
         iterations = reads = 0
         lanes = None
         if active is not None:
-            lanes = active.reshape(-1).nonzero()[:, 0]
+            lanes = active.nonzero()[:, 0]
             reads += 1
         if lanes is None or lanes.numel():
             nodes_f = torch.cat([accel.node_min, accel.node_max], dim=1)
@@ -221,7 +325,7 @@ def closest_hit_tree(accel, tri, origins, dirs, active=None) -> Hit:
         tracing.count("crt.tree.walks")
         tracing.count("crt.tree.iterations", iterations)
         tracing.count("crt.host_reads.tree_walk", reads)
-    return Hit(t=t.reshape(batch_shape), tri=hit_tri.reshape(batch_shape))
+    return t, hit_tri
 
 
 class TreeTracer(Tracer):

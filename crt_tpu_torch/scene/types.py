@@ -228,7 +228,7 @@ class RenderSettings:
     alias; "auto" is the cluster trace, and on the card the streaming trace
     above ``renderer.AUTO_STREAM_MIN_CLUSTERS`` clusters; "bruteforce" is
     the all-pairs backend; "tree" walks ``Scene.accel``, the KD tree
-    (plain torch; "auto" never takes it).  ``stream_shadow_k`` is the phase-1 depth of the
+    (a kernel a walk on the card; "auto" never takes it).  ``stream_shadow_k`` is the phase-1 depth of the
     streaming trace's two-phase shadow resolve (0: one phase; the image
     does not depend on it).  ``wavefront``: "auto" takes the
     iterative bank wavefront for a scene with live refraction at depth >= 2

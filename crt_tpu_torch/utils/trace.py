@@ -22,8 +22,9 @@ belongs to the span whose interval holds its launch.  The port's spans:
     included; ``crt.trace``: every other call into an intersection
     backend (a reader of the prefix ``crt.trace`` takes all three);
   - ``crt.binning``: Phase A (frusta, shafts, pair lists), no table build;
-  - ``crt.tree.walk``: one lock-step KD walk of the ``tree`` backend
-    (``traverse._walk``), inside the ``crt.trace*`` span of its call
+  - ``crt.tree.walk``: one KD walk of the ``tree`` backend (on the card
+    the launch of ``csrc/tree_walk.cu``, on the CPU the lock-step
+    ``traverse._walk``), inside the ``crt.trace*`` span of its call
     (outside that prefix, so a reader of ``crt.trace`` takes it once);
   - ``crt.fit.forward`` / ``crt.fit.backward`` / ``crt.fit.optimizer``: a
     fit step's render and loss, its backward and reduce, its update.
@@ -77,9 +78,12 @@ them.  The port's counters:
     leaves to the bend-walk (all of them where there is no split);
   - ``crt.march.traces``: closest hits of the transmissive shadow march;
   - ``crt.tree.walks`` / ``crt.tree.iterations``: KD-tree walks and
-    their loop iterations; ``crt.tree.leaf_lanes``: the lanes tested at
-    a hit leaf (``crt.host_reads.tree_walk``: the walk's reads of its
-    lists and of its loop condition).
+    the lock-step loop's iterations (the plain walk only: the card's
+    kernel has no lock-step loop and counts none; its walks equal
+    ``crt.launches.tree_walk``); ``crt.tree.leaf_lanes``: the (ray, leaf)
+    pairs tested at a hit leaf, counted on the device by the kernel while
+    tracing is on (``crt.host_reads.tree_walk``: the plain walk's reads
+    of its lists and of its loop condition; 0 on the card).
 
 Every name starts with ``crt.``; a per-mode split is a name suffix, and
 ``total(counts, prefix)`` adds a name and its suffixes.

@@ -1,19 +1,22 @@
-"""Time the tree backend's walk (``crt_tpu_torch/ops/traverse.py``) by how
-often it reads its loop condition, and against the dense walk of
-crt_tpu's structure, in turns.
+"""Time the tree backend's walk (``crt_tpu_torch/ops/traverse.py``): the
+kernel (``csrc/tree_walk.cu``) beside the plain lock-step walk at each
+``CHECK_EVERY`` (how often it reads its loop condition) and the dense walk
+of crt_tpu's structure, in turns.
 
     python3 measure/tree_walk.py [--phases]
 
 Shapes (chip_smoke.py's scenes): the opaque benchmark frame's primary
 wavefront, its depth-0 shadow wavefront (two lights stacked, recorded
 from a real frame with its active mask), the 65,536-triangle primary, and
-the whole forward tree frame.  For each: the walk as shipped at
-``CHECK_EVERY`` = 1, 2, 4 and 8 (host clock around a synchronize, median
-of 3; the values in turns, ascending then descending), and the dense walk
-of crt_tpu's ``lax.while_loop`` body (every live lane through the leaf
-test each iteration, the condition read every 4 iterations), each walk
-held bit-equal to the shipped walk at its default.  ``--phases`` then runs
-chip_smoke.py's ``[tree]`` and ``[utils]`` phases.
+the whole forward tree frame.  For each: the kernel (CUDA events, 10
+launches back to back), the plain walk at ``CHECK_EVERY`` = 1, 2, 4 and 8
+(host clock around a synchronize, median of 3; the values in turns,
+ascending then descending), and the dense walk of crt_tpu's
+``lax.while_loop`` body (every live lane through the leaf test each
+iteration, the condition read every 4 iterations), each walk held
+bit-equal to the kernel; the frame through the kernel and through the
+plain walk.  ``--phases`` then runs chip_smoke.py's ``[tree]`` and
+``[utils]`` phases.
 
 Needs one CUDA card.
 """
@@ -160,35 +163,48 @@ def main(argv=None) -> int:
     return 0
 
 
+def plain_walk(accel, tri, o, d, act):
+    """The plain lock-step walk of flat rays -> Hit."""
+    t, hit_tri = traverse.closest_hit_tree_plain(accel, tri, o, d, act)
+    return Hit(t=t, tri=hit_tri)
+
+
 def sweep(device):
-    """The walks and the frame at each CHECK_EVERY, and the dense walk."""
+    """The walks: the kernel, the plain walk at each CHECK_EVERY and the
+    dense walk; the frame through the kernel and the plain walk."""
     from crt_tpu_torch import RenderSettings, render_image
 
     waves, scene = shapes(device)
     default = traverse.CHECK_EVERY
     for name, (accel, tri, o, d, act) in waves.items():
+        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+        act = None if act is None else act.reshape(-1)
         base = traverse.closest_hit_tree(accel, tri, o, d, act)
+        kernel_ms = cs.cuda_ms_many(
+            lambda: traverse.walk(accel, tri, o, d, act))
         times = {k: [] for k in KS}
         stats = {}
         for k in KS + KS[::-1]:
             traverse.CHECK_EVERY = k
             with tracing.recording() as c:
-                hit = traverse.closest_hit_tree(accel, tri, o, d, act)
+                hit = plain_walk(accel, tri, o, d, act)
             stats[k] = (c["crt.tree.iterations"],
                         c["crt.host_reads.tree_walk"])
             cs.check(torch.equal(hit.tri, base.tri)
                      and torch.equal(hit.t, base.t),
-                     f"{name}: CHECK_EVERY={k} changed a hit")
+                     f"{name}: the plain walk at CHECK_EVERY={k} differs "
+                     "from the kernel")
             times[k].append(wall_ms(
-                lambda: traverse.closest_hit_tree(accel, tri, o, d, act)))
+                lambda: plain_walk(accel, tri, o, d, act)))
         traverse.CHECK_EVERY = default
         dense, dense_its = dense_walk(accel, tri, o, d, act)
         cs.check(torch.equal(dense.tri, base.tri)
                  and torch.equal(dense.t, base.t),
-                 f"{name}: the dense walk differs from the shipped one")
+                 f"{name}: the dense walk differs from the kernel")
         dense_ms = wall_ms(lambda: dense_walk(accel, tri, o, d, act))
         lanes = o[..., 0].numel() if act is None else int(act.sum())
-        print(f"[tree-walk] {name} ({lanes} live lanes): "
+        print(f"[tree-walk] {name} ({lanes} live lanes): kernel "
+              f"{kernel_ms:.4f} ms; plain "
               + "; ".join(f"CHECK_EVERY={k}: {min(times[k]):.3f}-"
                           f"{max(times[k]):.3f} ms, {stats[k][0]} "
                           f"iterations, {stats[k][1]} host reads"
@@ -196,13 +212,17 @@ def sweep(device):
               + f"; dense walk {dense_ms:.3f} ms, {dense_its} iterations; "
               "hits bit-equal")
     tree = RenderSettings(backend="tree")
-    frame = {k: [] for k in KS}
-    for k in KS + KS[::-1]:
-        traverse.CHECK_EVERY = k
-        frame[k].append(wall_ms(lambda: render_image(scene, tree)))
-    traverse.CHECK_EVERY = default
+    real = traverse.walk
+    frame = {"kernel": [], "plain": []}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        traverse.walk = (real if side == "kernel"
+                         else traverse.closest_hit_tree_plain)
+        try:
+            frame[side].append(wall_ms(lambda: render_image(scene, tree)))
+        finally:
+            traverse.walk = real
     print("[tree-walk] forward tree frame: "
-          + "; ".join(f"CHECK_EVERY={k}: {min(v):.3f}-{max(v):.3f} ms"
+          + "; ".join(f"{k}: {min(v):.3f}-{max(v):.3f} ms"
                       for k, v in frame.items()))
     print(f"[tree-walk] {cs.smi()}")
 

@@ -2365,3 +2365,211 @@ def test_stream_bin_frames_bit_equal_to_plain_binning(device, monkeypatch,
     assert modes("stream_bin", STREAM_BIN_MODES) == after
     assert float(img.mean()) > 0
     assert torch.equal(img.view(torch.int32), plain.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The KD walk (csrc/tree_walk.cu) vs the plain lock-step walk
+# ---------------------------------------------------------------------------
+
+def _tree_walks(scene):
+    """Each closest_hit_tree call of one tree frame of ``scene``: (accel,
+    tri, o [R, 3], d [R, 3], active [R] or None), cloned."""
+    from crt_tpu_torch.ops import traverse
+
+    calls = []
+    real = traverse.closest_hit_tree
+
+    def record(accel, tri, o, d, active=None):
+        calls.append((accel, tri, o.reshape(-1, 3).clone(),
+                      d.reshape(-1, 3).clone(),
+                      None if active is None else active.reshape(-1).clone()))
+        return real(accel, tri, o, d, active)
+
+    traverse.closest_hit_tree = record
+    try:
+        render_image(scene, RenderSettings(backend="tree"))
+    finally:
+        traverse.closest_hit_tree = real
+    return calls
+
+
+@pytest.fixture(scope="module")
+def tree_frame(device):
+    scene = make_test_scene(1920, 1080, num_quads=64, device=device)
+    return scene, _tree_walks(scene)
+
+
+def _walk_both(accel, tri, o, d, active=None):
+    """(kernel, plain) results of one walk; the kernel's launch counted."""
+    from crt_tpu_torch.ops import traverse
+
+    before = launched("tree_walk")
+    k = traverse.walk(accel, tri, o, d, active)
+    assert launched("tree_walk") == before + 1
+    p = traverse.closest_hit_tree_plain(accel, tri, o, d, active)
+    torch.cuda.synchronize()
+    return k, p
+
+
+def _same_walk(k, p):
+    assert torch.equal(k[1], p[1])
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("which", ["camera", "bounce", "shadow"])
+def test_tree_walk_matches_plain_on_the_frame(device, tree_frame, which):
+    """The 1080p quads frame's walks: the camera rays, every mirror bounce
+    (inactive lanes given NaN directions) and the stacked two-light shadow
+    passes with their active masks."""
+    _, calls = tree_frame
+    R = calls[0][2].shape[0]  # the camera rays, padded to whole tiles
+    assert len(calls) == 8
+    if which == "camera":
+        picked = calls[:1]
+    elif which == "bounce":
+        picked = [c for c in calls[1:] if c[2].shape[0] == R]
+        nan = torch.full((3,), float("nan"), device=device)
+        picked = [(a, t, o, torch.where(act[:, None], d, nan), act)
+                  for a, t, o, d, act in picked]
+    else:
+        picked = [c for c in calls if c[2].shape[0] == 2 * R]
+    assert picked
+    for accel, tri, o, d, act in picked:
+        k, p = _walk_both(accel, tri, o, d, act)
+        _same_walk(k, p)
+        if act is not None:
+            assert bool((k[1][~act] == -1).all())
+            assert bool(torch.isinf(k[0][~act]).all())
+    assert bool((k[1] >= 0).any())
+
+
+def test_tree_walk_on_axis_rays_and_node_planes(device, tree_frame):
+    """Random rays with zero direction components of both signs, from
+    origins on the nodes' box planes."""
+    scene, calls = tree_frame
+    accel, tri = calls[0][0], calls[0][1]
+    gen = torch.Generator().manual_seed(17)
+    n = 1 << 16
+    lo = accel.node_min.cpu()
+    hi = accel.node_max.cpu()
+    node = torch.randint(0, lo.shape[0], (n,), generator=gen)
+    u = torch.rand((n, 3), generator=gen)
+    o = lo[node] + u * (hi[node] - lo[node])
+    axis = torch.randint(0, 3, (n,), generator=gen)
+    side = torch.where(torch.rand(n, generator=gen) < 0.5, lo[node, axis],
+                       hi[node, axis])
+    o[torch.arange(n), axis] = side
+    d = torch.randn((n, 3), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    zero = torch.randint(0, 3, (n,), generator=gen)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, 0.0, -0.0)
+    d[torch.arange(n), zero] = sign
+    d[: n // 16, :2] = 0.0  # rays along z
+    d[: n // 16, 2] = 1.0
+    k, p = _walk_both(accel, tri, o.to(device).contiguous(),
+                      d.to(device).contiguous())
+    _same_walk(k, p)
+    assert bool((k[1] >= 0).any()) and bool((k[1] < 0).any())
+
+
+@pytest.mark.parametrize("case", ["soup65k", "deep_leaves"])
+def test_tree_walk_matches_plain_on_other_trees(device, case):
+    """The 65,536-triangle soup's tree, and a tree cut at depth 3 whose
+    leaves hold more than 16 triangles (leaf_size > 16)."""
+    from crt_tpu_torch.ops import traverse
+    from crt_tpu_torch.scene.accel import build_accel_tree
+
+    if case == "soup65k":
+        scene = make_big_scene(65536, 480, 270, device=device)
+        accel = scene.accel
+    else:
+        scene = make_test_scene(480, 270, num_quads=64, device=device)
+        accel = build_accel_tree(scene.vertices.cpu().numpy(),
+                                 scene.tri_vidx.cpu().numpy(), max_depth=3,
+                                 device=device)
+        assert accel.leaf_size > 16
+    tri = traverse.build_triangle_gather(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    o, d = _wavefront(scene)
+    act = torch.arange(o.shape[0], device=device) % 5 != 0
+    for a in (None, act):
+        k, p = _walk_both(accel, tri, o, d, a)
+        _same_walk(k, p)
+    assert bool((k[1] >= 0).any())
+
+
+def _per_ray_leaves(accel, o, d, active):
+    """Hit leaves of the reference's per-ray stack walk, in float32 NumPy
+    with the port's slab test (the CPU tests' count)."""
+    import numpy as np
+
+    from crt_tpu_torch.ops import traverse
+
+    lo, hi = accel.node_min.cpu().numpy(), accel.node_max.cpu().numpy()
+    kids = accel.node_children.cpu().numpy()
+    leaf = accel.node_leaf_id.cpu().numpy()
+    inv = traverse._inverse(d.cpu()).numpy()
+    oo, act = o.cpu().numpy(), active.cpu().numpy()
+    leaves = 0
+    for r in np.nonzero(act)[0]:
+        stack = [0]
+        while stack:
+            n = stack.pop()
+            t1, t2 = (lo[n] - oo[r]) * inv[r], (hi[n] - oo[r]) * inv[r]
+            near = max(np.minimum(t1, t2).max(), np.float32(0.0))
+            if np.maximum(t1, t2).min() < near:
+                continue
+            if leaf[n] >= 0:
+                leaves += 1
+            else:
+                stack += [int(c) for c in kids[n] if c >= 0]
+    return leaves
+
+
+def test_tree_walk_counts_leaf_lanes_on_the_device(device):
+    """While tracing is on the kernel counts the (ray, leaf) pairs at a
+    hit leaf, as the plain walk and a per-ray walk count them; one launch
+    a walk and no host read."""
+    from crt_tpu_torch.ops import traverse
+
+    scene = make_test_scene(64, 32, num_quads=16, with_edges=True,
+                            device=device)
+    o, d = _wavefront(scene)
+    act = torch.arange(o.shape[0], device=device) % 3 != 0
+    tri = traverse.build_triangle_gather(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    with tracing.recording() as kc:
+        k = traverse.walk(scene.accel, tri, o, d, act)
+    with tracing.recording() as pc:
+        p = traverse.closest_hit_tree_plain(scene.accel, tri, o, d, act)
+    _same_walk(k, p)
+    want = _per_ray_leaves(scene.accel, o, d, act)
+    assert kc["crt.tree.leaf_lanes"] == pc["crt.tree.leaf_lanes"] == want > 0
+    assert kc["crt.launches.tree_walk"] == kc["crt.tree.walks"] == 1
+    assert kc["crt.host_reads.tree_walk"] == 0
+    assert kc["crt.tree.iterations"] == 0 < pc["crt.tree.iterations"]
+
+
+def test_tree_frame_launches_one_walk_kernel_a_walk(device):
+    """A tree frame: every walk is one launch, no walk reads the host, and
+    the frame is bit-equal with tracing on and off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = make_test_scene(480, 270, num_quads=64, device=device)
+    settings = RenderSettings(backend="tree")
+    with tracing.recording() as c:
+        off = render_image(scene, settings)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on = render_image(scene, settings)
+        torch.cuda.synchronize()
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    assert c["crt.launches.tree_walk"] == c["crt.tree.walks"] == 8
+    assert c["crt.host_reads.tree_walk"] == 0
+    assert c["crt.tree.leaf_lanes"] > 0
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    assert sum(e.name == "crt.tree.walk" for e in host) == 8
+    assert any("tree_walk_kernel" in e.name for e in prof.events())

@@ -14,7 +14,11 @@
   contracts multiply-adds), GI by test_torch_gi.py's pixel share;
 - gradients against crt_tpu's (``jit=False``) at rtol 1e-3 / atol 1e-4 of
   the group's largest entry;
-- the CLI's ``--backend tree``.
+- the CLI's ``--backend tree``;
+- the walk's wrapper (``traverse.walk``): on the CPU the plain lock-step
+  walk with its counts, no kernel loaded; dtype, shape and contiguity
+  refused before any build; no path on other devices.  The kernel itself
+  is held to the plain walk on the card (``tests/test_torch_cuda.py``).
 """
 
 import json
@@ -415,3 +419,114 @@ def test_counting_adds_no_host_read_and_nothing_while_off():
     it = c["crt.tree.iterations"]
     assert c["crt.host_reads.tree_walk"] == 1 + it + it // traverse.CHECK_EVERY
     assert on.ops == off.ops
+
+
+def _no_build(monkeypatch):
+    """Fail the test if anything loads the CUDA kernels."""
+    from crt_tpu_torch.ops import cuda_lib
+
+    def load():
+        raise AssertionError("the CUDA library was loaded")
+
+    monkeypatch.setattr(cuda_lib, "load", load)
+
+
+def _small_walk():
+    scene = make_test_scene(32, 16, num_quads=16, device="cpu")
+    o, d = _camera(scene)
+    tri = traverse.build_triangle_gather(
+        scene.vertices, scene.tri_vidx,
+        scene.mat_backface[scene.tri_material.long()])
+    return scene.accel, tri, o.contiguous(), d.contiguous()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cpu_walk_is_the_plain_walk(monkeypatch, masked):
+    """On the CPU ``walk`` takes the lock-step walk, with its counts, and
+    loads no kernel."""
+    _no_build(monkeypatch)
+    accel, tri, o, d = _small_walk()
+    act = (torch.arange(o.shape[0]) % 3 != 0) if masked else None
+    with tracing.recording() as c:
+        t, hit_tri = traverse.walk(accel, tri, o, d, act)
+    with tracing.recording() as p:
+        want_t, want_tri = traverse.closest_hit_tree_plain(accel, tri, o, d,
+                                                           act)
+    assert torch.equal(hit_tri, want_tri) and torch.equal(t, want_t)
+    assert (hit_tri >= 0).any()
+    assert c == p
+    assert c["crt.tree.walks"] == 1 and c["crt.tree.iterations"] > 0
+    assert c["crt.host_reads.tree_walk"] > c["crt.tree.iterations"]
+    assert c["crt.launches.tree_walk"] == 0
+
+
+def _bad_walk_args(fault):
+    """``walk``'s arguments with one ``fault``."""
+    import dataclasses
+
+    accel, tri, o, d = _small_walk()
+    act = None
+    if fault == "f64_origins":
+        o = o.double()
+    elif fault == "wide_dirs":
+        d = torch.cat([d, d[:, :1]], dim=1)
+    elif fault == "strided_dirs":
+        d = torch.cat([d, d], dim=1)[:, ::2]
+    elif fault == "short_dirs":
+        d = d[:-1]
+    elif fault == "int_active":
+        act = torch.ones(o.shape[0], dtype=torch.int32)
+    elif fault == "short_active":
+        act = torch.ones(o.shape[0] - 1, dtype=torch.bool)
+    elif fault == "tri_rows":
+        tri = tri[:16]
+    elif fault == "tri_transposed":
+        tri = tri.T
+    elif fault == "int64_children":
+        accel = dataclasses.replace(accel,
+                                    node_children=accel.node_children.long())
+    elif fault == "strided_boxes":
+        accel = dataclasses.replace(
+            accel, node_min=torch.cat([accel.node_min] * 2, 1)[:, ::2])
+    elif fault == "flat_leaves":
+        accel = dataclasses.replace(accel,
+                                    leaf_tris=accel.leaf_tris.reshape(-1))
+    return accel, tri, o, d, act
+
+
+@pytest.mark.parametrize("fault", [
+    "f64_origins", "wide_dirs", "strided_dirs", "short_dirs", "int_active",
+    "short_active", "tri_rows", "tri_transposed", "int64_children",
+    "strided_boxes", "flat_leaves"])
+def test_walk_rejects_what_the_kernel_does_not_take(monkeypatch, fault):
+    """The wrapper checks dtype, shape and contiguity before it would
+    build or launch anything, on every device."""
+    _no_build(monkeypatch)
+    with pytest.raises(ValueError):
+        traverse.walk(*_bad_walk_args(fault))
+
+
+def test_walk_has_no_path_on_other_devices(monkeypatch):
+    """A device that is neither the CPU nor a card raises; nothing falls
+    back to the plain walk."""
+    _no_build(monkeypatch)
+    accel, tri, o, d = _small_walk()
+    meta = accel.to("meta")
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        traverse.walk(meta, tri.to("meta"), o.to("meta"), d.to("meta"))
+
+
+def test_closest_hit_tree_takes_strided_rays():
+    """The public entry flattens and copies what the wrapper would refuse:
+    strided rays of any batch shape and a strided mask."""
+    accel, tri, o, d = _small_walk()
+    act = torch.arange(o.shape[0]) % 2 == 0
+    want = traverse.closest_hit_tree(accel, tri, o, d, act)
+    wide_o = torch.stack([o, o], dim=1)[:, 0].reshape(16, -1, 3)
+    wide_d = torch.stack([d, d], dim=1)[:, 0].reshape(16, -1, 3)
+    wide_a = torch.stack([act, act], dim=1)[:, 0].reshape(16, -1)
+    assert not wide_d.is_contiguous()
+    hit = traverse.closest_hit_tree(accel, tri, wide_o, wide_d, wide_a)
+    assert hit.t.shape == wide_a.shape
+    assert torch.equal(hit.tri.reshape(-1), want.tri)
+    assert torch.equal(hit.t.reshape(-1), want.t)
